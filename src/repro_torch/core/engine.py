@@ -1,0 +1,484 @@
+"""Compile-once BFS lifecycle: ``plan() -> BFSPlan -> compile() -> BFSEngine``
+— the port of ``repro.core.engine`` (dense mode, 1-D partition).
+
+  * ``plan(graph, opts, mesh=..., device=...)`` — host-side validation and
+    static-shape derivation: checks options, resolves exchange strategies
+    from the registry, fixes the ``LocalMesh`` and the source-batch
+    capacity S.  Cheap; pure metadata (``BFSPlan``).
+  * ``BFSPlan.compile()`` — uploads the graph's edge rows (and, under
+    ``use_kernel``, the blocked adjacency) to the device and allocates
+    the ``(n, S)`` dist and frontier buffers once.
+  * ``BFSEngine.run(sources)`` — per traversal: sources are injected on
+    the device into the reused buffers (the analogue of JAX's donated
+    dist buffer), then the level loop runs.
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``; on a
+machine without CUDA, ``plan()`` without a device raises rather than
+carrying on on the CPU.  The queue/auto modes (ROADMAP Queue A item 6),
+the 2-D partition (item 8), ``plan_key`` / ``estimated_device_bytes`` and
+the serving fault seams (item 9) and the H100 roofline in ``describe()``
+(item 11) come with later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import exchange as ex
+from repro_torch.core import frontier as fr
+from repro_torch.core.bfs import (BFSOptions, BFSStats, INF, make_dense_level,
+                                  run_dense_levels, validate_sources)
+from repro_torch.core.mesh import LocalMesh
+from repro_torch.graphs.formats import ShardedGraph
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another.  Without CUDA and without an explicit device this raises."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the port on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+# ---------------------------------------------------------------------------
+# Per-run stats and results
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class BFSRunStats:
+    """Per-traversal statistics.  The Python level loop already knows
+    them on the host, so they are plain numbers."""
+
+    levels: int
+    comm_bytes: float          # analytic per-chip, summed in float32
+    overflowed: bool           # a queue level overflowed (never in dense)
+    mode_counts: tuple         # (dense, queue, bottom_up) levels
+    sieve_hits: int            # candidates dropped pre-collective
+    level_seconds: tuple = ()  # host wall time of each level, ending in
+                               # the level's termination sync
+
+    def block(self) -> "BFSRunStats":
+        return self
+
+    def to_host(self) -> dict:
+        return {
+            "levels": int(self.levels),
+            "comm_bytes": float(self.comm_bytes),
+            "overflowed": bool(self.overflowed),
+            "mode_counts": {"dense": int(self.mode_counts[0]),
+                            "queue": int(self.mode_counts[1]),
+                            "bottom_up": int(self.mode_counts[2])},
+            "sieve_hits": int(self.sieve_hits),
+        }
+
+
+@dataclasses.dataclass
+class BFSResult:
+    """One traversal's outputs.
+
+    ``dist`` is the padded global ``(n, S)`` int32 distance matrix on the
+    device.  It *is* the engine's reused buffer, so the engine's next run
+    overwrites it: read ``dist_host`` (or clone ``dist``) first.  Reading
+    ``dist_host`` of a result whose buffer was reused raises.
+    """
+
+    dist: torch.Tensor
+    run_stats: BFSRunStats
+    n_logical: int
+    n_sources: int             # actual requested sources (<= compiled S)
+    _engine: Optional["BFSEngine"] = dataclasses.field(default=None,
+                                                       repr=False)
+    _generation: int = 0
+
+    def block(self) -> "BFSResult":
+        _sync(self.dist.device)
+        return self
+
+    @property
+    def dist_host(self) -> np.ndarray:
+        """Host copy of the distances sliced to the logical vertices and
+        the requested sources (made once and cached)."""
+        if not hasattr(self, "_dist_host"):
+            if (self._engine is not None
+                    and self._engine._generation != self._generation):
+                raise RuntimeError("this result's dist buffer was reused by "
+                                   "a later run of its engine; read "
+                                   "dist_host before running again")
+            # a copy even on the CPU, where .cpu() would alias the buffer
+            self._dist_host = self.dist[: self.n_logical, : self.n_sources].to(
+                "cpu", copy=True).numpy()
+        return self._dist_host
+
+    def stats(self) -> BFSStats:
+        h = self.run_stats.to_host()
+        visited = int((self.dist_host < INF).sum())
+        return BFSStats(levels=h["levels"], visited=visited,
+                        comm_bytes=h["comm_bytes"],
+                        overflowed=h["overflowed"],
+                        mode_counts=h["mode_counts"],
+                        sieve_hits=h["sieve_hits"])
+
+
+# ---------------------------------------------------------------------------
+# Plan: validated static metadata for one (graph, opts, mesh, S) traversal
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BFSPlan:
+    graph: ShardedGraph
+    opts: BFSOptions
+    mesh: LocalMesh
+    axis: object               # str or tuple of mesh axis names
+    axes_sizes: tuple
+    num_sources: int           # compiled source-batch capacity S
+    max_levels: int
+    dense_strategy: ex.ExchangeStrategy
+    queue_strategy: ex.ExchangeStrategy
+    partition: str = "1d"
+    bottom_up_wire: str = "bytes"
+    sieve: bool = False
+    use_fused_tail: bool = False
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.device
+
+    def describe(self) -> dict:
+        """Static plan metadata: shapes, resolved strategies and wires, and
+        the analytic per-level exchange bytes of each level kind."""
+        part = self.graph.part
+        density = self.opts.queue_cap / part.shard_size
+        sieve_bytes = ((part.p - 1) * fr.sieve_layout(part.shard_size)[2] * 4
+                       if self.sieve else 0)
+        return {
+            "mode": self.opts.mode,
+            "partition": self.partition,
+            "device": str(self.device),
+            "p": part.p,
+            "n": part.n,
+            "n_logical": part.n_logical,
+            "shard_size": part.shard_size,
+            "num_sources": self.num_sources,
+            "max_levels": self.max_levels,
+            "axes": self.axis if isinstance(self.axis, tuple) else (self.axis,),
+            "axes_sizes": self.axes_sizes,
+            "dense_exchange": self.dense_strategy.name,
+            "queue_exchange": self.queue_strategy.name,
+            "wire_formats": {
+                "dense": self.dense_strategy.wire,
+                "queue": ("ids" if self.queue_strategy.wire == "bytes"
+                          else self.queue_strategy.wire),
+                "bottom_up": self.bottom_up_wire,
+            },
+            "sieve": self.sieve,
+            "use_fused_tail": self.use_fused_tail,
+            "use_kernel": self.opts.use_kernel,
+            "e_cap": self.graph.e_cap,
+            "in_e_cap": self.graph.in_e_cap,
+            "dense_level_bytes": self.dense_strategy.bytes_model(
+                part.n, part.p, self.num_sources, 1, self.axes_sizes),
+            "queue_level_bytes": self.queue_strategy.bytes_model(
+                part.p, self.opts.queue_cap, 4, density) + sieve_bytes,
+            "bottom_up_level_bytes": ex.bottomup_level_bytes(
+                part.n, part.p, self.num_sources, 1,
+                wire=self.bottom_up_wire),
+        }
+
+    def compile(self) -> "BFSEngine":
+        return BFSEngine(self)
+
+
+_SPARSE_KINDS = ("queue", "expand_row_sparse", "fold_col_sparse")
+
+
+def _resolve_strategy(kind: str, name: str, model_args: tuple,
+                      wire_format: str = "bytes"):
+    """Registry lookup, or byte-model auto-selection for name="auto".
+
+    ``wire_format`` resolves each phase's payload layout: dense kinds
+    choose between the uint8 mask and the ``<name>_packed`` twin, sparse
+    kinds between raw ids and the ``<name>_compressed`` twin ("packed"
+    maps to raw ids there, "compressed" to packed on dense kinds); "auto"
+    takes whichever twin models fewer bytes, ties keeping the base.  A name
+    that already carries the twin suffix is an explicit choice.
+    """
+    sparse = kind in _SPARSE_KINDS
+    suffix = "_compressed" if sparse else "_packed"
+    if sparse:
+        effective = {"bytes": "bytes", "packed": "bytes",
+                     "compressed": "compressed",
+                     "auto": "auto"}[wire_format]
+    else:
+        effective = {"bytes": "bytes", "packed": "packed",
+                     "compressed": "packed", "auto": "auto"}[wire_format]
+    if name == "auto":
+        wire = None if effective == "auto" else effective
+        return ex.select_exchange(kind, *model_args, wire=wire)
+    if effective == "bytes" or name.endswith(suffix):
+        return ex.get_exchange(kind, name)
+    try:
+        twin = ex.get_exchange(kind, name + suffix)
+    except ValueError:
+        if effective != "auto":
+            raise ValueError(
+                f"{kind} strategy {name!r} has no {suffix[1:]} variant; "
+                f"use wire_format='bytes' or 'auto'") from None
+        return ex.get_exchange(kind, name)
+    if effective != "auto":
+        return twin
+    base = ex.get_exchange(kind, name)
+    return (twin if twin.bytes_model(*model_args)
+            < base.bytes_model(*model_args) else base)
+
+
+def _resolve_sieve(sieve, mode: str, p: int, s: int) -> bool:
+    """Resolve ``BFSOptions.sieve``: only where a queue path runs, with a
+    single source column; "auto" turns it on exactly when p > 1."""
+    if mode == "dense" or s != 1:
+        return False
+    if sieve == "auto":
+        return p > 1
+    return bool(sieve)
+
+
+def _resolve_bottom_up_wire(wire_format: str, n: int, p: int, s: int) -> str:
+    """Packed-vs-bytes for the bottom-up frontier gather."""
+    if wire_format == "packed":
+        return "packed"
+    if wire_format == "auto" and (
+            ex.bottomup_level_bytes(n, p, s, wire="packed")
+            < ex.bottomup_level_bytes(n, p, s)):
+        return "packed"
+    return "bytes"
+
+
+def _resolve_fused_tail(use_fused_tail, mode: str, dense_wire: str) -> bool:
+    """Resolve ``BFSOptions.use_fused_tail``: the fused kernel consumes the
+    packed merged words, so ``True`` on a bytes wire fails loudly and
+    "auto" turns it on exactly where the dense wire is packed (dense/auto
+    modes)."""
+    if use_fused_tail is False:
+        return False
+    packed = dense_wire == "packed"
+    if use_fused_tail is True:
+        if not packed:
+            raise ValueError(
+                "use_fused_tail=True needs the dense/fold phase on a "
+                f"packed wire (resolved wire is {dense_wire!r}); set "
+                "wire_format='packed' or 'auto', or drop the flag")
+        return True
+    return packed and mode in ("dense", "auto")
+
+
+def plan(graph: ShardedGraph, opts: BFSOptions = BFSOptions(), *,
+         mesh: Optional[LocalMesh] = None, axis=None, num_sources: int = 1,
+         partition: Optional[str] = None, device=None) -> BFSPlan:
+    """Validate options/topology and derive the static traversal shapes.
+
+    ``mesh`` defaults to a one-axis ``LocalMesh`` of the graph's ``p``
+    shards on ``device`` (CUDA unless given); a mesh passed in carries its
+    own device.  ``num_sources`` fixes the source-batch capacity S; an
+    engine accepts any 1..S sources per run.
+    """
+    opts.validate()
+    part = graph.part
+    s = int(num_sources)
+    if num_sources < 1:
+        raise ValueError(f"num_sources must be >= 1 ({num_sources})")
+    partition = partition or "1d"
+    if partition not in ("1d", "2d"):
+        raise ValueError(f"unknown partition scheme {partition!r}; "
+                         "expected '1d' | '2d'")
+    if opts.mode == "queue" and num_sources != 1:
+        raise ValueError("queue frontier supports a single source "
+                         f"(num_sources={num_sources})")
+    if opts.use_kernel and opts.mode != "dense":
+        raise ValueError(
+            f"use_kernel requires mode='dense' (got mode={opts.mode!r}); "
+            "the bsr_spmm expansion has no queue/bottom-up analog")
+    if partition == "2d":
+        if opts.use_kernel:
+            raise ValueError("use_kernel is a 1-D dense path (the blocked "
+                             "adjacency is encoded per vertex shard); not "
+                             "available with partition='2d'")
+        raise ValueError("partition='2d' is not ported yet (ROADMAP Queue A "
+                         "item 8)")
+    if opts.mode != "dense":
+        raise ValueError(f"mode={opts.mode!r} is not ported yet: the queue "
+                         "and auto level loops come with ROADMAP Queue A "
+                         "item 6; use mode='dense'")
+
+    if mesh is None:
+        mesh = LocalMesh.flat(part.p, resolve_device(device))
+        axis = "bfs_p"
+    elif device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"device {device!r} differs from the mesh's "
+                         f"{mesh.device}")
+    axis = axis if axis is not None else tuple(mesh.axis_names)
+    axis = tuple(axis) if isinstance(axis, (list, tuple)) else axis
+    axes = mesh.axes(axis)
+    axes_sizes = tuple(mesh.axis_size(a) for a in axes)
+    if int(np.prod(axes_sizes)) != part.p or mesh.p != part.p:
+        raise ValueError(f"mesh axes {axes} of sizes {axes_sizes} do not "
+                         f"multiply to the graph's p={part.p}")
+
+    dense_strategy = _resolve_strategy(
+        "dense", opts.dense_exchange,
+        (part.n, part.p, s, 1, axes_sizes), opts.wire_format)
+    return BFSPlan(
+        graph=graph, opts=opts, mesh=mesh, axis=axis,
+        axes_sizes=axes_sizes, num_sources=s,
+        max_levels=opts.max_levels or part.n_logical,
+        dense_strategy=dense_strategy,
+        queue_strategy=_resolve_strategy(
+            "queue", opts.queue_exchange,
+            (part.p, opts.queue_cap, 4, opts.queue_cap / part.shard_size),
+            opts.wire_format),
+        bottom_up_wire=_resolve_bottom_up_wire(
+            opts.wire_format, part.n, part.p, s),
+        sieve=_resolve_sieve(opts.sieve, opts.mode, part.p, s),
+        use_fused_tail=_resolve_fused_tail(
+            opts.use_fused_tail, opts.mode, dense_strategy.wire),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Engine: device-resident graph and reused (n, S) buffers
+# ---------------------------------------------------------------------------
+
+class BFSEngine:
+    """A compiled traversal: run any number of source sets.
+
+    Holds, for its lifetime, the edge rows of the dense expansion (or the
+    blocked adjacency under ``use_kernel``) and the ``(n, S)`` dist and
+    frontier buffers, which every ``run`` reinitializes in place.
+
+    ``trace_count`` stays at ``compile_traces`` (the level function is
+    built once at construction and never rebuilt), for parity with the
+    JAX engine whose tests pin it.
+    """
+
+    def __init__(self, plan_: BFSPlan):
+        self.plan = plan_
+        graph, opts = plan_.graph, plan_.opts
+        part = graph.part
+        dev = plan_.device
+        s = plan_.num_sources
+        self._generation = 0
+
+        expand_fn, expand_packed, edge_rows = None, False, None
+        self.kernel_arrays = None
+        if opts.use_kernel:
+            expand_fn, expand_packed = self._build_kernel_expand()
+        else:
+            src_local = torch.as_tensor(graph.src_local).to(dev)
+            dst_global = torch.as_tensor(graph.dst_global).to(dev)
+            edge_rows = fr.dense_edge_index(src_local, dst_global,
+                                            part.shard_size, part.n)
+        self._edge_rows = edge_rows
+        self._level = make_dense_level(
+            part, s, plan_.mesh, plan_.axis, plan_.axes_sizes,
+            plan_.dense_strategy, edge_rows, expand_fn=expand_fn,
+            expand_emits_packed=expand_packed, fused=plan_.use_fused_tail)
+        self._dist = torch.empty((part.n, s), dtype=torch.int32, device=dev)
+        self._frontier = torch.empty((part.n, s), dtype=torch.uint8,
+                                     device=dev)
+        self._trace_count = 1
+        self.compile_traces = self._trace_count
+
+    @property
+    def trace_count(self) -> int:
+        return self._trace_count
+
+    def _build_kernel_expand(self):
+        """Block-sparse frontier expansion (kernels A2 and A3).
+
+        Each shard's 128x128-blocked *transposed* adjacency (rows = global
+        candidate ids, cols = the shard's local sources) is uploaded once.
+        The p shards' tile lists are laid out as one block-diagonal
+        block-CSR matrix — shard ``j``'s rows and columns offset by ``j``
+        times its padded row and column counts — so one ``bsr_spmm``
+        launch expands every shard: ``Y = A @ F`` over the stacked,
+        column-padded frontiers.  With a packed dense wire the candidates
+        come out as the per-owner-blocked words (A3 where the segment is
+        word-aligned), so the packed exchange consumes them directly.
+
+        Returns ``(expand_fn, emits_packed)``.
+        """
+        from repro_torch.kernels.bsr_spmm import ops as spmm_ops
+
+        graph = self.plan.graph
+        part = graph.part
+        p, shard, n = part.p, part.shard_size, part.n
+        dev = self.plan.device
+        blocks, brs, bcs, row_pad, col_pad = graph.bsr_shards(device=dev)
+        kmax, blk = blocks.shape[1], blocks.shape[2]
+        nbr, nbc = row_pad // blk, col_pad // blk
+        offs = torch.arange(p, device=dev, dtype=torch.int32)[:, None]
+        rows = (brs + offs * nbr).reshape(-1)
+        cols = (bcs + offs * nbc).reshape(-1).contiguous()
+        tiles = blocks.reshape(p * kmax, blk, blk)
+        row_ptr = spmm_ops.block_row_ptr(rows, cols, p * nbr, p * nbc)
+        self.kernel_arrays = (tiles, rows, cols, row_ptr)
+        packed = self.plan.dense_strategy.wire == "packed"
+
+        def expand_fn(frontier):                        # (p, shard, S)
+            s = frontier.shape[-1]
+            x = torch.zeros((p, col_pad, s), dtype=torch.float32, device=dev)
+            x[:, :shard] = frontier
+            y = spmm_ops.spmm(tiles, rows, cols, x.reshape(p * col_pad, s),
+                              n_rows_pad=p * row_pad, block=blk,
+                              row_ptr=row_ptr).reshape(p, row_pad, s)
+            if packed:
+                return spmm_ops.pack_candidates(y, n, p)
+            return (y[:, :n] > 0).to(torch.uint8)
+
+        return expand_fn, packed
+
+    def run_async(self, sources) -> BFSResult:
+        """Run one traversal without a final device sync.
+
+        ``sources`` may hold 1..S vertex ids; unused engine columns stay
+        empty (all-INF, sliced off by ``dist_host``).  The level loop
+        itself reads one flag per level from the device.
+        """
+        pl_ = self.plan
+        part = pl_.graph.part
+        src_arr = validate_sources(sources, part.n_logical,
+                                   max_sources=pl_.num_sources)
+        n_req = int(src_arr.shape[0])
+        if src_arr.max() > np.iinfo(np.int32).max:
+            raise ValueError("source ids exceed int32 range; the engine's "
+                             "distance/source buffers are int32")
+        padded = np.full((pl_.num_sources,), -1, dtype=np.int32)
+        padded[:n_req] = src_arr
+        self._generation += 1
+        fr.init_dist_frontier(torch.from_numpy(padded).to(pl_.device),
+                              part.n, part.n_logical,
+                              out=(self._dist, self._frontier))
+        levels, comm_bytes, level_seconds = run_dense_levels(
+            self._level, self._dist, self._frontier, part, pl_.max_levels)
+        return BFSResult(
+            dist=self._dist,
+            run_stats=BFSRunStats(levels=levels, comm_bytes=comm_bytes,
+                                  overflowed=False,
+                                  mode_counts=(levels, 0, 0), sieve_hits=0,
+                                  level_seconds=level_seconds),
+            n_logical=part.n_logical, n_sources=n_req,
+            _engine=self, _generation=self._generation)
+
+    def run(self, sources) -> BFSResult:
+        """Run one traversal to completion (syncs the device)."""
+        return self.run_async(sources).block()

@@ -1,0 +1,134 @@
+"""``LocalMesh``: p virtual shards stacked on one device.
+
+The port's counterpart of ``jax.sharding.Mesh`` + ``shard_map``
+(``repro.core.compat``).  Every per-shard array carries the shards as a
+leading ``(p, ...)`` dimension, so per-shard computation is one batched
+tensor op and each collective is a reshape plus a local reduction:
+
+  * ``all_to_all`` (tiled, split and concat on dim 0) is a transpose of
+    the ``(p_src, p_dst, block, ...)`` blocks;
+  * ``all_gather`` is a broadcast of every shard's array to every shard;
+  * ``psum_scatter`` (tiled) is a sum over the source shards of each
+    destination block.
+
+A mesh may have several named axes (``shape=(2, 2)``); shard ``k`` sits at
+the row-major coordinate of ``k`` over ``shape``, as ``Mesh``'s devices
+do.  A collective over a tuple of axes spans the shards that differ only
+in those coordinates, linearized major-first in the order given (JAX's
+rule), so the hierarchical exchange can hop one axis at a time.
+Collectives across real cards (``torch.distributed``) wait for a
+multi-card slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalMesh:
+    shape: tuple
+    axis_names: tuple
+    device: torch.device
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axis_names):
+            raise ValueError(f"mesh shape {self.shape} does not match axis "
+                             f"names {self.axis_names}")
+        if any(int(s) < 1 for s in self.shape):
+            raise ValueError(f"mesh sizes must be >= 1 ({self.shape})")
+        object.__setattr__(self, "shape", tuple(int(s) for s in self.shape))
+        object.__setattr__(self, "axis_names", tuple(self.axis_names))
+        object.__setattr__(self, "device", torch.device(self.device))
+
+    @classmethod
+    def flat(cls, p: int, device, name: str = "bfs_p") -> "LocalMesh":
+        """A one-axis mesh of ``p`` shards."""
+        return cls((p,), (name,), device)
+
+    @property
+    def p(self) -> int:
+        return math.prod(self.shape)
+
+    def axes(self, axis) -> tuple:
+        axes = tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+        for a in axes:
+            if a not in self.axis_names:
+                raise ValueError(f"unknown mesh axis {a!r}; mesh has "
+                                 f"{self.axis_names}")
+        if len(set(axes)) != len(axes):
+            raise ValueError(f"repeated mesh axis in {axes}")
+        return axes
+
+    def axis_size(self, axis) -> int:
+        return math.prod(self.shape[self.axis_names.index(a)]
+                         for a in self.axes(axis))
+
+    # --- group layout: (p, ...) <-> (G participants, O groups, ...) -------
+    def _perm(self, axis):
+        dims = [self.axis_names.index(a) for a in self.axes(axis)]
+        rest = [d for d in range(len(self.shape)) if d not in dims]
+        return dims + rest, len(dims)
+
+    def _to_groups(self, x: torch.Tensor, axis) -> torch.Tensor:
+        perm, k = self._perm(axis)
+        nd = len(self.shape)
+        y = x.reshape(*self.shape, *x.shape[1:])
+        y = y.permute(*perm, *range(nd, y.dim()))
+        g = math.prod(y.shape[:k])
+        return y.reshape(g, self.p // g, *x.shape[1:])
+
+    def _from_groups(self, y: torch.Tensor, axis) -> torch.Tensor:
+        perm, k = self._perm(axis)
+        nd = len(self.shape)
+        y = y.reshape(*(self.shape[d] for d in perm), *y.shape[2:])
+        inv = [perm.index(d) for d in range(nd)]
+        y = y.permute(*inv, *range(nd, y.dim()))
+        return y.reshape(self.p, *y.shape[nd:])
+
+    # --- collectives on stacked (p, ...) arrays ----------------------------
+    def axis_index(self, axis) -> torch.Tensor:
+        """(p,) int64: each shard's index within its ``axis`` group."""
+        g = self.axis_size(axis)
+        idx = torch.arange(g, device=self.device)[:, None].expand(
+            g, self.p // g)
+        return self._from_groups(idx, axis)
+
+    def all_to_all(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """Tiled all-to-all over dim 0 of each shard's array: block ``k``
+        of shard ``i``'s ``(G*blk, ...)`` array lands as block ``i`` of
+        shard ``k``'s result."""
+        y = self._to_groups(x, axis)                     # (G, O, G*blk, ...)
+        g, o, length = y.shape[:3]
+        y = y.reshape(g, o, g, length // g, *y.shape[3:])
+        y = y.permute(2, 1, 0, *range(3, y.dim()))      # (G_dst, O, G_src, ...)
+        return self._from_groups(y.reshape(g, o, length, *y.shape[4:]), axis)
+
+    def all_gather(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """Untiled all-gather: ``(p, ...)`` -> ``(p, G, ...)``, row ``k`` of
+        shard ``i``'s result is the array of group member ``k``."""
+        y = self._to_groups(x, axis)                     # (G_src, O, ...)
+        g = y.shape[0]
+        y = y.transpose(0, 1).unsqueeze(0).expand(g, *y.transpose(0, 1).shape)
+        return self._from_groups(y, axis)                # (p, G_src, ...)
+
+    def psum_scatter(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """Tiled reduce-scatter (sum) over dim 0: shard ``k`` receives the
+        sum over its group of every member's block ``k``."""
+        y = self._to_groups(x, axis)                     # (G, O, G*blk, ...)
+        g, o, length = y.shape[:3]
+        y = y.reshape(g, o, g, length // g, *y.shape[3:]).sum(
+            dim=0, dtype=x.dtype)                        # (O, G_dst, blk, ...)
+        return self._from_groups(y.transpose(0, 1), axis)
+
+
+def own_block(x: torch.Tensor, index: torch.Tensor, blk: int) -> torch.Tensor:
+    """Per shard ``i``, block ``index[i]`` of length ``blk`` along dim 1:
+    ``(p, G*blk, ...)`` -> ``(p, blk, ...)`` (JAX's ``dynamic_slice_in_dim``
+    at ``axis_index * blk`` under ``shard_map``)."""
+    p, length = x.shape[:2]
+    y = x.reshape(p, length // blk, blk, *x.shape[2:])
+    return y[torch.arange(p, device=x.device), index]

@@ -1,0 +1,283 @@
+"""Partitioned, statically-shaped graph containers — the port of
+``repro.graphs.formats`` (1-D part).
+
+A ``ShardedGraph`` stores, for each of the ``p`` shards, a fixed-capacity
+COO edge block padded with sentinel edges (``dst == -1``).  Out-edges are
+partitioned by ``owner(src)`` (the paper's 1-D partitioning: the owner of a
+vertex expands it) and, for the bottom-up pass of a later slice, in-edges
+by ``owner(dst)``.
+
+The host arrays are numpy and equal ``repro.graphs.shard_graph``'s output
+bitwise; ``from_jax_arrays`` carries a JAX-built container across so both
+engines traverse the identical graph, and ``to_device`` uploads the edge
+blocks as torch tensors.  The blocked adjacency of the ``use_kernel`` path
+(``bsr_shards``) is built straight on the target device: only the tile
+indices are computed on the host, so a multi-GB tile array never exists in
+host memory.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+
+import numpy as np
+import torch
+
+from repro_torch.core.partition import Partition1D
+
+_ALIGN = 128  # pad per-shard edge capacity to a lane-aligned multiple
+
+
+def _content_fingerprint(meta: tuple, arrays: tuple) -> tuple:
+    """Stable content hash of a graph container: structural metadata plus
+    a digest of the edge blocks."""
+    h = hashlib.sha1(repr(meta).encode())
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return meta + (h.hexdigest(),)
+
+
+def _pad_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _block_keys(src: np.ndarray, dst: np.ndarray, n: int, block: int):
+    """Sorted unique ``row_block * nb + col_block`` tile keys of a COO edge
+    set, and each edge's tile index into them."""
+    nb = -(-n // block)
+    key = (src // block) * nb + dst // block
+    uniq, inv = np.unique(key, return_inverse=True)
+    return uniq, inv, nb
+
+
+@dataclasses.dataclass
+class ShardedGraph:
+    """1-D partitioned graph in padded per-shard COO blocks (numpy).
+
+    Attributes:
+      part: the vertex partition.
+      src_local:  (p, e_cap) int32 — local id of edge source within shard.
+      dst_global: (p, e_cap) int32 — global id of edge target; -1 = padding.
+      in_src_global / in_dst_local: same for the in-edge (transposed)
+        partitioning.
+      n_edges: true (unpadded) directed edge count.
+    """
+
+    part: Partition1D
+    src_local: np.ndarray
+    dst_global: np.ndarray
+    in_src_global: np.ndarray
+    in_dst_local: np.ndarray
+    n_edges: int
+
+    @property
+    def p(self) -> int:
+        return self.part.p
+
+    @property
+    def e_cap(self) -> int:
+        return self.src_local.shape[1]
+
+    @property
+    def in_e_cap(self) -> int:
+        return self.in_src_global.shape[1]
+
+    def flat(self):
+        """Arrays reshaped to (p * cap,)."""
+        return (
+            self.src_local.reshape(-1),
+            self.dst_global.reshape(-1),
+            self.in_src_global.reshape(-1),
+            self.in_dst_local.reshape(-1),
+        )
+
+    def to_device(self, device) -> dict:
+        """The four (p, cap) int32 edge blocks as torch tensors on
+        ``device`` — what a compiled engine keeps resident."""
+        names = ("src_local", "dst_global", "in_src_global", "in_dst_local")
+        return {k: torch.as_tensor(getattr(self, k)).to(device) for k in names}
+
+    def degrees(self) -> np.ndarray:
+        """In-degree per (padded) global vertex."""
+        deg = np.zeros(self.part.n, dtype=np.int64)
+        d = self.dst_global[self.dst_global >= 0]
+        np.add.at(deg, d, 1)
+        return deg
+
+    def edge_list(self):
+        """Reconstruct the global COO edge list from the out-edge blocks
+        (shard-bucketed order, not the original insertion order)."""
+        shard_base = (np.arange(self.p, dtype=np.int64)[:, None]
+                      * self.part.shard_size)
+        valid = self.dst_global >= 0
+        src = (self.src_local.astype(np.int64) + shard_base)[valid]
+        dst = self.dst_global[valid].astype(np.int64)
+        return src, dst
+
+    def fingerprint(self) -> tuple:
+        """Content identity (cached; the blocks are immutable once built)."""
+        fp = self.__dict__.get("_fingerprint")
+        if fp is None:
+            fp = _content_fingerprint(
+                ("sharded_graph_1d", self.part.n_logical, self.p,
+                 self.e_cap, self.n_edges),
+                (self.src_local, self.dst_global))
+            self.__dict__["_fingerprint"] = fp
+        return fp
+
+    def bsr_shard_caps(self, block: int = 128):
+        """``(kmax, block)`` of ``bsr_shards()`` without building tiles."""
+        kmax, _ = self._bsr_index(block)[:2]
+        return kmax, block
+
+    def _bsr_index(self, block: int):
+        """Host-side tile layout of ``bsr_shards`` (cached per block):
+        ``(kmax, block_rows (p, K), block_cols (p, K), edge_tile (E, 4)
+        [shard, tile, row-in-tile, col-in-tile], n_rows_pad, n_cols_pad)``.
+        """
+        cache = self.__dict__.setdefault("_bsr_index_cache", {})
+        got = cache.get(block)
+        if got is not None:
+            return got
+        part = self.part
+        p, shard = self.p, part.shard_size
+        per_shard, edges = [], []
+        for j in range(p):
+            valid = self.dst_global[j] >= 0
+            src_l = self.src_local[j][valid].astype(np.int64)   # cols
+            dst_g = self.dst_global[j][valid].astype(np.int64)  # rows
+            uniq, inv, nb = _block_keys(dst_g, src_l, part.n, block)
+            per_shard.append(((uniq // nb).astype(np.int32),
+                              (uniq % nb).astype(np.int32)))
+            edges.append(np.stack([np.full_like(inv, j), inv,
+                                   dst_g % block, src_l % block], axis=1))
+        # at least one (all-zero) tile so an edgeless shard still hands
+        # the kernel a nonempty tile list
+        kmax = max(1, max(br.shape[0] for br, _ in per_shard))
+        br_out = np.zeros((p, kmax), np.int32)
+        bc_out = np.zeros((p, kmax), np.int32)
+        for j, (brr, bcc) in enumerate(per_shard):
+            k = brr.shape[0]
+            br_out[j, :k] = brr
+            bc_out[j, :k] = bcc
+            if k < kmax:           # pad tiles repeat the last block row
+                br_out[j, k:] = brr[-1] if k else 0
+        got = (kmax, br_out, bc_out, np.concatenate(edges, axis=0),
+               _pad_to(part.n, block), _pad_to(shard, block))
+        cache[block] = got
+        return got
+
+    def bsr_shards(self, block: int = 128, device="cpu"):
+        """Per-shard blocked *transposed* adjacency for the ``bsr_spmm``
+        frontier expansion, as torch tensors on ``device``.
+
+        Shard ``j``'s matrix has rows = global candidate ids (padded to a
+        block multiple of ``part.n``) and cols = local source ids (padded
+        to a block multiple of ``shard_size``), so ``A_j @ f_local`` is the
+        shard's dense expansion.  Tiles are sorted by block row; shards are
+        padded to a common tile count with all-zero tiles that repeat the
+        shard's last block row (never a smaller one), so every shard's
+        tile list stays sorted.  Equal to ``repro.graphs.ShardedGraph.
+        bsr_shards`` bitwise.
+
+        Returns ``(blocks (p, K, B, B) f32, block_rows (p, K) i32,
+        block_cols (p, K) i32, n_rows_pad, n_cols_pad)``.
+        """
+        kmax, br, bc, edge_tile, row_pad, col_pad = self._bsr_index(block)
+        blocks = torch.zeros((self.p, kmax, block, block), dtype=torch.float32,
+                             device=device)
+        idx = torch.as_tensor(edge_tile).to(device)
+        blocks[idx[:, 0], idx[:, 1], idx[:, 2], idx[:, 3]] = 1.0
+        return (blocks, torch.as_tensor(br).to(device),
+                torch.as_tensor(bc).to(device), row_pad, col_pad)
+
+
+def from_jax_arrays(graph) -> ShardedGraph:
+    """Carry a ``repro.graphs.ShardedGraph`` across to the port.
+
+    Reads the JAX container's numpy blocks (duck-typed: ``part.n_logical``,
+    ``part.p`` and the four edge blocks), so the port never imports the
+    JAX package and both engines traverse the identical graph.
+    """
+    return ShardedGraph(
+        part=Partition1D(int(graph.part.n_logical), int(graph.part.p)),
+        src_local=np.asarray(graph.src_local, np.int32),
+        dst_global=np.asarray(graph.dst_global, np.int32),
+        in_src_global=np.asarray(graph.in_src_global, np.int32),
+        in_dst_local=np.asarray(graph.in_dst_local, np.int32),
+        n_edges=int(graph.n_edges))
+
+
+def _bucket(key_owner: np.ndarray, p: int, arrays, e_cap: int, fills):
+    """Stable-sort ``arrays`` by owner and pack into (p, e_cap) blocks."""
+    order = np.argsort(key_owner, kind="stable")
+    counts = np.bincount(key_owner, minlength=p)
+    out = [np.full((p, e_cap), f, dtype=np.int32) for f in fills]
+    offs = np.zeros(p + 1, dtype=np.int64)
+    np.cumsum(counts, out=offs[1:])
+    for j in range(p):
+        sel = order[offs[j]:offs[j + 1]]
+        k = sel.shape[0]
+        if k > e_cap:
+            raise ValueError(f"shard {j} has {k} edges > capacity {e_cap}")
+        for o, a in zip(out, arrays):
+            o[j, :k] = a[sel]
+    return out, counts
+
+
+def shard_graph(src: np.ndarray, dst: np.ndarray, n: int, p: int,
+                e_cap: int | None = None) -> ShardedGraph:
+    """Partition a COO edge list across ``p`` shards (paper §2.1).
+
+    ``e_cap`` defaults to the max per-shard edge count rounded up to 128.
+    """
+    part = Partition1D(n, p)
+    src = np.asarray(src, dtype=np.int64)
+    dst = np.asarray(dst, dtype=np.int64)
+    if src.size and (src.max() >= n or dst.max() >= n
+                     or src.min() < 0 or dst.min() < 0):
+        raise ValueError(f"edge endpoints must lie in [0, {n})")
+
+    own_src = np.asarray(part.owner(src))
+    own_dst = np.asarray(part.owner(dst))
+    max_out = int(np.bincount(own_src, minlength=p).max()) if src.size else 0
+    max_in = int(np.bincount(own_dst, minlength=p).max()) if src.size else 0
+    cap_out = e_cap or max(_pad_to(max(max_out, 1), _ALIGN), _ALIGN)
+    cap_in = e_cap or max(_pad_to(max(max_in, 1), _ALIGN), _ALIGN)
+
+    (s_loc, d_glob), _ = _bucket(
+        own_src, p, [np.asarray(part.local_id(src)), dst], cap_out, fills=(0, -1))
+    (in_s_glob, in_d_loc), _ = _bucket(
+        own_dst, p, [src, np.asarray(part.local_id(dst))], cap_in, fills=(-1, 0))
+
+    return ShardedGraph(
+        part=part,
+        src_local=s_loc, dst_global=d_glob,
+        in_src_global=in_s_glob, in_dst_local=in_d_loc,
+        n_edges=int(src.size),
+    )
+
+
+def csr_from_coo(src: np.ndarray, dst: np.ndarray, n: int):
+    """Host-side CSR (indptr, indices) sorted by src."""
+    order = np.argsort(src, kind="stable")
+    src_s, dst_s = src[order], dst[order]
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(src_s, minlength=n), out=indptr[1:])
+    return indptr, dst_s.astype(np.int64)
+
+
+def block_sparse_adjacency(src: np.ndarray, dst: np.ndarray, n: int,
+                           block: int = 128):
+    """Blocked 0/1 adjacency (host numpy) for the ``bsr_spmm`` kernel.
+
+    Returns (blocks, block_rows, block_cols, n_pad): ``blocks[k]`` is a
+    dense (block, block) f32 tile of A[block_rows[k]*B :, block_cols[k]*B :].
+    Only nonempty tiles are materialized (block-CSR, row-major order).
+    """
+    uniq, inv, nb = _block_keys(src, dst, n, block)
+    blocks = np.zeros((uniq.shape[0], block, block), dtype=np.float32)
+    blocks[inv, src % block, dst % block] = 1.0
+    return (blocks, (uniq // nb).astype(np.int32),
+            (uniq % nb).astype(np.int32), nb * block)

@@ -1,0 +1,29 @@
+"""Plain torch versions of the block-sparse SpMM (the oracle of kernel A2)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def bsr_spmm_ref(blocks: torch.Tensor, block_rows: torch.Tensor,
+                 block_cols: torch.Tensor, x: torch.Tensor, *,
+                 n_rows_pad: int) -> torch.Tensor:
+    """Gather ``x``'s block rows per tile, batched matmul with the tiles,
+    ``index_add_`` into zeroed output rows.  A block row with no tile
+    stays zero.  O(K·B·d) memory."""
+    k, b, _ = blocks.shape
+    n, d = x.shape
+    xb = x.to(torch.float32).reshape(n // b, b, d)
+    contrib = torch.bmm(blocks.to(torch.float32), xb[block_cols.long()])
+    y = torch.zeros((n_rows_pad // b, b, d), dtype=torch.float32,
+                    device=x.device)
+    y.index_add_(0, block_rows.long(), contrib)
+    return y.reshape(n_rows_pad, d)
+
+
+def frontier_expand_ref(blocks, block_rows, block_cols, frontier, *,
+                        n_rows_pad):
+    """Boolean-semiring BFS expansion oracle: candidates = (A @ F) > 0."""
+    y = bsr_spmm_ref(blocks, block_rows, block_cols,
+                     frontier.to(torch.float32), n_rows_pad=n_rows_pad)
+    return (y > 0).to(torch.uint8)
