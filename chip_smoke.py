@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the dense 1-D BFS engine on one card.
+"""Drive the PyTorch/CUDA port (dense 1-D BFS, LM prefill) on one card.
 
     python3 chip_smoke.py            # full size, as the acceptance run
     python3 chip_smoke.py --profile  # also profile one run of each path
 
 Phases (any failed check raises and the script exits non-zero):
 
-1. build — compiles ``src/repro_torch/csrc/bfs_kernels.cu`` with nvcc for
-   sm_90a into ``build/kernels/`` and prints the compiler's register
-   report and the card's name and power limit.
+1. build — compiles every ``src/repro_torch/csrc/*.cu`` (the BFS kernels
+   and the attention kernel, one nvcc each, in parallel) for sm_90a into
+   one library under ``build/kernels/`` and prints the compiler's
+   register report and the card's name and power limit.
 2. path 1 — ``rmat_1m`` (Graph500 Kronecker, scale 20, edge factor 16)
    with the default dense expansion, S = 64 roots: once on a 4-shard
    ``LocalMesh`` with default options (packed wire, fused tail = kernel
@@ -20,9 +21,17 @@ Phases (any failed check raises and the script exits non-zero):
    reads them just after; every kernel of the path must have launched.
    Distances are checked with ``validate_bfs`` (Graph500 rules) on every
    column and against scipy's BFS on four columns, bitwise.
-4. kernels — each kernel against its plain torch version on the card at
+4. prefill — gemma3-12b at full width (d_model 3840, 16 q / 8 kv heads of
+   256, d_ff 15360, vocab 262144, bf16) through ``build_bundle(...,
+   "prefill_32k")``, cut to 12 layers (two 5 local + 1 global groups) and
+   batch 2 x seq 8192, with random weights from a seeded generator on the
+   card.  Three runs, each with kernel A4 launched once per layer; runs 2
+   and 3 bitwise equal; then the same prefill with the plain attention,
+   held to a stated tolerance (the first layer's cache bitwise).
+5. kernels — each kernel against its plain torch version on the card at
    the shapes of the paths, then timed beside its bound (and, for A2,
-   beside ``torch.sparse_bsr_tensor @ x``).
+   beside ``torch.sparse_bsr_tensor @ x``; for A4, beside
+   ``F.scaled_dot_product_attention`` on the global layer's shape).
 
 The last line is ``{"ok": true, "device": {...}}``; before it come one
 ``{"kernels": [...]}`` JSON line and the card's name and power limit.
@@ -31,6 +40,7 @@ The last line is ``{"ok": true, "device": {...}}``; before it come one
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -45,6 +55,9 @@ SEED = 0
 S = 64
 MEM_BW = 3.35e12          # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
 F32_FLOPS = 67e12         # H100 SXM f32 FLOP/s outside the tensor cores
+BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core FLOP/s
+# the prefill phase: gemma3-12b's prefill_32k cell, cut in depth and size
+PREFILL_LAYERS, PREFILL_BATCH, PREFILL_SEQ = 12, 2, 8192
 
 
 def log(*args) -> None:
@@ -74,9 +87,9 @@ def timed_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float = 0.0):
+def bound(nbytes: float, flops: float = 0.0, peak: float = F32_FLOPS):
     """Least time (ms) for the work on the card, and what bounds it."""
-    t_mem, t_ops = nbytes / MEM_BW, flops / F32_FLOPS
+    t_mem, t_ops = nbytes / MEM_BW, flops / peak
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
                                      else "operations")
 
@@ -132,16 +145,17 @@ def report_run(name, compile_ms, run_ms, res, counts) -> None:
         f"comm_bytes {st.comm_bytes}; launches {counts}")
 
 
-def profile_run(name, eng, roots) -> None:
-    """One more run under ``torch.profiler``: device time by op, and the
-    share of the run's wall time the device was busy."""
+def profile_run(name, run) -> None:
+    """One more call of ``run`` under ``torch.profiler``: device time by
+    op, and the share of the call's wall time the device was busy."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.run(roots)
+        run()
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
     # device-side entries only: a host op's device time repeats its kernels'
@@ -150,6 +164,200 @@ def profile_run(name, eng, roots) -> None:
     log(f"{name} profile: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%)")
     log(events.table(sort_by="self_device_time_total", row_limit=12))
+
+
+def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(q, k) pairs the causal / window mask keeps (A4's work)."""
+    q = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(q + 1, skv) if causal else np.full(sq, skv, np.int64)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(sq,
+                                                                   np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Relative L2 error of ``got`` against ``want``, in f32."""
+    want = want.float()
+    return float((got.float() - want).norm() / want.norm())
+
+
+def prefill_phase(kernels, dev, profile: bool) -> dict:
+    """gemma3-12b prefill at full width, cut in depth and size (module
+    docstring, phase 4); returns A4's launches and what the kernel phase
+    needs of the run."""
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.launch.steps import build_bundle
+
+    spec = get_arch("gemma3_12b")
+    full, full_shape = spec.config, get_shape(spec, "prefill_32k")
+    cfg = dataclasses.replace(full, n_layers=PREFILL_LAYERS)
+    shape = dataclasses.replace(full_shape, seq_len=PREFILL_SEQ,
+                                global_batch=PREFILL_BATCH)
+    log(f"prefill: {full.name} prefill_32k, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads} q / {cfg.n_kv_heads} kv x {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}, random weights "
+        f"(seed {SEED})")
+    log(f"prefill cut: layers {full.n_layers} -> {cfg.n_layers} "
+        f"({cfg.n_groups} groups of {len(cfg.pattern)}: 5 local, window "
+        f"{cfg.pattern[0].window}, + 1 global)")
+    log(f"prefill cut: batch {full_shape.global_batch} -> "
+        f"{shape.global_batch}")
+    log(f"prefill cut: seq_len (prompt = max_len) {full_shape.seq_len} -> "
+        f"{shape.seq_len}")
+    bundle = build_bundle(dataclasses.replace(spec, config=cfg), shape,
+                          device=dev)
+    t0 = time.perf_counter()
+    params = bundle.make_state(bundle.init_params(
+        torch.Generator(device=dev).manual_seed(SEED)))
+    batch = bundle.make_batch(SEED)
+    torch.cuda.synchronize()
+    log(f"prefill: {sum(p.numel() for p in params.parameters())} weights "
+        f"({sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9:.3f} GB) "
+        f"drawn in {time.perf_counter() - t0:.3f} s; tokens "
+        f"{tuple(batch['tokens'].shape)}")
+
+    run_ms, outs, launches = [], [], 0
+    for i in range(3):
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = bundle.fn(params, batch)
+        torch.cuda.synchronize()
+        run_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = {name: k.launches for name, k in kernels.items()}
+        check(counts["flash_attention"] == cfg.n_layers,
+              f"prefill run {i + 1}: A4 launched "
+              f"{counts['flash_attention']} times, not {cfg.n_layers}")
+        launches += counts["flash_attention"]
+        outs.append((logits, cache))
+    logits, cache = outs[-1]
+    b, s = batch["tokens"].shape
+    check(logits.shape == (b, cfg.vocab), f"logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    check(torch.equal(outs[1][0], logits)
+          and all(torch.equal(x[n], y[n]) for x, y in zip(outs[1][1], cache)
+                  for n in "kv"), "prefill runs 2 and 3 differ")
+    log(f"prefill: first run {run_ms[0]:.1f} ms; runs 2, 3 "
+        f"{[round(t, 3) for t in run_ms[1:]]} ms = "
+        f"{[round(b * s / (t / 1e3), 1) for t in run_ms[1:]]} prompt "
+        f"tokens/s; A4 launches {cfg.n_layers} a run")
+    del outs
+    if profile:
+        profile_run("prefill", lambda: bundle.fn(params, batch))
+
+    # the same prefill with the plain attention (attention_ref)
+    plain_logits, plain_cache = bundle.fn(params, batch, use_kernel=False)
+    torch.cuda.synchronize()
+    # Tolerance: A4 and the plain attention differ by at most the bf16
+    # bound of the kernel phase (2^-9 max|v| + 2^-6 relative) in each
+    # layer's attention output; the residual stream carries 12 such
+    # differences to the logits, whose relative L2 error is held to
+    # 2^-4.  The first layer's k, v are computed before any attention, so
+    # its cache is bitwise equal; the later layers' caches get the same
+    # relative bound as the logits.
+    tol = 2.0 ** -4
+    err = rel_err(logits, plain_logits)
+    cache_err = max(rel_err(x[n], y[n]) for x, y in zip(cache, plain_cache)
+                    for n in "kv")
+    max_abs = float((logits.float() - plain_logits.float()).abs().max())
+    log(f"prefill vs plain attention: logits rel L2 {err} (max abs "
+        f"{max_abs}), worst cache leaf rel L2 {cache_err}; tolerance {tol}")
+    check(err <= tol and cache_err <= tol,
+          "prefill with A4 differs from the plain-attention prefill")
+    check(torch.equal(cache[0]["k"][0], plain_cache[0]["k"][0])
+          and torch.equal(cache[0]["v"][0], plain_cache[0]["v"][0]),
+          "the first layer's cache differs from the plain prefill's")
+    return {"launches": launches, "cfg": cfg, "batch": b, "seq": s}
+
+
+def attention_rows(lay: dict, dev) -> dict:
+    """A4 against its plain version at the prefill's shapes (local and
+    global layer) and at Dh = 128 on an unaligned length; timed beside its
+    bound, the plain version and SDPA (global layer)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    cfg, b, s = lay["cfg"], lay["batch"], lay["seq"]
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def qkv(dtype, sq, skv, d):
+        return (torch.randn((b, hq, sq, d), generator=gen, device=dev
+                            ).to(dtype),
+                torch.randn((b, hkv, skv, d), generator=gen, device=dev
+                            ).to(dtype),
+                torch.randn((b, hkv, skv, d), generator=gen, device=dev
+                            ).to(dtype))
+
+    def held(q, k, v, causal, window, what):
+        """Kernel vs plain with the bound of tests/test_torch_cuda.py:
+        f32 2e-5; bf16 atol 2^-9 max|v|, rtol 2^-6."""
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = attention_ref(q, k, v, causal=causal, window=window)
+        if q.dtype == torch.float32:
+            atol = rtol = 2e-5
+        else:
+            atol, rtol = 2.0 ** -9 * float(v.abs().max()), 2.0 ** -6
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        ok = bool((diff <= atol + rtol * want.float().abs()).all())
+        log(f"A4 {what}: max abs err {err} (atol {atol}, rtol {rtol})")
+        check(ok, f"A4 differs from attention_ref at {what}")
+        return err
+
+    errs = []
+    for dtype in (torch.float32, torch.bfloat16):   # unaligned, non-causal
+        q, k, v = qkv(dtype, 1000, 1500, 128)
+        errs.append(held(q, k, v, False, 0,
+                         f"{dtype} Dh 128 Sq 1000 Skv 1500 non-causal"))
+    # the prefill's widths with a ragged last q and kv tile
+    q, k, v = qkv(torch.bfloat16, s - 1, s - 1, dh)
+    errs.append(held(q, k, v, True, cfg.pattern[0].window,
+                     f"bf16 Dh {dh} Sq = Skv = {s - 1} window "
+                     f"{cfg.pattern[0].window}"))
+    q, k, v = qkv(torch.bfloat16, s, s, dh)
+    row = {}
+    for window in (cfg.pattern[0].window, 0):       # local, then global
+        what = f"bf16 {tuple(q.shape)} kv {tuple(k.shape)} window {window}"
+        err = held(q, k, v, True, window, what)
+        errs.append(err)
+        pairs = visible_pairs(s, s, True, window)
+        b_ms, b_by = bound(nbytes(q, k, v, q), 4.0 * b * hq * dh * pairs,
+                           BF16_FLOPS)
+        ms = timed_ms(lambda: flash_attention(q, k, v, causal=True,
+                                              window=window), 5)
+        plain_ms = timed_ms(lambda: attention_ref(q, k, v, causal=True,
+                                                  window=window), 3)
+        log(f"A4 {what}: {ms} ms, plain {plain_ms} ms, bound {b_ms} ms "
+            f"({b_by}; {pairs} visible pairs a head)")
+        row[window] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": b_by}
+    # the one-call yardstick on the global layer (timed only; never used)
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+    sdpa_err = float((sdpa().float()
+                      - attention_ref(q, k, v, causal=True).float()
+                      ).abs().max())
+    library_ms = timed_ms(sdpa, 10)
+    log(f"SDPA (global layer): {library_ms} ms, max abs err vs plain "
+        f"{sdpa_err}")
+    local, glob = row[cfg.pattern[0].window], row[0]
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/attention_kernels.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:31",
+        "launches": lay["launches"], "max_abs_err": max(errs),
+        "ms": glob["ms"], "plain_ms": glob["plain_ms"],
+        "bound_ms": glob["bound_ms"], "bound_by": glob["bound_by"],
+        "library_ms": library_ms,
+        "shape": f"global layer: q {tuple(q.shape)} bf16, kv "
+                 f"{tuple(k.shape)}, causal",
+        "local_window": cfg.pattern[0].window,
+        "local_ms": local["ms"], "local_plain_ms": local["plain_ms"],
+        "local_bound_ms": local["bound_ms"]}
 
 
 def main(argv=None) -> int:
@@ -178,13 +386,15 @@ def main(argv=None) -> int:
                                                      bitpack_words_plain,
                                                      bsr_spmm)
     from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.kernels.fold_update import fold_update, fold_update_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain A2 is f32 bmm
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     kernels = {"fold_update": fold_update, "bsr_spmm": bsr_spmm,
-               "bitpack_words": bitpack_words}
+               "bitpack_words": bitpack_words,
+               "flash_attention": flash_attention}
 
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
@@ -226,7 +436,7 @@ def main(argv=None) -> int:
         validate_bfs(src1, dst1, roots1, res.dist[:n1, :S])
         report_run(f"path 1 {label}", compile_ms, run_ms, res, counts)
         if args.profile:
-            profile_run(f"path 1 {label}", eng, roots1)
+            profile_run(f"path 1 {label}", lambda: eng.run(roots1))
         path1[label] = (host, counts, d, res.run_stats)
         del eng, res
     check(np.array_equal(path1["p4_default"][0], path1["p1_packed"][0]),
@@ -249,12 +459,12 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     compile_ms = (time.perf_counter() - t0) * 1e3
     host2, run_ms, res2, counts2 = drive(kernels, eng2, roots2)
-    for name in kernels:
+    for name in ("fold_update", "bsr_spmm", "bitpack_words"):
         check(counts2[name] > 0, f"path 2: kernel {name} never launched")
     validate_bfs(src2, dst2, roots2, res2.dist[:n2, :S])
     report_run("path 2 use_kernel", compile_ms, run_ms, res2, counts2)
     if args.profile:
-        profile_run("path 2 use_kernel", eng2, roots2)
+        profile_run("path 2 use_kernel", lambda: eng2.run(roots2))
     eng2b = plan(g2, BFSOptions(wire_format="packed"), num_sources=S).compile()
     host2b = eng2b.run(roots2).dist_host
     del eng2b
@@ -263,6 +473,11 @@ def main(argv=None) -> int:
     scipy_check(src2, dst2, n2, roots2, host2, INF)
     log("path 2: validate_bfs on all columns, scipy on 4 columns, "
         "use_kernel == plain expansion: ok")
+
+    # -------------------------------------------------------------- prefill
+    lay = prefill_phase(kernels, dev, args.profile)
+    log("prefill: logits finite, runs 2 == 3, A4 12 a run, within "
+        "tolerance of the plain attention: ok")
 
     # -------------------------------------------------------------- kernels
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -354,6 +569,8 @@ def main(argv=None) -> int:
         "plain_ms": timed_ms(lambda: bitpack_words_plain(mask), 10),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"mask {tuple(mask.shape)}"})
+
+    rows.append(attention_rows(lay, dev))
 
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": rows}), flush=True)

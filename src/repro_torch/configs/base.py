@@ -1,10 +1,106 @@
-"""BFS workloads — the port's copy of ``repro.configs.base``'s BFS part
-(the paper's own experiments, §4, plus the Graph500 Kronecker graph)."""
+"""Configurations — the port's copy of the parts of ``repro.configs.base``
+that its slices run: the BFS workloads (the paper's own experiments, §4,
+plus the Graph500 Kronecker graph) and the LM family's dataclasses and
+shape cells.  ``get_arch`` knows only the architectures the port has
+ported; the JAX package's registry has more."""
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
+from typing import Any, Optional, Sequence
 
+
+# ---------------------------------------------------------------------------
+# LM family
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int                      # per-expert hidden width
+    capacity_factor: float = 1.25
+    shared_experts: int = 0        # dense experts always active (Llama-4)
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    """One position in the repeating layer pattern."""
+    window: int = 0                # 0 = global attention; >0 = sliding window
+    moe: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    pattern: tuple = (LayerSpec(),)
+    moe: Optional[MoEConfig] = None
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-6
+    dtype: str = "bfloat16"
+    # attention impl knobs of the JAX package, kept so configs copy verbatim
+    attn_chunk: int = 1024
+    remat: str = "block"
+    tie_embeddings: bool = False
+
+    def __post_init__(self):
+        if self.n_layers % len(self.pattern):
+            raise ValueError(f"{self.name}: n_layers % pattern period != 0")
+        if self.n_heads % self.n_kv_heads:
+            raise ValueError(f"{self.name}: n_heads % n_kv_heads != 0")
+
+    @property
+    def n_groups(self) -> int:
+        return self.n_layers // len(self.pattern)
+
+    def param_count(self) -> int:
+        d, dh = self.d_model, self.head_dim
+        attn = d * (self.n_heads * dh) * 2 + d * (self.n_kv_heads * dh) * 2
+        if self.qkv_bias:
+            attn += (self.n_heads + 2 * self.n_kv_heads) * dh
+        dense_ffn = 3 * d * self.d_ff
+        total = self.vocab * d * (1 if self.tie_embeddings else 2)
+        for i in range(self.n_layers):
+            spec = self.pattern[i % len(self.pattern)]
+            total += attn + 2 * d
+            if spec.moe and self.moe:
+                m = self.moe
+                total += d * m.n_experts                   # router
+                total += m.n_experts * 3 * d * m.d_ff      # routed experts
+                total += m.shared_experts * 3 * d * m.d_ff
+            else:
+                total += dense_ffn
+        return total
+
+
+@dataclasses.dataclass(frozen=True)
+class LMShape:
+    name: str
+    step: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+LM_SHAPES = (
+    LMShape("train_4k", "train", 4_096, 256),
+    LMShape("prefill_32k", "prefill", 32_768, 32),
+    LMShape("decode_32k", "decode", 32_768, 128),
+    LMShape("long_500k", "decode", 524_288, 1),
+)
+
+
+# ---------------------------------------------------------------------------
+# BFS workloads (the paper's own experiments, §4)
+# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class BFSWorkload:
@@ -32,3 +128,42 @@ def bfs_workload(name: str) -> BFSWorkload:
             return w
     raise KeyError(f"unknown BFS workload {name!r}; have "
                    f"{[w.name for w in BFS_WORKLOADS]}")
+
+
+# ---------------------------------------------------------------------------
+# Registry (the architectures the port supports)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    arch_id: str
+    family: str                    # lm
+    config: Any
+    reduced: Any
+    source: str                    # provenance note of the configuration
+
+    @property
+    def shapes(self) -> Sequence:
+        return LM_SHAPES                # the one family the port supports
+
+
+ARCH_IDS = ("gemma3_12b",)
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    """The port's spec of ``arch_id`` (``gemma3_12b`` or ``gemma3-12b``);
+    ``KeyError`` naming the supported architectures for any other."""
+    arch_id = arch_id.replace("-", "_")
+    if arch_id not in ARCH_IDS:
+        raise KeyError(f"the port supports {list(ARCH_IDS)}, not {arch_id!r}")
+    mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
+    return ArchSpec(arch_id=arch_id, family=mod.FAMILY, config=mod.CONFIG,
+                    reduced=mod.REDUCED, source=mod.SOURCE)
+
+
+def get_shape(spec: ArchSpec, shape_name: str):
+    for sh in spec.shapes:
+        if sh.name == shape_name:
+            return sh
+    raise KeyError(f"{spec.arch_id} has no shape {shape_name!r}; "
+                   f"have {[s.name for s in spec.shapes]}")

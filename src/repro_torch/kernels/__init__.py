@@ -9,4 +9,6 @@ launches in an integer attribute, ``<wrapper>.launches``.
   A1 ``fold_update.fold_update``       — fused dense-tail owner update
   A2 ``bsr_spmm.kernel.bsr_spmm``      — block-sparse frontier expansion
   A3 ``bsr_spmm.kernel.bitpack_words`` — candidate mask -> packed words
+  A4 ``flash_attention.kernel.flash_attention`` — causal/windowed GQA
+     attention forward (the LM prefill)
 """

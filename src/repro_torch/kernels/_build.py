@@ -1,12 +1,14 @@
-"""Build and load the port's CUDA kernels (``csrc/bfs_kernels.cu``).
+"""Build and load the port's CUDA kernels (every ``csrc/*.cu``).
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, on first use, into ``build/kernels/`` at the
-root of the checkout; the library's name carries a hash of the source and
-flags, so an edited source rebuilds.  The library is loaded with
-``ctypes``: every pointer and the stream are ``c_void_p``, sizes are
-``c_longlong``.  Importing this module needs no ``nvcc`` and no card;
-only a CUDA tensor reaching a kernel builds and loads the library.
+Each source is compiled with ``nvcc`` for ``sm_90a`` into an object, all
+of them at once in parallel processes, and the objects are linked into
+one shared library with a plain C interface, on first use, into
+``build/kernels/`` at the root of the checkout; the library's name
+carries a hash of every source and the flags, so an edited source
+rebuilds.  The library is loaded with ``ctypes``: every pointer and the
+stream are ``c_void_p``, sizes are ``c_longlong``.  Importing this module
+needs no ``nvcc`` and no card; only a CUDA tensor reaching a kernel
+builds and loads the library.
 """
 
 from __future__ import annotations
@@ -22,12 +24,12 @@ from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "bfs_kernels.cu"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _N, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_P, _N, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # words, dist, dist_out, new_out, words_out, batch, w, m, s, level, stream
     "bfs_fold_update": [_P] * 5 + [_N] * 4 + [_I, _P],
@@ -35,6 +37,8 @@ _SIGNATURES = {
     "bfs_bsr_spmm": [_P] * 5 + [_N] * 2 + [_P],
     # mask, out, w, s, stream
     "bfs_bitpack": [_P] * 2 + [_N] * 2 + [_P],
+    # q, k, v, o, b, hq, hkv, sq, skv, dh, bf16, causal, window, scale, stream
+    "attn_flash_fwd": [_P] * 4 + [_N] * 6 + [_I] * 2 + [_N, _F, _P],
 }
 
 _build_lock = threading.Lock()
@@ -53,9 +57,23 @@ def nvcc() -> str:
                        "use and need the CUDA toolkit")
 
 
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    digest = hashlib.sha1(SOURCE.read_bytes() + repr(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libbfs_kernels-{digest.hexdigest()[:16]}.so"
+    digest = hashlib.sha1(repr(NVCC_FLAGS).encode())
+    for src in sources():
+        digest.update(src.name.encode() + src.read_bytes())
+    return BUILD_DIR / f"libkernels-{digest.hexdigest()[:16]}.so"
+
+
+def _run(cmd: list[str]) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
 
 
 def build() -> Path:
@@ -67,13 +85,30 @@ def build() -> Path:
         if out.exists():
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        tag = f"{out.stem}.{os.getpid()}"
+        objs, procs = [], []
+        for src in sources():
+            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+            cmd = [nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for cmd, proc in procs:              # wait for every compiler
+            text, _ = proc.communicate()
+            logs.append(text)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{text}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = out.with_name(f"{tag}.so.tmp")
+        logs.append(_run([nvcc(), "-gencode", NVCC_FLAGS[1], "-shared",
+                          "-o", str(tmp), *map(str, objs)]))
+        for obj in objs:
+            obj.unlink()
+        out.with_suffix(".log").write_text("".join(logs))
         os.replace(tmp, out)
         return out
 

@@ -1,0 +1,77 @@
+"""Blocked causal GQA flash attention forward (A4) — wrapper of the
+hand-written CUDA kernel ``attn_flash_fwd`` in
+``csrc/attention_kernels.cu``, the port of
+``repro.kernels.flash_attention.kernel``.
+
+The kernel takes any ``Sq, Skv >= 1`` (the TPU kernel asserts that they
+divide its blocks) and visits only the key tiles the causal and window
+masks leave visible.  On a CUDA tensor ``flash_attention`` launches the
+kernel or raises; on a CPU tensor it runs the plain version,
+``ref.attention_ref``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+HEAD_DIMS = (32, 64, 128, 256)       # the head widths the kernel is built for
+MAX_Q_TILES = 65535                  # grid.y: 64-row q tiles
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_shapes(q, k, v) -> None:
+    """Raise ``ValueError`` unless q is (B, Hq, Sq, Dh) and k, v are one
+    (B, Hkv, Skv, Dh) with Hq % Hkv == 0."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"attention takes q (B, Hq, Sq, Dh) and k, v "
+                         f"(B, Hkv, Skv, Dh); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, hq, _, dh = q.shape
+    bk, hkv, _, dhk = k.shape
+    if bk != b or dhk != dh or hkv == 0 or hq % hkv:
+        raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)}: "
+                         f"batch and head width must match and Hq must be "
+                         f"a multiple of Hkv")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B, Hq, Sq, Dh); k, v: (B, Hkv, Skv, Dh); Hq % Hkv == 0.
+
+    Returns (B, Hq, Sq, Dh) in q's dtype.  window > 0 keeps only keys
+    with q_pos - k_pos < window.
+    """
+    check_shapes(q, k, v)
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window)
+    b, hq, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention takes q, k, v all f32 or all "
+                         f"bf16; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel is built for head widths "
+                         f"{HEAD_DIMS}, not {dh}")
+    if sq < 1 or skv < 1 or -(-sq // 64) > MAX_Q_TILES:
+        raise ValueError(f"flash_attention takes 1 <= Sq <= "
+                         f"{64 * MAX_Q_TILES} and Skv >= 1; got {sq}, {skv}")
+    dev = _build.require_cuda("flash_attention", q, k, v)
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            raise ValueError("flash_attention: operands must be 16-byte "
+                             "aligned")
+    o = torch.empty_like(q)
+    if o.numel():
+        _build.launch("attn_flash_fwd", dev, q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), o.data_ptr(), b, hq, hkv, sq, skv, dh,
+                      _DTYPES[q.dtype], int(causal), window, dh ** -0.5)
+        flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0

@@ -1,0 +1,55 @@
+"""Carry LM weights between the JAX package's layout and the port's.
+
+``from_jax_params`` takes the numpy tree of
+``repro.models.transformer.init_params`` (``jax.tree.map(np.asarray,
+params)``: nested dicts and lists of arrays) and returns the port's
+``Transformer``; ``to_numpy`` is its inverse.  bf16 leaves cross as their
+16-bit patterns, so both directions are bitwise.  This module imports
+neither JAX nor the JAX package; ``to_numpy`` needs ``ml_dtypes`` (which
+JAX installs) only for a bf16 leaf.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.transformer import Transformer
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _leaf_to_torch(a, device) -> torch.Tensor:
+    a = np.array(a, order="C")          # a writable copy
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def from_jax_params(tree, device) -> Transformer:
+    """The port's weights from the JAX package's (as numpy), on
+    ``device``."""
+    return Transformer.from_tree(_map(lambda a: _leaf_to_torch(a, device),
+                                      tree))
+
+
+def to_numpy(params: Transformer) -> dict:
+    """The JAX-layout numpy tree of ``params`` (``from_jax_params``'s
+    inverse)."""
+    return _map(_leaf_to_numpy, params.tree())

@@ -1,15 +1,18 @@
-"""The port's CUDA kernels and engine on the card, against their plain
-torch versions and the serial oracle.  Imports only the port (no JAX), so
+"""The port's CUDA kernels, engine and LM prefill on the card, against
+their plain torch versions and the serial oracle.  Imports only the port (no JAX), so
 the machine with the card runs it as it is:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Every test skips where torch.cuda.is_available() is false."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_arch
 from repro_torch.core import BFSOptions, plan
 from repro_torch.core.frontier import INF, packed_words
 from repro_torch.core.ref import bfs_reference, validate_bfs
@@ -18,7 +21,11 @@ from repro_torch.kernels.bsr_spmm.kernel import (bitpack_words,
                                                  bitpack_words_plain,
                                                  block_row_ptr, bsr_spmm)
 from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref
+from repro_torch.kernels.flash_attention import ops as attn_ops
+from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fold_update import fold_update, fold_update_plain
+from repro_torch.models import transformer as tf
 
 pytestmark = pytest.mark.cuda
 
@@ -110,3 +117,72 @@ def test_engine_on_the_card_matches_the_oracle(cuda, p, opts):
     assert res.dist.device.type == "cuda"
     np.testing.assert_array_equal(res.dist_host, want)
     validate_bfs(src, dst, roots, res.dist[:n, :4])
+
+
+def _attn_tolerance(dtype, v):
+    """f32: the kernel's online softmax and FMA order against the plain
+    version's materialized f32 scores: 2e-5, the JAX package's own
+    kernel-vs-oracle bound (tests/test_kernels.py).  bf16: the kernel
+    rounds p to bf16 before PV (at most 2^-9 * max|v| in the output) and
+    both round the output to bf16 once (together at most one ulp, 2^-7
+    relative): atol 2^-9 * max|v|, rtol 2^-6."""
+    if dtype == torch.float32:
+        return {"atol": 2e-5, "rtol": 2e-5}
+    return {"atol": 2.0 ** -9 * float(v.abs().max()), "rtol": 2.0 ** -6}
+
+
+@pytest.mark.parametrize("dtype,dh,b,hq,hkv,sq,skv,causal,window", [
+    (torch.float32, 128, 1, 2, 2, 100, 77, False, 0),
+    (torch.bfloat16, 128, 2, 4, 2, 100, 77, False, 0),
+    (torch.bfloat16, 256, 2, 4, 2, 300, 300, True, 0),
+    (torch.bfloat16, 256, 1, 4, 1, 257, 257, True, 40),
+    (torch.float32, 64, 2, 8, 2, 130, 130, True, 33),
+    (torch.float32, 32, 1, 2, 1, 10, 3, True, 2),     # rows 4..: no key
+    (torch.bfloat16, 32, 1, 2, 2, 1, 64, False, 0)])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, dh, b, hq, hkv,
+                                              sq, skv, causal, window):
+    gen = torch.Generator(device=cuda).manual_seed(sq * 7 + dh)
+    q = torch.randn((b, hq, sq, dh), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((b, hkv, skv, dh), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, hkv, skv, dh), generator=gen, device=cuda).to(dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_attn_tolerance(dtype, v))
+    if (sq, skv) == (10, 3):
+        assert not bool(got[:, :, 4:].any())
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((1, 2, 8, 48), device=cuda)
+    with pytest.raises(ValueError, match="head widths"):
+        flash_attention(q, q, q)
+    kv = torch.zeros((1, 2, 8, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="all f32 or all"):
+        flash_attention(kv.float(), kv, kv)
+    odd = torch.zeros(2 * 8 * 64 + 1, device=cuda)[1:].view(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        attn_ops.attention(odd, odd, odd)
+
+
+def test_prefill_on_the_card_runs_a4_once_per_layer(cuda):
+    """gemma3's REDUCED pattern with 32-wide heads (the kernel's smallest)
+    in bf16: the kernel prefill against the plain-attention prefill."""
+    cfg = dataclasses.replace(get_arch("gemma3_12b").reduced, head_dim=32,
+                              n_layers=12, dtype="bfloat16")
+    params = tf.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 70), device=cuda)
+    before = flash_attention.launches
+    logits, cache, _ = tf.prefill(cfg, params, tokens, 80)
+    assert flash_attention.launches == before + cfg.n_layers
+    plain, cache_p, _ = tf.prefill(cfg, params, tokens, 80, use_kernel=False)
+    assert flash_attention.launches == before + cfg.n_layers
+    assert bool(torch.isfinite(logits).all())
+    # the first layer's k, v come before any attention: bitwise
+    assert torch.equal(cache[0]["k"][0], cache_p[0]["k"][0])
+    rel = float((logits.float() - plain.float()).norm() / plain.float().norm())
+    assert rel < 2.0 ** -4, rel
