@@ -2,8 +2,8 @@
 port of ``repro.launch.steps`` for the LM prefill step.
 
 ``build_bundle(spec, "prefill_32k", reduced=..., device=...)`` gives
-``init_params(generator)``, ``make_batch(seed)`` (a prompt of
-``seq_len - 1`` tokens on the device) and ``fn(params, batch)``, which
+``init_params(generator)``, ``make_batch(seed)`` (a prompt of ``seq_len``
+tokens on the device, as in the JAX bundle) and ``fn(params, batch)``, which
 returns ``(last-token logits, cache)``.  Other families and steps are
 later slices and raise ``NotImplementedError``.  The JAX bundle's
 ``input_specs`` (abstract inputs for the XLA dry-run) has no counterpart.

@@ -16,8 +16,9 @@ written into the cache in place.
 
 ``repro.models.sharding_hints`` is not ported: on one card every
 ``constrain_*`` call is the identity, so the port does not call them.
-Dense MLP blocks only; a config with MoE blocks raises
-``NotImplementedError`` (a later slice).  ``lm_loss``, ``forward`` and
+Dense MLP blocks with untied embeddings and no q/k/v bias only: a config
+with MoE blocks, ``qkv_bias`` or ``tie_embeddings`` raises
+``NotImplementedError`` (later slices, when a ported config needs one).  ``lm_loss``, ``forward`` and
 ``decode_step`` are later slices too.
 """
 
@@ -41,6 +42,15 @@ def _moe_unsupported() -> NotImplementedError:
     return NotImplementedError("MoE: later slice")
 
 
+def _check_supported(cfg: TransformerConfig) -> None:
+    if cfg.moe is not None and any(s.moe for s in cfg.pattern):
+        raise _moe_unsupported()
+    if cfg.qkv_bias:
+        raise NotImplementedError("qkv_bias: later slice")
+    if cfg.tie_embeddings:
+        raise NotImplementedError("tie_embeddings: later slice")
+
+
 class _Leaves(nn.Module):
     """A flat set of named weight leaves (frozen parameters)."""
 
@@ -54,8 +64,7 @@ class _Leaves(nn.Module):
 
 
 class Attention(_Leaves):
-    """wq (G, D, Hq, Dh), wk and wv (G, D, Hkv, Dh), wo (G, Hq, Dh, D);
-    with ``qkv_bias`` also bq (G, Hq, Dh), bk and bv (G, Hkv, Dh)."""
+    """wq (G, D, Hq, Dh), wk and wv (G, D, Hkv, Dh), wo (G, Hq, Dh, D)."""
 
 
 class MLP(_Leaves):
@@ -86,39 +95,38 @@ class Block(nn.Module):
 
 class Transformer(nn.Module):
     """All weights of one LM: ``embed`` (V, D), ``blocks`` (one per
-    pattern position), ``final_norm`` (D,) and, untied, ``unembed``
-    (V, D)."""
+    pattern position), ``final_norm`` (D,) and ``unembed`` (V, D)."""
 
     def __init__(self, embed: torch.Tensor, blocks: list[Block],
-                 final_norm: torch.Tensor, unembed: torch.Tensor | None = None):
+                 final_norm: torch.Tensor, unembed: torch.Tensor):
         super().__init__()
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
-        self.unembed = (None if unembed is None
-                        else nn.Parameter(unembed, requires_grad=False))
+        self.unembed = nn.Parameter(unembed, requires_grad=False)
 
     @classmethod
     def from_tree(cls, tree: dict) -> "Transformer":
         """Build from a JAX-layout dict of tensors (``init_params``'s)."""
+        if "unembed" not in tree:
+            raise NotImplementedError("tie_embeddings: later slice")
         blocks = []
         for b in tree["blocks"]:
             if "moe" in b:
                 raise _moe_unsupported()
+            if "bq" in b["attn"]:
+                raise NotImplementedError("qkv_bias: later slice")
             blocks.append(Block(Attention(**b["attn"]), MLP(**b["mlp"]),
                                 b["ln1"], b["ln2"]))
         return cls(tree["embed"], blocks, tree["final_norm"],
-                   tree.get("unembed"))
+                   tree["unembed"])
 
     def tree(self) -> dict:
         """The JAX-layout dict of the weights (the inverse of
         ``from_tree``)."""
-        out = {"embed": self.embed,
-               "blocks": [b.tree() for b in self.blocks],
-               "final_norm": self.final_norm}
-        if self.unembed is not None:
-            out["unembed"] = self.unembed
-        return out
+        return {"embed": self.embed,
+                "blocks": [b.tree() for b in self.blocks],
+                "final_norm": self.final_norm, "unembed": self.unembed}
 
 
 # ---------------------------------------------------------------------------
@@ -131,8 +139,7 @@ def init_params(cfg: TransformerConfig,
     them (normal * fan_in ** -0.5 in f32, then cast; norms zero).  The
     draws differ from ``jax.random``'s: tests carry weights across with
     ``models.convert.from_jax_params``."""
-    if cfg.moe is not None and any(s.moe for s in cfg.pattern):
-        raise _moe_unsupported()
+    _check_supported(cfg)
     dt, dev = _dtype(cfg), generator.device
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = cfg.n_groups
@@ -150,9 +157,6 @@ def init_params(cfg: TransformerConfig,
                 "wk": dense((g, d, hkv, dh), d),
                 "wv": dense((g, d, hkv, dh), d),
                 "wo": dense((g, hq, dh, d), hq * dh)}
-        if cfg.qkv_bias:
-            attn.update(bq=zeros(g, hq, dh), bk=zeros(g, hkv, dh),
-                        bv=zeros(g, hkv, dh))
         tree["blocks"].append({
             "attn": attn, "ln1": zeros(g, d), "ln2": zeros(g, d),
             "mlp": {"w_gate": dense((g, d, cfg.d_ff), d),
@@ -160,13 +164,8 @@ def init_params(cfg: TransformerConfig,
                     "w_down": dense((g, cfg.d_ff, d), cfg.d_ff)}})
     tree["embed"] = dense((cfg.vocab, d), d)
     tree["final_norm"] = zeros(d)
-    if not cfg.tie_embeddings:
-        tree["unembed"] = dense((cfg.vocab, d), d)
+    tree["unembed"] = dense((cfg.vocab, d), d)
     return Transformer.from_tree(tree)
-
-
-def _head(params: Transformer) -> torch.Tensor:
-    return params.embed if params.unembed is None else params.unembed
 
 
 # ---------------------------------------------------------------------------
@@ -181,10 +180,6 @@ def _attn_apply(cfg: TransformerConfig, spec: LayerSpec, p: dict,
     q = torch.einsum("bsd,dhe->bhse", h, p["wq"])
     k = torch.einsum("bsd,dhe->bhse", h, p["wk"])
     v = torch.einsum("bsd,dhe->bhse", h, p["wv"])
-    if "bq" in p:
-        q = q + p["bq"][None, :, None, :]
-        k = k + p["bk"][None, :, None, :]
-        v = v + p["bv"][None, :, None, :]
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     s = h.shape[1]
@@ -198,8 +193,6 @@ def _attn_apply(cfg: TransformerConfig, spec: LayerSpec, p: dict,
 def _block_apply(cfg: TransformerConfig, spec: LayerSpec, p: dict,
                  h: torch.Tensor, positions: torch.Tensor, cache: dict,
                  use_kernel: bool) -> torch.Tensor:
-    if spec.moe and cfg.moe is not None:
-        raise _moe_unsupported()
     a = _attn_apply(cfg, spec, p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
                     positions, cache, use_kernel)
     h = h + a
@@ -228,6 +221,7 @@ def prefill(cfg: TransformerConfig, params: Transformer, tokens: torch.Tensor,
 
     ``use_kernel=False`` runs the plain attention (``attention_ref``) in
     place of kernel A4, for comparison."""
+    _check_supported(cfg)
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"a {s}-token prompt does not fit a {max_len}-token "
@@ -241,5 +235,5 @@ def prefill(cfg: TransformerConfig, params: Transformer, tokens: torch.Tensor,
             h = _block_apply(cfg, spec, params.blocks[t].group(g), h,
                              positions, layer_cache, use_kernel)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    logits = torch.matmul(h[:, -1], _head(params).T)
+    logits = torch.matmul(h[:, -1], params.unembed.T)
     return logits, cache, s

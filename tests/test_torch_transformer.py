@@ -140,6 +140,24 @@ def test_moe_config_raises_not_implemented():
         from_jax_params(tree, "cpu")
 
 
+@pytest.mark.parametrize("knob", ["qkv_bias", "tie_embeddings"])
+def test_unported_knobs_raise_not_implemented(knob):
+    """No ported config sets them: init, prefill and the JAX carry-over
+    refuse them rather than run an untested path."""
+    cfg = dataclasses.replace(get_arch("gemma3_12b").reduced, **{knob: True})
+    with pytest.raises(NotImplementedError, match=knob):
+        tf.init_params(cfg, torch.Generator().manual_seed(0))
+    params = tf.init_params(get_arch("gemma3_12b").reduced,
+                            torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match=knob):
+        tf.prefill(cfg, params, torch.zeros((1, 4), dtype=torch.long), 4)
+    j_cfg = dataclasses.replace(j_get_arch("gemma3_12b").reduced,
+                                **{knob: True})
+    tree = jax.tree.map(np.asarray, _j_init(j_cfg, jax.random.PRNGKey(0)))
+    with pytest.raises(NotImplementedError, match=knob):
+        from_jax_params(tree, "cpu")
+
+
 def test_build_bundle_prefill_runs_end_to_end_on_the_cpu():
     b = build_bundle(get_arch("gemma3-12b"), "prefill_32k", reduced=True,
                      device="cpu")
