@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (dense 1-D BFS, LM prefill) on one card.
+"""Drive the PyTorch/CUDA port (dense 1-D BFS, LM prefill, DeepFM serving
+and the EmbeddingBag op) on one card.
 
     python3 chip_smoke.py            # full size, as the acceptance run
     python3 chip_smoke.py --profile  # also profile one run of each path
 
 Phases (any failed check raises and the script exits non-zero):
 
-1. build — compiles every ``src/repro_torch/csrc/*.cu`` (the BFS kernels
-   and the attention kernel, one nvcc each, in parallel) for sm_90a into
+1. build — compiles every ``src/repro_torch/csrc/*.cu`` (the BFS kernels,
+   the attention kernel and the EmbeddingBag kernel, one nvcc each, in
+   parallel) for sm_90a into
    one library under ``build/kernels/`` and prints the compiler's
    register report and the card's name and power limit.
 2. path 1 — ``rmat_1m`` (Graph500 Kronecker, scale 20, edge factor 16)
@@ -29,11 +31,28 @@ Phases (any failed check raises and the script exits non-zero):
    and 3 bitwise equal; then the same prefill with the plain attention,
    held to a stated tolerance (the first layer's cache bitwise), which
    two planted faults (every local window one key off) must fail.
-5. kernels — each kernel against its plain torch version on the card at
+5. recsys — DeepFM at its full configuration (39 fields x 1,000,000 rows
+   x 10, a 1.56 GB f32 table, MLP 403-400-400-400-1), not cut, through
+   ``build_bundle(get_arch("deepfm"), ...)`` for ``serve_p99``,
+   ``serve_bulk`` and ``retrieval_cand``, with random weights from a
+   seeded generator on the card.  Three runs of each step (runs 2 and 3
+   bitwise equal), held to the port's own steps on the CPU in float64
+   from the same weights: gathered rows bitwise, the FM term, logits and
+   scores at a stated relative L2 limit.  Two planted faults must fail
+   that hold: every field offset one row off, and (serve) TF32 products.  DeepFM looks its fields up
+   with a row gather, as the JAX package does, so no kernel launches.
+6. embedding bag — the lookup op ``kernels.embedding_bag.ops.embedding_bag``
+   (kernel A5) on (a) the ``serve_bulk`` batch's own flat ids as bags
+   over DeepFM's table (the op's main path, three calls; also held to the
+   serve path's ``emb.sum(1)``), (b) the same bags cut to seeded ragged
+   lengths, sum and mean, and (c) ``bench_kernels``' shape, (256, 8) over
+   (10,000, 128), in f32 and bf16; bitwise to its plain version each time.
+7. kernels — each kernel against its plain torch version on the card at
    the shapes of the paths (A4 also each (batch, head) slice, with the
    window one key off failing), then timed beside its bound (and, for A2,
    beside ``torch.sparse_bsr_tensor @ x``; for A4, beside
-   ``F.scaled_dot_product_attention`` on the global layer's shape).
+   ``F.scaled_dot_product_attention`` on the global layer's shape; for A5,
+   beside ``F.embedding_bag`` with per-slot weights on (a)).
 
 The last line is ``{"ok": true, "device": {...}}``; before it come one
 ``{"kernels": [...]}`` JSON line and the card's name and power limit.
@@ -73,6 +92,21 @@ A4_HEAD_TOL = 2.0 ** -7
 # grows with depth: 0.0078 in layer 1's cache to 0.0184 in the logits at
 # 12 layers (seed 0, H100); 2^-5 leaves a factor of 1.7.
 PREFILL_TOL = 2.0 ** -5
+# the recsys phase: DeepFM's steps, not cut, and the rows of each held to
+# the f64 CPU twin (the first rows of the batch, or of the candidates)
+RECSYS_CELLS = ("serve_p99", "serve_bulk", "retrieval_cand")
+RECSYS_HOLD = {"serve_p99": 512, "serve_bulk": 4096,
+               "retrieval_cand": 65_536}
+# f32 on the card (matrix products in full f32: allow_tf32 is False)
+# against f64 on the CPU: relative L2 of the logits and scores (serve) and
+# of the scores (retrieval); the FM term (about 1e-2 of the logits) is held
+# on its own.  On an H100 the correct steps read at most 2.6e-7 (serve_bulk
+# logits) and the FM term 2.2e-7; field offsets one row off read at least
+# 0.043 (serve scores) and FM 1.4.  2^-20 sits 3.7 times above the worst
+# correct reading; the serve steps with TF32 products (10-bit mantissa),
+# a second planted fault, must fail it too.
+RECSYS_TOL = 2.0 ** -20
+FM_TOL = 2.0 ** -20
 
 
 def log(*args) -> None:
@@ -460,6 +494,317 @@ def attention_rows(lay: dict, dev) -> dict:
         "local_bound_ms": local["bound_ms"]}
 
 
+def to_host64(tree):
+    """A float64 copy on the host of a DeepFM weight tree."""
+    if isinstance(tree, dict):
+        return {k: to_host64(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_host64(v) for v in tree]
+    return tree.detach().cpu().double()
+
+
+def rel_err64(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Relative L2 error of ``got`` against the f64 host ``want``."""
+    return float((got.cpu().double() - want).norm() / want.norm())
+
+
+def serve_twin(cfg, host, batch, n: int) -> dict:
+    """The port's serve step on the CPU in float64 (weights ``host``) for
+    the first ``n`` rows of ``batch``: gathered rows, FM term, logits."""
+    from repro_torch.models.recsys import deepfm
+
+    hb = {"sparse": batch["sparse"][:n].cpu(),
+          "dense": batch["dense"][:n].cpu().double()}
+    emb, _ = deepfm._embed(cfg, host, hb["sparse"])
+    return {"emb": emb, "fm": deepfm.fm_term(emb),
+            "logits": deepfm.forward(cfg, host, hb)}
+
+
+def retrieval_twin(cfg, host, batch, n: int) -> dict:
+    """The port's retrieval step on the CPU in float64 for the first ``n``
+    candidates: the query's rows, the candidates' rows and the scores."""
+    from repro_torch.models.recsys import deepfm
+
+    hb = {"sparse": batch["sparse"].cpu(),
+          "cand_ids": batch["cand_ids"][:n].cpu()}
+    emb, _ = deepfm._embed(cfg, host, hb["sparse"])
+    return {"emb": emb, "cand": host["table"][hb["cand_ids"]],
+            "scores": deepfm.retrieval_step(cfg, host, hb)}
+
+
+def hold_serve(cfg, params, batch, scores, twin: dict) -> dict:
+    """A serve step's ``scores`` on the card against its f64 ``twin`` on
+    the twin's rows: the gathered rows bitwise (f32 -> f64 is exact), the
+    FM term, logits and scores at relative L2.  Returns the readings, with
+    ``ok``."""
+    from repro_torch.models.recsys import deepfm
+
+    n = twin["logits"].shape[0]
+    emb, _ = deepfm._embed(cfg, params, batch["sparse"])
+    fm = deepfm.fm_term(emb)[:n]
+    r = {"emb_bitwise": torch.equal(emb[:n].cpu().double(), twin["emb"]),
+         "fm": rel_err64(fm, twin["fm"]),
+         "logits": rel_err64(deepfm.forward(cfg, params, batch)[:n],
+                             twin["logits"]),
+         "scores": rel_err64(scores[:n], torch.sigmoid(twin["logits"])),
+         "fm_abs_mean": float(twin["fm"].abs().mean()),
+         "logits_abs_mean": float(twin["logits"].abs().mean())}
+    r["ok"] = (r["emb_bitwise"] and r["fm"] <= FM_TOL
+               and max(r["logits"], r["scores"]) <= RECSYS_TOL)
+    return r
+
+
+def hold_retrieval(cfg, params, batch, scores, twin: dict) -> dict:
+    """A retrieval step's ``scores`` on the card against its f64 ``twin``
+    on the twin's candidates: the query's rows and the candidates' rows
+    bitwise, the scores at relative L2."""
+    from repro_torch.models.recsys import deepfm
+
+    n = twin["scores"].shape[0]
+    emb, _ = deepfm._embed(cfg, params, batch["sparse"])
+    cand = params["table"][batch["cand_ids"][:n]]
+    r = {"emb_bitwise": (torch.equal(emb.cpu().double(), twin["emb"])
+                         and torch.equal(cand.cpu().double(), twin["cand"])),
+         "scores": rel_err64(scores[:n], twin["scores"]),
+         "scores_abs_mean": float(twin["scores"].abs().mean())}
+    r["ok"] = r["emb_bitwise"] and r["scores"] <= RECSYS_TOL
+    return r
+
+
+def recsys_phase(kernels, dev, profile: bool) -> dict:
+    """DeepFM's serve and retrieval steps at the full configuration (module
+    docstring, phase 5); returns the table and the serve_bulk batch for the
+    EmbeddingBag phase."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_bundle
+    from repro_torch.models.recsys import deepfm
+
+    spec = get_arch("deepfm")
+    cfg = spec.config
+    bundles = {name: build_bundle(spec, name) for name in RECSYS_CELLS}
+    log(f"recsys: {cfg.name} ({spec.source}): {cfg.n_sparse} fields x "
+        f"{cfg.vocab_per_field} rows x {cfg.embed_dim}, {cfg.n_dense} dense, "
+        f"MLP {cfg.n_sparse * cfg.embed_dim + cfg.n_dense}-"
+        f"{'-'.join(map(str, cfg.mlp_dims))}-1, not cut; random weights "
+        f"(seed {SEED})")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = bundles["serve_p99"].init_params(gen)
+    # At init the first-order weights are zero, and the 0.01-scale table
+    # makes the FM term about a tenth of the logits (0.0065 beside 0.07 in
+    # mean magnitude, H100): the hold draws the first-order weights (and
+    # the bias) at the table's scale, so that the lookups of lin_table are
+    # read, and holds the FM term on its own.
+    for name in ("lin_table", "lin_dense", "bias"):
+        params[name].normal_(0.0, 0.01, generator=gen)
+    torch.cuda.synchronize()
+    leaves = [params[k] for k in ("table", "lin_table", "lin_dense", "bias")]
+    leaves += [t for layer in params["mlp"] for t in layer.values()]
+    log(f"recsys: table {tuple(params['table'].shape)} "
+        f"({nbytes(params['table']) / 1e9:.3f} GB), lin_table "
+        f"{nbytes(params['lin_table']) / 1e6:.1f} MB, "
+        f"{sum(t.numel() for t in leaves)} weights drawn in "
+        f"{time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    host = to_host64(params)
+    log(f"recsys: f64 host twin of the weights in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    bulk = None
+    for name, bundle in bundles.items():
+        batch = bundle.make_batch(SEED)
+        n_items = (bundle.shape.n_candidates if bundle.step_kind == "retrieval"
+                   else bundle.shape.batch)
+        unit = "candidates" if bundle.step_kind == "retrieval" else "examples"
+        for k in kernels.values():
+            k.launches = 0
+        run_ms, outs = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(bundle.fn(params, batch))
+            torch.cuda.synchronize()
+            run_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = {n: k.launches for n, k in kernels.items()}
+        check(not any(counts.values()),
+              f"recsys {name}: a kernel launched {counts}; DeepFM looks its "
+              f"fields up with a row gather")
+        out = outs[-1]
+        check(out.shape == (n_items,), f"recsys {name}: {tuple(out.shape)}")
+        check(torch.equal(outs[1], out), f"recsys {name}: runs 2 and 3 differ")
+        check(bool(torch.isfinite(out).all()),
+              f"recsys {name}: scores not finite")
+        if bundle.step_kind == "serve":
+            check(bool(((out >= 0) & (out <= 1)).all()),
+                  f"recsys {name}: a score outside [0, 1]")
+        log(f"recsys {name}: first run {run_ms[0]:.3f} ms; runs 2, 3 "
+            f"{[round(t, 4) for t in run_ms[1:]]} ms = "
+            f"{[round(n_items / (t / 1e3), 1) for t in run_ms[1:]]} "
+            f"{unit}/s; launches {counts}")
+        if profile:
+            profile_run(f"recsys {name}", lambda: bundle.fn(params, batch))
+
+        # run 3's own scores against the f64 twin
+        n = RECSYS_HOLD[name]
+        t0 = time.perf_counter()
+        if bundle.step_kind == "serve":
+            hold, twin = hold_serve, serve_twin(cfg, host, batch, n)
+        else:
+            hold, twin = hold_retrieval, retrieval_twin(cfg, host, batch, n)
+        twin_s = time.perf_counter() - t0
+        r = hold(cfg, params, batch, out, twin)
+        del outs, out
+        log(f"recsys {name} against the f64 CPU twin ({n} rows, "
+            f"{twin_s:.1f} s): {r}; limits rel L2 {RECSYS_TOL}, FM {FM_TOL}")
+        check(r["ok"], f"recsys {name} differs from its f64 CPU twin")
+        # planted fault on the card: every field offset one row down (field
+        # 0's id 0 reads row -1, the table's last, as torch indexing wraps it)
+        offsets = deepfm.field_offsets
+        deepfm.field_offsets = lambda c, device=None: offsets(c, device) - 1
+        try:
+            bad = hold(cfg, params, batch, bundle.fn(params, batch), twin)
+        finally:
+            deepfm.field_offsets = offsets
+        log(f"recsys {name} planted fault (field offsets - 1): {bad}")
+        check(not bad["ok"], f"recsys {name}: the hold passes field offsets "
+                             f"one row off")
+        if bundle.step_kind == "serve":     # planted: a lower precision
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                bad = hold(cfg, params, batch, bundle.fn(params, batch), twin)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            log(f"recsys {name} planted fault (TF32 products): {bad}")
+            check(not bad["ok"], f"recsys {name}: the hold passes TF32 "
+                                 f"products")
+        if name == "serve_bulk":
+            bulk = batch
+    del host
+    return {"cfg": cfg, "table": params["table"], "bulk": bulk}
+
+
+def bag_phase(rec: dict, kernels, dev) -> dict:
+    """Kernel A5 through the lookup op on DeepFM's table (module docstring,
+    phase 6); returns A5's row of the kernels line."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+    from repro_torch.kernels.embedding_bag.kernel import (
+        embedding_bag_sum, embedding_bag_sum_plain)
+    from repro_torch.kernels.embedding_bag.ref import bag_mean
+    from repro_torch.models.recsys import deepfm
+
+    cfg, table = rec["cfg"], rec["table"]
+
+    def drive(what: str, calls: int, fn):
+        """Reset the counts, run ``fn``, check that A5 and nothing else
+        launched ``calls`` times; returns fn's result."""
+        for k in kernels.values():
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {n: k.launches for n, k in kernels.items()}
+        want = dict.fromkeys(kernels, 0) | {"embedding_bag_sum": calls}
+        check(counts == want, f"A5 {what}: launches {counts}, not {want}")
+        return out
+
+    def max_err(got, want) -> float:
+        return float((got.float() - want.float()).abs().max())
+
+    # (a) the serve_bulk batch's flat ids as bags: the op's main path
+    emb, bags = deepfm._embed(cfg, {"table": table}, rec["bulk"]["sparse"])
+    b, l = bags.shape
+    calls = 3
+    outs = drive("(a) serve_bulk bags", calls,
+                 lambda: [bag_ops.embedding_bag(bags, table)
+                          for _ in range(calls)])
+    got = outs[-1]
+    check(torch.equal(outs[1], got), "A5 (a): calls 2 and 3 differ")
+    del outs
+    want = embedding_bag_sum_plain(bags, table)
+    errs = [max_err(got, want)]
+    check(torch.equal(got, want), "A5 (a) differs from its plain version")
+    # against the serve path's emb.sum(1), summed in another order: two
+    # f32 sums of L terms differ by at most 2 (L - 1) eps sum |x|
+    eps = float(torch.finfo(torch.float32).eps)
+    gap = (got - emb.sum(dim=1)).abs()
+    tol = 2 * (l - 1) * eps * emb.abs().sum(dim=1)
+    log(f"A5 (a) bags {tuple(bags.shape)} over {tuple(table.shape)}: "
+        f"bitwise to the plain version; against emb.sum(1): max abs "
+        f"{float(gap.max())}, max share of the order bound "
+        f"{float((gap / tol.clamp_min(1e-30)).max())}")
+    check(bool((gap <= tol).all()), "A5 (a) differs from emb.sum(1) by more "
+                                    "than the summation-order bound")
+    del emb, gap, tol
+
+    # (b) the same bags cut to ragged lengths 0..L (about 1 in L + 1 empty)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    lengths = torch.randint(0, l + 1, (b, 1), generator=gen, device=dev)
+    slot = torch.arange(l, device=dev)[None, :]
+    rag = torch.where(slot < lengths, bags, -1).to(torch.int32)
+    s_k, m_k = drive("(b) ragged", 2, lambda: (
+        bag_ops.embedding_bag(rag, table),
+        bag_ops.embedding_bag(rag, table, mode="mean")))
+    s_p = embedding_bag_sum_plain(rag, table)
+    m_p = bag_mean(s_p, rag)
+    empty = (lengths[:, 0] == 0)
+    errs += [max_err(s_k, s_p), max_err(m_k, m_p)]
+    check(torch.equal(s_k, s_p) and torch.equal(m_k, m_p),
+          "A5 (b) differs from its plain version")
+    check(not s_k[empty].any() and not m_k[empty].any(),
+          "A5 (b): an all-padded bag is not zero")
+    log(f"A5 (b) ragged: {int(empty.sum())} of {b} bags all padded "
+        f"({100 * float(empty.float().mean()):.2f}%), "
+        f"{int((rag >= 0).sum())} valid slots; sum and mean bitwise")
+    del rag, s_k, m_k, s_p, m_p
+
+    # (c) bench_kernels' shape, f32 and bf16
+    for dtype in (torch.float32, torch.bfloat16):
+        t = torch.randn((10_000, 128), generator=gen, device=dev).to(dtype)
+        i = torch.randint(-1, 10_000, (256, 8), generator=gen, device=dev,
+                          dtype=torch.int32)
+        out = drive(f"(c) {dtype}", 1, lambda: embedding_bag_sum(i, t))
+        plain = embedding_bag_sum_plain(i, t)
+        errs.append(max_err(out, plain))
+        check(torch.equal(out, plain),
+              f"A5 (c) {dtype} differs from its plain version")
+        log(f"A5 (c) {dtype} (256, 8) over (10000, 128): bitwise")
+
+    # timing on (a)
+    valid = int((bags >= 0).sum())
+    b_ms, b_by = bound(valid * cfg.embed_dim * table.element_size()
+                       + nbytes(bags, got))
+    out = torch.empty_like(got)
+    ms = timed_ms(lambda: embedding_bag_sum(bags, table), 20)
+    kernel_ms = timed_ms(lambda: _build.launch(
+        "emb_bag_sum", dev, bags.data_ptr(), table.data_ptr(),
+        out.data_ptr(), b, l, cfg.embed_dim, 0), 20)
+    check(torch.equal(out, got), "A5 launched bare differs")
+    check_ms = timed_ms(lambda: int(bags.max()), 20)
+    plain_ms = timed_ms(lambda: embedding_bag_sum_plain(bags, table), 3)
+    # the one-call yardstick (timed here only; the port never calls it)
+    idx64, weights = bags.clamp(min=0).long(), (bags >= 0).to(table.dtype)
+    lib = lambda: F.embedding_bag(idx64, table, mode="sum",
+                                  per_sample_weights=weights)
+    lib_err = float((lib() - got).abs().max())
+    library_ms = timed_ms(lib, 20)
+    log(f"A5 (a): {ms} ms (the wrapper: index check + launch), kernel alone "
+        f"{kernel_ms} ms, index check {check_ms} ms, plain {plain_ms} ms, "
+        f"F.embedding_bag {library_ms} ms (max abs err vs A5 {lib_err}), "
+        f"bound {b_ms} ms ({b_by}; {valid} valid rows)")
+    return {
+        "name": "embedding_bag_sum", "route": "cuda",
+        "source": "src/repro_torch/csrc/embedding_bag_kernels.cu",
+        "replaces": "src/repro/kernels/embedding_bag/kernel.py:28",
+        "launches": calls, "max_abs_err": max(errs),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": library_ms,
+        "shape": f"bags {tuple(bags.shape)} int32 (serve_bulk flat ids) over "
+                 f"the table {tuple(table.shape)} f32",
+        "kernel_ms": kernel_ms, "check_ms": check_ms}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -486,15 +831,18 @@ def main(argv=None) -> int:
                                                      bitpack_words_plain,
                                                      bsr_spmm)
     from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_sum
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.kernels.fold_update import fold_update, fold_update_plain
 
-    torch.backends.cuda.matmul.allow_tf32 = False   # the plain A2 is f32 bmm
+    # the plain A2 is an f32 bmm, DeepFM's MLP f32 matrix products
+    torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     kernels = {"fold_update": fold_update, "bsr_spmm": bsr_spmm,
                "bitpack_words": bitpack_words,
-               "flash_attention": flash_attention}
+               "flash_attention": flash_attention,
+               "embedding_bag_sum": embedding_bag_sum}
 
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
@@ -578,6 +926,16 @@ def main(argv=None) -> int:
     lay = prefill_phase(kernels, dev, args.profile)
     log("prefill: logits finite, runs 2 == 3, A4 12 a run, within "
         "tolerance of the plain attention: ok")
+
+    # --------------------------------------------------------------- recsys
+    rec = recsys_phase(kernels, dev, args.profile)
+    log("recsys: serve and retrieval runs 2 == 3, held to the f64 CPU twin, "
+        "the planted offset fault fails: ok")
+
+    # -------------------------------------------------------- embedding bag
+    bag_row = bag_phase(rec, kernels, dev)
+    del rec
+    log("embedding bag: A5 bitwise to its plain version on (a), (b), (c): ok")
 
     # -------------------------------------------------------------- kernels
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -671,6 +1029,7 @@ def main(argv=None) -> int:
         "shape": f"mask {tuple(mask.shape)}"})
 
     rows.append(attention_rows(lay, dev))
+    rows.append(bag_row)
 
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": rows}), flush=True)

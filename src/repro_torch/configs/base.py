@@ -1,8 +1,8 @@
 """Configurations — the port's copy of the parts of ``repro.configs.base``
 that its slices run: the BFS workloads (the paper's own experiments, §4,
-plus the Graph500 Kronecker graph) and the LM family's dataclasses and
-shape cells.  ``get_arch`` knows only the architectures the port has
-ported; the JAX package's registry has more."""
+plus the Graph500 Kronecker graph) and the LM and RecSys families'
+dataclasses and shape cells.  ``get_arch`` knows only the architectures
+the port has ported; the JAX package's registry has more."""
 
 from __future__ import annotations
 
@@ -99,6 +99,42 @@ LM_SHAPES = (
 
 
 # ---------------------------------------------------------------------------
+# RecSys family
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    n_sparse: int                  # categorical fields
+    n_dense: int                   # dense features (Criteo: 13)
+    embed_dim: int
+    vocab_per_field: int           # rows per field table
+    mlp_dims: tuple
+    interaction: str = "fm"
+    dtype: str = "float32"
+
+    @property
+    def total_rows(self) -> int:
+        return self.n_sparse * self.vocab_per_field
+
+
+@dataclasses.dataclass(frozen=True)
+class RecsysShape:
+    name: str
+    step: str                      # train | serve | retrieval
+    batch: int
+    n_candidates: int = 0
+
+
+RECSYS_SHAPES = (
+    RecsysShape("train_batch", "train", 65_536),
+    RecsysShape("serve_p99", "serve", 512),
+    RecsysShape("serve_bulk", "serve", 262_144),
+    RecsysShape("retrieval_cand", "retrieval", 1, n_candidates=1_000_000),
+)
+
+
+# ---------------------------------------------------------------------------
 # BFS workloads (the paper's own experiments, §4)
 # ---------------------------------------------------------------------------
 
@@ -137,22 +173,23 @@ def bfs_workload(name: str) -> BFSWorkload:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                    # lm
+    family: str                    # lm | recsys
     config: Any
     reduced: Any
     source: str                    # provenance note of the configuration
 
     @property
     def shapes(self) -> Sequence:
-        return LM_SHAPES                # the one family the port supports
+        return {"lm": LM_SHAPES, "recsys": RECSYS_SHAPES}[self.family]
 
 
-ARCH_IDS = ("gemma3_12b",)
+ARCH_IDS = ("gemma3_12b", "deepfm")
 
 
 def get_arch(arch_id: str) -> ArchSpec:
-    """The port's spec of ``arch_id`` (``gemma3_12b`` or ``gemma3-12b``);
-    ``KeyError`` naming the supported architectures for any other."""
+    """The port's spec of ``arch_id`` (``gemma3_12b`` or ``gemma3-12b``,
+    ``deepfm``); ``KeyError`` naming the supported architectures for any
+    other."""
     arch_id = arch_id.replace("-", "_")
     if arch_id not in ARCH_IDS:
         raise KeyError(f"the port supports {list(ARCH_IDS)}, not {arch_id!r}")

@@ -11,4 +11,6 @@ launches in an integer attribute, ``<wrapper>.launches``.
   A3 ``bsr_spmm.kernel.bitpack_words`` — candidate mask -> packed words
   A4 ``flash_attention.kernel.flash_attention`` — causal/windowed GQA
      attention forward (the LM prefill)
+  A5 ``embedding_bag.kernel.embedding_bag_sum`` — sum-mode EmbeddingBag
+     (the recsys lookup op)
 """

@@ -39,6 +39,8 @@ _SIGNATURES = {
     "bfs_bitpack": [_P] * 2 + [_N] * 2 + [_P],
     # q, k, v, o, b, hq, hkv, sq, skv, dh, bf16, causal, window, scale, stream
     "attn_flash_fwd": [_P] * 4 + [_N] * 6 + [_I] * 2 + [_N, _F, _P],
+    # idx, table, out, b, l, d, bf16, stream
+    "emb_bag_sum": [_P] * 3 + [_N] * 3 + [_I, _P],
 }
 
 _build_lock = threading.Lock()

@@ -1,12 +1,18 @@
 """Step builder: (architecture x shape) -> step function and inputs — the
-port of ``repro.launch.steps`` for the LM prefill step.
+port of ``repro.launch.steps`` for the LM prefill step and the RecSys
+serve and retrieval steps.
 
-``build_bundle(spec, "prefill_32k", reduced=..., device=...)`` gives
-``init_params(generator)``, ``make_batch(seed)`` (a prompt of ``seq_len``
-tokens on the device, as in the JAX bundle) and ``fn(params, batch)``, which
-returns ``(last-token logits, cache)``.  Other families and steps are
-later slices and raise ``NotImplementedError``.  The JAX bundle's
-``input_specs`` (abstract inputs for the XLA dry-run) has no counterpart.
+``build_bundle(spec, shape, reduced=..., device=...)`` gives
+``init_params(generator)``, ``make_batch(seed)`` (the JAX bundle's inputs,
+as tensors on the device) and ``fn(params, batch)``:
+
+  lm      prefill    -> (last-token logits, cache)
+  recsys  serve      -> (B,) sigmoid scores
+          retrieval  -> (n_candidates,) scores
+
+Other families and steps are later slices and raise
+``NotImplementedError``.  The JAX bundle's ``input_specs`` (abstract
+inputs for the XLA dry-run) has no counterpart.
 """
 
 from __future__ import annotations
@@ -16,21 +22,23 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.configs.base import ArchSpec, LMShape, get_shape
+from repro_torch.configs.base import ArchSpec, LMShape, RecsysShape, get_shape
 from repro_torch.data import synthetic as syn
 from repro_torch.models import transformer as tf
+from repro_torch.models.recsys import deepfm
 
 
 @dataclasses.dataclass
 class StepBundle:
     arch_id: str
     family: str
-    step_kind: str           # prefill
+    step_kind: str           # prefill | serve | retrieval
     cfg: Any
     shape: Any
     init_params: Callable    # torch.Generator -> params
     make_state: Callable     # params -> state (the params, for serving)
-    fn: Callable             # (state, batch, use_kernel=True) -> outputs
+    fn: Callable             # (state, batch) -> outputs; the LM prefill
+                             # also takes use_kernel=True
     make_batch: Callable     # (seed) -> batch of tensors on the device
 
 
@@ -38,6 +46,9 @@ def reduce_shape(shape, family: str):
     """Tiny same-structure shape for CPU smoke tests."""
     if family == "lm":
         return LMShape(shape.name, shape.step, seq_len=32, global_batch=2)
+    if family == "recsys":
+        return RecsysShape(shape.name, shape.step, batch=64,
+                           n_candidates=256 if shape.step == "retrieval" else 0)
     raise NotImplementedError(f"family {family!r}: later slice")
 
 
@@ -63,6 +74,28 @@ def _lm_bundle(spec: ArchSpec, shape: LMShape, cfg,
         make_state=lambda p: p, fn=fn, make_batch=make_batch)
 
 
+def _recsys_bundle(spec: ArchSpec, shape: RecsysShape, cfg,
+                   device: torch.device) -> StepBundle:
+    if shape.step == "train":
+        raise NotImplementedError("recsys train step: a later slice "
+                                  "(ROADMAP Queue A 13)")
+    step = (deepfm.serve_step if shape.step == "serve"
+            else deepfm.retrieval_step)
+
+    def fn(params, batch):
+        return step(cfg, params, batch)
+
+    def make_batch(seed=0):
+        arrays = syn.recsys_batch(cfg, shape.batch, step=shape.step,
+                                  n_candidates=shape.n_candidates, seed=seed)
+        return {k: torch.from_numpy(a).to(device) for k, a in arrays.items()}
+
+    return StepBundle(
+        spec.arch_id, "recsys", shape.step, cfg, shape,
+        init_params=lambda generator: deepfm.init_params(cfg, generator),
+        make_state=lambda p: p, fn=fn, make_batch=make_batch)
+
+
 def build_bundle(spec: ArchSpec, shape_or_name, *, reduced: bool = False,
                  device="cuda") -> StepBundle:
     """The step of one (architecture, shape) cell on ``device`` (the card
@@ -72,10 +105,10 @@ def build_bundle(spec: ArchSpec, shape_or_name, *, reduced: bool = False,
     cfg = spec.reduced if reduced else spec.config
     if reduced:
         shape = reduce_shape(shape, spec.family)
-    if spec.family != "lm":
-        raise NotImplementedError(f"family {spec.family!r}: later slice")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_bundle: no CUDA card; pass device='cpu' "
                            "to run the plain path on the CPU")
-    return _lm_bundle(spec, shape, cfg, device)
+    if spec.family == "lm":
+        return _lm_bundle(spec, shape, cfg, device)
+    return _recsys_bundle(spec, shape, cfg, device)

@@ -1,10 +1,13 @@
-"""Carry LM weights between the JAX package's layout and the port's.
+"""Carry weights between the JAX package's layout and the port's.
 
 ``from_jax_params`` takes the numpy tree of
 ``repro.models.transformer.init_params`` (``jax.tree.map(np.asarray,
 params)``: nested dicts and lists of arrays) and returns the port's
-``Transformer``; ``to_numpy`` is its inverse.  bf16 leaves cross as their
-16-bit patterns, so both directions are bitwise.  This module imports
+``Transformer``; ``to_numpy`` is its inverse.  ``deepfm_from_jax_params``
+and ``deepfm_to_numpy`` do the same for DeepFM's tree (``table``,
+``lin_table``, ``lin_dense``, ``bias``, ``mlp[i]["w"/"b"]``), which the
+port keeps as a dict of tensors.  bf16 leaves cross as their 16-bit
+patterns, so every direction is bitwise.  This module imports
 neither JAX nor the JAX package; ``to_numpy`` needs ``ml_dtypes`` (which
 JAX installs) only for a bf16 leaf.
 """
@@ -53,3 +56,21 @@ def to_numpy(params: Transformer) -> dict:
     """The JAX-layout numpy tree of ``params`` (``from_jax_params``'s
     inverse)."""
     return _map(_leaf_to_numpy, params.tree())
+
+
+DEEPFM_KEYS = ("table", "lin_table", "lin_dense", "bias", "mlp")
+
+
+def deepfm_from_jax_params(tree, device) -> dict:
+    """The port's DeepFM weights from the JAX package's (as numpy), on
+    ``device``."""
+    if sorted(tree) != sorted(DEEPFM_KEYS):
+        raise ValueError(f"a DeepFM tree has keys {DEEPFM_KEYS}, not "
+                         f"{tuple(tree)}")
+    return _map(lambda a: _leaf_to_torch(a, device), tree)
+
+
+def deepfm_to_numpy(params: dict) -> dict:
+    """The numpy tree of DeepFM ``params`` (``deepfm_from_jax_params``'s
+    inverse)."""
+    return _map(_leaf_to_numpy, params)

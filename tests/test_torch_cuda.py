@@ -1,5 +1,5 @@
-"""The port's CUDA kernels, engine and LM prefill on the card, against
-their plain torch versions and the serial oracle.  Imports only the port (no JAX), so
+"""The port's CUDA kernels, engine, LM prefill and DeepFM steps on the
+card, against their plain torch versions and the serial oracle.  Imports only the port (no JAX), so
 the machine with the card runs it as it is:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -21,11 +21,18 @@ from repro_torch.kernels.bsr_spmm.kernel import (bitpack_words,
                                                  bitpack_words_plain,
                                                  block_row_ptr, bsr_spmm)
 from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref
+from repro_torch.kernels.embedding_bag import ops as bag_ops
+from repro_torch.kernels.embedding_bag.kernel import (embedding_bag_sum,
+                                                      embedding_bag_sum_plain)
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fold_update import fold_update, fold_update_plain
+from repro_torch.launch.steps import build_bundle
 from repro_torch.models import transformer as tf
+from repro_torch.models.convert import (deepfm_from_jax_params,
+                                        deepfm_to_numpy)
+from repro_torch.models.recsys import deepfm
 
 pytestmark = pytest.mark.cuda
 
@@ -186,3 +193,71 @@ def test_prefill_on_the_card_runs_a4_once_per_layer(cuda):
     assert torch.equal(cache[0]["k"][0], cache_p[0]["k"][0])
     rel = float((logits.float() - plain.float()).norm() / plain.float().norm())
     assert rel < 2.0 ** -4, rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,v,d", [
+    (1000, 39, 5000, 10),      # DeepFM's bag: 40-byte rows, not 16-aligned
+    (256, 8, 10_000, 128),     # bench_kernels' shape
+    (7, 3, 50, 1), (5, 17, 40, 300), (3, 1, 9, 257), (100, 9, 64, 8)])
+def test_embedding_bag_kernel_is_bitwise_the_plain_version(cuda, dtype, b, l,
+                                                           v, d):
+    """Both add a bag's rows in f32 in slot order: bitwise in f32 and bf16,
+    with about one slot in eight a pad and some bags all pads."""
+    gen = torch.Generator(device=cuda).manual_seed(b * l + d)
+    table = torch.randn((v, d), generator=gen, device=cuda).to(dtype)
+    idx = torch.randint(0, v, (b, l), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    pads = torch.rand((b, l), generator=gen, device=cuda) < 0.125
+    idx = torch.where(pads, -1 - idx % 3, idx)         # any negative pads
+    idx[: max(1, b // 10)] = -1
+    before = embedding_bag_sum.launches
+    got = embedding_bag_sum(idx, table)
+    want = embedding_bag_sum_plain(idx, table)
+    torch.cuda.synchronize()
+    assert embedding_bag_sum.launches == before + 1
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert not got[: max(1, b // 10)].any()
+    mean = bag_ops.embedding_bag(idx, table, mode="mean")
+    assert torch.equal(mean, bag_ops.embedding_bag(idx.cpu(), table.cpu(),
+                                                   mode="mean").to(cuda))
+
+
+def test_embedding_bag_kernel_edges(cuda):
+    """Empty shapes launch nothing; a pad over an inf in row 0 adds
+    nothing; an index past the table raises before any launch."""
+    table = torch.tensor([[float("inf"), 1.0], [2.0, 3.0]], device=cuda)
+    before = embedding_bag_sum.launches
+    for b, l in ((0, 4), (3, 0)):
+        out = embedding_bag_sum(torch.zeros((b, l), dtype=torch.int32,
+                                            device=cuda), table)
+        assert out.shape == (b, 2) and not out.any()
+    assert embedding_bag_sum.launches == before
+    idx = torch.tensor([[1, -1]], dtype=torch.int32, device=cuda)
+    assert embedding_bag_sum(idx, table).tolist() == [[2.0, 3.0]]
+    with pytest.raises(IndexError, match="out of range"):
+        embedding_bag_sum(idx + 2, table)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        embedding_bag_sum(idx, table.half())
+    assert embedding_bag_sum.launches == before + 1
+
+
+def test_deepfm_steps_on_the_card_match_the_cpu(cuda):
+    """REDUCED DeepFM, the same weights on the card and on the CPU: the
+    gathered rows bitwise, the scores within f32 rounding."""
+    spec = get_arch("deepfm")
+    for shape in ("serve_p99", "retrieval_cand"):
+        on_card = build_bundle(spec, shape, reduced=True)
+        on_cpu = build_bundle(spec, shape, reduced=True, device="cpu")
+        params = on_card.init_params(torch.Generator(device=cuda
+                                                     ).manual_seed(0))
+        params["lin_table"].normal_(0.0, 0.1)
+        host = deepfm_from_jax_params(deepfm_to_numpy(params), "cpu")
+        batch, host_batch = on_card.make_batch(0), on_cpu.make_batch(0)
+        emb, _ = deepfm._embed(on_card.cfg, params, batch["sparse"])
+        emb_h, _ = deepfm._embed(on_cpu.cfg, host, host_batch["sparse"])
+        assert torch.equal(emb.cpu(), emb_h)
+        got = on_card.fn(params, batch).cpu()
+        want = on_cpu.fn(host, host_batch)
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
