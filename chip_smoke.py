@@ -688,7 +688,6 @@ def bag_phase(rec: dict, kernels, dev) -> dict:
     phase 6); returns A5's row of the kernels line."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import _build
     from repro_torch.kernels.embedding_bag import ops as bag_ops
     from repro_torch.kernels.embedding_bag.kernel import (
         embedding_bag_sum, embedding_bag_sum_plain)
@@ -699,7 +698,7 @@ def bag_phase(rec: dict, kernels, dev) -> dict:
 
     def drive(what: str, calls: int, fn):
         """Reset the counts, run ``fn``, check that A5 and nothing else
-        launched ``calls`` times; returns fn's result."""
+        launched ``calls`` times; returns fn's result and the counts."""
         for k in kernels.values():
             k.launches = 0
         out = fn()
@@ -707,7 +706,7 @@ def bag_phase(rec: dict, kernels, dev) -> dict:
         counts = {n: k.launches for n, k in kernels.items()}
         want = dict.fromkeys(kernels, 0) | {"embedding_bag_sum": calls}
         check(counts == want, f"A5 {what}: launches {counts}, not {want}")
-        return out
+        return out, counts
 
     def max_err(got, want) -> float:
         return float((got.float() - want.float()).abs().max())
@@ -716,9 +715,9 @@ def bag_phase(rec: dict, kernels, dev) -> dict:
     emb, bags = deepfm._embed(cfg, {"table": table}, rec["bulk"]["sparse"])
     b, l = bags.shape
     calls = 3
-    outs = drive("(a) serve_bulk bags", calls,
-                 lambda: [bag_ops.embedding_bag(bags, table)
-                          for _ in range(calls)])
+    outs, counts = drive("(a) serve_bulk bags", calls,
+                         lambda: [bag_ops.embedding_bag(bags, table)
+                                  for _ in range(calls)])
     got = outs[-1]
     check(torch.equal(outs[1], got), "A5 (a): calls 2 and 3 differ")
     del outs
@@ -743,7 +742,7 @@ def bag_phase(rec: dict, kernels, dev) -> dict:
     lengths = torch.randint(0, l + 1, (b, 1), generator=gen, device=dev)
     slot = torch.arange(l, device=dev)[None, :]
     rag = torch.where(slot < lengths, bags, -1).to(torch.int32)
-    s_k, m_k = drive("(b) ragged", 2, lambda: (
+    (s_k, m_k), _ = drive("(b) ragged", 2, lambda: (
         bag_ops.embedding_bag(rag, table),
         bag_ops.embedding_bag(rag, table, mode="mean")))
     s_p = embedding_bag_sum_plain(rag, table)
@@ -764,7 +763,7 @@ def bag_phase(rec: dict, kernels, dev) -> dict:
         t = torch.randn((10_000, 128), generator=gen, device=dev).to(dtype)
         i = torch.randint(-1, 10_000, (256, 8), generator=gen, device=dev,
                           dtype=torch.int32)
-        out = drive(f"(c) {dtype}", 1, lambda: embedding_bag_sum(i, t))
+        out, _ = drive(f"(c) {dtype}", 1, lambda: embedding_bag_sum(i, t))
         plain = embedding_bag_sum_plain(i, t)
         errs.append(max_err(out, plain))
         check(torch.equal(out, plain),
@@ -775,12 +774,7 @@ def bag_phase(rec: dict, kernels, dev) -> dict:
     valid = int((bags >= 0).sum())
     b_ms, b_by = bound(valid * cfg.embed_dim * table.element_size()
                        + nbytes(bags, got))
-    out = torch.empty_like(got)
     ms = timed_ms(lambda: embedding_bag_sum(bags, table), 20)
-    kernel_ms = timed_ms(lambda: _build.launch(
-        "emb_bag_sum", dev, bags.data_ptr(), table.data_ptr(),
-        out.data_ptr(), b, l, cfg.embed_dim, 0), 20)
-    check(torch.equal(out, got), "A5 launched bare differs")
     check_ms = timed_ms(lambda: int(bags.max()), 20)
     plain_ms = timed_ms(lambda: embedding_bag_sum_plain(bags, table), 3)
     # the one-call yardstick (timed here only; the port never calls it)
@@ -789,20 +783,21 @@ def bag_phase(rec: dict, kernels, dev) -> dict:
                                   per_sample_weights=weights)
     lib_err = float((lib() - got).abs().max())
     library_ms = timed_ms(lib, 20)
-    log(f"A5 (a): {ms} ms (the wrapper: index check + launch), kernel alone "
-        f"{kernel_ms} ms, index check {check_ms} ms, plain {plain_ms} ms, "
+    log(f"A5 (a): {ms} ms (the wrapper: index check + launch), index check "
+        f"alone {check_ms} ms, so the launch {ms - check_ms} ms; plain "
+        f"{plain_ms} ms, "
         f"F.embedding_bag {library_ms} ms (max abs err vs A5 {lib_err}), "
         f"bound {b_ms} ms ({b_by}; {valid} valid rows)")
     return {
         "name": "embedding_bag_sum", "route": "cuda",
         "source": "src/repro_torch/csrc/embedding_bag_kernels.cu",
         "replaces": "src/repro/kernels/embedding_bag/kernel.py:28",
-        "launches": calls, "max_abs_err": max(errs),
+        "launches": counts["embedding_bag_sum"], "max_abs_err": max(errs),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": library_ms,
         "shape": f"bags {tuple(bags.shape)} int32 (serve_bulk flat ids) over "
                  f"the table {tuple(table.shape)} f32",
-        "kernel_ms": kernel_ms, "check_ms": check_ms}
+        "check_ms": check_ms}
 
 
 def main(argv=None) -> int:

@@ -10,7 +10,7 @@ sum (which multiplies a pad's row 0 by 0, and so gives NaN over a
 non-finite row 0 where these give the oracle's value).  An index >= V
 raises in both (``ref.check_indices``): one reduction over the indices
 and a host read, which on the serve_bulk bags (262,144 x 39) takes
-0.055 ms beside the kernel's 0.465 ms (NVIDIA H100 80GB HBM3, 700 W,
+0.053 ms of the wrapper's 0.591 ms (NVIDIA H100 80GB HBM3, 700.00 W,
 ``chip_smoke.py``).
 """
 
@@ -42,16 +42,16 @@ def embedding_bag_sum_plain(indices: torch.Tensor,
 def embedding_bag_sum(indices: torch.Tensor,
                       table: torch.Tensor) -> torch.Tensor:
     """indices: (B, L) int32, any negative index a pad; table: (V, D) f32
-    or bf16.  Returns (B, D) in the table's dtype (f32 accumulation); an
-    empty bag gives zeros."""
-    if table.device.type == "cpu":
-        return embedding_bag_sum_plain(indices, table)
-    check_indices(indices, table)
+    or bf16 (another dtype raises on either device).  Returns (B, D) in the
+    table's dtype (f32 accumulation); an empty bag gives zeros."""
     if table.dtype not in _DTYPES:
         raise ValueError(f"embedding_bag_sum takes an f32 or bf16 table, "
                          f"not {table.dtype}")
-    if max(indices.shape[0], indices.shape[1], table.shape[1]) > INT_MAX:
+    if max((*indices.shape, *table.shape[1:]), default=0) > INT_MAX:
         raise ValueError(f"embedding_bag_sum takes B, L, D <= {INT_MAX}")
+    if table.device.type == "cpu":
+        return embedding_bag_sum_plain(indices, table)
+    check_indices(indices, table)
     dev = _build.require_cuda("embedding_bag_sum", indices, table)
     b, l = indices.shape
     d = table.shape[1]

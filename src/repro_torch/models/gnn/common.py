@@ -1,34 +1,31 @@
 """MLPs — the port's copy of ``init_mlp`` and ``apply_mlp`` from
-``repro.models.gnn.common`` (DeepFM's deep branch uses them).  The rest of
-the GNN code is a later slice.  Layers are a list of dicts
-``{"w": (d_in, d_out), "b": (d_out,)}``, the JAX package's layout."""
+``repro.models.gnn.common`` (DeepFM's deep branch uses them), at the one
+setting DeepFM uses: f32 weights, a bias on every layer, ReLU between the
+layers and none after the last.  The rest of the GNN code is a later slice.
+Layers are a list of dicts ``{"w": (d_in, d_out), "b": (d_out,)}``, the
+JAX package's layout."""
 
 from __future__ import annotations
 
 import torch
 
 
-def init_mlp(generator: torch.Generator, dims, dtype=torch.float32,
-             bias: bool = True) -> list:
-    """Weights normal * fan_in ** -0.5 (drawn in f32, then cast), biases
-    zero, on ``generator``'s device.  The draws differ from ``jax.random``'s;
-    tests carry weights across with ``models.convert``."""
+def init_mlp(generator: torch.Generator, dims) -> list:
+    """Weights normal * fan_in ** -0.5, biases zero, f32 on
+    ``generator``'s device.  The draws differ from ``jax.random``'s; tests
+    carry weights across with ``models.convert``."""
     dev = generator.device
     layers = []
     for d_in, d_out in zip(dims[:-1], dims[1:]):
         w = torch.randn((d_in, d_out), generator=generator, device=dev)
-        w = w.mul_(d_in ** -0.5).to(dtype)
-        layers.append({"w": w, "b": torch.zeros(d_out, dtype=dtype,
-                                                device=dev)}
-                      if bias else {"w": w})
+        layers.append({"w": w.mul_(d_in ** -0.5),
+                       "b": torch.zeros(d_out, device=dev)})
     return layers
 
 
-def apply_mlp(layers, x, act=torch.relu, final_act: bool = False):
+def apply_mlp(layers, x):
     for i, layer in enumerate(layers):
-        x = x @ layer["w"]
-        if "b" in layer:
-            x = x + layer["b"]
-        if i < len(layers) - 1 or final_act:
-            x = act(x)
+        x = x @ layer["w"] + layer["b"]
+        if i < len(layers) - 1:
+            x = torch.relu(x)
     return x

@@ -8,6 +8,8 @@ fields are looked up with a row gather, as in the JAX package; the
 EmbeddingBag kernel (A5, ``kernels/embedding_bag``) is the op for
 multi-hot bags, which this model does not have.  Parameters are a dict of
 tensors in the JAX package's layout (``models.convert`` carries them).
+The FM interaction in f32 only: a config with another ``interaction`` or
+``dtype`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,15 @@ import torch
 
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.models.gnn.common import apply_mlp, init_mlp
+
+
+def _check_supported(cfg: RecsysConfig) -> None:
+    if cfg.interaction != "fm":
+        raise NotImplementedError(f"interaction {cfg.interaction!r}: only "
+                                  f"'fm' is ported")
+    if cfg.dtype != "float32":
+        raise NotImplementedError(f"dtype {cfg.dtype!r}: only float32 is "
+                                  f"ported")
 
 
 def field_offsets(cfg: RecsysConfig, device=None) -> torch.Tensor:
@@ -27,6 +38,7 @@ def init_params(cfg: RecsysConfig, generator: torch.Generator) -> dict:
     """Random weights on ``generator``'s device, as the JAX package draws
     them: the table normal * 0.01, the first-order weights and bias zero,
     the MLP by ``init_mlp``."""
+    _check_supported(cfg)
     dev = generator.device
     rows, d = cfg.total_rows, cfg.embed_dim
     mlp_in = cfg.n_sparse * d + cfg.n_dense
@@ -55,6 +67,7 @@ def fm_term(emb: torch.Tensor) -> torch.Tensor:
 
 def forward(cfg: RecsysConfig, params, batch):
     """batch: sparse (B, F) int32, dense (B, n_dense) f32 -> logits (B,)."""
+    _check_supported(cfg)
     emb, flat = _embed(cfg, params, batch["sparse"])       # (B, F, D)
     b = emb.shape[0]
     # first-order term
@@ -75,6 +88,7 @@ def retrieval_step(cfg: RecsysConfig, params, batch):
     table).  batch: sparse (1, F) for the query context, cand_ids (Ncand,).
     Returns (Ncand,) scores: one (1, D) x (D, Ncand) product plus the
     per-item first-order weight; no per-candidate loop."""
+    _check_supported(cfg)
     emb, _ = _embed(cfg, params, batch["sparse"])         # (1, F, D)
     user_vec = emb[:, 1:, :].sum(dim=1)                   # context fields
     cand = params["table"][batch["cand_ids"]]             # (Ncand, D)

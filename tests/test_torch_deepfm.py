@@ -103,7 +103,20 @@ def test_mlp_matches_jax():
                                                           (400, 1)]
     assert not drawn[0]["b"].any()
     assert abs(float(drawn[0]["w"].std()) - 403 ** -0.5) < 1e-3
-    assert "b" not in init_mlp(torch.Generator(), (4, 2), bias=False)[0]
+    assert all(layer["w"].dtype == layer["b"].dtype == torch.float32
+               for layer in drawn)
+
+
+@pytest.mark.parametrize("field,value", [("interaction", "dcn"),
+                                         ("dtype", "bfloat16")])
+def test_a_config_the_port_does_not_implement_raises(field, value):
+    """Only the FM interaction in f32 is ported; another value raises
+    rather than being ignored."""
+    cfg = dataclasses.replace(get_arch("deepfm").reduced, **{field: value})
+    with pytest.raises(NotImplementedError, match=field):
+        deepfm.init_params(cfg, torch.Generator())
+    with pytest.raises(NotImplementedError, match=field):
+        deepfm.forward(cfg, {}, {})
 
 
 def test_init_params_draws_as_the_jax_package():

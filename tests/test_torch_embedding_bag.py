@@ -181,6 +181,10 @@ def test_wrapper_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="max"):
         ops.embedding_bag(torch.zeros((2, 3), dtype=torch.int32), table,
                           mode="max")
+    for dtype in (torch.float16, torch.float64):     # as on a CUDA table
+        with pytest.raises(ValueError, match="f32 or bf16"):
+            embedding_bag_sum(torch.zeros((2, 3), dtype=torch.int32),
+                              table.to(dtype))
 
 
 @pytest.mark.parametrize("seed", range(4))
