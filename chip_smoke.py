@@ -8,10 +8,12 @@ and the EmbeddingBag op) on one card.
 Phases (any failed check raises and the script exits non-zero):
 
 1. build — compiles every ``src/repro_torch/csrc/*.cu`` (the BFS kernels,
-   the attention kernel and the EmbeddingBag kernel, one nvcc each, in
+   the attention kernels and the EmbeddingBag kernel, one nvcc each, in
    parallel) for sm_90a into
    one library under ``build/kernels/`` and prints the compiler's
-   register report and the card's name and power limit.
+   register report and the card's name and power limit; counts the
+   ``HGMMA`` and ``UTMALDG`` instructions in the SASS of the bf16 A4
+   kernel (``cuobjdump -sass``) and fails if either is 0.
 2. path 1 — ``rmat_1m`` (Graph500 Kronecker, scale 20, edge factor 16)
    with the default dense expansion, S = 64 roots: once on a 4-shard
    ``LocalMesh`` with default options (packed wire, fused tail = kernel
@@ -27,7 +29,8 @@ Phases (any failed check raises and the script exits non-zero):
    256, d_ff 15360, vocab 262144, bf16) through ``build_bundle(...,
    "prefill_32k")``, cut to 12 layers (two 5 local + 1 global groups) and
    batch 2 x seq 8192, with random weights from a seeded generator on the
-   card.  Three runs, each with kernel A4 launched once per layer; runs 2
+   card.  Three runs, each with kernel A4's bf16 route launched once per
+   layer; runs 2
    and 3 bitwise equal; then the same prefill with the plain attention,
    held to a stated tolerance (the first layer's cache bitwise), which
    two planted faults (every local window one key off) must fail.
@@ -51,7 +54,8 @@ Phases (any failed check raises and the script exits non-zero):
    the shapes of the paths (A4 also each (batch, head) slice, with the
    window one key off failing), then timed beside its bound (and, for A2,
    beside ``torch.sparse_bsr_tensor @ x``; for A4, beside
-   ``F.scaled_dot_product_attention`` on the global layer's shape; for A5,
+   ``F.scaled_dot_product_attention`` on the global layer's shape and, with
+   the window as a boolean ``attn_mask``, on the local layer's; for A5,
    beside ``F.embedding_bag`` with per-slot weights on (a)).
 
 The last line is ``{"ok": true, "device": {...}}``; before it come one
@@ -166,12 +170,44 @@ def scipy_check(src, dst, n, roots, dist_host, inf):
           "dist differs from scipy's BFS on the first four roots")
 
 
+def reset_counts(kernels) -> None:
+    """Set every kernel's launch counts (A4's per-route ones too) to 0."""
+    for k in kernels.values():
+        for attr in ("launches", "launches_bf16", "launches_f32"):
+            if hasattr(k, attr):
+                setattr(k, attr, 0)
+
+
+def a4_sass_counts(lib: Path) -> dict:
+    """``HGMMA`` and ``UTMALDG`` instructions, and the highest register
+    named, in the SASS of each bf16 A4 kernel (``flash_fwd_wgmma<Dh>``,
+    keyed by Dh) of the built library."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*flash_fwd_wgmmaILi(\d+)E", line)
+        if m or "Function : " in line:
+            fn = int(m.group(1)) if m else None
+            if fn:
+                counts[fn] = {"HGMMA": 0, "UTMALDG": 0, "max_reg": 0}
+        elif fn:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[fn][op] += op in line
+            regs = [int(r) for r in re.findall(r"\bR(\d+)\b", line)]
+            counts[fn]["max_reg"] = max([counts[fn]["max_reg"], *regs])
+    return counts
+
+
 def drive(kernels, eng, roots, runs: int = 3):
     """Reset the launch counts, run the engine ``runs`` times and read the
     counts; returns (host dist of the last run, per-run ms of runs 2..,
     last result, counts)."""
-    for k in kernels.values():
-        k.launches = 0
+    reset_counts(kernels)
     run_ms, last_host, res = [], None, None
     for i in range(runs):
         t0 = time.perf_counter()
@@ -328,18 +364,20 @@ def prefill_phase(kernels, dev, profile: bool) -> dict:
         f"{tuple(batch['tokens'].shape)}")
 
     run_ms, outs, launches = [], [], 0
+    a4 = kernels["flash_attention"]
     for i in range(3):
-        for k in kernels.values():
-            k.launches = 0
+        reset_counts(kernels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = bundle.fn(params, batch)
         torch.cuda.synchronize()
         run_ms.append((time.perf_counter() - t0) * 1e3)
         counts = {name: k.launches for name, k in kernels.items()}
-        check(counts["flash_attention"] == cfg.n_layers,
+        check(counts["flash_attention"] == cfg.n_layers
+              and a4.launches_bf16 == cfg.n_layers and a4.launches_f32 == 0,
               f"prefill run {i + 1}: A4 launched "
-              f"{counts['flash_attention']} times, not {cfg.n_layers}")
+              f"{counts['flash_attention']} times ({a4.launches_bf16} bf16, "
+              f"{a4.launches_f32} f32), not {cfg.n_layers} bf16")
         launches += counts["flash_attention"]
         outs.append((logits, cache))
     logits, cache = outs[-1]
@@ -417,14 +455,15 @@ def prefill_phase(kernels, dev, profile: bool) -> dict:
     return {"launches": launches, "cfg": cfg, "batch": b, "seq": s}
 
 
-def attention_rows(lay: dict, dev) -> dict:
+def attention_rows(lay: dict, dev, sass: dict) -> dict:
     """A4 against its plain version at the prefill's shapes (local and
     global layer) and at Dh = 128 on an unaligned length; timed beside its
-    bound, the plain version and SDPA (global layer)."""
+    bound, the plain version and SDPA (both layers)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import flash_attention
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                         attention_ref)
 
     cfg, b, s = lay["cfg"], lay["batch"], lay["seq"]
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -459,17 +498,22 @@ def attention_rows(lay: dict, dev) -> dict:
                   f"the A4 check passes a window one key off at {what}")
         del want
         pairs = visible_pairs(s, s, True, window)
-        b_ms, b_by = bound(nbytes(q, k, v, q), 4.0 * b * hq * dh * pairs,
-                           BF16_FLOPS)
+        flops = 4.0 * b * hq * dh * pairs
+        b_ms, b_by = bound(nbytes(q, k, v, q), flops, BF16_FLOPS)
         ms = timed_ms(lambda: flash_attention(q, k, v, causal=True,
                                               window=window), 5)
         plain_ms = timed_ms(lambda: attention_ref(q, k, v, causal=True,
                                                   window=window), 3)
-        log(f"A4 {what}: {ms} ms, plain {plain_ms} ms, bound {b_ms} ms "
-            f"({b_by}; {pairs} visible pairs a head)")
+        tflops = flops / ms / 1e9
+        log(f"A4 {what}: {ms} ms = {tflops} TFLOP/s, {b_ms / ms:.4f} of the "
+            f"bound {b_ms} ms ({b_by}; {pairs} visible pairs a head); plain "
+            f"{plain_ms} ms")
         row[window] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                       "bound_by": b_by}
-    # the one-call yardstick on the global layer (timed only; never used)
+                       "bound_by": b_by, "tflops": tflops,
+                       "bound_share": b_ms / ms}
+    # the one-call yardsticks (timed only; the port never calls SDPA): the
+    # global layer causal with GQA, the local layer with its window as a
+    # boolean mask over kv heads expanded to q heads beforehand
     sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                   enable_gqa=True)
     sdpa_err = float((sdpa().float()
@@ -478,20 +522,37 @@ def attention_rows(lay: dict, dev) -> dict:
     library_ms = timed_ms(sdpa, 10)
     log(f"SDPA (global layer): {library_ms} ms, max abs err vs plain "
         f"{sdpa_err}")
-    local, glob = row[cfg.pattern[0].window], row[0]
+    w_loc = cfg.pattern[0].window
+    k_rep, v_rep = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+    mask = attention_mask(s, s, causal=True, window=w_loc, device=dev)
+    sdpa_local = lambda: F.scaled_dot_product_attention(q, k_rep, v_rep,
+                                                        attn_mask=mask)
+    local_err = float((sdpa_local().float()
+                       - attention_ref(q, k, v, causal=True,
+                                       window=w_loc).float()).abs().max())
+    library_local_ms = timed_ms(sdpa_local, 5)
+    log(f"SDPA (local layer, boolean attn_mask): {library_local_ms} ms, max "
+        f"abs err vs plain {local_err}")
+    del k_rep, v_rep, mask
+    local, glob = row[w_loc], row[0]
     return {
         "name": "flash_attention", "route": "cuda",
+        "design": "bf16: wgmma + TMA, warp-specialised; f32: CUDA cores",
         "source": "src/repro_torch/csrc/attention_kernels.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:31",
         "launches": lay["launches"], "max_abs_err": max(errs),
         "ms": glob["ms"], "plain_ms": glob["plain_ms"],
         "bound_ms": glob["bound_ms"], "bound_by": glob["bound_by"],
         "library_ms": library_ms,
+        "tflops": glob["tflops"], "bound_share": glob["bound_share"],
         "shape": f"global layer: q {tuple(q.shape)} bf16, kv "
                  f"{tuple(k.shape)}, causal",
-        "local_window": cfg.pattern[0].window,
+        "local_window": w_loc,
         "local_ms": local["ms"], "local_plain_ms": local["plain_ms"],
-        "local_bound_ms": local["bound_ms"]}
+        "local_bound_ms": local["bound_ms"],
+        "local_tflops": local["tflops"],
+        "local_bound_share": local["bound_share"],
+        "library_local_ms": library_local_ms, "sass": sass}
 
 
 def to_host64(tree):
@@ -616,8 +677,7 @@ def recsys_phase(kernels, dev, profile: bool) -> dict:
         n_items = (bundle.shape.n_candidates if bundle.step_kind == "retrieval"
                    else bundle.shape.batch)
         unit = "candidates" if bundle.step_kind == "retrieval" else "examples"
-        for k in kernels.values():
-            k.launches = 0
+        reset_counts(kernels)
         run_ms, outs = [], []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -699,8 +759,7 @@ def bag_phase(rec: dict, kernels, dev) -> dict:
     def drive(what: str, calls: int, fn):
         """Reset the counts, run ``fn``, check that A5 and nothing else
         launched ``calls`` times; returns fn's result and the counts."""
-        for k in kernels.values():
-            k.launches = 0
+        reset_counts(kernels)
         out = fn()
         torch.cuda.synchronize()
         counts = {n: k.launches for n, k in kernels.items()}
@@ -846,6 +905,11 @@ def main(argv=None) -> int:
     log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     log(lib.with_suffix(".log").read_text().strip())
+    sass = a4_sass_counts(lib)
+    log(f"build: bf16 A4 SASS (cuobjdump -sass): {sass}")
+    check(len(sass) == 4 and all(c["HGMMA"] and c["UTMALDG"]
+                                 for c in sass.values()),
+          "build: a bf16 A4 kernel has no HGMMA or no UTMALDG in its SASS")
     card = card_line()
     log(f"card: {card}")
 
@@ -1023,7 +1087,7 @@ def main(argv=None) -> int:
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"mask {tuple(mask.shape)}"})
 
-    rows.append(attention_rows(lay, dev))
+    rows.append(attention_rows(lay, dev, sass))
     rows.append(bag_row)
 
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")

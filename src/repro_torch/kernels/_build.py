@@ -37,8 +37,9 @@ _SIGNATURES = {
     "bfs_bsr_spmm": [_P] * 5 + [_N] * 2 + [_P],
     # mask, out, w, s, stream
     "bfs_bitpack": [_P] * 2 + [_N] * 2 + [_P],
-    # q, k, v, o, b, hq, hkv, sq, skv, dh, bf16, causal, window, scale, stream
-    "attn_flash_fwd": [_P] * 4 + [_N] * 6 + [_I] * 2 + [_N, _F, _P],
+    # q, k, v, o, b, hq, hkv, sq, skv, dh, causal, window, scale, stream
+    "attn_flash_fwd_f32": [_P] * 4 + [_N] * 6 + [_I, _N, _F, _P],
+    "attn_flash_fwd_bf16": [_P] * 4 + [_N] * 6 + [_I, _N, _F, _P],
     # idx, table, out, b, l, d, bf16, stream
     "emb_bag_sum": [_P] * 3 + [_N] * 3 + [_I, _P],
 }

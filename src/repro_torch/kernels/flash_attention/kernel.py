@@ -1,13 +1,21 @@
 """Blocked causal GQA flash attention forward (A4) — wrapper of the
-hand-written CUDA kernel ``attn_flash_fwd`` in
-``csrc/attention_kernels.cu``, the port of
+hand-written CUDA kernels in ``csrc/attention_kernels.cu``, the port of
 ``repro.kernels.flash_attention.kernel``.
 
-The kernel takes any ``Sq, Skv >= 1`` (the TPU kernel asserts that they
-divide its blocks) and visits only the key tiles the causal and window
-masks leave visible.  On a CUDA tensor ``flash_attention`` launches the
-kernel or raises; on a CPU tensor it runs the plain version,
-``ref.attention_ref``.
+The kernels take any ``Sq, Skv >= 1`` (the TPU kernel asserts that they
+divide its blocks) and visit only the key tiles the causal and window
+masks leave visible.  On a CPU tensor ``flash_attention`` runs the plain
+version, ``ref.attention_ref``.  On a CUDA tensor it launches the kernel
+of the operands' dtype, or raises:
+
+- bf16: ``attn_flash_fwd_bf16``, the tensor cores through ``wgmma``, fed
+  by TMA (128-row q tiles; operands 16-byte aligned, as TMA needs);
+- f32: ``attn_flash_fwd_f32``, plain FMA on the CUDA cores (64-row q
+  tiles).
+
+There is no other route: a bf16 call never falls back to the f32 kernel.
+``flash_attention.launches`` counts every launch, ``launches_bf16`` and
+``launches_f32`` each route's.
 """
 
 from __future__ import annotations
@@ -17,9 +25,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-HEAD_DIMS = (32, 64, 128, 256)       # the head widths the kernel is built for
-MAX_Q_TILES = 65535                  # grid.y: 64-row q tiles
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128, 256)       # the head widths the kernels are built for
+MAX_Q_TILES = 65535                  # grid.y: q tiles (bf16 128 rows, f32 64)
+# dtype -> (C entry point, q rows per tile)
+_ROUTES = {torch.bfloat16: ("attn_flash_fwd_bf16", 128),
+           torch.float32: ("attn_flash_fwd_f32", 64)}
 
 
 def check_shapes(q, k, v) -> None:
@@ -51,15 +61,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return attention_ref(q, k, v, causal=causal, window=window)
     b, hq, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention takes q, k, v all f32 or all "
                          f"bf16; got {q.dtype}, {k.dtype}, {v.dtype}")
+    entry, rows = _ROUTES[q.dtype]
     if dh not in HEAD_DIMS:
         raise ValueError(f"the CUDA kernel is built for head widths "
                          f"{HEAD_DIMS}, not {dh}")
-    if sq < 1 or skv < 1 or -(-sq // 64) > MAX_Q_TILES:
+    if sq < 1 or skv < 1 or -(-sq // rows) > MAX_Q_TILES:
         raise ValueError(f"flash_attention takes 1 <= Sq <= "
-                         f"{64 * MAX_Q_TILES} and Skv >= 1; got {sq}, {skv}")
+                         f"{rows * MAX_Q_TILES} and Skv >= 1; got {sq}, {skv}")
     dev = _build.require_cuda("flash_attention", q, k, v)
     for t in (q, k, v):
         if t.data_ptr() % 16:
@@ -67,11 +78,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              "aligned")
     o = torch.empty_like(q)
     if o.numel():
-        _build.launch("attn_flash_fwd", dev, q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), o.data_ptr(), b, hq, hkv, sq, skv, dh,
-                      _DTYPES[q.dtype], int(causal), window, dh ** -0.5)
+        _build.launch(entry, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      o.data_ptr(), b, hq, hkv, sq, skv, dh, int(causal),
+                      window, dh ** -0.5)
         flash_attention.launches += 1
+        if q.dtype == torch.bfloat16:
+            flash_attention.launches_bf16 += 1
+        else:
+            flash_attention.launches_f32 += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.launches_bf16 = 0
+flash_attention.launches_f32 = 0

@@ -14,8 +14,10 @@ import torch
 from repro.kernels.flash_attention.kernel import \
     flash_attention as j_flash_attention
 from repro.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.kernel import (_ROUTES, MAX_Q_TILES,
+                                                        flash_attention)
 from repro_torch.kernels.flash_attention.ref import \
     attention_ref as t_attention_ref
 
@@ -98,11 +100,16 @@ def test_attention_plain_vs_jax_ref_unaligned(sq, skv, causal, window):
         assert not got[:, :, 4:].any() and got[:, :, :4].any()
 
 
+def _counts():
+    return (flash_attention.launches, flash_attention.launches_bf16,
+            flash_attention.launches_f32)
+
+
 def test_attention_on_the_cpu_runs_the_plain_version():
     q, k, v = (torch.from_numpy(x) for x in _inputs(0, 1, 4, 2, 24, 24, 32))
-    before = flash_attention.launches
+    before = _counts()
     got = ops.attention(q, k, v, causal=True, window=8)
-    assert flash_attention.launches == before       # no kernel on the CPU
+    assert _counts() == before                      # no kernel on the CPU
     assert torch.equal(got, t_attention_ref(q, k, v, causal=True,
                                            window=8))
     assert got.dtype == q.dtype and got.shape == q.shape
@@ -119,3 +126,35 @@ def test_attention_refuses_mismatched_shapes(use_kernel):
                       use_kernel=use_kernel)
     with pytest.raises(ValueError, match=r"\(B, Hq, Sq, Dh\)"):
         ops.attention(q[0], kv, kv, use_kernel=use_kernel)
+
+
+@pytest.mark.parametrize("dtype,entry,rows", [
+    (torch.bfloat16, "attn_flash_fwd_bf16", 128),
+    (torch.float32, "attn_flash_fwd_f32", 64)])
+def test_flash_attention_routes_by_dtype(dtype, entry, rows):
+    """Each dtype has one C entry point (bf16: the wgmma kernel, f32: the
+    CUDA-core kernel), bound with the same arguments, and its own q-tile
+    height in the Sq limit; checked on the meta device, where no kernel
+    launches."""
+    assert _ROUTES[dtype] == (entry, rows)
+    assert _build._SIGNATURES[entry] == _build._SIGNATURES[
+        "attn_flash_fwd_f32"]
+    limit = rows * MAX_Q_TILES
+
+    def call(sq):
+        q = torch.empty((1, 2, sq, 32), dtype=dtype, device="meta")
+        kv = torch.empty((1, 1, 8, 32), dtype=dtype, device="meta")
+        return flash_attention(q, kv, kv)
+
+    before = _counts()
+    with pytest.raises(ValueError, match=f"Sq <= {limit} "):
+        call(limit + 1)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        call(limit)
+    assert _counts() == before
+
+
+def test_flash_attention_takes_no_other_dtype():
+    q = torch.empty((1, 2, 8, 32), dtype=torch.float16, device="meta")
+    with pytest.raises(ValueError, match="all f32 or all bf16"):
+        flash_attention(q, q, q)

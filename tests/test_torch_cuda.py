@@ -26,7 +26,8 @@ from repro_torch.kernels.embedding_bag.kernel import (embedding_bag_sum,
                                                       embedding_bag_sum_plain)
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.kernels.flash_attention.kernel import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                   attention_ref)
 from repro_torch.kernels.fold_update import fold_update, fold_update_plain
 from repro_torch.launch.steps import build_bundle
 from repro_torch.models import transformer as tf
@@ -162,6 +163,46 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, dh, b, hq, hkv,
                                **_attn_tolerance(dtype, v))
     if (sq, skv) == (10, 3):
         assert not bool(got[:, :, 4:].any())
+
+
+@pytest.mark.parametrize("dh,b,hq,hkv,sq,skv,causal,window", [
+    (32, 1, 2, 2, 1, 1, True, 0),
+    (64, 2, 4, 2, 63, 63, True, 0),
+    (128, 1, 8, 1, 65, 65, True, 2),          # a window inside a kv tile
+    (256, 1, 2, 1, 200, 200, True, 33),
+    (128, 2, 4, 2, 1000, 1500, False, 0),     # non-causal, Skv > Sq
+    (256, 1, 4, 4, 1500, 1500, True, 1024),
+    (64, 1, 2, 2, 1, 1000, False, 0),
+    (256, 1, 2, 2, 65, 200, False, 0),
+    (32, 1, 8, 1, 10, 3, True, 2),            # rows 4..: no key
+    (256, 1, 2, 1, 300, 3, True, 2)])         # a whole q tile sees no key
+def test_flash_attention_bf16_wgmma_route_matches_plain(cuda, dh, b, hq, hkv,
+                                                        sq, skv, causal,
+                                                        window):
+    """The bf16 route (wgmma + TMA) at every head width, ragged lengths,
+    GQA groups 1, 2 and 8: elementwise within the bf16 tolerance, each
+    (batch, head) slice within 2^-7 relative L2 (chip_smoke.py's
+    A4_HEAD_TOL), and rows that see no key exactly zero."""
+    gen = torch.Generator(device=cuda).manual_seed(sq * 31 + skv + dh)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda
+                           ).to(torch.bfloat16)
+               for shape in ((b, hq, sq, dh), (b, hkv, skv, dh),
+                             (b, hkv, skv, dh)))
+    before = (flash_attention.launches_bf16, flash_attention.launches_f32)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches_bf16,
+            flash_attention.launches_f32) == (before[0] + 1, before[1])
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_attn_tolerance(torch.bfloat16, v))
+    diff = (got.float() - want.float()).flatten(2).norm(dim=-1)
+    heads = diff / want.float().flatten(2).norm(dim=-1).clamp_min(1e-30)
+    assert float(heads.max()) <= 2.0 ** -7, heads
+    dead = ~attention_mask(sq, skv, causal=causal, window=window,
+                           device=cuda).any(dim=-1)
+    assert not bool(got[:, :, dead].any())
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
