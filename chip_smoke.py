@@ -11,21 +11,26 @@ Phases (any failed check raises and the script exits non-zero):
    the attention kernels and the EmbeddingBag kernel, one nvcc each, in
    parallel) for sm_90a into
    one library under ``build/kernels/`` and prints the compiler's
-   register report and the card's name and power limit; counts the
+   register report (and ``bsr_expand_bits``' lines of it on their own)
+   and the card's name and power limit; counts the
    ``HGMMA`` and ``UTMALDG`` instructions in the SASS of the bf16 A4
    kernel (``cuobjdump -sass``) and fails if either is 0.
 2. path 1 — ``rmat_1m`` (Graph500 Kronecker, scale 20, edge factor 16)
    with the default dense expansion, S = 64 roots: once on a 4-shard
    ``LocalMesh`` with default options (packed wire, fused tail = kernel
    A1) and once on one shard with ``wire_format="packed"``.
-3. path 2 — ``small_world_100k`` (Watts-Strogatz k = 16, beta = 0.1)
-   with ``use_kernel=True`` (kernels A2, A3 and A1), one shard, packed
-   wire, S = 64, against the same plan without ``use_kernel``.
+3. path 3 — the same graph and roots with ``use_kernel=True`` on 4
+   shards, default options: the one-bit tile expansion
+   (``bsr_expand_bits``) and A1; distances bitwise equal to path 1's.
+4. path 2 — ``small_world_100k`` (Watts-Strogatz k = 16, beta = 0.1)
+   with ``use_kernel=True`` (``bsr_expand_bits`` and A1), one shard,
+   packed wire, S = 64, against the same plan without ``use_kernel``.
    Every path resets the kernels' launch counts just before it runs and
-   reads them just after; every kernel of the path must have launched.
+   reads them just after; every kernel of the path must have launched,
+   and under ``use_kernel`` the f32 A2 and A3 never.
    Distances are checked with ``validate_bfs`` (Graph500 rules) on every
    column and against scipy's BFS on four columns, bitwise.
-4. prefill — gemma3-12b at full width (d_model 3840, 16 q / 8 kv heads of
+5. prefill — gemma3-12b at full width (d_model 3840, 16 q / 8 kv heads of
    256, d_ff 15360, vocab 262144, bf16) through ``build_bundle(...,
    "prefill_32k")``, cut to 12 layers (two 5 local + 1 global groups) and
    batch 2 x seq 8192, with random weights from a seeded generator on the
@@ -34,7 +39,7 @@ Phases (any failed check raises and the script exits non-zero):
    and 3 bitwise equal; then the same prefill with the plain attention,
    held to a stated tolerance (the first layer's cache bitwise), which
    two planted faults (every local window one key off) must fail.
-5. recsys — DeepFM at its full configuration (39 fields x 1,000,000 rows
+6. recsys — DeepFM at its full configuration (39 fields x 1,000,000 rows
    x 10, a 1.56 GB f32 table, MLP 403-400-400-400-1), not cut, through
    ``build_bundle(get_arch("deepfm"), ...)`` for ``serve_p99``,
    ``serve_bulk`` and ``retrieval_cand``, with random weights from a
@@ -44,15 +49,18 @@ Phases (any failed check raises and the script exits non-zero):
    scores at a stated relative L2 limit.  Two planted faults must fail
    that hold: every field offset one row off, and (serve) TF32 products.  DeepFM looks its fields up
    with a row gather, as the JAX package does, so no kernel launches.
-6. embedding bag — the lookup op ``kernels.embedding_bag.ops.embedding_bag``
+7. embedding bag — the lookup op ``kernels.embedding_bag.ops.embedding_bag``
    (kernel A5) on (a) the ``serve_bulk`` batch's own flat ids as bags
    over DeepFM's table (the op's main path, three calls; also held to the
    serve path's ``emb.sum(1)``), (b) the same bags cut to seeded ragged
    lengths, sum and mean, and (c) ``bench_kernels``' shape, (256, 8) over
    (10,000, 128), in f32 and bf16; bitwise to its plain version each time.
-7. kernels — each kernel against its plain torch version on the card at
+8. kernels — each kernel against its plain torch version on the card at
    the shapes of the paths (A4 also each (batch, head) slice, with the
-   window one key off failing), then timed beside its bound (and, for A2,
+   window one key off failing; ``bsr_expand_bits`` on path 2's densest
+   level and on a random 5% frontier, and the f32 A2 + A3 chain of
+   ``ops.frontier_expand_packed``, driven on its own, held bitwise to
+   it), then timed beside its bound (and, for A2,
    beside ``torch.sparse_bsr_tensor @ x``; for A4, beside
    ``F.scaled_dot_product_attention`` on the global layer's shape and, with
    the window as a boolean ``attn_mask``, on the local layer's; for A5,
@@ -228,6 +236,131 @@ def report_run(name, compile_ms, run_ms, res, counts) -> None:
         f"levels {st.levels}; per-level ms "
         f"{[round(t * 1e3, 3) for t in st.level_seconds]}; "
         f"comm_bytes {st.comm_bytes}; launches {counts}")
+
+
+def ptxas_lines(log_text: str, name: str) -> str:
+    """The ``-Xptxas -v`` report of the kernel whose mangled name holds
+    ``name``: stack, spills, registers and barriers."""
+    lines = log_text.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and name in line:
+            return " | ".join(x.strip() for x in lines[i + 2:i + 4])
+    return ""
+
+
+def densest_frontier(host: np.ndarray, n: int, inf: int, dev):
+    """The largest frontier of a run: the ``(n, S)`` uint8 mask of the
+    depth that holds the most (vertex, source) pairs; with the depth and
+    the pair count."""
+    counts = np.bincount(host[host < inf].ravel())
+    depth = int(np.argmax(counts))
+    mask = np.zeros((n, host.shape[1]), np.uint8)
+    mask[:host.shape[0]] = host == depth
+    return torch.from_numpy(mask).to(dev), depth, int(counts[depth])
+
+
+def frontier_words(mask: torch.Tensor, p: int, col_pad: int):
+    """An ``(n, S)`` uint8 frontier of ``p`` shards as ``bsr_expand_bits``
+    takes it: each shard's rows zero-padded to ``col_pad``, packed along
+    the vertex axis."""
+    from repro_torch.core.frontier import pack_bits
+
+    n, s = mask.shape
+    x = torch.zeros((p, col_pad, s), dtype=torch.uint8, device=mask.device)
+    x[:, : n // p] = mask.reshape(p, n // p, s)
+    return pack_bits(x).reshape(-1, s)
+
+
+def expand_bound(tiles, cmask, row_ptr, cols, fwords, out) -> dict:
+    """``bsr_expand_bits``' byte bound: the column masks, indices,
+    frontier words and output, and the tiles this frontier makes it read
+    (those whose column mask meets some source's frontier word); beside
+    it the bound with every tile read, which no skip can pass."""
+    any_src = fwords[:, 0].clone()
+    for j in range(1, fwords.shape[1]):
+        any_src |= fwords[:, j]
+    words = cols.long()[:, None] * 4 + torch.arange(4, device=cols.device)
+    read = int(((any_src[words] & cmask) != 0).any(dim=1).sum())
+    fixed = nbytes(cmask, row_ptr, cols, fwords, out)
+    b_ms, b_by = bound(fixed + read * tiles[0].numel() * tiles.element_size())
+    all_ms, _ = bound(fixed + nbytes(tiles))
+    return {"bound_ms": b_ms, "bound_by": b_by, "bound_all_tiles_ms": all_ms,
+            "tiles_read": read, "tiles": tiles.shape[0]}
+
+
+def path3_phase(kernels, g, src, dst, roots, want, dev, profile: bool):
+    """``rmat_1m`` with ``use_kernel`` on 4 shards (module docstring, phase
+    3); returns ``bsr_expand_bits``' reading at these shapes."""
+    from repro_torch.core import BFSOptions, plan
+    from repro_torch.core import frontier as fr
+    from repro_torch.core.ref import validate_bfs
+    from repro_torch.kernels.bsr_spmm.kernel import bsr_expand_bits
+
+    part = g.part
+    p, shard, n = part.p, part.shard_size, part.n
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pl = plan(g, BFSOptions(use_kernel=True), num_sources=S)
+    eng = pl.compile()
+    torch.cuda.synchronize()
+    compile_ms = (time.perf_counter() - t0) * 1e3
+    tiles, cmask, row_ptr, cols, rows = eng.kernel_arrays
+    d = pl.describe()
+    log(f"path 3: p={p} dense_exchange={d['dense_exchange']} fused="
+        f"{d['use_fused_tail']}; {tiles.shape[0]} tiles in "
+        f"{nbytes(tiles) / 1e9:.3f} GB of bit tiles (compile, the bit-tile "
+        f"build included: {compile_ms:.1f} ms)")
+    host, run_ms, res, counts = drive(kernels, eng, roots)
+    levels = res.run_stats.levels
+    check(counts["bsr_expand_bits"] == 3 * levels,
+          f"path 3: bsr_expand_bits launched {counts['bsr_expand_bits']} "
+          f"times in 3 runs of {levels} levels")
+    check(counts["bsr_spmm"] == 0 and counts["bitpack_words"] == 0,
+          "path 3: the f32 A2 or A3 launched under use_kernel")
+    check(counts["fold_update"] > 0, "path 3: kernel A1 never launched")
+    validate_bfs(src, dst, roots, res.dist[:part.n_logical, :S])
+    check(np.array_equal(host, want),
+          "path 3: distances differ from path 1's p4_default")
+    report_run("path 3 use_kernel p4", compile_ms, run_ms, res, counts)
+    log(f"path 3: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if profile:
+        profile_run("path 3 use_kernel", lambda: eng.run(roots))
+
+    # the kernel at these shapes on the run's densest frontier, held to
+    # the plain scatter-max expansion over the edge list (the plain
+    # version's f32 tiles would be 695 GB), then timed beside its bound
+    mask, depth, pairs = densest_frontier(host, n, fr.INF, dev)
+    fwords = frontier_words(mask, p, -(-shard // 128) * 128)
+    layout = dict(n_valid=n, n_blocks=p, rows_per_group=-(-n // 128) * 128,
+                  block_rows=rows)           # as the engine calls it
+    out = bsr_expand_bits(tiles, cmask, row_ptr, cols, fwords, **layout)
+    merged = out.reshape(p, -1, S)[0].clone()
+    for j in range(1, p):
+        merged |= out.reshape(p, -1, S)[j]
+    cand = fr.unpack_bits(merged, shard, p)
+    want_c = fr.expand_dense_edges(mask, torch.from_numpy(src).to(dev),
+                                   torch.from_numpy(dst).to(dev), n)
+    check(torch.equal(cand, want_c), "path 3: bsr_expand_bits differs from "
+                                     "the scatter-max expansion")
+    del cand, want_c, merged
+    ms = timed_ms(lambda: bsr_expand_bits(tiles, cmask, row_ptr, cols,
+                                          fwords, **layout), 10)
+    pack_ms = timed_ms(lambda: fr.pack_bits(mask.view(p, shard, S)), 10)
+    b = expand_bound(tiles, cmask, row_ptr, cols, fwords, out)
+    log(f"bsr_expand_bits at path 3 (depth {depth}, {pairs} frontier "
+        f"pairs, the densest level): {ms} ms; bound {b['bound_ms']} ms "
+        f"({b['bound_by']}; {b['tiles_read']} of {b['tiles']} tiles read), "
+        f"every tile {b['bound_all_tiles_ms']} ms; the scatter-max "
+        f"expansion agrees bitwise; pack_bits of the frontier (a run's "
+        f"first level) {pack_ms} ms")
+    del eng, res, tiles, cmask, row_ptr, cols, rows, out
+    torch.cuda.empty_cache()
+    return {"ms": ms, **b, "depth": depth, "frontier_pairs": pairs,
+            "pack_ms": pack_ms, "compile_ms": compile_ms,
+            "shape": f"{b['tiles']} tiles over 4 shards, frontier words "
+                     f"{tuple(fwords.shape)}"}
 
 
 def profile_run(name, run) -> None:
@@ -881,8 +1014,12 @@ def main(argv=None) -> int:
     from repro_torch.core.ref import validate_bfs
     from repro_torch.graphs import generate, shard_graph
     from repro_torch.kernels import _build
+    from repro_torch.kernels.bsr_spmm import ops as spmm_ops
     from repro_torch.kernels.bsr_spmm.kernel import (bitpack_words,
                                                      bitpack_words_plain,
+                                                     block_row_ptr,
+                                                     bsr_expand_bits,
+                                                     bsr_expand_bits_plain,
                                                      bsr_spmm)
     from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref
     from repro_torch.kernels.embedding_bag.kernel import embedding_bag_sum
@@ -895,6 +1032,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     kernels = {"fold_update": fold_update, "bsr_spmm": bsr_spmm,
                "bitpack_words": bitpack_words,
+               "bsr_expand_bits": bsr_expand_bits,
                "flash_attention": flash_attention,
                "embedding_bag_sum": embedding_bag_sum}
 
@@ -904,7 +1042,12 @@ def main(argv=None) -> int:
     _build.library()
     log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
-    log(lib.with_suffix(".log").read_text().strip())
+    build_log = lib.with_suffix(".log").read_text().strip()
+    log(build_log)
+    xptxas = ptxas_lines(build_log, "bsr_expand_bits_kernel")
+    log(f"build: bsr_expand_bits_kernel (-Xptxas -v): {xptxas}; dynamic "
+        f"shared memory {_build.library().bfs_expand_bits_smem()} bytes")
+    check(bool(xptxas), "build: no ptxas report for bsr_expand_bits_kernel")
     sass = a4_sass_counts(lib)
     log(f"build: bf16 A4 SASS (cuobjdump -sass): {sass}")
     check(len(sass) == 4 and all(c["HGMMA"] and c["UTMALDG"]
@@ -923,7 +1066,7 @@ def main(argv=None) -> int:
                                                 replace=False)
     log(f"path 1: {w1.name} n={n1} directed edges={src1.size} "
         f"(generated in {time.perf_counter() - t0:.1f} s), S={S}")
-    path1 = {}
+    path1, g1_p4 = {}, None
     for label, p, opts in (("p4_default", 4, BFSOptions()),
                            ("p1_packed", 1, BFSOptions(wire_format="packed"))):
         g = shard_graph(src1, dst1, n1, p)
@@ -945,11 +1088,20 @@ def main(argv=None) -> int:
         if args.profile:
             profile_run(f"path 1 {label}", lambda: eng.run(roots1))
         path1[label] = (host, counts, d, res.run_stats)
+        if p == 4:
+            g1_p4 = g
         del eng, res
     check(np.array_equal(path1["p4_default"][0], path1["p1_packed"][0]),
           "path 1: p=4 and p=1 distances differ")
     scipy_check(src1, dst1, n1, roots1, path1["p4_default"][0], INF)
     log("path 1: validate_bfs on all columns, scipy on 4 columns, p=4 == p=1: ok")
+
+    # --------------------------------------------------------------- path 3
+    path3 = path3_phase(kernels, g1_p4, src1, dst1, roots1,
+                        path1["p4_default"][0], dev, args.profile)
+    del g1_p4
+    log("path 3: validate_bfs on all columns, distances == path 1 "
+        "p4_default, bsr_expand_bits once a level: ok")
 
     # --------------------------------------------------------------- path 2
     w2 = bfs_workload("small_world_100k")
@@ -959,6 +1111,7 @@ def main(argv=None) -> int:
     g2 = shard_graph(src2, dst2, n2, 1)
     log(f"path 2: {w2.name} n={n2} directed edges={src2.size}, S={S}")
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     pl2 = plan(g2, BFSOptions(use_kernel=True, wire_format="packed"),
                num_sources=S)
@@ -966,10 +1119,17 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     compile_ms = (time.perf_counter() - t0) * 1e3
     host2, run_ms, res2, counts2 = drive(kernels, eng2, roots2)
-    for name in ("fold_update", "bsr_spmm", "bitpack_words"):
-        check(counts2[name] > 0, f"path 2: kernel {name} never launched")
+    check(counts2["fold_update"] > 0, "path 2: kernel A1 never launched")
+    check(counts2["bsr_expand_bits"] == 3 * res2.run_stats.levels,
+          f"path 2: bsr_expand_bits launched {counts2['bsr_expand_bits']} "
+          f"times in 3 runs of {res2.run_stats.levels} levels")
+    check(counts2["bsr_spmm"] == 0 and counts2["bitpack_words"] == 0,
+          "path 2: the f32 A2 or A3 launched under use_kernel")
     validate_bfs(src2, dst2, roots2, res2.dist[:n2, :S])
     report_run("path 2 use_kernel", compile_ms, run_ms, res2, counts2)
+    log(f"path 2: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the engine's "
+        f"bit tiles {nbytes(eng2.kernel_arrays[0]) / 1e9:.3f} GB")
     if args.profile:
         profile_run("path 2 use_kernel", lambda: eng2.run(roots2))
     eng2b = plan(g2, BFSOptions(wire_format="packed"), num_sources=S).compile()
@@ -1028,10 +1188,92 @@ def main(argv=None) -> int:
         "shape": f"words {tuple(words.shape)}, dist {tuple(dist.shape)}"})
     del words, dist, got, want
 
-    # A2 at path 2's shapes: the engine's tiles against an (n_cols_pad, S) x
-    tiles, trows, tcols, row_ptr = eng2.kernel_arrays
-    n_rows_pad = (row_ptr.numel() - 1) * 128
-    n_x = n_rows_pad                       # p = 1: one shard, square tiles
+    # bsr_expand_bits at path 2's shapes: the engine's own operands, on the
+    # run's densest level and on a random 5% frontier
+    xtiles, xmask, xrow_ptr, xcols, xrows = eng2.kernel_arrays
+    part2 = g2.part
+    pad2 = -(-part2.n // 128) * 128        # p = 1: rows and columns alike
+    layout = dict(n_valid=part2.n, n_blocks=1, rows_per_group=pad2)
+    dense, depth, pairs = densest_frontier(host2, part2.n, INF, dev)
+    fronts = {f"the densest level (depth {depth}, {pairs} pairs)": dense,
+              "a random 5% frontier": (torch.rand(
+                  (part2.n, S), generator=gen, device=dev) < 0.05).to(
+                      torch.uint8)}
+    xops, errx = {}, 0
+    for what, mask in fronts.items():
+        fw = frontier_words(mask, 1, pad2)
+        # as the engine calls it (with the tiles' block rows), and without
+        got = bsr_expand_bits(xtiles, xmask, xrow_ptr, xcols, fw,
+                              block_rows=xrows, **layout)
+        got_ptr = bsr_expand_bits(xtiles, xmask, xrow_ptr, xcols, fw,
+                                  **layout)
+        want = bsr_expand_bits_plain(xtiles, xmask, xrow_ptr, xcols, fw,
+                                     **layout)
+        errx = max(errx, int((got.long() - want.long()).abs().max()),
+                   int((got_ptr.long() - want.long()).abs().max()))
+        check(torch.equal(got, want) and torch.equal(got_ptr, want),
+              f"bsr_expand_bits differs from its plain version on {what}")
+        log(f"bsr_expand_bits on {what}: bitwise to its plain version, with "
+            f"and without the tiles' block rows")
+        del got_ptr
+        xops[what] = (mask, fw, got)
+        del want
+    dense_what = next(iter(xops))
+    _, fw, got = xops[dense_what]
+    xb = expand_bound(xtiles, xmask, xrow_ptr, xcols, fw, got)
+    x_ms = timed_ms(lambda: bsr_expand_bits(xtiles, xmask, xrow_ptr, xcols,
+                                            fw, block_rows=xrows, **layout),
+                    20)
+    x_plain_ms = timed_ms(lambda: bsr_expand_bits_plain(
+        xtiles, xmask, xrow_ptr, xcols, fw, **layout), 2)
+    log(f"bsr_expand_bits at path 2 on {dense_what}: {x_ms} ms; bound "
+        f"{xb['bound_ms']} ms ({xb['bound_by']}; {xb['tiles_read']} of "
+        f"{xb['tiles']} tiles read), every tile {xb['bound_all_tiles_ms']} "
+        f"ms; plain {x_plain_ms} ms")
+    xrow = {
+        "name": "bsr_expand_bits", "route": "cuda",
+        "design": "one-bit tiles, skip by column mask, cp.async + mbarrier "
+                  "ring, atomicOr merge of split rows",
+        "source": "src/repro_torch/csrc/bfs_kernels.cu",
+        "replaces": "src/repro/kernels/bsr_spmm/kernel.py:38",
+        "fuses": "src/repro/kernels/bsr_spmm/kernel.py:100",
+        "launches": counts2["bsr_expand_bits"], "max_abs_err": errx,
+        "ms": x_ms, "plain_ms": x_plain_ms, "bound_ms": xb["bound_ms"],
+        "bound_by": xb["bound_by"], "library_ms": None,
+        "bound_all_tiles_ms": xb["bound_all_tiles_ms"],
+        "tiles_read": xb["tiles_read"], "tiles": xb["tiles"],
+        "shape": f"path 2: {xtiles.shape[0]} bit tiles, frontier words "
+                 f"{tuple(fw.shape)} ({dense_what})",
+        "path3": path3}
+
+    # the f32 A2 + A3 chain, driven through its entry point
+    # ops.frontier_expand_packed on path 2's f32 tiles and both frontiers,
+    # held bitwise to bsr_expand_bits
+    blocks, brs, bcs, row_pad2, col_pad2 = g2.bsr_shards(device=dev)
+    tiles, trows, tcols = blocks[0], brs[0], bcs[0]
+    del blocks
+    row_ptr = block_row_ptr(trows, tcols, row_pad2 // 128, col_pad2 // 128)
+    reset_counts(kernels)
+    for what, (mask, _, got) in xops.items():
+        x = torch.zeros((col_pad2, S), dtype=torch.uint8, device=dev)
+        x[:part2.n] = mask
+        words = spmm_ops.frontier_expand_packed(
+            tiles, trows, tcols, x, n_rows_pad=row_pad2, n_valid=part2.n,
+            n_blocks=1, row_ptr=row_ptr)
+        check(torch.equal(words, got), f"the f32 A2 + A3 chain differs from "
+                                       f"bsr_expand_bits on {what}")
+    torch.cuda.synchronize()
+    counts_ops = {name: k.launches for name, k in kernels.items()}
+    check(counts_ops == dict.fromkeys(kernels, 0) | {
+        "bsr_spmm": len(xops), "bitpack_words": len(xops)},
+        f"ops.frontier_expand_packed: launches {counts_ops}")
+    log(f"ops.frontier_expand_packed (f32 A2 + A3) on both frontiers: "
+        f"bitwise to bsr_expand_bits; launches {counts_ops}")
+    del xops, fronts, dense
+
+    # A2 at path 2's shapes: the f32 tiles against an (n_cols_pad, S) x
+    n_rows_pad = row_pad2
+    n_x = col_pad2                         # p = 1: one shard, square tiles
     x01 = (torch.rand((n_x, S), generator=gen, device=dev) < 0.05).float()
     xf = torch.rand((n_x, S), generator=gen, device=dev) * 2 - 1
     y01 = bsr_spmm(tiles, row_ptr, tcols, x01, n_rows_pad=n_rows_pad)
@@ -1059,7 +1301,8 @@ def main(argv=None) -> int:
         "name": "bsr_spmm", "route": "cuda",
         "source": "src/repro_torch/csrc/bfs_kernels.cu",
         "replaces": "src/repro/kernels/bsr_spmm/kernel.py:38",
-        "launches": counts2["bsr_spmm"], "max_abs_err": err2,
+        "path": "ops.frontier_expand_packed / ops.spmm (not the engine's)",
+        "launches": counts_ops["bsr_spmm"], "max_abs_err": err2,
         "ms": timed_ms(lambda: bsr_spmm(tiles, row_ptr, tcols, x01,
                                                n_rows_pad=n_rows_pad), 5),
         "plain_ms": timed_ms(lambda: bsr_spmm_ref(
@@ -1067,7 +1310,7 @@ def main(argv=None) -> int:
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
         "shape": f"{tiles.shape[0]} tiles, x {tuple(x01.shape)}",
         "tolerance_f32": tol2})
-    del xf, yf, yf_ref
+    del xf, yf, yf_ref, bsr
 
     # A3 at path 2's shapes: pack the (n, S) expansion sums
     mask = y01[:n2] if n2 % 32 == 0 else y01[: n2 - n2 % 32]
@@ -1081,11 +1324,14 @@ def main(argv=None) -> int:
         "name": "bitpack_words", "route": "cuda",
         "source": "src/repro_torch/csrc/bfs_kernels.cu",
         "replaces": "src/repro/kernels/bsr_spmm/kernel.py:100",
-        "launches": counts2["bitpack_words"], "max_abs_err": err3,
+        "path": "ops.frontier_expand_packed (not the engine's)",
+        "launches": counts_ops["bitpack_words"], "max_abs_err": err3,
         "ms": timed_ms(lambda: bitpack_words(mask), 50),
         "plain_ms": timed_ms(lambda: bitpack_words_plain(mask), 10),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"mask {tuple(mask.shape)}"})
+    rows.append(xrow)
+    del tiles, y01, x01
 
     rows.append(attention_rows(lay, dev, sass))
     rows.append(bag_row)

@@ -27,7 +27,9 @@ from repro_torch.core import exchange as ex
 from repro_torch.core import frontier as fr
 from repro_torch.core.mesh import LocalMesh
 from repro_torch.core.partition import Partition1D
-from repro_torch.kernels.fold_update import fold_update
+# the module, not the function: kernels.fold_update imports core.frontier,
+# so importing it first runs core/__init__, which lands here half-way
+from repro_torch.kernels import fold_update as a1
 
 INF = fr.INF
 
@@ -51,8 +53,9 @@ class BFSOptions:
     # auto-mode thresholds (fractions of global E / V):
     queue_threshold: float = 1 / 64           # frontier edges below -> queue
     bottom_up_threshold: float = 0.05         # frontier verts above -> bottom-up
-    use_kernel: bool = False                  # bsr_spmm expansion (A2/A3;
-                                              # dense mode, 1-D partition)
+    use_kernel: bool = False                  # bit-tile expansion
+                                              # (bsr_expand_bits; dense
+                                              # mode, 1-D partition)
     # Wire layout of the exchanges: "packed" ships 32-bit bitset words
     # (8x smaller, OR merges), "bytes" the uint8 mask, "compressed" the
     # delta+varint id streams of the sparse phases; "auto" prices every
@@ -157,24 +160,27 @@ def make_dense_level(part: Partition1D, s: int, mesh: LocalMesh, axis,
                      fused: bool = False) -> Callable:
     """Build one dense BFS level over stacked shards.
 
-    ``dense_level(frontier, dist, level) -> (new, level_bytes)`` takes the
-    ``(p, shard, S)`` uint8 frontier and int32 dist (updated in place) and
-    returns the ``(p, shard, S)`` uint8 newly-discovered mask.
+    ``dense_level(frontier, dist, level, words) -> (new, level_bytes,
+    new_words)`` takes the ``(p, shard, S)`` uint8 frontier, the same
+    frontier packed as ``(p, W, S)`` words or ``None``, and the int32 dist
+    (updated in place); it returns the ``(p, shard, S)`` uint8
+    newly-discovered mask and, where the fused tail packed it, the same
+    mask as words (else ``None``).
 
     ``edge_rows`` are ``frontier.dense_edge_index`` rows of the out-edge
-    blocks (the default scatter-max expansion); ``expand_fn`` replaces that
-    expansion (the ``use_kernel`` block-sparse path) and, with
-    ``expand_emits_packed``, hands the packed exchange its words directly.
-    ``fused`` (needs a packed dense wire) replaces the unpack -> update
-    tail with kernel A1.
+    blocks (the default scatter-max expansion); ``expand_fn(frontier,
+    words)`` replaces that expansion (the ``use_kernel`` bit-tile path)
+    and, with ``expand_emits_packed``, hands the packed exchange its words
+    directly.  ``fused`` (needs a packed dense wire) replaces the unpack
+    -> update tail with kernel A1.
     """
     p, shard, n = part.p, part.shard_size, part.n
     dense_bytes = dense_strategy.bytes_model(n, p, s, 1, axes_sizes)
     packed_wire = dense_strategy.wire == "packed"
 
-    def dense_level(frontier, dist, level):
+    def dense_level(frontier, dist, level, words=None):
         if expand_fn is not None:
-            cand = expand_fn(frontier)
+            cand = expand_fn(frontier, words)
         else:
             cand = fr.expand_dense_edges(
                 frontier.reshape(p * shard, s), *edge_rows,
@@ -183,27 +189,30 @@ def make_dense_level(part: Partition1D, s: int, mesh: LocalMesh, axis,
             # candidates stay packed through the exchange: pack once
             # (unless the kernel path emitted words), OR-merge, and only
             # the owned W-word slice is read back
-            words = (cand if expand_fn is not None and expand_emits_packed
-                     else fr.pack_bits(cand, n_blocks=p))
-            merged = dense_strategy.impl(words, mesh, axis)   # (p, W, S)
+            cwords = (cand if expand_fn is not None and expand_emits_packed
+                      else fr.pack_bits(cand, n_blocks=p))
+            merged = dense_strategy.impl(cwords, mesh, axis)  # (p, W, S)
             if fused:
-                _, new, _ = fold_update(merged, dist, level, inplace=True)
-                return new, dense_bytes
+                _, new, new_words = a1.fold_update(merged, dist, level,
+                                                   inplace=True)
+                return new, dense_bytes, new_words
             own = fr.unpack_bits(merged, shard)
         else:
             own = dense_strategy.impl(cand, mesh, axis)
-        return _owned_update(dist, own, level), dense_bytes
+        return _owned_update(dist, own, level), dense_bytes, None
 
     return dense_level
 
 
 def run_dense_levels(dense_level: Callable, dist: torch.Tensor,
                      frontier: torch.Tensor, part: Partition1D,
-                     max_levels: int):
+                     max_levels: int, words: Optional[torch.Tensor] = None):
     """Run levels until no shard discovers a vertex (or ``max_levels``).
 
     ``dist`` and ``frontier`` are the padded global ``(n, S)`` buffers;
-    ``dist`` is updated in place.  Returns ``(levels, comm_bytes,
+    ``dist`` is updated in place.  ``words``, if given, is the first
+    frontier packed per shard, ``(p, W, S)``, for a level that reads it.
+    Returns ``(levels, comm_bytes,
     level_seconds)``: the level count as the JAX loop reports it, the
     analytic per-chip bytes summed in float32 as the JAX loop sums them,
     and each level's host wall time (it ends in the level's sync).
@@ -217,7 +226,7 @@ def run_dense_levels(dense_level: Callable, dist: torch.Tensor,
     level, active = 1, True
     while active and level <= max_levels:
         t0 = time.perf_counter()
-        new, b = dense_level(frontier, dist_sh, level)
+        new, b, words = dense_level(frontier, dist_sh, level, words)
         # padding vertices (ids >= n_logical) can never be visited
         new.view(n, s)[part.n_logical:] = 0
         dist[part.n_logical:] = INF

@@ -5,9 +5,9 @@
     static-shape derivation: checks options, resolves exchange strategies
     from the registry, fixes the ``LocalMesh`` and the source-batch
     capacity S.  Cheap; pure metadata (``BFSPlan``).
-  * ``BFSPlan.compile()`` — uploads the graph's edge rows (and, under
-    ``use_kernel``, the blocked adjacency) to the device and allocates
-    the ``(n, S)`` dist and frontier buffers once.
+  * ``BFSPlan.compile()`` — uploads the graph's edge rows (or, under
+    ``use_kernel``, the one-bit blocked adjacency) to the device and
+    allocates the ``(n, S)`` dist and frontier buffers once.
   * ``BFSEngine.run(sources)`` — per traversal: sources are injected on
     the device into the reused buffers (the analogue of JAX's donated
     dist buffer), then the level loop runs.
@@ -23,7 +23,7 @@ the serving fault seams (item 9) and the H100 roofline in ``describe()``
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 import torch
@@ -33,7 +33,9 @@ from repro_torch.core import frontier as fr
 from repro_torch.core.bfs import (BFSOptions, BFSStats, INF, make_dense_level,
                                   run_dense_levels, validate_sources)
 from repro_torch.core.mesh import LocalMesh
-from repro_torch.graphs.formats import ShardedGraph
+
+if TYPE_CHECKING:   # graphs.formats imports core.partition, which runs core
+    from repro_torch.graphs.formats import ShardedGraph
 
 
 def resolve_device(device=None) -> torch.device:
@@ -361,9 +363,11 @@ def plan(graph: ShardedGraph, opts: BFSOptions = BFSOptions(), *,
 class BFSEngine:
     """A compiled traversal: run any number of source sets.
 
-    Holds, for its lifetime, the edge rows of the dense expansion (or the
-    blocked adjacency under ``use_kernel``) and the ``(n, S)`` dist and
-    frontier buffers, which every ``run`` reinitializes in place.
+    Holds, for its lifetime, the edge rows of the dense expansion (or,
+    under ``use_kernel``, the one-bit tiles, their column masks, the
+    block-row pointer, the block columns and each tile's block row:
+    ``kernel_arrays``) and the ``(n, S)`` dist and frontier buffers,
+    which every ``run`` reinitializes in place.
 
     ``trace_count`` stays at ``compile_traces`` (the level function is
     built once at construction and never rebuilt), for parity with the
@@ -403,47 +407,59 @@ class BFSEngine:
         return self._trace_count
 
     def _build_kernel_expand(self):
-        """Block-sparse frontier expansion (kernels A2 and A3).
+        """Bit-tile frontier expansion (``bsr_expand_bits``).
 
         Each shard's 128x128-blocked *transposed* adjacency (rows = global
-        candidate ids, cols = the shard's local sources) is uploaded once.
+        candidate ids, cols = the shard's local sources) is uploaded once,
+        at one bit an entry (``bsr_bit_shards``; no f32 tile is made).
         The p shards' tile lists are laid out as one block-diagonal
         block-CSR matrix — shard ``j``'s rows and columns offset by ``j``
-        times its padded row and column counts — so one ``bsr_spmm``
-        launch expands every shard: ``Y = A @ F`` over the stacked,
-        column-padded frontiers.  With a packed dense wire the candidates
-        come out as the per-owner-blocked words (A3 where the segment is
-        word-aligned), so the packed exchange consumes them directly.
+        times its padded row and column counts — so one launch expands
+        every shard, and emits each shard's candidates as the
+        per-owner-blocked words of the packed wire.  The frontier goes in
+        packed: at the first level as ``source_words`` writes it from the
+        sources, then as A1 re-packed it where the fused tail runs, else
+        as ``pack_bits`` of the byte frontier (an unfused plan); a bytes
+        wire unpacks the candidate words.
 
         Returns ``(expand_fn, emits_packed)``.
         """
-        from repro_torch.kernels.bsr_spmm import ops as spmm_ops
+        from repro_torch.kernels.bsr_spmm.kernel import (DEFAULT_BLOCK,
+                                                         block_row_ptr,
+                                                         bsr_expand_bits)
 
         graph = self.plan.graph
         part = graph.part
         p, shard, n = part.p, part.shard_size, part.n
         dev = self.plan.device
-        blocks, brs, bcs, row_pad, col_pad = graph.bsr_shards(device=dev)
-        kmax, blk = blocks.shape[1], blocks.shape[2]
+        bits, cmask, brs, bcs, row_pad, col_pad = graph.bsr_bit_shards(
+            device=dev)
+        kmax, blk = bits.shape[1], DEFAULT_BLOCK
         nbr, nbc = row_pad // blk, col_pad // blk
         offs = torch.arange(p, device=dev, dtype=torch.int32)[:, None]
         rows = (brs + offs * nbr).reshape(-1)
         cols = (bcs + offs * nbc).reshape(-1).contiguous()
-        tiles = blocks.reshape(p * kmax, blk, blk)
-        row_ptr = spmm_ops.block_row_ptr(rows, cols, p * nbr, p * nbc)
-        self.kernel_arrays = (tiles, rows, cols, row_ptr)
+        tiles = bits.reshape(p * kmax, blk, blk // 32)
+        cmask = cmask.reshape(p * kmax, blk // 32)
+        row_ptr = block_row_ptr(rows, cols, p * nbr, p * nbc)
+        self.kernel_arrays = (tiles, cmask, row_ptr, cols, rows)
         packed = self.plan.dense_strategy.wire == "packed"
+        w_in, w_out = fr.packed_words(shard), col_pad // 32
 
-        def expand_fn(frontier):                        # (p, shard, S)
+        def expand_fn(frontier, words):                 # (p, shard, S)
             s = frontier.shape[-1]
-            x = torch.zeros((p, col_pad, s), dtype=torch.float32, device=dev)
-            x[:, :shard] = frontier
-            y = spmm_ops.spmm(tiles, rows, cols, x.reshape(p * col_pad, s),
-                              n_rows_pad=p * row_pad, block=blk,
-                              row_ptr=row_ptr).reshape(p, row_pad, s)
+            if words is None:
+                words = fr.pack_bits(frontier)          # (p, W, S)
+            if w_out > w_in:                            # zero block columns
+                words = torch.nn.functional.pad(words,
+                                                (0, 0, 0, w_out - w_in))
+            cand = bsr_expand_bits(
+                tiles, cmask, row_ptr, cols, words.reshape(p * w_out, s),
+                n_valid=n, n_blocks=p, rows_per_group=row_pad,
+                block_rows=rows).reshape(p, p * w_in, s)
             if packed:
-                return spmm_ops.pack_candidates(y, n, p)
-            return (y[:, :n] > 0).to(torch.uint8)
+                return cand
+            return fr.unpack_bits(cand, shard, p)       # (p, n, S) uint8
 
         return expand_fn, packed
 
@@ -465,11 +481,17 @@ class BFSEngine:
         padded = np.full((pl_.num_sources,), -1, dtype=np.int32)
         padded[:n_req] = src_arr
         self._generation += 1
-        fr.init_dist_frontier(torch.from_numpy(padded).to(pl_.device),
-                              part.n, part.n_logical,
+        src_dev = torch.from_numpy(padded).to(pl_.device)
+        fr.init_dist_frontier(src_dev, part.n, part.n_logical,
                               out=(self._dist, self._frontier))
+        # the bit-tile expansion reads the frontier packed: the first one
+        # is written from the sources, not packed from the byte mask
+        words = (fr.source_words(src_dev, part.p, part.shard_size,
+                                 part.n_logical)
+                 if pl_.opts.use_kernel else None)
         levels, comm_bytes, level_seconds = run_dense_levels(
-            self._level, self._dist, self._frontier, part, pl_.max_levels)
+            self._level, self._dist, self._frontier, part, pl_.max_levels,
+            words)
         return BFSResult(
             dist=self._dist,
             run_stats=BFSRunStats(levels=levels, comm_bytes=comm_bytes,

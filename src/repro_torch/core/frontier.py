@@ -57,6 +57,25 @@ def init_dist_frontier(sources: torch.Tensor, n: int, n_logical: int,
     return dist, frontier
 
 
+def source_words(sources: torch.Tensor, p: int, shard: int,
+                 n_logical: int) -> torch.Tensor:
+    """``init_dist_frontier``'s frontier packed per shard, ``(p, W, S)``
+    int32 (``pack_bits`` of its ``(p, shard, S)`` view), written straight
+    from the ``(S,)`` sources: one bit a column, empty slots none."""
+    s = sources.shape[0]
+    dev = sources.device
+    words = torch.zeros((p, packed_words(shard), s), dtype=torch.int32,
+                        device=dev)
+    src = sources.to(torch.int64)
+    ok = (src >= 0) & (src < n_logical)
+    v = torch.where(ok, src, 0)
+    one = torch.ones((s,), dtype=torch.int32, device=dev)
+    bit = torch.where(ok, one << (v % shard % 32).to(torch.int32), 0)
+    # each column's (shard, word) pair is distinct: plain writes suffice
+    words[v // shard, v % shard // 32, torch.arange(s, device=dev)] = bit
+    return words
+
+
 def dense_edge_index(src_local: torch.Tensor, dst_global: torch.Tensor,
                      shard: int, n: int):
     """Flat gather/scatter rows of the *valid* edges of ``(g, E)`` stacked

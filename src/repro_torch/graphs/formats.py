@@ -10,10 +10,10 @@ by ``owner(dst)``.
 The host arrays are numpy and equal ``repro.graphs.shard_graph``'s output
 bitwise; ``from_jax_arrays`` carries a JAX-built container across so both
 engines traverse the identical graph, and ``to_device`` uploads the edge
-blocks as torch tensors.  The blocked adjacency of the ``use_kernel`` path
-(``bsr_shards``) is built straight on the target device: only the tile
-indices are computed on the host, so a multi-GB tile array never exists in
-host memory.
+blocks as torch tensors.  The blocked adjacency (``bsr_shards`` in f32, and
+``bsr_bit_shards`` at one bit an entry, the ``use_kernel`` engine's) is
+built straight on the target device: only the tile indices are computed
+on the host, so a multi-GB tile array never exists in host memory.
 """
 
 from __future__ import annotations
@@ -190,6 +190,53 @@ class ShardedGraph:
         idx = torch.as_tensor(edge_tile).to(device)
         blocks[idx[:, 0], idx[:, 1], idx[:, 2], idx[:, 3]] = 1.0
         return (blocks, torch.as_tensor(br).to(device),
+                torch.as_tensor(bc).to(device), row_pad, col_pad)
+
+    def bsr_bit_shards(self, device="cpu"):
+        """``bsr_shards``' tiles at one bit an entry, for the engine's
+        boolean expansion (``kernels.bsr_spmm.kernel.bsr_expand_bits``),
+        built on ``device`` with no f32 tile ever made.  The block is 128.
+
+        ``bits[j, k, c, q]`` holds column ``c`` of shard ``j``'s tile
+        ``k``: bit ``b`` is row ``32 q + b`` (LSB-first, int32 carrying
+        the uint32 pattern), so ``unpack_bit_tiles(bits)`` (in
+        ``kernels.bsr_spmm.ref``) is ``bsr_shards()[0]`` bitwise.
+        ``col_mask[j, k, w]`` bit ``b`` is set where column ``32 w + b``
+        of the tile holds an edge: the kernel reads it to skip a tile no
+        frontier column reaches.  Pad tiles, block rows and block columns
+        are ``bsr_shards``' own.
+
+        Duplicate edges set one bit: the edges are deduplicated, then
+        distinct powers of two are added, which is their OR.
+
+        Returns ``(bits (p, K, 128, 4) i32, col_mask (p, K, 4) i32,
+        block_rows (p, K) i32, block_cols (p, K) i32, n_rows_pad,
+        n_cols_pad)``.
+        """
+        block = 128
+        kmax, br, bc, edge_tile, row_pad, col_pad = self._bsr_index(block)
+        bits = torch.zeros((self.p, kmax, block, block // 32),
+                           dtype=torch.int32, device=device)
+        col_mask = torch.zeros((self.p, kmax, block // 32), dtype=torch.int32,
+                               device=device)
+        # edge_tile is grouped by shard; one shard at a time keeps the
+        # flat indices below 2**31 words and the temporaries small
+        bounds = np.searchsorted(edge_tile[:, 0], np.arange(self.p + 1))
+        for j in range(self.p):
+            idx = torch.as_tensor(edge_tile[bounds[j]:bounds[j + 1], 1:]).to(
+                device)                            # (E_j, 3) tile, row, col
+            tile_col = idx[:, 0] * block + idx[:, 2]
+            # word (tile, col, row // 32) of bits takes 1 << (row % 32)
+            # once per distinct (tile, col, row); word (tile, col // 32) of
+            # col_mask takes 1 << (col % 32) once per distinct (tile, col)
+            for out, key in ((bits[j], tile_col * block + idx[:, 1]),
+                             (col_mask[j], tile_col)):
+                key = torch.unique(key)
+                word = (key >> 7) * 4 + ((key & 127) >> 5)
+                one = torch.ones_like(key, dtype=torch.int32)
+                out.view(-1).index_add_(0, word, one << (key & 31).to(
+                    torch.int32))                  # 1 << 31 is the sign bit
+        return (bits, col_mask, torch.as_tensor(br).to(device),
                 torch.as_tensor(bc).to(device), row_pad, col_pad)
 
 

@@ -27,3 +27,13 @@ def frontier_expand_ref(blocks, block_rows, block_cols, frontier, *,
     y = bsr_spmm_ref(blocks, block_rows, block_cols,
                      frontier.to(torch.float32), n_rows_pad=n_rows_pad)
     return (y > 0).to(torch.uint8)
+
+
+def unpack_bit_tiles(bits: torch.Tensor) -> torch.Tensor:
+    """``(..., 128, 4)`` one-bit tiles (``bits[..., c, q]`` bit ``b`` =
+    row ``32 q + b`` of column ``c``) to ``(..., 128, 128)`` f32 0/1 tiles
+    indexed ``[row, col]``, as ``ShardedGraph.bsr_shards`` has them."""
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
+    b = bits[..., None] >> shifts                      # (..., col, q, 32)
+    b &= 1
+    return b.flatten(-2).transpose(-1, -2).to(torch.float32)

@@ -14,12 +14,15 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.core import BFSOptions, plan
-from repro_torch.core.frontier import INF, packed_words
+from repro_torch.core.frontier import INF, pack_bits, packed_words
 from repro_torch.core.ref import bfs_reference, validate_bfs
 from repro_torch.graphs import generate, shard_graph
 from repro_torch.kernels.bsr_spmm.kernel import (bitpack_words,
                                                  bitpack_words_plain,
-                                                 block_row_ptr, bsr_spmm)
+                                                 block_row_ptr,
+                                                 bsr_expand_bits,
+                                                 bsr_expand_bits_plain,
+                                                 bsr_spmm)
 from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref
 from repro_torch.kernels.embedding_bag import ops as bag_ops
 from repro_torch.kernels.embedding_bag.kernel import (embedding_bag_sum,
@@ -99,6 +102,112 @@ def test_bitpack_kernel_matches_plain(cuda):
     before = bitpack_words.launches
     assert torch.equal(bitpack_words(mask), bitpack_words_plain(mask))
     assert bitpack_words.launches == before + 1
+
+
+def _bit_operands(gen, dev, rows, cols, n_block_cols, s, density=0.02,
+                  pad=0, frontier=0.3):
+    """Random one-bit tiles at the given block rows and columns (the last
+    ``pad`` tiles all zero, as a shard's pad tiles), their column masks,
+    the block-row pointer and a packed frontier of ``s`` sources."""
+    rows = torch.tensor(rows, dtype=torch.int32, device=dev)
+    cols = torch.tensor(cols, dtype=torch.int32, device=dev)
+    k = rows.numel()
+    dense = torch.rand((k, 128, 128), generator=gen, device=dev) < density
+    if pad:
+        dense[-pad:] = False
+    bits = pack_bits(dense).transpose(1, 2).contiguous()        # (K, col, 4)
+    cmask = pack_bits((dense.any(dim=1))[..., None])[..., 0]
+    n_rows = int(rows.max()) + 1
+    rp = block_row_ptr(rows, cols, n_rows, n_block_cols)
+    x = (torch.rand((128 * n_block_cols, s), generator=gen, device=dev)
+         < frontier).to(torch.uint8)
+    return bits, cmask, rp, cols, pack_bits(x)
+
+
+def _hold_expand(*ops, **layout):
+    before = bsr_expand_bits.launches
+    got = bsr_expand_bits(*ops, **layout)
+    want = bsr_expand_bits_plain(*ops, **layout)
+    torch.cuda.synchronize()
+    assert bsr_expand_bits.launches == before + 1
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 130])
+@pytest.mark.parametrize("n_valid,n_blocks", [(512, 4), (500, 4), (96, 6)])
+def test_bsr_expand_bits_kernel_matches_plain(cuda, s, n_valid, n_blocks):
+    """Block row 1 empty, two pad tiles repeating the last block row;
+    aligned segments, segments of 125 rows and of 16."""
+    gen = torch.Generator(device=cuda).manual_seed(s + n_valid)
+    ops = _bit_operands(gen, cuda, [0, 0, 2, 3, 3, 3, 3],
+                        [0, 2, 1, 0, 2, 0, 0], 3, s, pad=2)
+    got = _hold_expand(*ops, n_valid=n_valid, n_blocks=n_blocks)
+    assert bool(got.any())
+
+
+def test_bsr_expand_bits_kernel_merges_a_split_row(cuda):
+    """2,000 tiles in one block row span many chunks (and CTAs), merged
+    with atomicOr; a second group of rows packs on its own, with
+    unaligned segments (rows_per_group 384, 3 segments of 100)."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    rows = [0] * 2000 + [1, 4, 4, 5]
+    cols = [i % 40 for i in range(2000)] + [3, 0, 39, 7]
+    ops = _bit_operands(gen, cuda, rows, cols, 40, 64, density=0.001,
+                        frontier=0.05)
+    _hold_expand(*ops, n_valid=384, n_blocks=1)
+    _hold_expand(*ops, n_valid=300, n_blocks=3, rows_per_group=384)
+    # the tiles' block rows handed in, as the engine does
+    got = bsr_expand_bits(*ops, n_valid=300, n_blocks=3, rows_per_group=384,
+                          block_rows=torch.tensor(rows, dtype=torch.int32,
+                                                  device=cuda))
+    assert torch.equal(got, bsr_expand_bits_plain(
+        *ops, n_valid=300, n_blocks=3, rows_per_group=384))
+
+
+def test_bsr_expand_bits_kernel_all_zero_frontier(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    ops = _bit_operands(gen, cuda, [0, 0, 2, 3], [0, 2, 1, 0], 3, 64,
+                        frontier=0.0)
+    got = _hold_expand(*ops, n_valid=500, n_blocks=4)
+    assert not bool(got.any())
+
+
+def test_bsr_expand_bits_refuses_mixed_devices_and_dtypes(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    bits, cmask, rp, cols, fw = _bit_operands(gen, cuda, [0, 1], [0, 1], 2, 4)
+    layout = dict(n_valid=256, n_blocks=1)
+    with pytest.raises(ValueError, match="tensors on"):
+        bsr_expand_bits(bits, cmask, rp, cols, fw.cpu(), **layout)
+    with pytest.raises(ValueError, match="tensors on"):
+        bsr_expand_bits(bits.cpu(), cmask, rp, cols, fw, **layout)
+    with pytest.raises(ValueError, match="int32"):
+        bsr_expand_bits(bits, cmask, rp, cols, fw.to(torch.uint8), **layout)
+    with pytest.raises(ValueError, match="int32"):
+        bsr_expand_bits(bits, cmask.long(), rp, cols, fw, **layout)
+    with pytest.raises(ValueError, match="contiguous"):
+        bsr_expand_bits(bits, cmask, rp, cols,
+                        torch.cat([fw, fw], dim=1)[:, ::2], **layout)
+
+
+def test_engine_use_kernel_launches_the_bit_expansion_each_level(cuda):
+    """Under use_kernel the engine holds no f32 tile, launches
+    bsr_expand_bits once a level and the f32 bsr_spmm never."""
+    n = 1001
+    src, dst = generate("rmat", n, seed=4)
+    roots = [0, 5, 77, 1000]
+    for p, opts in ((1, BFSOptions(use_kernel=True, wire_format="packed")),
+                    (4, BFSOptions(use_kernel=True)),
+                    (3, BFSOptions(use_kernel=True, wire_format="bytes"))):
+        eng = plan(shard_graph(src, dst, n, p), opts,
+                   num_sources=4).compile()
+        assert all(t.dtype == torch.int32 for t in eng.kernel_arrays)
+        a2, bx = bsr_spmm.launches, bsr_expand_bits.launches
+        res = eng.run(roots)
+        np.testing.assert_array_equal(res.dist_host,
+                                      bfs_reference(src, dst, n, roots))
+        assert bsr_spmm.launches == a2
+        assert bsr_expand_bits.launches == bx + res.run_stats.levels
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -10,6 +10,7 @@ import torch
 
 from repro.core import frontier as jfr
 from repro_torch.core import frontier as fr
+from repro_torch.core.partition import Partition1D
 
 # tiny shapes: one intra-op thread, so parallel test workers do not
 # oversubscribe the cores
@@ -182,3 +183,18 @@ def test_byte_size_helpers_match_jax(cap, id_range):
     assert fr.sieve_layout(id_range) == jfr.sieve_layout(id_range)
     assert fr.varint_len(id_range) == jfr.varint_len(id_range)
     assert fr.INF == int(jfr.INF)
+
+
+@pytest.mark.parametrize("n_logical,p", [(300, 4), (97, 1), (64, 2)])
+def test_source_words_is_the_packed_initial_frontier(n_logical, p):
+    """source_words writes what the JAX package's pack_bits makes of its
+    init_dist_frontier frontier, empty slots and bit 31 included."""
+    part = Partition1D(n_logical, p)
+    srcs = np.array([0, n_logical - 1, -1, 31, n_logical + 3,
+                     part.shard_size - 1], np.int32)
+    _, jfront = jfr.init_dist_frontier(jnp.asarray(srcs), part.n, n_logical)
+    want = np.asarray(jfr.pack_bits(jfront, p)).reshape(p, -1, srcs.size)
+    got = fr.source_words(torch.from_numpy(srcs), p, part.shard_size,
+                          n_logical)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(_u32(got), want)

@@ -5,6 +5,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.configs.base import BFS_WORKLOADS as J_WORKLOADS
 from repro.core.partition import Partition1D as JPartition1D
@@ -16,6 +17,7 @@ from repro_torch.core.partition import Partition1D
 from repro_torch.graphs import generators as tgen
 from repro_torch.graphs.formats import (block_sparse_adjacency,
                                         from_jax_arrays, shard_graph)
+from repro_torch.kernels.bsr_spmm.ref import unpack_bit_tiles
 
 GRAPHS = [("star", 97, {}), ("chain", 75, {}),
           ("erdos_renyi", 301, {"avg_degree": 6.0}),
@@ -124,3 +126,37 @@ def test_bfs_workloads_match_jax():
     assert bfs_workload("rmat_1m").n_vertices == 1 << 20
     with pytest.raises(KeyError):
         bfs_workload("nope")
+
+
+@pytest.mark.parametrize("graph", ["rmat_dups", "star"])
+@pytest.mark.parametrize("p", [1, 2, 4])
+def test_bsr_bit_shards_unpack_to_the_jax_f32_tiles(graph, p):
+    """The one-bit tiles at block 128, unpacked, are the JAX package's f32
+    tiles bitwise: with every third edge repeated (a bit set twice stays
+    one bit), and on a star, whose uneven shards carry all-zero pad
+    tiles."""
+    if graph == "rmat_dups":
+        n = 700
+        src, dst = tgen.generate("rmat", n, seed=5, edge_factor=8)
+        src, dst = np.concatenate([src, src[::3]]), np.concatenate(
+            [dst, dst[::3]])
+    else:
+        n = 700
+        src, dst = tgen.generate("star", n)
+    tg, jg = shard_graph(src, dst, n, p), j_shard_graph(src, dst, n, p)
+    bits, cmask, br, bc, row_pad, col_pad = tg.bsr_bit_shards()
+    jblocks, jbr, jbc, jrow_pad, jcol_pad = jg.bsr_shards(block=128)
+    assert bits.dtype == cmask.dtype == torch.int32
+    assert bits.shape == (*jblocks.shape[:2], 128, 4)
+    np.testing.assert_array_equal(unpack_bit_tiles(bits).numpy(), jblocks)
+    np.testing.assert_array_equal(br.numpy(), jbr)
+    np.testing.assert_array_equal(bc.numpy(), jbc)
+    assert (row_pad, col_pad) == (jrow_pad, jcol_pad)
+    # column masks: bit c of word w where column 32 w + c holds an edge
+    cols_used = jblocks.max(axis=2) > 0                  # (p, K, 128)
+    want = np.zeros(cmask.shape, np.uint32)
+    for c in range(128):
+        want[..., c // 32] |= cols_used[..., c].astype(np.uint32) << (c % 32)
+    np.testing.assert_array_equal(cmask.numpy().view(np.uint32), want)
+    if graph == "star" and p > 1:
+        assert not cols_used.any(axis=2).all()          # pad tiles exist

@@ -1,5 +1,6 @@
-"""Kernels A1-A3 of the port: their plain torch versions bitwise against
-the JAX kernels on the CPU, and the wrappers' dispatch and checks.  The
+"""Kernels A1-A3 and the engine's bit-tile expansion (``bsr_expand_bits``):
+their plain torch versions bitwise against the JAX kernels on the CPU,
+and the wrappers' dispatch and checks.  The
 CUDA kernels themselves are held to the plain versions on the card by
 tests/test_torch_cuda.py."""
 
@@ -9,6 +10,7 @@ import pytest
 import torch
 
 from repro.core.frontier import pack_bits as j_pack_bits
+from repro.kernels.bsr_spmm import ops as j_ops
 from repro.kernels.bsr_spmm.kernel import bitpack_words as j_bitpack_words
 from repro.kernels.bsr_spmm.ref import bsr_spmm_ref as j_bsr_spmm_ref
 from repro.kernels.fold_update import fold_update as j_fold_update
@@ -16,8 +18,9 @@ from repro_torch.core.frontier import INF, pack_bits, packed_words
 from repro_torch.kernels.bsr_spmm import ops
 from repro_torch.kernels.bsr_spmm.kernel import (bitpack_words,
                                                  bitpack_words_plain,
-                                                 block_row_ptr, bsr_spmm)
-from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref
+                                                 block_row_ptr,
+                                                 bsr_expand_bits, bsr_spmm)
+from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref, unpack_bit_tiles
 from repro_torch.kernels.fold_update import fold_update
 
 # tiny shapes: one intra-op thread, so parallel test workers do not
@@ -187,3 +190,132 @@ def test_spmm_wrappers_check_inputs():
     with pytest.raises(ValueError, match="32-aligned"):
         bitpack_words(torch.zeros((33, 2)))
     assert block_row_ptr(tr, tc, 4, 1).tolist() == [0, 1, 2, 2, 2]
+
+
+# ---------------------------------------------------------------------------
+# bsr_expand_bits: the engine's one-bit boolean expansion
+# ---------------------------------------------------------------------------
+
+def _bit_tiles(blocks: torch.Tensor):
+    """``(K, 128, 128)`` 0/1 tiles ``[row, col]`` as ``bsr_bit_shards``
+    lays them out: ``(K, 128, 4)`` column words and the ``(K, 4)`` column
+    mask."""
+    bits = pack_bits(blocks).transpose(1, 2).contiguous()      # (K, col, 4)
+    cmask = pack_bits((blocks.amax(dim=1) > 0)[..., None])[..., 0]
+    return bits, cmask
+
+
+def _bit_case(rng, s: int, zero_frontier: bool = False):
+    """``_bsr_case``'s layout at block 128: 4 block rows x 3 block cols,
+    block row 1 empty, two all-zero pad tiles repeating the last row."""
+    rows = np.array([0, 0, 2, 3, 3, 3, 3], np.int32)
+    cols = np.array([0, 2, 1, 0, 2, 0, 0], np.int32)
+    blocks = (rng.random((rows.size, 128, 128)) < 0.02).astype(np.float32)
+    blocks[-2:] = 0.0
+    x = (rng.random((384, s)) < 0.3).astype(np.uint8)
+    if zero_frontier:
+        x[:] = 0
+    return blocks, rows, cols, x
+
+
+def test_bit_tiles_round_trip():
+    blocks = torch.from_numpy(_bit_case(np.random.default_rng(0), 1)[0])
+    bits, cmask = _bit_tiles(blocks)
+    assert bits.shape == (7, 128, 4) and cmask.shape == (7, 4)
+    assert torch.equal(unpack_bit_tiles(bits), blocks)
+    assert not bool(cmask[-2:].any())            # pad tiles: empty mask
+
+
+# (n_valid, n_blocks): one aligned segment, four aligned ones, segments of
+# 125 and 150 rows (a word straddles each boundary), and of 16 (< 32)
+LAYOUTS = [(512, 1), (512, 4), (500, 4), (450, 3), (96, 6)]
+
+
+@pytest.mark.parametrize("s", [1, 4, 64])
+@pytest.mark.parametrize("n_valid,n_blocks", LAYOUTS)
+def test_bsr_expand_bits_plain_vs_jax_ops(s, n_valid, n_blocks):
+    rng = np.random.default_rng(s * 100 + n_valid + n_blocks)
+    blocks, rows, cols, x = _bit_case(rng, s)
+    want = np.asarray(j_ops.frontier_expand_packed(
+        jnp.asarray(blocks), jnp.asarray(rows), jnp.asarray(cols),
+        jnp.asarray(x), n_rows_pad=512, n_valid=n_valid, n_blocks=n_blocks,
+        interpret=True))
+    bits, cmask = _bit_tiles(torch.from_numpy(blocks))
+    tc = torch.from_numpy(cols)
+    fwords = pack_bits(torch.from_numpy(x))
+    before = bsr_expand_bits.launches
+    got = bsr_expand_bits(bits, cmask, block_row_ptr(torch.from_numpy(rows),
+                                                     tc, 4, 3),
+                          tc, fwords, n_valid=n_valid, n_blocks=n_blocks)
+    assert got.shape == (n_blocks * packed_words(n_valid // n_blocks), s)
+    np.testing.assert_array_equal(_u32(got), want)
+    assert bsr_expand_bits.launches == before    # CPU: plain version only
+
+
+@pytest.mark.parametrize("n_valid,n_blocks", [(512, 4), (450, 3)])
+def test_bsr_expand_bits_all_zero_frontier(n_valid, n_blocks):
+    blocks, rows, cols, x = _bit_case(np.random.default_rng(1), 4,
+                                      zero_frontier=True)
+    bits, cmask = _bit_tiles(torch.from_numpy(blocks))
+    tc = torch.from_numpy(cols)
+    got = bsr_expand_bits(bits, cmask,
+                          block_row_ptr(torch.from_numpy(rows), tc, 4, 3), tc,
+                          pack_bits(torch.from_numpy(x)), n_valid=n_valid,
+                          n_blocks=n_blocks)
+    want = np.asarray(j_ops.frontier_expand_packed(
+        jnp.asarray(blocks), jnp.asarray(rows), jnp.asarray(cols),
+        jnp.asarray(x), n_rows_pad=512, n_valid=n_valid, n_blocks=n_blocks,
+        interpret=True))
+    assert not bool(got.any())
+    np.testing.assert_array_equal(_u32(got), want)
+
+
+@pytest.mark.parametrize("n_valid,n_blocks", [(256, 2), (200, 4)])
+def test_bsr_expand_bits_groups_are_packed_apart(n_valid, n_blocks):
+    """Two groups of two block rows (the engine's stacked shards): each
+    group's first n_valid rows pack on their own, as the JAX package packs
+    each shard's candidates."""
+    rng = np.random.default_rng(n_valid)
+    blocks, rows, cols, x = _bit_case(rng, 3)
+    y = np.asarray(j_bsr_spmm_ref(jnp.asarray(blocks), jnp.asarray(rows),
+                                  jnp.asarray(cols),
+                                  jnp.asarray(x, dtype=jnp.float32),
+                                  n_rows_pad=512)).reshape(2, 256, 3)
+    want = np.concatenate([np.asarray(j_pack_bits(
+        jnp.asarray((y[g, :n_valid] > 0).astype(np.uint8)), n_blocks))
+        for g in range(2)])
+    bits, cmask = _bit_tiles(torch.from_numpy(blocks))
+    tc = torch.from_numpy(cols)
+    got = bsr_expand_bits(bits, cmask,
+                          block_row_ptr(torch.from_numpy(rows), tc, 4, 3), tc,
+                          pack_bits(torch.from_numpy(x)), n_valid=n_valid,
+                          n_blocks=n_blocks, rows_per_group=256)
+    np.testing.assert_array_equal(_u32(got), want)
+
+
+def test_bsr_expand_bits_checks_inputs():
+    blocks, rows, cols, x = _bit_case(np.random.default_rng(2), 2)
+    bits, cmask = _bit_tiles(torch.from_numpy(blocks))
+    tc = torch.from_numpy(cols)
+    rp = block_row_ptr(torch.from_numpy(rows), tc, 4, 3)
+    fw = pack_bits(torch.from_numpy(x))
+    ok = dict(n_valid=512, n_blocks=4)
+    with pytest.raises(ValueError, match="int32"):
+        bsr_expand_bits(bits.float(), cmask, rp, tc, fw, **ok)
+    with pytest.raises(ValueError, match="int32"):
+        bsr_expand_bits(bits, cmask, rp, tc.long(), fw, **ok)
+    with pytest.raises(ValueError, match="128-wide"):
+        bsr_expand_bits(bits[:, :64], cmask, rp, tc, fw, **ok)
+    with pytest.raises(ValueError, match="128-wide"):
+        bsr_expand_bits(bits, cmask[:-1], rp, tc, fw, **ok)
+    with pytest.raises(ValueError, match="whole"):
+        bsr_expand_bits(bits, cmask, rp, tc, fw[:-1], **ok)
+    with pytest.raises(ValueError, match="one row for each"):
+        bsr_expand_bits(bits, cmask, rp, tc, fw, block_rows=rp, **ok)
+    with pytest.raises(ValueError, match="int32"):
+        bsr_expand_bits(bits, cmask, rp, tc, fw,
+                        block_rows=torch.from_numpy(rows).long(), **ok)
+    for bad in (dict(n_valid=513, n_blocks=1), dict(n_valid=510, n_blocks=4),
+                dict(n_valid=256, n_blocks=1, rows_per_group=192)):
+        with pytest.raises(ValueError, match="blocked layout"):
+            bsr_expand_bits(bits, cmask, rp, tc, fw, **bad)
