@@ -159,6 +159,24 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+# the highest device memory of the phases before the last peak reset
+_EARLIER_PEAK = 0
+
+
+def reset_peak() -> None:
+    """Start a phase's peak memory reading; the script's own peak keeps
+    the highest reading of every phase."""
+    global _EARLIER_PEAK
+    torch.cuda.synchronize()
+    _EARLIER_PEAK = max(_EARLIER_PEAK, torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gib() -> float:
+    """Peak device memory since the script started, in GiB."""
+    return max(_EARLIER_PEAK, torch.cuda.max_memory_allocated()) / 2**30
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -271,8 +289,8 @@ def frontier_words(mask: torch.Tensor, p: int, col_pad: int):
     return pack_bits(x).reshape(-1, s)
 
 
-def expand_bound(tiles, cmask, row_ptr, cols, fwords, out) -> dict:
-    """``bsr_expand_bits``' byte bound: the column masks, indices,
+def expand_bound(tiles, cmask, rows, cols, fwords, out) -> dict:
+    """``bsr_expand_bits``' byte bound: the column masks, block indices,
     frontier words and output, and the tiles this frontier makes it read
     (those whose column mask meets some source's frontier word); beside
     it the bound with every tile read, which no skip can pass."""
@@ -281,7 +299,7 @@ def expand_bound(tiles, cmask, row_ptr, cols, fwords, out) -> dict:
         any_src |= fwords[:, j]
     words = cols.long()[:, None] * 4 + torch.arange(4, device=cols.device)
     read = int(((any_src[words] & cmask) != 0).any(dim=1).sum())
-    fixed = nbytes(cmask, row_ptr, cols, fwords, out)
+    fixed = nbytes(cmask, rows, cols, fwords, out)
     b_ms, b_by = bound(fixed + read * tiles[0].numel() * tiles.element_size())
     all_ms, _ = bound(fixed + nbytes(tiles))
     return {"bound_ms": b_ms, "bound_by": b_by, "bound_all_tiles_ms": all_ms,
@@ -298,14 +316,13 @@ def path3_phase(kernels, g, src, dst, roots, want, dev, profile: bool):
 
     part = g.part
     p, shard, n = part.p, part.shard_size, part.n
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     t0 = time.perf_counter()
     pl = plan(g, BFSOptions(use_kernel=True), num_sources=S)
     eng = pl.compile()
     torch.cuda.synchronize()
     compile_ms = (time.perf_counter() - t0) * 1e3
-    tiles, cmask, row_ptr, cols, rows = eng.kernel_arrays
+    tiles, cmask, row_ptr, rows, cols = eng.kernel_arrays
     d = pl.describe()
     log(f"path 3: p={p} dense_exchange={d['dense_exchange']} fused="
         f"{d['use_fused_tail']}; {tiles.shape[0]} tiles in "
@@ -333,27 +350,31 @@ def path3_phase(kernels, g, src, dst, roots, want, dev, profile: bool):
     # version's f32 tiles would be 695 GB), then timed beside its bound
     mask, depth, pairs = densest_frontier(host, n, fr.INF, dev)
     fwords = frontier_words(mask, p, -(-shard // 128) * 128)
-    layout = dict(n_valid=n, n_blocks=p, rows_per_group=-(-n // 128) * 128,
-                  block_rows=rows)           # as the engine calls it
-    out = bsr_expand_bits(tiles, cmask, row_ptr, cols, fwords, **layout)
-    merged = out.reshape(p, -1, S)[0].clone()
-    for j in range(1, p):
-        merged |= out.reshape(p, -1, S)[j]
-    cand = fr.unpack_bits(merged, shard, p)
-    want_c = fr.expand_dense_edges(mask, torch.from_numpy(src).to(dev),
-                                   torch.from_numpy(dst).to(dev), n)
-    check(torch.equal(cand, want_c), "path 3: bsr_expand_bits differs from "
-                                     "the scatter-max expansion")
-    del cand, want_c, merged
-    ms = timed_ms(lambda: bsr_expand_bits(tiles, cmask, row_ptr, cols,
-                                          fwords, **layout), 10)
+    layout = dict(n_valid=n, n_blocks=p, rows_per_group=-(-n // 128) * 128)
+    out = bsr_expand_bits(*eng.kernel_arrays, fwords, **layout)
+    # shard j's group holds the candidates of shard j's own edges, packed
+    # per owner, as the engine ships them
+    src_d, dst_d = torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(dev)
+    owner = src_d // shard
+    for j in range(p):
+        sel = owner == j
+        want_j = fr.pack_bits(fr.expand_dense_edges(mask, src_d[sel],
+                                                    dst_d[sel], n), p)
+        check(torch.equal(out.reshape(p, -1, S)[j], want_j),
+              f"path 3: shard {j}'s candidate words differ from the "
+              f"scatter-max expansion over its edges")
+        del sel, want_j
+    del src_d, dst_d, owner
+    ms = timed_ms(lambda: bsr_expand_bits(*eng.kernel_arrays, fwords,
+                                          **layout), 10)
     pack_ms = timed_ms(lambda: fr.pack_bits(mask.view(p, shard, S)), 10)
-    b = expand_bound(tiles, cmask, row_ptr, cols, fwords, out)
+    b = expand_bound(tiles, cmask, rows, cols, fwords, out)
     log(f"bsr_expand_bits at path 3 (depth {depth}, {pairs} frontier "
         f"pairs, the densest level): {ms} ms; bound {b['bound_ms']} ms "
         f"({b['bound_by']}; {b['tiles_read']} of {b['tiles']} tiles read), "
-        f"every tile {b['bound_all_tiles_ms']} ms; the scatter-max "
-        f"expansion agrees bitwise; pack_bits of the frontier (a run's "
+        f"every tile {b['bound_all_tiles_ms']} ms; each shard's words "
+        f"agree bitwise with the scatter-max expansion over its edges; "
+        f"pack_bits of the frontier (a run's "
         f"first level) {pack_ms} ms")
     del eng, res, tiles, cmask, row_ptr, cols, rows, out
     torch.cuda.empty_cache()
@@ -1110,8 +1131,7 @@ def main(argv=None) -> int:
     roots2 = np.random.default_rng(SEED).choice(n2, S, replace=False)
     g2 = shard_graph(src2, dst2, n2, 1)
     log(f"path 2: {w2.name} n={n2} directed edges={src2.size}, S={S}")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     t0 = time.perf_counter()
     pl2 = plan(g2, BFSOptions(use_kernel=True, wire_format="packed"),
                num_sources=S)
@@ -1190,7 +1210,8 @@ def main(argv=None) -> int:
 
     # bsr_expand_bits at path 2's shapes: the engine's own operands, on the
     # run's densest level and on a random 5% frontier
-    xtiles, xmask, xrow_ptr, xcols, xrows = eng2.kernel_arrays
+    xops_in = eng2.kernel_arrays
+    xtiles, xmask, _, xrows, xcols = xops_in
     part2 = g2.part
     pad2 = -(-part2.n // 128) * 128        # p = 1: rows and columns alike
     layout = dict(n_valid=part2.n, n_blocks=1, rows_per_group=pad2)
@@ -1202,30 +1223,20 @@ def main(argv=None) -> int:
     xops, errx = {}, 0
     for what, mask in fronts.items():
         fw = frontier_words(mask, 1, pad2)
-        # as the engine calls it (with the tiles' block rows), and without
-        got = bsr_expand_bits(xtiles, xmask, xrow_ptr, xcols, fw,
-                              block_rows=xrows, **layout)
-        got_ptr = bsr_expand_bits(xtiles, xmask, xrow_ptr, xcols, fw,
-                                  **layout)
-        want = bsr_expand_bits_plain(xtiles, xmask, xrow_ptr, xcols, fw,
-                                     **layout)
-        errx = max(errx, int((got.long() - want.long()).abs().max()),
-                   int((got_ptr.long() - want.long()).abs().max()))
-        check(torch.equal(got, want) and torch.equal(got_ptr, want),
+        got = bsr_expand_bits(*xops_in, fw, **layout)
+        want = bsr_expand_bits_plain(*xops_in, fw, **layout)
+        errx = max(errx, int((got.long() - want.long()).abs().max()))
+        check(torch.equal(got, want),
               f"bsr_expand_bits differs from its plain version on {what}")
-        log(f"bsr_expand_bits on {what}: bitwise to its plain version, with "
-            f"and without the tiles' block rows")
-        del got_ptr
+        log(f"bsr_expand_bits on {what}: bitwise to its plain version")
         xops[what] = (mask, fw, got)
         del want
     dense_what = next(iter(xops))
     _, fw, got = xops[dense_what]
-    xb = expand_bound(xtiles, xmask, xrow_ptr, xcols, fw, got)
-    x_ms = timed_ms(lambda: bsr_expand_bits(xtiles, xmask, xrow_ptr, xcols,
-                                            fw, block_rows=xrows, **layout),
-                    20)
-    x_plain_ms = timed_ms(lambda: bsr_expand_bits_plain(
-        xtiles, xmask, xrow_ptr, xcols, fw, **layout), 2)
+    xb = expand_bound(xtiles, xmask, xrows, xcols, fw, got)
+    x_ms = timed_ms(lambda: bsr_expand_bits(*xops_in, fw, **layout), 20)
+    x_plain_ms = timed_ms(lambda: bsr_expand_bits_plain(*xops_in, fw,
+                                                        **layout), 2)
     log(f"bsr_expand_bits at path 2 on {dense_what}: {x_ms} ms; bound "
         f"{xb['bound_ms']} ms ({xb['bound_by']}; {xb['tiles_read']} of "
         f"{xb['tiles']} tiles read), every tile {xb['bound_all_tiles_ms']} "
@@ -1336,7 +1347,7 @@ def main(argv=None) -> int:
     rows.append(attention_rows(lay, dev, sass))
     rows.append(bag_row)
 
-    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"peak device memory over the whole script {peak_gib():.2f} GiB")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -206,13 +206,11 @@ def make_dense_level(part: Partition1D, s: int, mesh: LocalMesh, axis,
 
 def run_dense_levels(dense_level: Callable, dist: torch.Tensor,
                      frontier: torch.Tensor, part: Partition1D,
-                     max_levels: int, words: Optional[torch.Tensor] = None):
+                     max_levels: int):
     """Run levels until no shard discovers a vertex (or ``max_levels``).
 
     ``dist`` and ``frontier`` are the padded global ``(n, S)`` buffers;
-    ``dist`` is updated in place.  ``words``, if given, is the first
-    frontier packed per shard, ``(p, W, S)``, for a level that reads it.
-    Returns ``(levels, comm_bytes,
+    ``dist`` is updated in place.  Returns ``(levels, comm_bytes,
     level_seconds)``: the level count as the JAX loop reports it, the
     analytic per-chip bytes summed in float32 as the JAX loop sums them,
     and each level's host wall time (it ends in the level's sync).
@@ -223,7 +221,7 @@ def run_dense_levels(dense_level: Callable, dist: torch.Tensor,
     frontier = frontier.view(p, shard, s)
     bytes_acc = np.float32(0)
     level_seconds = []
-    level, active = 1, True
+    level, active, words = 1, True, None
     while active and level <= max_levels:
         t0 = time.perf_counter()
         new, b, words = dense_level(frontier, dist_sh, level, words)

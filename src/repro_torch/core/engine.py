@@ -417,10 +417,9 @@ class BFSEngine:
         times its padded row and column counts — so one launch expands
         every shard, and emits each shard's candidates as the
         per-owner-blocked words of the packed wire.  The frontier goes in
-        packed: at the first level as ``source_words`` writes it from the
-        sources, then as A1 re-packed it where the fused tail runs, else
-        as ``pack_bits`` of the byte frontier (an unfused plan); a bytes
-        wire unpacks the candidate words.
+        packed: as A1 re-packed it where the fused tail runs, else (the
+        first level, an unfused plan) as ``pack_bits`` of the byte
+        frontier; a bytes wire unpacks the candidate words.
 
         Returns ``(expand_fn, emits_packed)``.
         """
@@ -442,7 +441,9 @@ class BFSEngine:
         tiles = bits.reshape(p * kmax, blk, blk // 32)
         cmask = cmask.reshape(p * kmax, blk // 32)
         row_ptr = block_row_ptr(rows, cols, p * nbr, p * nbc)
-        self.kernel_arrays = (tiles, cmask, row_ptr, cols, rows)
+        # the closure holds the arrays, not the engine: no cycle keeps a
+        # dropped engine's tiles on the device
+        arrays = self.kernel_arrays = (tiles, cmask, row_ptr, rows, cols)
         packed = self.plan.dense_strategy.wire == "packed"
         w_in, w_out = fr.packed_words(shard), col_pad // 32
 
@@ -454,9 +455,8 @@ class BFSEngine:
                 words = torch.nn.functional.pad(words,
                                                 (0, 0, 0, w_out - w_in))
             cand = bsr_expand_bits(
-                tiles, cmask, row_ptr, cols, words.reshape(p * w_out, s),
-                n_valid=n, n_blocks=p, rows_per_group=row_pad,
-                block_rows=rows).reshape(p, p * w_in, s)
+                *arrays, words.reshape(p * w_out, s), n_valid=n,
+                n_blocks=p, rows_per_group=row_pad).reshape(p, p * w_in, s)
             if packed:
                 return cand
             return fr.unpack_bits(cand, shard, p)       # (p, n, S) uint8
@@ -484,14 +484,8 @@ class BFSEngine:
         src_dev = torch.from_numpy(padded).to(pl_.device)
         fr.init_dist_frontier(src_dev, part.n, part.n_logical,
                               out=(self._dist, self._frontier))
-        # the bit-tile expansion reads the frontier packed: the first one
-        # is written from the sources, not packed from the byte mask
-        words = (fr.source_words(src_dev, part.p, part.shard_size,
-                                 part.n_logical)
-                 if pl_.opts.use_kernel else None)
         levels, comm_bytes, level_seconds = run_dense_levels(
-            self._level, self._dist, self._frontier, part, pl_.max_levels,
-            words)
+            self._level, self._dist, self._frontier, part, pl_.max_levels)
         return BFSResult(
             dist=self._dist,
             run_stats=BFSRunStats(levels=levels, comm_bytes=comm_bytes,

@@ -57,25 +57,6 @@ def init_dist_frontier(sources: torch.Tensor, n: int, n_logical: int,
     return dist, frontier
 
 
-def source_words(sources: torch.Tensor, p: int, shard: int,
-                 n_logical: int) -> torch.Tensor:
-    """``init_dist_frontier``'s frontier packed per shard, ``(p, W, S)``
-    int32 (``pack_bits`` of its ``(p, shard, S)`` view), written straight
-    from the ``(S,)`` sources: one bit a column, empty slots none."""
-    s = sources.shape[0]
-    dev = sources.device
-    words = torch.zeros((p, packed_words(shard), s), dtype=torch.int32,
-                        device=dev)
-    src = sources.to(torch.int64)
-    ok = (src >= 0) & (src < n_logical)
-    v = torch.where(ok, src, 0)
-    one = torch.ones((s,), dtype=torch.int32, device=dev)
-    bit = torch.where(ok, one << (v % shard % 32).to(torch.int32), 0)
-    # each column's (shard, word) pair is distinct: plain writes suffice
-    words[v // shard, v % shard // 32, torch.arange(s, device=dev)] = bit
-    return words
-
-
 def dense_edge_index(src_local: torch.Tensor, dst_global: torch.Tensor,
                      shard: int, n: int):
     """Flat gather/scatter rows of the *valid* edges of ``(g, E)`` stacked
@@ -151,11 +132,11 @@ def pack_bits(mask: torch.Tensor, n_blocks: int = 1) -> torch.Tensor:
         pad = torch.zeros((*lead, n_blocks, w * 32 - m, s), dtype=torch.bool,
                           device=mask.device)
         x = torch.cat([x, pad], dim=-2)
-    x = x.reshape(*lead, n_blocks, w, 32, s)
-    words = torch.zeros((*lead, n_blocks, w, s), dtype=torch.int32,
-                        device=mask.device)
-    for i in range(32):     # bit 31 lands as the int32 sign bit
-        words |= x[..., i, :].to(torch.int32) << i
+    x = x.reshape(*lead, n_blocks, w, 32, s).to(torch.int32)
+    shifts = torch.arange(32, dtype=torch.int32, device=mask.device)
+    # one shift and one sum: the 32 bits are distinct powers of two, so
+    # the int32 sum carries nothing (bit 31 lands as the sign bit)
+    words = (x << shifts[:, None]).sum(dim=-2, dtype=torch.int32)
     return words.reshape(*lead, n_blocks * w, s)
 
 

@@ -192,27 +192,23 @@ bitpack_kernel(const float* __restrict__ mask, uint32_t* __restrict__ out,
 //
 // Inputs: K one-bit tiles `bits` (tile t, column c: four words over the
 // tile's 128 rows, bit b of word q = row 32q + b), each tile's column mask
-// `col_mask` (bit c of word w: column 32w + c holds an edge), the block-row
-// pointer and block columns of the f32 kernel, and the frontier packed
+// `col_mask` (bit c of word w: column 32w + c holds an edge), each tile's
+// block row (sorted) and block column, and the frontier packed
 // along the vertex axis, `fwords` (n_block_cols * 4, S): bit c of word
 // (bc * 4 + w, s) = column 128 bc + 32 w + c of source s.  The block rows
 // fall into groups of `group_block_rows` (the engine's p shards, stacked
 // block-diagonally); the first n_valid rows of a group split into
 // n_blocks segments of `seg` rows, each packed into W = ceil(seg / 32)
 // words (frontier.pack_bits).  Output: (groups * n_blocks * W, S), zeroed
-// by the caller.  The caller also hands two int32 arrays: each tile's
-// block row (filled here from row_ptr unless the caller already holds it,
-// as the engine does) and scratch for each frontier word's OR over the
-// sources.
+// by the caller, who also hands int32 scratch for each frontier word's OR
+// over the sources.
 //
 // Bound on the H100: memory.  A tile is 2 KiB at one bit an entry (64 KiB
 // as the f32 tile), and the work per tile is a few ORs per edge; the
 // output and the frontier are small beside the tiles.  So the design
 // reads as few tile bytes as it can, and reads them in wide async copies:
-//   * Small passes first: `front_any_kernel` ORs each frontier word over
-//     the sources (the columns any source has in its frontier), and, for a
-//     caller without the tiles' block rows, `tile_rows_kernel` finds each
-//     tile's block row in row_ptr.
+//   * A small pass first: `front_any_kernel` ORs each frontier word over
+//     the sources (the columns any source has in its frontier).
 //   * Skip.  A CTA scans 256 tiles at a time, one a thread: a tile is
 //     needed only if its column mask meets the sources' OR of its block
 //     column's frontier words.  A tile no frontier column reaches costs
@@ -308,21 +304,6 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// tile_rows[t] = the block row of tile t: row_ptr[r] <= t < row_ptr[r + 1]
-// (a thread a tile, a binary search whose upper levels stay in L1)
-__global__ void __launch_bounds__(kThreads)
-tile_rows_kernel(const int32_t* __restrict__ row_ptr, int64_t n_block_rows,
-                 int64_t k, int32_t* __restrict__ tile_rows) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= k) return;
-  int64_t lo = 0, hi = n_block_rows;        // row_ptr[lo] <= t < row_ptr[hi]
-  while (hi - lo > 1) {
-    const int64_t mid = (lo + hi) / 2;
-    if (__ldg(row_ptr + mid) <= t) lo = mid; else hi = mid;
-  }
-  tile_rows[t] = (int32_t)lo;
-}
-
 // front_any[r] = OR over the sources of frontier word row r (a warp a row)
 __global__ void __launch_bounds__(kThreads)
 front_any_kernel(const uint32_t* __restrict__ fwords, int64_t n_words,
@@ -341,7 +322,7 @@ front_any_kernel(const uint32_t* __restrict__ fwords, int64_t n_words,
 __global__ void __launch_bounds__(kXThreads, kMinCtas)
 bsr_expand_bits_kernel(const uint4* __restrict__ bits,
                        const uint4* __restrict__ col_mask,
-                       const int32_t* __restrict__ tile_rows,
+                       const int32_t* __restrict__ block_rows,
                        const int32_t* __restrict__ block_cols,
                        const uint32_t* __restrict__ fwords,
                        const uint4* __restrict__ front_any,
@@ -463,7 +444,7 @@ bsr_expand_bits_kernel(const uint4* __restrict__ bits,
     if (t < k) {
       cm = __ldg(col_mask + t);
       bc = __ldg(block_cols + t);
-      br = __ldg(tile_rows + t);
+      br = __ldg(block_rows + t);
       const uint4 f = __ldg(front_any + bc);
       need = ((cm.x & f.x) | (cm.y & f.y) | (cm.z & f.z) | (cm.w & f.w)) != 0u;
     }
@@ -539,17 +520,15 @@ int bfs_bitpack(const void* mask, void* out, long long w, long long s,
 // dynamic shared memory of one bsr_expand_bits CTA
 int bfs_expand_bits_smem() { return (int)sizeof(ExpandShared); }
 
-// The small passes, then the expansion.  tile_rows (k int32) holds each
-// tile's block row when have_rows is set, else it is scratch that the
-// first pass fills; front_any (n_fwords int32) is scratch.
+// The frontier's OR over the sources, then the expansion; front_any
+// (n_fwords int32) is scratch.  The caller launches only with k > 0 tiles.
 int bfs_bsr_expand_bits(const void* bits, const void* col_mask,
-                        const void* row_ptr, const void* block_cols,
-                        const void* fwords, void* out, void* tile_rows,
-                        void* front_any, long long k, long long n_block_rows,
-                        long long n_fwords, long long group_block_rows,
-                        long long n_valid, long long n_blocks, long long seg,
-                        long long w, long long s, int have_rows,
-                        void* stream) {
+                        const void* block_rows, const void* block_cols,
+                        const void* fwords, void* out, void* front_any,
+                        long long k, long long n_fwords,
+                        long long group_block_rows, long long n_valid,
+                        long long n_blocks, long long seg, long long w,
+                        long long s, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -559,10 +538,6 @@ int bfs_bsr_expand_bits(const void* bits, const void* col_mask,
       bsr_expand_bits_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
-  if (k == 0 || n_fwords == 0) return (int)cudaGetLastError();  // no tile
-  if (!have_rows)
-    tile_rows_kernel<<<grid_for(k), kThreads, 0, st>>>(
-        (const int32_t*)row_ptr, n_block_rows, k, (int32_t*)tile_rows);
   front_any_kernel<<<grid_for(n_fwords * 32), kThreads, 0, st>>>(
       (const uint32_t*)fwords, n_fwords, s, (uint32_t*)front_any);
   const long long n_scans = (k + kScan - 1) / kScan;
@@ -572,10 +547,10 @@ int bfs_bsr_expand_bits(const void* bits, const void* col_mask,
   if (ctas > n_scans) ctas = n_scans;
   const dim3 grid((unsigned int)ctas, (unsigned int)src_tiles);
   bsr_expand_bits_kernel<<<grid, kXThreads, smem, st>>>(
-      (const uint4*)bits, (const uint4*)col_mask, (const int32_t*)tile_rows,
-      (const int32_t*)block_cols, (const uint32_t*)fwords,
-      (const uint4*)front_any, (uint32_t*)out, k, group_block_rows, n_valid,
-      n_blocks, seg, w, s);
+      (const uint4*)bits, (const uint4*)col_mask,
+      (const int32_t*)block_rows, (const int32_t*)block_cols,
+      (const uint32_t*)fwords, (const uint4*)front_any, (uint32_t*)out, k,
+      group_block_rows, n_valid, n_blocks, seg, w, s);
   return (int)cudaGetLastError();
 }
 

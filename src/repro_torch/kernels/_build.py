@@ -37,10 +37,9 @@ _SIGNATURES = {
     "bfs_bsr_spmm": [_P] * 5 + [_N] * 2 + [_P],
     # mask, out, w, s, stream
     "bfs_bitpack": [_P] * 2 + [_N] * 2 + [_P],
-    # bits, col_mask, row_ptr, block_cols, fwords, out, tile_rows,
-    # front_any, k, n_block_rows, n_fwords, group_block_rows, n_valid,
-    # n_blocks, seg, w, s, have_rows, stream
-    "bfs_bsr_expand_bits": [_P] * 8 + [_N] * 9 + [_I, _P],
+    # bits, col_mask, block_rows, block_cols, fwords, out, front_any, k,
+    # n_fwords, group_block_rows, n_valid, n_blocks, seg, w, s, stream
+    "bfs_bsr_expand_bits": [_P] * 7 + [_N] * 8 + [_P],
     # q, k, v, o, b, hq, hkv, sq, skv, dh, causal, window, scale, stream
     "attn_flash_fwd_f32": [_P] * 4 + [_N] * 6 + [_I, _N, _F, _P],
     "attn_flash_fwd_bf16": [_P] * 4 + [_N] * 6 + [_I, _N, _F, _P],

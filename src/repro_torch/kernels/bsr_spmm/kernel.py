@@ -122,8 +122,8 @@ def bitpack_words(mask: torch.Tensor) -> torch.Tensor:
 bitpack_words.launches = 0
 
 
-def bsr_expand_bits_plain(bits, col_mask, row_ptr, block_cols, fwords, *,
-                          n_valid: int, n_blocks: int,
+def bsr_expand_bits_plain(bits, col_mask, row_ptr, block_rows, block_cols,
+                          fwords, *, n_valid: int, n_blocks: int,
                           rows_per_group: int | None = None) -> torch.Tensor:
     """Plain torch version of ``bsr_expand_bits``: unpack the bit tiles and
     the frontier to 0/1, ``bsr_spmm_ref``, then pack each group's first
@@ -131,32 +131,29 @@ def bsr_expand_bits_plain(bits, col_mask, row_ptr, block_cols, fwords, *,
     skip hint and is not read."""
     del col_mask
     s = fwords.shape[1]
-    counts = (row_ptr[1:] - row_ptr[:-1]).long()
-    rows = torch.repeat_interleave(
-        torch.arange(counts.numel(), device=counts.device), counts)
     x = unpack_bits(fwords, fwords.shape[0] * 32)
-    n_rows_pad = counts.numel() * DEFAULT_BLOCK
+    n_rows_pad = (row_ptr.shape[0] - 1) * DEFAULT_BLOCK
     rows_per_group = rows_per_group or n_rows_pad
-    y = bsr_spmm_ref(unpack_bit_tiles(bits), rows, block_cols, x,
+    y = bsr_spmm_ref(unpack_bit_tiles(bits), block_rows, block_cols, x,
                      n_rows_pad=n_rows_pad)
     y = y.reshape(n_rows_pad // rows_per_group, rows_per_group, s)
     return pack_bits(y[:, :n_valid] > 0, n_blocks).reshape(-1, s)
 
 
 def bsr_expand_bits(bits: torch.Tensor, col_mask: torch.Tensor,
-                    row_ptr: torch.Tensor, block_cols: torch.Tensor,
-                    fwords: torch.Tensor, *, n_valid: int, n_blocks: int,
-                    rows_per_group: int | None = None,
-                    block_rows: torch.Tensor | None = None) -> torch.Tensor:
+                    row_ptr: torch.Tensor, block_rows: torch.Tensor,
+                    block_cols: torch.Tensor, fwords: torch.Tensor, *,
+                    n_valid: int, n_blocks: int,
+                    rows_per_group: int | None = None) -> torch.Tensor:
     """Packed candidate words of ``(A @ F) > 0`` from one-bit tiles.
 
     bits: ``(K, 128, 4)`` int32 tiles, ``bits[t, c, q]`` bit ``b`` = row
     ``32 q + b`` of column ``c``; col_mask: ``(K, 4)`` int32, bit ``c`` of
     word ``w`` set where column ``32 w + c`` of the tile holds an edge
     (both from ``ShardedGraph.bsr_bit_shards``); row_ptr: ``(R + 1,)``
-    int32 over ``R`` block rows (``block_row_ptr``, which also checks the
-    block columns against the frontier's); block_cols: ``(K,)`` int32;
-    fwords: ``(C * 4, S)`` int32, the frontier of the ``C`` block columns
+    int32 over ``R`` block rows, from ``block_row_ptr`` (which checks the
+    tiles' block rows and columns); block_rows, block_cols: ``(K,)``
+    int32, each tile's block row (sorted) and column; fwords: ``(C * 4, S)`` int32, the frontier of the ``C`` block columns
     packed along the vertex axis (``pack_bits`` of the zero-padded
     ``(128 C, S)`` mask).
 
@@ -166,32 +163,25 @@ def bsr_expand_bits(bits: torch.Tensor, col_mask: torch.Tensor,
     a group's output is ``pack_bits(cand[:n_valid], n_blocks)`` — the
     JAX ``ops.frontier_expand_packed``.  Returns ``(groups * n_blocks *
     ceil(seg / 32), S)`` int32 carrying uint32 bits.
-
-    ``block_rows``: each tile's block row, ``(K,)`` int32, the rows
-    ``row_ptr`` was built from; a caller that holds it (the engine) saves
-    the kernel a pass that finds them in ``row_ptr``.
     """
     k = bits.shape[0]
     n_rows_pad = (row_ptr.shape[0] - 1) * DEFAULT_BLOCK
     rows_per_group = rows_per_group or n_rows_pad
-    tensors = (bits, col_mask, row_ptr, block_cols, fwords)
-    if block_rows is not None:
-        if block_rows.shape != (k,):
-            raise ValueError(f"block_rows {tuple(block_rows.shape)} is not "
-                             f"one row for each of {k} tiles")
-        tensors += (block_rows,)
+    tensors = (bits, col_mask, row_ptr, block_rows, block_cols, fwords)
     if any(t.dtype != torch.int32 for t in tensors):
         raise ValueError("bsr_expand_bits takes int32 tiles, mask, indices "
                          "and frontier words (got "
                          f"{[str(t.dtype) for t in tensors]})")
     if (bits.shape != (k, DEFAULT_BLOCK, DEFAULT_BLOCK // 32)
             or col_mask.shape != (k, DEFAULT_BLOCK // 32)
-            or block_cols.shape != (k,)):
+            or block_rows.shape != (k,) or block_cols.shape != (k,)):
         raise ValueError(f"bits {tuple(bits.shape)}, col_mask "
-                         f"{tuple(col_mask.shape)} and block_cols "
+                         f"{tuple(col_mask.shape)}, block_rows "
+                         f"{tuple(block_rows.shape)} and block_cols "
                          f"{tuple(block_cols.shape)} are not {k} "
                          f"{DEFAULT_BLOCK}-wide bit tiles")
-    if fwords.dim() != 2 or fwords.shape[0] % (DEFAULT_BLOCK // 32):
+    if (fwords.dim() != 2 or fwords.shape[0] % (DEFAULT_BLOCK // 32)
+            or (k and not fwords.shape[0])):
         raise ValueError(f"frontier words {tuple(fwords.shape)} do not "
                          f"cover whole {DEFAULT_BLOCK}-column blocks")
     if (rows_per_group % DEFAULT_BLOCK or n_rows_pad % rows_per_group
@@ -205,8 +195,8 @@ def bsr_expand_bits(bits: torch.Tensor, col_mask: torch.Tensor,
     w = packed_words(seg)
     groups = n_rows_pad // rows_per_group
     if all(t.device.type == "cpu" for t in tensors):
-        return bsr_expand_bits_plain(bits, col_mask, row_ptr, block_cols,
-                                     fwords, n_valid=n_valid,
+        return bsr_expand_bits_plain(bits, col_mask, row_ptr, block_rows,
+                                     block_cols, fwords, n_valid=n_valid,
                                      n_blocks=n_blocks,
                                      rows_per_group=rows_per_group)
     if k >= 2 ** 31:
@@ -217,21 +207,16 @@ def bsr_expand_bits(bits: torch.Tensor, col_mask: torch.Tensor,
                          "16-byte words: both must be 16-byte aligned")
     out = torch.zeros((groups * n_blocks * w, s), dtype=torch.int32,
                       device=dev)
-    if out.numel():
-        # scratch: each frontier word's OR over S (and, unless given, each
-        # tile's block row)
-        tile_rows = (block_rows if block_rows is not None else
-                     torch.empty((k,), dtype=torch.int32, device=dev))
+    if k and out.numel():       # no tile: every candidate word stays zero
+        # scratch: each frontier word's OR over the sources
         front_any = torch.empty((fwords.shape[0],), dtype=torch.int32,
                                 device=dev)
         _build.launch("bfs_bsr_expand_bits", dev, bits.data_ptr(),
-                      col_mask.data_ptr(), row_ptr.data_ptr(),
+                      col_mask.data_ptr(), block_rows.data_ptr(),
                       block_cols.data_ptr(), fwords.data_ptr(),
-                      out.data_ptr(), tile_rows.data_ptr(),
-                      front_any.data_ptr(), k, n_rows_pad // DEFAULT_BLOCK,
+                      out.data_ptr(), front_any.data_ptr(), k,
                       fwords.shape[0], rows_per_group // DEFAULT_BLOCK,
-                      n_valid, n_blocks, seg, w, s,
-                      int(block_rows is not None))
+                      n_valid, n_blocks, seg, w, s)
         bsr_expand_bits.launches += 1
     return out
 

@@ -108,7 +108,8 @@ def _bit_operands(gen, dev, rows, cols, n_block_cols, s, density=0.02,
                   pad=0, frontier=0.3):
     """Random one-bit tiles at the given block rows and columns (the last
     ``pad`` tiles all zero, as a shard's pad tiles), their column masks,
-    the block-row pointer and a packed frontier of ``s`` sources."""
+    the block-row pointer, the block rows and columns, and a packed
+    frontier of ``s`` sources."""
     rows = torch.tensor(rows, dtype=torch.int32, device=dev)
     cols = torch.tensor(cols, dtype=torch.int32, device=dev)
     k = rows.numel()
@@ -121,7 +122,7 @@ def _bit_operands(gen, dev, rows, cols, n_block_cols, s, density=0.02,
     rp = block_row_ptr(rows, cols, n_rows, n_block_cols)
     x = (torch.rand((128 * n_block_cols, s), generator=gen, device=dev)
          < frontier).to(torch.uint8)
-    return bits, cmask, rp, cols, pack_bits(x)
+    return bits, cmask, rp, rows, cols, pack_bits(x)
 
 
 def _hold_expand(*ops, **layout):
@@ -157,12 +158,6 @@ def test_bsr_expand_bits_kernel_merges_a_split_row(cuda):
                         frontier=0.05)
     _hold_expand(*ops, n_valid=384, n_blocks=1)
     _hold_expand(*ops, n_valid=300, n_blocks=3, rows_per_group=384)
-    # the tiles' block rows handed in, as the engine does
-    got = bsr_expand_bits(*ops, n_valid=300, n_blocks=3, rows_per_group=384,
-                          block_rows=torch.tensor(rows, dtype=torch.int32,
-                                                  device=cuda))
-    assert torch.equal(got, bsr_expand_bits_plain(
-        *ops, n_valid=300, n_blocks=3, rows_per_group=384))
 
 
 def test_bsr_expand_bits_kernel_all_zero_frontier(cuda):
@@ -173,20 +168,38 @@ def test_bsr_expand_bits_kernel_all_zero_frontier(cuda):
     assert not bool(got.any())
 
 
+def test_bsr_expand_bits_without_tiles_launches_nothing(cuda):
+    """No tile: the output is zeros, and the count does not move, since no
+    kernel ran."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    ops = _bit_operands(gen, cuda, [0, 2], [0, 1], 2, 8)
+    bits, cmask, rp, rows, cols, fw = ops
+    empty = (bits[:0], cmask[:0], torch.zeros_like(rp), rows[:0], cols[:0],
+             fw)
+    before = bsr_expand_bits.launches
+    got = bsr_expand_bits(*empty, n_valid=384, n_blocks=3)
+    assert bsr_expand_bits.launches == before
+    assert got.shape == (3 * 4, 8) and not bool(got.any())
+
+
 def test_bsr_expand_bits_refuses_mixed_devices_and_dtypes(cuda):
     gen = torch.Generator(device=cuda).manual_seed(5)
-    bits, cmask, rp, cols, fw = _bit_operands(gen, cuda, [0, 1], [0, 1], 2, 4)
+    bits, cmask, rp, rows, cols, fw = _bit_operands(gen, cuda, [0, 1],
+                                                    [0, 1], 2, 4)
     layout = dict(n_valid=256, n_blocks=1)
     with pytest.raises(ValueError, match="tensors on"):
-        bsr_expand_bits(bits, cmask, rp, cols, fw.cpu(), **layout)
+        bsr_expand_bits(bits, cmask, rp, rows, cols, fw.cpu(), **layout)
     with pytest.raises(ValueError, match="tensors on"):
-        bsr_expand_bits(bits.cpu(), cmask, rp, cols, fw, **layout)
+        bsr_expand_bits(bits.cpu(), cmask, rp, rows, cols, fw, **layout)
+    with pytest.raises(ValueError, match="tensors on"):
+        bsr_expand_bits(bits, cmask, rp, rows.cpu(), cols, fw, **layout)
     with pytest.raises(ValueError, match="int32"):
-        bsr_expand_bits(bits, cmask, rp, cols, fw.to(torch.uint8), **layout)
+        bsr_expand_bits(bits, cmask, rp, rows, cols, fw.to(torch.uint8),
+                        **layout)
     with pytest.raises(ValueError, match="int32"):
-        bsr_expand_bits(bits, cmask.long(), rp, cols, fw, **layout)
+        bsr_expand_bits(bits, cmask.long(), rp, rows, cols, fw, **layout)
     with pytest.raises(ValueError, match="contiguous"):
-        bsr_expand_bits(bits, cmask, rp, cols,
+        bsr_expand_bits(bits, cmask, rp, rows, cols,
                         torch.cat([fw, fw], dim=1)[:, ::2], **layout)
 
 

@@ -3,6 +3,9 @@ oracle and the JAX engine: dist bitwise, levels and comm_bytes equal,
 across graphs, source counts, wire formats, the fused tail, the kernel
 expansion and LocalMesh shard counts."""
 
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -161,6 +164,25 @@ def test_engine_reuses_buffers_and_flags_stale_results(jax_runs):
     st = r3.stats()
     assert st.visited == int((want[:, 3] < 2 ** 30).sum())
     assert not st.overflowed and st.sieve_hits == 0
+
+
+@pytest.mark.parametrize("p", [1, 4])
+def test_dropped_kernel_engine_frees_its_tiles(jax_runs, p):
+    """A use_kernel engine holds no reference to itself: dropping it (and
+    its results) frees the bit tiles at once, with no garbage collection,
+    so a later engine on the card has their memory."""
+    src, dst, n, srcs, _, want, _ = jax_runs["rmat"]
+    eng = plan(shard_graph(src, dst, n, p), BFSOptions(use_kernel=True),
+               num_sources=4, device="cpu").compile()
+    res = eng.run(srcs)
+    np.testing.assert_array_equal(res.dist_host, want)
+    tiles = weakref.ref(eng.kernel_arrays[0])
+    gc.disable()
+    try:
+        del eng, res
+        assert tiles() is None
+    finally:
+        gc.enable()
 
 
 def test_run_validates_sources():

@@ -186,15 +186,17 @@ def test_byte_size_helpers_match_jax(cap, id_range):
 
 
 @pytest.mark.parametrize("n_logical,p", [(300, 4), (97, 1), (64, 2)])
-def test_source_words_is_the_packed_initial_frontier(n_logical, p):
-    """source_words writes what the JAX package's pack_bits makes of its
-    init_dist_frontier frontier, empty slots and bit 31 included."""
+def test_packed_initial_frontier_matches_jax(n_logical, p):
+    """The first level's packed frontier, as the bit-tile expansion reads
+    it (``pack_bits`` of each shard of ``init_dist_frontier``), is what the
+    JAX package makes of it: empty slots and bit 31 included."""
     part = Partition1D(n_logical, p)
     srcs = np.array([0, n_logical - 1, -1, 31, n_logical + 3,
                      part.shard_size - 1], np.int32)
     _, jfront = jfr.init_dist_frontier(jnp.asarray(srcs), part.n, n_logical)
     want = np.asarray(jfr.pack_bits(jfront, p)).reshape(p, -1, srcs.size)
-    got = fr.source_words(torch.from_numpy(srcs), p, part.shard_size,
-                          n_logical)
+    _, front = fr.init_dist_frontier(torch.from_numpy(srcs), part.n,
+                                     n_logical)
+    got = fr.pack_bits(front.view(p, part.shard_size, srcs.size))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(_u32(got), want)

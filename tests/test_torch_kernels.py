@@ -244,9 +244,9 @@ def test_bsr_expand_bits_plain_vs_jax_ops(s, n_valid, n_blocks):
     tc = torch.from_numpy(cols)
     fwords = pack_bits(torch.from_numpy(x))
     before = bsr_expand_bits.launches
-    got = bsr_expand_bits(bits, cmask, block_row_ptr(torch.from_numpy(rows),
-                                                     tc, 4, 3),
-                          tc, fwords, n_valid=n_valid, n_blocks=n_blocks)
+    tr = torch.from_numpy(rows)
+    got = bsr_expand_bits(bits, cmask, block_row_ptr(tr, tc, 4, 3), tr, tc,
+                          fwords, n_valid=n_valid, n_blocks=n_blocks)
     assert got.shape == (n_blocks * packed_words(n_valid // n_blocks), s)
     np.testing.assert_array_equal(_u32(got), want)
     assert bsr_expand_bits.launches == before    # CPU: plain version only
@@ -257,9 +257,8 @@ def test_bsr_expand_bits_all_zero_frontier(n_valid, n_blocks):
     blocks, rows, cols, x = _bit_case(np.random.default_rng(1), 4,
                                       zero_frontier=True)
     bits, cmask = _bit_tiles(torch.from_numpy(blocks))
-    tc = torch.from_numpy(cols)
-    got = bsr_expand_bits(bits, cmask,
-                          block_row_ptr(torch.from_numpy(rows), tc, 4, 3), tc,
+    tr, tc = torch.from_numpy(rows), torch.from_numpy(cols)
+    got = bsr_expand_bits(bits, cmask, block_row_ptr(tr, tc, 4, 3), tr, tc,
                           pack_bits(torch.from_numpy(x)), n_valid=n_valid,
                           n_blocks=n_blocks)
     want = np.asarray(j_ops.frontier_expand_packed(
@@ -285,9 +284,8 @@ def test_bsr_expand_bits_groups_are_packed_apart(n_valid, n_blocks):
         jnp.asarray((y[g, :n_valid] > 0).astype(np.uint8)), n_blocks))
         for g in range(2)])
     bits, cmask = _bit_tiles(torch.from_numpy(blocks))
-    tc = torch.from_numpy(cols)
-    got = bsr_expand_bits(bits, cmask,
-                          block_row_ptr(torch.from_numpy(rows), tc, 4, 3), tc,
+    tr, tc = torch.from_numpy(rows), torch.from_numpy(cols)
+    got = bsr_expand_bits(bits, cmask, block_row_ptr(tr, tc, 4, 3), tr, tc,
                           pack_bits(torch.from_numpy(x)), n_valid=n_valid,
                           n_blocks=n_blocks, rows_per_group=256)
     np.testing.assert_array_equal(_u32(got), want)
@@ -296,26 +294,27 @@ def test_bsr_expand_bits_groups_are_packed_apart(n_valid, n_blocks):
 def test_bsr_expand_bits_checks_inputs():
     blocks, rows, cols, x = _bit_case(np.random.default_rng(2), 2)
     bits, cmask = _bit_tiles(torch.from_numpy(blocks))
-    tc = torch.from_numpy(cols)
-    rp = block_row_ptr(torch.from_numpy(rows), tc, 4, 3)
+    tr, tc = torch.from_numpy(rows), torch.from_numpy(cols)
+    rp = block_row_ptr(tr, tc, 4, 3)
     fw = pack_bits(torch.from_numpy(x))
     ok = dict(n_valid=512, n_blocks=4)
     with pytest.raises(ValueError, match="int32"):
-        bsr_expand_bits(bits.float(), cmask, rp, tc, fw, **ok)
+        bsr_expand_bits(bits.float(), cmask, rp, tr, tc, fw, **ok)
     with pytest.raises(ValueError, match="int32"):
-        bsr_expand_bits(bits, cmask, rp, tc.long(), fw, **ok)
+        bsr_expand_bits(bits, cmask, rp, tr, tc.long(), fw, **ok)
     with pytest.raises(ValueError, match="128-wide"):
-        bsr_expand_bits(bits[:, :64], cmask, rp, tc, fw, **ok)
+        bsr_expand_bits(bits[:, :64], cmask, rp, tr, tc, fw, **ok)
     with pytest.raises(ValueError, match="128-wide"):
-        bsr_expand_bits(bits, cmask[:-1], rp, tc, fw, **ok)
+        bsr_expand_bits(bits, cmask[:-1], rp, tr, tc, fw, **ok)
     with pytest.raises(ValueError, match="whole"):
-        bsr_expand_bits(bits, cmask, rp, tc, fw[:-1], **ok)
-    with pytest.raises(ValueError, match="one row for each"):
-        bsr_expand_bits(bits, cmask, rp, tc, fw, block_rows=rp, **ok)
+        bsr_expand_bits(bits, cmask, rp, tr, tc, fw[:-1], **ok)
+    with pytest.raises(ValueError, match="whole"):
+        bsr_expand_bits(bits, cmask, rp, tr, tc, fw[:0], **ok)
+    with pytest.raises(ValueError, match="128-wide"):
+        bsr_expand_bits(bits, cmask, rp, rp, tc, fw, **ok)
     with pytest.raises(ValueError, match="int32"):
-        bsr_expand_bits(bits, cmask, rp, tc, fw,
-                        block_rows=torch.from_numpy(rows).long(), **ok)
+        bsr_expand_bits(bits, cmask, rp, tr.long(), tc, fw, **ok)
     for bad in (dict(n_valid=513, n_blocks=1), dict(n_valid=510, n_blocks=4),
                 dict(n_valid=256, n_blocks=1, rows_per_group=192)):
         with pytest.raises(ValueError, match="blocked layout"):
-            bsr_expand_bits(bits, cmask, rp, tc, fw, **bad)
+            bsr_expand_bits(bits, cmask, rp, tr, tc, fw, **bad)
