@@ -14,7 +14,11 @@ Phases (any failed check raises and the script exits non-zero):
    register report (and ``bsr_expand_bits``' lines of it on their own)
    and the card's name and power limit; counts the
    ``HGMMA`` and ``UTMALDG`` instructions in the SASS of the bf16 A4
-   kernel (``cuobjdump -sass``) and fails if either is 0.
+   kernel (``cuobjdump -sass``) and fails if either is 0; prints the
+   register report of A5's ``bag_gather_kernel`` (each dtype and
+   granule), failing on a spill, and counts its ``LDGSTS`` (``cp.async``)
+   and ``UBLKCP`` (bulk copy) instructions, failing if it has no
+   asynchronous copy.
 2. path 1 — ``rmat_1m`` (Graph500 Kronecker, scale 20, edge factor 16)
    with the default dense expansion, S = 64 roots: once on a 4-shard
    ``LocalMesh`` with default options (packed wire, fused tail = kernel
@@ -53,8 +57,16 @@ Phases (any failed check raises and the script exits non-zero):
    (kernel A5) on (a) the ``serve_bulk`` batch's own flat ids as bags
    over DeepFM's table (the op's main path, three calls; also held to the
    serve path's ``emb.sum(1)``), (b) the same bags cut to seeded ragged
-   lengths, sum and mean, and (c) ``bench_kernels``' shape, (256, 8) over
-   (10,000, 128), in f32 and bf16; bitwise to its plain version each time.
+   lengths, sum and mean, both on the gather route (``bag_gather_kernel``),
+   (c) ``bench_kernels``' shape, (256, 8) over (10,000, 128), in f32 and
+   bf16, and (d) bf16 over (10,000, 127), these three tables in L2 and so
+   on the plain-load route (``bag_sum_kernel``); bitwise to its plain
+   version each time, by the route the shape takes and by the other one.
+   Timed on (a) and (b): the wrapper, its index check, the launch alone
+   and each route's launch (each held bitwise), beside the bound of the
+   useful bytes and that of the 32-byte sectors the rows span; and on
+   (a)'s ids over a (V, 8) f32 table (one sector a row) and over the
+   table's first 100,000 rows (a 4 MB table, the plain-load route).
 8. kernels — each kernel against its plain torch version on the card at
    the shapes of the paths (A4 also each (batch, head) slice, with the
    window one key off failing; ``bsr_expand_bits`` on path 2's densest
@@ -199,30 +211,36 @@ def scipy_check(src, dst, n, roots, dist_host, inf):
 def reset_counts(kernels) -> None:
     """Set every kernel's launch counts (A4's per-route ones too) to 0."""
     for k in kernels.values():
-        for attr in ("launches", "launches_bf16", "launches_f32"):
+        for attr in ("launches", "launches_bf16", "launches_f32",
+                     "launches_gather", "launches_loads"):
             if hasattr(k, attr):
                 setattr(k, attr, 0)
 
 
-def a4_sass_counts(lib: Path) -> dict:
-    """``HGMMA`` and ``UTMALDG`` instructions, and the highest register
-    named, in the SASS of each bf16 A4 kernel (``flash_fwd_wgmma<Dh>``,
-    keyed by Dh) of the built library."""
-    import re
+def library_sass(lib: Path) -> str:
+    """The SASS of the built library (``cuobjdump -sass``)."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
+
+
+def sass_counts(sass: str, pattern: str, ops) -> dict:
+    """For each kernel whose mangled name matches ``pattern`` (keyed by
+    its groups joined with "/"), the count of each instruction of ``ops``
+    and the highest register named in its SASS."""
+    import re
+
     counts, fn = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : \S*flash_fwd_wgmmaILi(\d+)E", line)
+        m = re.search(r"Function : \S*" + pattern, line)
         if m or "Function : " in line:
-            fn = int(m.group(1)) if m else None
+            fn = "/".join(m.groups()) if m else None
             if fn:
-                counts[fn] = {"HGMMA": 0, "UTMALDG": 0, "max_reg": 0}
+                counts[fn] = dict.fromkeys(ops, 0) | {"max_reg": 0}
         elif fn:
-            for op in ("HGMMA", "UTMALDG"):
+            for op in ops:
                 counts[fn][op] += op in line
             regs = [int(r) for r in re.findall(r"\bR(\d+)\b", line)]
             counts[fn]["max_reg"] = max([counts[fn]["max_reg"], *regs])
@@ -256,14 +274,20 @@ def report_run(name, compile_ms, run_ms, res, counts) -> None:
         f"comm_bytes {st.comm_bytes}; launches {counts}")
 
 
-def ptxas_lines(log_text: str, name: str) -> str:
-    """The ``-Xptxas -v`` report of the kernel whose mangled name holds
-    ``name``: stack, spills, registers and barriers."""
-    lines = log_text.splitlines()
+def ptxas_reports(log_text: str, name: str) -> dict:
+    """The ``-Xptxas -v`` report of each kernel whose mangled name holds
+    ``name``, keyed by that name: stack, spills, registers and barriers."""
+    lines, out = log_text.splitlines(), {}
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and name in line:
-            return " | ".join(x.strip() for x in lines[i + 2:i + 4])
-    return ""
+            fn = line.split("'")[1] if "'" in line else line
+            out[fn] = " | ".join(x.strip() for x in lines[i + 2:i + 4])
+    return out
+
+
+def ptxas_lines(log_text: str, name: str) -> str:
+    """The report of the first kernel whose mangled name holds ``name``."""
+    return next(iter(ptxas_reports(log_text, name).values()), "")
 
 
 def densest_frontier(host: np.ndarray, n: int, inf: int, dev):
@@ -897,32 +921,88 @@ def recsys_phase(kernels, dev, profile: bool) -> dict:
     return {"cfg": cfg, "table": params["table"], "bulk": bulk}
 
 
+def sector_bytes(idx: torch.Tensor, table: torch.Tensor) -> int:
+    """Bytes of the 32-byte sectors the valid slots' rows span, each row
+    counted once a slot, from the table's own address."""
+    row = table.shape[1] * table.element_size()
+    start = table.data_ptr() + idx[idx >= 0].long() * row
+    return 32 * int(((start + row - 1) // 32 - start // 32 + 1).sum())
+
+
 def bag_phase(rec: dict, kernels, dev) -> dict:
     """Kernel A5 through the lookup op on DeepFM's table (module docstring,
-    phase 6); returns A5's row of the kernels line."""
+    phase 7); returns A5's row of the kernels line."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.embedding_bag import ops as bag_ops
     from repro_torch.kernels.embedding_bag.kernel import (
-        embedding_bag_sum, embedding_bag_sum_plain)
+        _launch, embedding_bag_sum, embedding_bag_sum_plain)
     from repro_torch.kernels.embedding_bag.ref import bag_mean
     from repro_torch.models.recsys import deepfm
 
     cfg, table = rec["cfg"], rec["table"]
 
-    def drive(what: str, calls: int, fn):
+    def drive(what: str, calls: int, fn, route: str):
         """Reset the counts, run ``fn``, check that A5 and nothing else
-        launched ``calls`` times; returns fn's result and the counts."""
+        launched ``calls`` times, each on ``route``; returns fn's result
+        and the counts."""
         reset_counts(kernels)
         out = fn()
         torch.cuda.synchronize()
         counts = {n: k.launches for n, k in kernels.items()}
         want = dict.fromkeys(kernels, 0) | {"embedding_bag_sum": calls}
         check(counts == want, f"A5 {what}: launches {counts}, not {want}")
+        on_route = getattr(embedding_bag_sum, f"launches_{route}")
+        check(on_route == calls, f"A5 {what}: {on_route} of {calls} launches "
+                                 f"on the {route} route")
         return out, counts
 
     def max_err(got, want) -> float:
         return float((got.float() - want.float()).abs().max())
+
+    def other_route(idx, tab, want, what: str) -> float:
+        """The route the shape does not take, launched on ``idx`` over
+        ``tab`` (gather where it takes the rows), held bitwise to the
+        plain version's ``want``; returns its max abs error."""
+        out = torch.empty_like(want)
+        other = "gather" if _launch(idx, tab, out).route == "loads" else \
+            "loads"
+        out.zero_()
+        _launch(idx, tab, out, other)
+        check(torch.equal(out, want), f"A5 {what}: the {other} route differs "
+                                      f"from the plain version")
+        return max_err(out, want)
+
+    def timings(idx, what: str, tab=table) -> dict:
+        """The wrapper, its index check, the launch alone by the shape's
+        route and by each route on ``idx`` over ``tab`` (each route's
+        output held bitwise to the plain version), beside the useful-byte
+        and the sector bounds."""
+        want = embedding_bag_sum_plain(idx, tab)
+        out = torch.empty_like(want)
+        valid = int((idx >= 0).sum())
+        useful = valid * tab.shape[1] * tab.element_size()
+        b_ms, b_by = bound(useful + nbytes(idx, out))
+        sector_ms, _ = bound(sector_bytes(idx, tab) + nbytes(idx, out))
+        route = _launch(idx, tab, out).route
+        t = {"route": route,
+             "ms": timed_ms(lambda: embedding_bag_sum(idx, tab), 20),
+             "check_ms": timed_ms(lambda: int(idx.max()), 20),
+             "kernel_ms": timed_ms(lambda: _launch(idx, tab, out), 20)}
+        for r in ("gather", "loads"):
+            out.zero_()
+            t[f"{r}_kernel_ms"] = timed_ms(lambda: _launch(idx, tab, out, r),
+                                           20)
+            check(torch.equal(out, want), f"A5 {what}: the {r} route differs "
+                                          f"from the plain version")
+        t |= {"bound_ms": b_ms, "bound_by": b_by,
+              "sector_bound_ms": sector_ms, "valid_rows": valid}
+        log(f"A5 {what}: wrapper {t['ms']} ms, index check {t['check_ms']} "
+            f"ms, launch alone {t['kernel_ms']} ms ({route} route; gather "
+            f"{t['gather_kernel_ms']} ms, plain loads {t['loads_kernel_ms']} "
+            f"ms, each bitwise); bound {b_ms} ms ({b_by}, {valid} valid "
+            f"rows), sector bound {sector_ms} ms")
+        return t
 
     # (a) the serve_bulk batch's flat ids as bags: the op's main path
     emb, bags = deepfm._embed(cfg, {"table": table}, rec["bulk"]["sparse"])
@@ -930,12 +1010,12 @@ def bag_phase(rec: dict, kernels, dev) -> dict:
     calls = 3
     outs, counts = drive("(a) serve_bulk bags", calls,
                          lambda: [bag_ops.embedding_bag(bags, table)
-                                  for _ in range(calls)])
+                                  for _ in range(calls)], "gather")
     got = outs[-1]
     check(torch.equal(outs[1], got), "A5 (a): calls 2 and 3 differ")
     del outs
     want = embedding_bag_sum_plain(bags, table)
-    errs = [max_err(got, want)]
+    errs = [max_err(got, want), other_route(bags, table, want, "(a)")]
     check(torch.equal(got, want), "A5 (a) differs from its plain version")
     # against the serve path's emb.sum(1), summed in another order: two
     # f32 sums of L terms differ by at most 2 (L - 1) eps sum |x|
@@ -943,8 +1023,8 @@ def bag_phase(rec: dict, kernels, dev) -> dict:
     gap = (got - emb.sum(dim=1)).abs()
     tol = 2 * (l - 1) * eps * emb.abs().sum(dim=1)
     log(f"A5 (a) bags {tuple(bags.shape)} over {tuple(table.shape)}: "
-        f"bitwise to the plain version; against emb.sum(1): max abs "
-        f"{float(gap.max())}, max share of the order bound "
+        f"bitwise to the plain version by both routes; against emb.sum(1): "
+        f"max abs {float(gap.max())}, max share of the order bound "
         f"{float((gap / tol.clamp_min(1e-30)).max())}")
     check(bool((gap <= tol).all()), "A5 (a) differs from emb.sum(1) by more "
                                     "than the summation-order bound")
@@ -957,11 +1037,12 @@ def bag_phase(rec: dict, kernels, dev) -> dict:
     rag = torch.where(slot < lengths, bags, -1).to(torch.int32)
     (s_k, m_k), _ = drive("(b) ragged", 2, lambda: (
         bag_ops.embedding_bag(rag, table),
-        bag_ops.embedding_bag(rag, table, mode="mean")))
+        bag_ops.embedding_bag(rag, table, mode="mean")), "gather")
     s_p = embedding_bag_sum_plain(rag, table)
     m_p = bag_mean(s_p, rag)
     empty = (lengths[:, 0] == 0)
-    errs += [max_err(s_k, s_p), max_err(m_k, m_p)]
+    errs += [max_err(s_k, s_p), max_err(m_k, m_p),
+             other_route(rag, table, s_p, "(b)")]
     check(torch.equal(s_k, s_p) and torch.equal(m_k, m_p),
           "A5 (b) differs from its plain version")
     check(not s_k[empty].any() and not m_k[empty].any(),
@@ -969,26 +1050,42 @@ def bag_phase(rec: dict, kernels, dev) -> dict:
     log(f"A5 (b) ragged: {int(empty.sum())} of {b} bags all padded "
         f"({100 * float(empty.float().mean()):.2f}%), "
         f"{int((rag >= 0).sum())} valid slots; sum and mean bitwise")
-    del rag, s_k, m_k, s_p, m_p
+    del s_k, m_k, s_p, m_p
 
-    # (c) bench_kernels' shape, f32 and bf16
-    for dtype in (torch.float32, torch.bfloat16):
-        t = torch.randn((10_000, 128), generator=gen, device=dev).to(dtype)
+    # (c) bench_kernels' shape, f32 and bf16, and (d) bf16 with odd D: tables
+    # the L2 holds, so the plain-load route (the gather held beside it)
+    for what, dtype, d in (("(c)", torch.float32, 128),
+                           ("(c)", torch.bfloat16, 128),
+                           ("(d)", torch.bfloat16, 127)):
+        t = torch.randn((10_000, d), generator=gen, device=dev).to(dtype)
         i = torch.randint(-1, 10_000, (256, 8), generator=gen, device=dev,
                           dtype=torch.int32)
-        out, _ = drive(f"(c) {dtype}", 1, lambda: embedding_bag_sum(i, t))
+        out, _ = drive(f"{what} {dtype}", 1, lambda: embedding_bag_sum(i, t),
+                       "loads")
         plain = embedding_bag_sum_plain(i, t)
         errs.append(max_err(out, plain))
         check(torch.equal(out, plain),
-              f"A5 (c) {dtype} differs from its plain version")
-        log(f"A5 (c) {dtype} (256, 8) over (10000, 128): bitwise")
+              f"A5 {what} {dtype} differs from its plain version")
+        if d % 2 == 0:
+            errs.append(other_route(i, t, plain, f"{what} {dtype}"))
+        log(f"A5 {what} {dtype} (256, 8) over (10000, {d}): plain loads "
+            f"bitwise{', the gather too' if d % 2 == 0 else ''}")
 
-    # timing on (a)
-    valid = int((bags >= 0).sum())
-    b_ms, b_by = bound(valid * cfg.embed_dim * table.element_size()
-                       + nbytes(bags, got))
-    ms = timed_ms(lambda: embedding_bag_sum(bags, table), 20)
-    check_ms = timed_ms(lambda: int(bags.max()), 20)
+    # timing on (a) and (b)
+    geo = _launch(bags, table, torch.empty_like(got))
+    log(f"A5 (a) geometry: {dataclasses.asdict(geo)}")
+    t_a = timings(bags, "(a)")
+    t_b = timings(rag, "(b) ragged")
+    # two references on the same ids: one 32-byte sector a row, and the
+    # table's first 100,000 rows, a 4 MB table the 50 MB L2 holds (the
+    # plain-load route by the rule)
+    sector_table = torch.randn((table.shape[0], 8), generator=gen,
+                               device=dev)
+    t_sector = timings(bags, "(a) over a (V, 8) f32 table", sector_table)
+    del sector_table
+    t_l2 = timings(torch.where(bags >= 0, bags % 100_000, bags),
+                   "(a) ids mod 100,000 over the first 100,000 rows (a 4 MB "
+                   "table)", table[:100_000])
     plain_ms = timed_ms(lambda: embedding_bag_sum_plain(bags, table), 3)
     # the one-call yardstick (timed here only; the port never calls it)
     idx64, weights = bags.clamp(min=0).long(), (bags >= 0).to(table.dtype)
@@ -996,21 +1093,28 @@ def bag_phase(rec: dict, kernels, dev) -> dict:
                                   per_sample_weights=weights)
     lib_err = float((lib() - got).abs().max())
     library_ms = timed_ms(lib, 20)
-    log(f"A5 (a): {ms} ms (the wrapper: index check + launch), index check "
-        f"alone {check_ms} ms, so the launch {ms - check_ms} ms; plain "
-        f"{plain_ms} ms, "
-        f"F.embedding_bag {library_ms} ms (max abs err vs A5 {lib_err}), "
-        f"bound {b_ms} ms ({b_by}; {valid} valid rows)")
+    log(f"A5 (a): plain {plain_ms} ms, F.embedding_bag {library_ms} ms (max "
+        f"abs err vs A5 {lib_err})")
+    rest = lambda t: {k: v for k, v in t.items() if k != "bound_by"}
     return {
         "name": "embedding_bag_sum", "route": "cuda",
+        "design": "persistent grid, indices and rows by cp.async into a "
+                  "3-stage mbarrier ring, sum in slot order from shared "
+                  "memory; plain loads for rows over 40 bytes and for 20- "
+                  "to 40-byte rows of a table of at most 48 MiB",
         "source": "src/repro_torch/csrc/embedding_bag_kernels.cu",
         "replaces": "src/repro/kernels/embedding_bag/kernel.py:28",
         "launches": counts["embedding_bag_sum"], "max_abs_err": max(errs),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": library_ms,
+        "ms": t_a["ms"], "plain_ms": plain_ms, "bound_ms": t_a["bound_ms"],
+        "bound_by": t_a["bound_by"], "library_ms": library_ms,
         "shape": f"bags {tuple(bags.shape)} int32 (serve_bulk flat ids) over "
                  f"the table {tuple(table.shape)} f32",
-        "check_ms": check_ms}
+        "check_ms": t_a["check_ms"], "kernel_ms": t_a["kernel_ms"],
+        "sector_bound_ms": t_a["sector_bound_ms"],
+        "gather_kernel_ms": t_a["gather_kernel_ms"],
+        "loads_kernel_ms": t_a["loads_kernel_ms"],
+        "geometry": dataclasses.asdict(geo), "ragged": rest(t_b),
+        "one_sector_rows": rest(t_sector), "l2_table": rest(t_l2)}
 
 
 def main(argv=None) -> int:
@@ -1069,11 +1173,27 @@ def main(argv=None) -> int:
     log(f"build: bsr_expand_bits_kernel (-Xptxas -v): {xptxas}; dynamic "
         f"shared memory {_build.library().bfs_expand_bits_smem()} bytes")
     check(bool(xptxas), "build: no ptxas report for bsr_expand_bits_kernel")
-    sass = a4_sass_counts(lib)
+    sass_text = library_sass(lib)
+    sass = {int(k): v for k, v in sass_counts(
+        sass_text, r"flash_fwd_wgmmaILi(\d+)E", ("HGMMA", "UTMALDG")).items()}
     log(f"build: bf16 A4 SASS (cuobjdump -sass): {sass}")
     check(len(sass) == 4 and all(c["HGMMA"] and c["UTMALDG"]
                                  for c in sass.values()),
           "build: a bf16 A4 kernel has no HGMMA or no UTMALDG in its SASS")
+    gather_ptxas = ptxas_reports(build_log, "bag_gather_kernel")
+    for fn, line in gather_ptxas.items():
+        log(f"build: A5 {fn} (-Xptxas -v): {line}")
+    check(len(gather_ptxas) == 6 and all(
+        "0 bytes spill stores, 0 bytes spill loads" in line
+        for line in gather_ptxas.values()),
+        "build: a bag_gather_kernel has no ptxas report or spills")
+    gather_sass = sass_counts(sass_text, r"bag_gather_kernelI(\w+?)Li(\d+)E",
+                              ("LDGSTS", "UBLKCP"))
+    log(f"build: A5 bag_gather_kernel SASS (cuobjdump -sass; dtype/granule): "
+        f"{gather_sass}")
+    check(len(gather_sass) == 6 and all(c["LDGSTS"] + c["UBLKCP"]
+                                        for c in gather_sass.values()),
+          "build: a bag_gather_kernel has no asynchronous copy in its SASS")
     card = card_line()
     log(f"card: {card}")
 
@@ -1174,7 +1294,8 @@ def main(argv=None) -> int:
     # -------------------------------------------------------- embedding bag
     bag_row = bag_phase(rec, kernels, dev)
     del rec
-    log("embedding bag: A5 bitwise to its plain version on (a), (b), (c): ok")
+    log("embedding bag: A5 bitwise to its plain version on (a)-(d), "
+        "by both routes: ok")
 
     # -------------------------------------------------------------- kernels
     gen = torch.Generator(device=dev).manual_seed(SEED)

@@ -43,6 +43,9 @@ _SIGNATURES = {
     # q, k, v, o, b, hq, hkv, sq, skv, dh, causal, window, scale, stream
     "attn_flash_fwd_f32": [_P] * 4 + [_N] * 6 + [_I, _N, _F, _P],
     "attn_flash_fwd_bf16": [_P] * 4 + [_N] * 6 + [_I, _N, _F, _P],
+    # idx, table, out, b, l, d, bf16, granule, stages, bags, slots, chunks,
+    # idx_words, row_stage_bytes, smem, grid, stream
+    "emb_bag_gather": [_P] * 3 + [_N] * 3 + [_I] + [_N] * 9 + [_P],
     # idx, table, out, b, l, d, bf16, stream
     "emb_bag_sum": [_P] * 3 + [_N] * 3 + [_I, _P],
 }

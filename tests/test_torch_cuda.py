@@ -25,8 +25,10 @@ from repro_torch.kernels.bsr_spmm.kernel import (bitpack_words,
                                                  bsr_spmm)
 from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref
 from repro_torch.kernels.embedding_bag import ops as bag_ops
-from repro_torch.kernels.embedding_bag.kernel import (embedding_bag_sum,
-                                                      embedding_bag_sum_plain)
+from repro_torch.kernels.embedding_bag.kernel import (_launch, bag_geometry,
+                                                      embedding_bag_sum,
+                                                      embedding_bag_sum_plain,
+                                                      gather_geometry)
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.kernels.flash_attention.ref import (attention_mask,
@@ -403,6 +405,139 @@ def test_embedding_bag_kernel_edges(cuda):
     with pytest.raises(ValueError, match="f32 or bf16"):
         embedding_bag_sum(idx, table.half())
     assert embedding_bag_sum.launches == before + 1
+
+
+def _bag_case(dev, b, l, v, d, dtype, seed):
+    """A normal table and indices with about one slot in eight a pad."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randn((v, d), generator=gen, device=dev).to(dtype)
+    idx = torch.randint(0, v, (b, l), generator=gen, device=dev,
+                        dtype=torch.int32)
+    pads = torch.rand((b, l), generator=gen, device=dev) < 0.125
+    return torch.where(pads, -1, idx), table
+
+
+def _held_bitwise(idx, table, route):
+    """One launch, by ``route``, bitwise to the plain version."""
+    counts = (embedding_bag_sum.launches, embedding_bag_sum.launches_gather,
+              embedding_bag_sum.launches_loads)
+    got = embedding_bag_sum(idx, table)
+    want = embedding_bag_sum_plain(idx, table)
+    torch.cuda.synchronize()
+    gather = route == "gather"
+    assert (embedding_bag_sum.launches, embedding_bag_sum.launches_gather,
+            embedding_bag_sum.launches_loads) == (
+        counts[0] + 1, counts[1] + gather, counts[2] + (not gather))
+    assert got.dtype == table.dtype and torch.equal(got, want)
+    return got
+
+
+def _gather_bitwise(idx, table):
+    """The gather launched on its own (``_launch`` with route "gather",
+    whatever the rule gives the shape), bitwise to the plain version."""
+    out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype,
+                      device=table.device)
+    assert _launch(idx, table, out, "gather").route == "gather"
+    assert torch.equal(out, embedding_bag_sum_plain(idx, table))
+
+
+# 1,300,000 rows of 40 bytes and 2,600,000 of 20 are 52 MB, past 48 MiB
+@pytest.mark.parametrize("dtype,d,granule,v,route", [
+    (torch.float32, 1, 4, 3000, "gather"),
+    (torch.float32, 2, 8, 3000, "gather"),
+    (torch.float32, 4, 16, 3000, "gather"),
+    (torch.float32, 10, 8, 3000, "loads"),
+    (torch.float32, 10, 8, 1_300_000, "gather"),
+    (torch.float32, 96, 16, 3000, "loads"),
+    (torch.bfloat16, 2, 4, 3000, "gather"),
+    (torch.bfloat16, 4, 8, 3000, "gather"),
+    (torch.bfloat16, 8, 16, 3000, "gather"),
+    (torch.bfloat16, 10, 4, 3000, "loads"),
+    (torch.bfloat16, 10, 4, 2_600_000, "gather"),
+    (torch.bfloat16, 7, 0, 3000, "loads"),
+    (torch.bfloat16, 129, 0, 3000, "loads")])
+def test_embedding_bag_routes_and_granules(cuda, dtype, d, granule, v,
+                                           route):
+    """One D for each granule, on both sides of the rule's table size, and
+    bf16 with odd D on the plain-load route; the gather held on its own
+    wherever it takes the rows.  B = 1,999 is no multiple of the tile."""
+    b, l = 1999, 21
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    assert bag_geometry(b, l, v, d, itemsize).route == route
+    g = gather_geometry(b, l, d, itemsize)
+    assert g.granule == granule
+    assert g.route == "loads" or g.bags == 1 or b % g.bags, g
+    idx, table = _bag_case(cuda, b, l, v, d, dtype, d)
+    _held_bitwise(idx, table, route)
+    if granule:
+        _gather_bitwise(idx, table)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,d", [(5, 300, 128), (3, 2000, 10),
+                                   (37, 300, 1024), (2, 50, 2000)])
+def test_embedding_bag_bags_longer_than_a_stage(cuda, dtype, b, l, d):
+    """A bag whose rows outgrow a stage is summed by the gather in chunks,
+    its partial sums carried between them in slot order (at D = 2,000 a
+    row is more granules than a CTA has threads); the rule gives these
+    shapes the plain loads, held too."""
+    g = gather_geometry(b, l, d, 2 if dtype == torch.bfloat16 else 4)
+    assert g.route == "gather" and g.chunks > 1 and g.bags == 1
+    idx, table = _bag_case(cuda, b, l, 500, d, dtype, l + d)
+    _held_bitwise(idx, table, "loads")
+    _gather_bitwise(idx, table)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 5])
+def test_embedding_bag_unaligned_index_span(cuda, offset):
+    """idx starting ``offset`` int32 past a 16-byte boundary, so every
+    tile's span has an unaligned head and tail."""
+    b, l = 777, 39
+    gen = torch.Generator(device=cuda).manual_seed(offset)
+    flat = torch.randint(-1, 4000, (b * l + offset,), generator=gen,
+                         device=cuda, dtype=torch.int32)
+    idx = flat[offset:].view(b, l)
+    assert idx.data_ptr() % 16 == 4 * (offset % 4)
+    table = torch.randn((4000, 4), generator=gen, device=cuda)
+    _held_bitwise(idx, table, "gather")
+    _held_bitwise(idx[1:], table, "gather")
+
+
+@pytest.mark.parametrize("dtype,d,offset", [
+    (torch.float32, 4, 1), (torch.float32, 4, 2), (torch.float32, 2, 1),
+    (torch.bfloat16, 8, 2), (torch.bfloat16, 8, 4)])
+def test_embedding_bag_table_off_its_alignment(cuda, dtype, d, offset):
+    """A contiguous table ``offset`` elements into its storage: the copy
+    granule narrows to what the table's address allows."""
+    v = 3000
+    gen = torch.Generator(device=cuda).manual_seed(d + offset)
+    flat = torch.randn((v * d + offset,), generator=gen, device=cuda)
+    table = flat.to(dtype)[offset:].view(v, d)
+    idx = torch.randint(-1, v, (500, 13), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    ptr = table.data_ptr()
+    g = bag_geometry(500, 13, v, d, table.element_size(), align=ptr & -ptr)
+    assert g.route == "gather" and g.granule < d * table.element_size()
+    _held_bitwise(idx, table, "gather")
+
+
+def test_embedding_bag_table_past_2_pow_31_elements(cuda):
+    """A (2^28, 10) f32 table (10.7 GB, 2.7e9 elements): bags that read
+    its last rows need int64 offsets."""
+    v, d = 2 ** 28, 10
+    table = torch.empty((v, d), device=cuda)
+    table[-4096:].normal_(generator=torch.Generator(device=cuda
+                                                    ).manual_seed(0))
+    table[:-4096].fill_(0.5)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    idx = torch.randint(v - 4096, v, (4096, 39), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    idx[:, ::7] = torch.randint(0, v, (4096, 6), generator=gen, device=cuda,
+                                dtype=torch.int32)
+    idx[::5, -1] = -1
+    got = _held_bitwise(idx, table, "gather")
+    assert got.abs().sum() > 0
+    del table
 
 
 def test_deepfm_steps_on_the_card_match_the_cpu(cuda):

@@ -18,8 +18,16 @@ from repro.kernels.embedding_bag.ref import (embedding_bag_mean_ref as
                                              embedding_bag_sum_ref as
                                              j_sum_ref)
 from repro_torch.kernels.embedding_bag import ops
-from repro_torch.kernels.embedding_bag.kernel import (embedding_bag_sum,
-                                                      embedding_bag_sum_plain)
+from repro_torch.kernels.embedding_bag.kernel import (CTAS_PER_SM,
+                                                      GATHER_ROW_BYTES,
+                                                      L2_TABLE_BYTES,
+                                                      MAX_ROW_BYTES,
+                                                      SMALL_ROW_BYTES,
+                                                      SMEM_BLOCK, SMEM_SM,
+                                                      bag_geometry,
+                                                      embedding_bag_sum,
+                                                      embedding_bag_sum_plain,
+                                                      gather_geometry)
 from repro_torch.kernels.embedding_bag.ref import (embedding_bag_mean_ref,
                                                    embedding_bag_sum_ref)
 
@@ -201,3 +209,110 @@ def test_plain_is_a_sum_of_the_valid_rows(seed):
             if j >= 0:
                 want = want + table[j]
         np.testing.assert_array_equal(got[i], want)
+
+
+# (B, L): DeepFM's serve_bulk bags, a tail tile, a bag longer than a stage
+# at wide rows, one bag, more bags than CTAs at one slot
+GEOMETRY_SHAPES = [(262_144, 39), (1000, 39), (5, 300), (1, 1), (997, 1)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,l", GEOMETRY_SHAPES)
+def test_launch_geometry_covers_every_bag_and_fits(b, l, itemsize):
+    """For D = 1 .. 1,024 (and the widest rows the gather takes): the
+    persistent grid's tiles and chunks cover every (bag, slot) exactly
+    once, the tail tile included; the ring fits 227 KB with two CTAs an
+    SM; the granule divides the row; bf16 with odd D takes the plain-load
+    route (the gather's own geometry, before the route rule)."""
+    for d in [*range(1, 1025), *range(1025, 4100, 31), 4096, 4097]:
+        row = d * itemsize
+        g = gather_geometry(b, l, d, itemsize)
+        if itemsize == 2 and d % 2:
+            assert g.route == "loads", d
+            continue
+        if row > MAX_ROW_BYTES:
+            assert g.route == "loads", d
+            continue
+        assert g.route == "gather", d
+        assert g.granule in (4, 8, 16) and row % g.granule == 0, d
+        assert g.granule == max(x for x in (4, 8, 16) if row % x == 0), d
+        # the tiles, walked by the grid as the kernel does (tile = cta + k
+        # * grid for k < my_tiles), hold bags [t * bags, ...) clipped to B
+        cta = np.arange(g.grid)
+        assert 1 <= g.grid <= g.tiles
+        assert ((g.tiles - 1 - cta) // g.grid + 1).sum() == g.tiles, d
+        nb = np.minimum(g.bags, b - np.arange(g.tiles) * g.bags)
+        assert nb.min() >= 1 and nb.sum() == b, d
+        # the chunks of a tile cover its L slots; a chunked tile is one bag
+        nl = np.minimum(g.slots, l - np.arange(g.chunks) * g.slots)
+        assert nl.min() >= 1 and nl.sum() == l, d
+        assert g.chunks == 1 or g.bags == 1, d
+        # a stage holds an item: its span (+ 3 words of unaligned head), its
+        # rows, and with chunks a bag's partial sums
+        assert g.idx_words >= g.bags * g.slots + 3 and g.idx_words % 4 == 0
+        assert g.row_stage_bytes >= g.bags * g.slots * row
+        assert g.row_stage_bytes % 16 == 0
+        assert g.acc_bytes == (4 * d if g.chunks > 1 else 0)
+        assert 2 <= g.stages <= 8
+        stage = g.idx_words * 4 + g.row_stage_bytes
+        assert g.smem_bytes == 64 + g.stages * stage + g.acc_bytes
+        assert g.smem_bytes <= SMEM_BLOCK, d
+        assert CTAS_PER_SM * (g.smem_bytes + 1024) <= SMEM_SM, d
+
+
+def test_launch_geometry_of_deepfm_bags():
+    """The serve_bulk bags: 40-byte rows in five 8-byte copies, three
+    stages of 19 bags (29,640 bytes of rows), a persistent grid of two CTAs
+    an SM."""
+    g = bag_geometry(262_144, 39, 39_000_000, 10, 4)
+    assert (g.route, g.granule, g.stages, g.bags, g.chunks) == (
+        "gather", 8, 3, 19, 1)
+    assert (g.row_stage_bytes, g.grid, g.tiles) == (29_648, 264, 13_798)
+    assert bag_geometry(262_144, 39, 39_000_000, 10, 4,
+                        align=4).granule == 4
+    assert gather_geometry(256, 8, 128, 2).granule == 16
+    assert gather_geometry(4, 300, 128, 4).chunks == 5
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+def test_route_rule_by_row_width_and_table_size(itemsize):
+    """The gather for rows of at most 16 bytes on any table and of at most
+    40 bytes on a table past 48 MiB; plain loads for the rest, bf16 with
+    odd D always; on both sides of the table-size threshold."""
+    for d in range(1, 1025):
+        row = d * itemsize
+        v_l2 = L2_TABLE_BYTES // row                  # 48 MiB or just under
+        for v in (1, v_l2, v_l2 + 1, 39_000_000):
+            g = bag_geometry(262_144, 39, v, d, itemsize)
+            gather = (row <= SMALL_ROW_BYTES or (
+                row <= GATHER_ROW_BYTES and v * row > L2_TABLE_BYTES)) and (
+                itemsize == 4 or d % 2 == 0)
+            assert g.route == ("gather" if gather else "loads"), (d, v)
+            if gather:
+                assert g == gather_geometry(262_144, 39, d, itemsize)
+
+
+# route_bench on an H100 80GB HBM3 at 700 W (262,144 x 39 uniform ids):
+# (dtype bytes, D, table MiB, gather ms, plain-load ms), a sample of the
+# readings where one route was more than 10% faster.  Of its 160 readings
+# the rule takes the slower route at 13, by at most 10.8% (bf16 D = 8 on
+# an 8 MiB table)
+ROUTE_BENCH = [
+    (4, 1, 8, 0.102, 0.116), (4, 1, 1536, 0.347, 0.406),
+    (4, 4, 40, 0.157, 0.199), (4, 8, 8, 0.135, 0.096),
+    (4, 8, 24, 0.136, 0.118), (4, 10, 8, 0.203, 0.128),
+    (4, 16, 24, 0.241, 0.136), (4, 32, 128, 0.489, 0.401),
+    (4, 128, 1536, 2.507, 1.875), (4, 512, 1536, 9.33, 7.344),
+    (2, 2, 24, 0.112, 0.151), (2, 10, 24, 0.181, 0.130),
+    (2, 16, 24, 0.17, 0.144), (2, 64, 8, 0.623, 0.544),
+    (2, 128, 56, 1.253, 1.123)]
+
+
+@pytest.mark.parametrize("itemsize,d,mib,gather_ms,loads_ms", ROUTE_BENCH)
+def test_route_rule_takes_the_route_timed_faster(itemsize, d, mib, gather_ms,
+                                                 loads_ms):
+    """At these readings of route_bench, the rule takes the route that
+    was timed faster."""
+    v = mib * 2 ** 20 // (d * itemsize)
+    route = bag_geometry(262_144, 39, v, d, itemsize).route
+    assert route == ("gather" if gather_ms < loads_ms else "loads")
