@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (dense 1-D BFS, LM prefill, DeepFM serving
-and the EmbeddingBag op) on one card.
+"""Drive the PyTorch/CUDA port (1-D BFS in the dense, queue and auto
+modes, LM prefill, DeepFM serving and the EmbeddingBag op) on one card.
 
     python3 chip_smoke.py            # full size, as the acceptance run
     python3 chip_smoke.py --profile  # also profile one run of each path
@@ -34,7 +34,15 @@ Phases (any failed check raises and the script exits non-zero):
    and under ``use_kernel`` the f32 A2 and A3 never.
    Distances are checked with ``validate_bfs`` (Graph500 rules) on every
    column and against scipy's BFS on four columns, bitwise.
-5. prefill — gemma3-12b at full width (d_model 3840, 16 q / 8 kv heads of
+5. path 4 — ``rmat_1m`` with path 1's roots, p = 4, default options, in the
+   modes that mix level kinds: (a) ``mode="auto"``, S = 64 (dense and
+   packed bottom-up levels, the fused tail A1 on the dense ones); (b)
+   ``mode="auto"`` and (c) ``mode="queue"``, S = 1 (the visited sieve and
+   the compressed queue wire), on the first 8 roots, the first three times.
+   Distances bitwise path 1's (columns); (a)'s and (b)'s ``mode_counts``
+   equal a numpy replay of the auto rule from the distances; A1 launches
+   once per dense level of (a) and no other kernel does.
+6. prefill — gemma3-12b at full width (d_model 3840, 16 q / 8 kv heads of
    256, d_ff 15360, vocab 262144, bf16) through ``build_bundle(...,
    "prefill_32k")``, cut to 12 layers (two 5 local + 1 global groups) and
    batch 2 x seq 8192, with random weights from a seeded generator on the
@@ -43,7 +51,7 @@ Phases (any failed check raises and the script exits non-zero):
    and 3 bitwise equal; then the same prefill with the plain attention,
    held to a stated tolerance (the first layer's cache bitwise), which
    two planted faults (every local window one key off) must fail.
-6. recsys — DeepFM at its full configuration (39 fields x 1,000,000 rows
+7. recsys — DeepFM at its full configuration (39 fields x 1,000,000 rows
    x 10, a 1.56 GB f32 table, MLP 403-400-400-400-1), not cut, through
    ``build_bundle(get_arch("deepfm"), ...)`` for ``serve_p99``,
    ``serve_bulk`` and ``retrieval_cand``, with random weights from a
@@ -53,7 +61,7 @@ Phases (any failed check raises and the script exits non-zero):
    scores at a stated relative L2 limit.  Two planted faults must fail
    that hold: every field offset one row off, and (serve) TF32 products.  DeepFM looks its fields up
    with a row gather, as the JAX package does, so no kernel launches.
-7. embedding bag — the lookup op ``kernels.embedding_bag.ops.embedding_bag``
+8. embedding bag — the lookup op ``kernels.embedding_bag.ops.embedding_bag``
    (kernel A5) on (a) the ``serve_bulk`` batch's own flat ids as bags
    over DeepFM's table (the op's main path, three calls; also held to the
    serve path's ``emb.sum(1)``), (b) the same bags cut to seeded ragged
@@ -67,7 +75,7 @@ Phases (any failed check raises and the script exits non-zero):
    useful bytes and that of the 32-byte sectors the rows span; and on
    (a)'s ids over a (V, 8) f32 table (one sector a row) and over the
    table's first 100,000 rows (a 4 MB table, the plain-load route).
-8. kernels — each kernel against its plain torch version on the card at
+9. kernels — each kernel against its plain torch version on the card at
    the shapes of the paths (A4 also each (batch, head) slice, with the
    window one key off failing; ``bsr_expand_bits`` on path 2's densest
    level and on a random 5% frontier, and the f32 A2 + A3 chain of
@@ -406,6 +414,134 @@ def path3_phase(kernels, g, src, dst, roots, want, dev, profile: bool):
             "pack_ms": pack_ms, "compile_ms": compile_ms,
             "shape": f"{b['tiles']} tiles over 4 shards, frontier words "
                      f"{tuple(fwords.shape)}"}
+
+
+def replay_modes(host: np.ndarray, deg: np.ndarray, n_edges: int, s: int,
+                 inf: int):
+    """numpy replay of the ``auto`` rule (JAX ``bfs.py:244-245, 379-413``)
+    from a run's distances, independent of the port's loop: level ``L``'s
+    frontier is ``dist == L-1``; ``f_verts`` counts its pairs over every
+    column, ``f_edges`` the out-edges of column 0's frontier.  Returns the
+    level count (the largest finite distance + 1) and each level's mode."""
+    from repro_torch.core import BFSOptions
+
+    opts = BFSOptions()
+    queue_cut = max(1, int(opts.queue_threshold * n_edges))
+    bottom_up_cut = max(1, int(opts.bottom_up_threshold * host.shape[0]))
+    levels = int(host[host < inf].max()) + 1
+    modes = []
+    for level in range(1, levels + 1):
+        front = host == level - 1
+        f_verts, f_edges = int(front.sum()), int(deg[front[:, 0]].sum())
+        if f_verts > bottom_up_cut:
+            modes.append("bottom_up")
+        elif s == 1 and f_edges < queue_cut:
+            modes.append("queue")
+        else:
+            modes.append("dense")
+    return levels, modes
+
+
+def mode_counts(modes) -> dict:
+    return {m: modes.count(m) for m in ("dense", "queue", "bottom_up")}
+
+
+def path4_phase(kernels, g, src, roots, want, profile: bool) -> None:
+    """``rmat_1m`` on the queue and ``auto`` modes (module docstring, phase
+    5): (a) auto, S = 64; (b) auto and (c) queue, S = 1, on the first 8
+    roots; distances bitwise path 1's p4_default columns."""
+    from repro_torch.core import BFSOptions, plan
+    from repro_torch.core.frontier import INF
+
+    deg = np.bincount(src, minlength=g.part.n_logical)
+    others = [k for k in kernels if k != "fold_update"]
+
+    def build(label, opts, s):
+        reset_peak()
+        t0 = time.perf_counter()
+        pl = plan(g, opts, num_sources=s)
+        eng = pl.compile()
+        torch.cuda.synchronize()
+        compile_ms = (time.perf_counter() - t0) * 1e3
+        d = pl.describe()
+        log(f"path 4 {label}: wires {d['wire_formats']}, dense_exchange "
+            f"{d['dense_exchange']}, queue_exchange {d['queue_exchange']}, "
+            f"sieve {d['sieve']}, fused {d['use_fused_tail']}; compile "
+            f"{compile_ms:.1f} ms")
+        return pl, eng, d
+
+    def report(label, run_ms, st, modes, res):
+        log(f"path 4 {label}: runs {[round(t, 3) for t in run_ms]} ms; "
+            f"levels {st['levels']}; per-level ms (mode) "
+            f"{[f'{t * 1e3:.3f} ({m})' for t, m in zip(res.run_stats.level_seconds, modes)]}; "
+            f"comm_bytes {st['comm_bytes']}; sieve_hits {st['sieve_hits']}; "
+            f"overflowed {st['overflowed']}; mode_counts {st['mode_counts']}")
+
+    # (a) auto, S = 64: dense and bottom-up levels only
+    pl, eng, d = build("(a) auto S=64", BFSOptions(mode="auto"), S)
+    check(d["wire_formats"]["bottom_up"] == "packed" and d["use_fused_tail"],
+          "path 4 (a): the plan does not resolve a packed bottom-up wire "
+          "and the fused tail")
+    host, run_ms, res, counts = drive(kernels, eng, roots)
+    st = res.run_stats.to_host()
+    check(np.array_equal(host, want),
+          "path 4 (a): distances differ from path 1's p4_default")
+    levels, modes = replay_modes(host, deg, g.n_edges, S, INF)
+    check(levels == st["levels"] and mode_counts(modes) == st["mode_counts"],
+          f"path 4 (a): mode_counts {st['mode_counts']} over {st['levels']} "
+          f"levels, the replay {mode_counts(modes)} over {levels}")
+    check(counts["fold_update"] == 3 * st["mode_counts"]["dense"],
+          f"path 4 (a): A1 launched {counts['fold_update']} times in 3 runs "
+          f"of {st['mode_counts']['dense']} dense levels")
+    check(not any(counts[k] for k in others),
+          f"path 4 (a): a kernel off the path launched: {counts}")
+    report("(a) auto S=64", run_ms, st, modes, res)
+    log(f"path 4 (a): launches {counts}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if profile:
+        profile_run("path 4 (a) auto S=64", lambda: eng.run(roots))
+    del eng, res
+
+    # (b) auto and (c) queue, S = 1: the first root three times, the next
+    # seven once each
+    for label, mode in (("(b) auto S=1", "auto"), ("(c) queue S=1", "queue")):
+        pl, eng, d = build(label, BFSOptions(mode=mode), 1)
+        check(d["sieve"], f"path 4 {label}: the sieve is off")
+        totals = dict.fromkeys(("dense", "queue", "bottom_up"), 0)
+        for i, root in enumerate(roots[:8]):
+            if i == 0:
+                host, run_ms, res, _ = drive(kernels, eng, [root])
+            else:
+                t0 = time.perf_counter()
+                res = eng.run([root])
+                run_ms = [(time.perf_counter() - t0) * 1e3]
+                host = res.dist_host
+            st = res.run_stats.to_host()
+            check(np.array_equal(host, want[:, i:i + 1]),
+                  f"path 4 {label}: root {i}'s distances differ from path "
+                  f"1's column {i}")
+            levels, modes = replay_modes(host, deg, g.n_edges, 1, INF)
+            if mode == "auto":
+                check(levels == st["levels"]
+                      and mode_counts(modes) == st["mode_counts"],
+                      f"path 4 {label}: root {i}'s mode_counts "
+                      f"{st['mode_counts']}, the replay {mode_counts(modes)}")
+            else:
+                modes = ["queue"] * st["levels"]
+                check(st["levels"] == levels
+                      and st["mode_counts"]["queue"] == levels,
+                      f"path 4 {label}: root {i} ran {st}")
+            for k in totals:
+                totals[k] += st["mode_counts"][k]
+            report(f"{label} root {i}", run_ms, st, modes, res)
+            if profile and i == 0:
+                profile_run(f"path 4 {label} root 0",
+                            lambda: eng.run([root]))
+        log(f"path 4 {label}: 8 roots bitwise path 1's columns; mode totals "
+            f"{totals}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del eng, res
+    torch.cuda.empty_cache()
 
 
 def profile_run(name, run) -> None:
@@ -1240,7 +1376,6 @@ def main(argv=None) -> int:
     # --------------------------------------------------------------- path 3
     path3 = path3_phase(kernels, g1_p4, src1, dst1, roots1,
                         path1["p4_default"][0], dev, args.profile)
-    del g1_p4
     log("path 3: validate_bfs on all columns, distances == path 1 "
         "p4_default, bsr_expand_bits once a level: ok")
 
@@ -1280,6 +1415,14 @@ def main(argv=None) -> int:
     scipy_check(src2, dst2, n2, roots2, host2, INF)
     log("path 2: validate_bfs on all columns, scipy on 4 columns, "
         "use_kernel == plain expansion: ok")
+
+    # --------------------------------------------------------------- path 4
+    # (after path 2, so that path 2 runs where it ran before path 4 came)
+    path4_phase(kernels, g1_p4, src1, roots1, path1["p4_default"][0],
+                args.profile)
+    del g1_p4
+    log("path 4: auto (S = 64 and 1) and queue (S = 1) distances == path 1, "
+        "auto mode_counts == the numpy replay, A1 once a dense level: ok")
 
     # -------------------------------------------------------------- prefill
     lay = prefill_phase(kernels, dev, args.profile)

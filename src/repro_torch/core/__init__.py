@@ -3,7 +3,8 @@ distributed BFS with optimized owner-exchange communication.
 
 Public lifecycle: ``plan(graph, opts, mesh=..., device=...) -> BFSPlan ->
 .compile() -> BFSEngine -> .run(sources) / .run_async(sources) ->
-BFSResult``, dense mode, over a ``LocalMesh`` of p shards on one device.
+BFSResult``, in the dense, queue and ``auto`` modes, over a ``LocalMesh`` of
+p shards on one device.
 """
 
 from repro_torch.core.bfs import (BFSOptions, BFSStats, INF,

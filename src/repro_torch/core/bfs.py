@@ -1,17 +1,31 @@
 """Level-synchronous BFS with 1-D partitioning (paper fig. 2) — the port of
-``repro.core.bfs``, dense mode.
+``repro.core.bfs``'s 1-D loop.
 
-Every iteration of the level loop is one BFS level: local top-down
-expansion (computation step, paper §2.3), the owner exchange
-(communication step) and the owner-side distance update.  The p shards of
-a ``LocalMesh`` run as one stacked ``(p, ...)`` computation.  JAX's
-``lax.while_loop`` becomes a Python loop over levels; termination reads
-``new.any()`` once per level, which is the one host sync of a level.
+Every iteration of the level loop is one BFS level: local expansion
+(computation step, paper §2.3), the owner exchange (communication step)
+and the owner-side distance update.  The p shards of a ``LocalMesh`` run
+as one stacked ``(p, ...)`` computation.  JAX's ``lax.while_loop`` becomes
+a Python loop over levels and each ``lax.cond`` a Python branch on a value
+read from the device.
+
+Modes (``BFSOptions.mode``):
+  * ``dense`` — bitmap frontier, candidate exchange by a ``dense``
+    strategy; S sources at once.  One host read a level (termination).
+  * ``queue`` — the paper's per-owner send buffers (S = 1), with the
+    visited sieve, the compressed wire, and escalation of the whole level
+    to dense when any shard's bucket or stream overflows.  Two host reads
+    a level: the overflow predicate (with the sieve's hit count), then
+    termination with the next level's frontier statistics, plus one
+    read of the sources' statistics before the first level.
+  * ``auto`` — direction-optimizing hybrid (Beamer et al.): per level
+    bottom-up when the frontier is large, queue when its out-edges are
+    few (S = 1 only), else dense.  The next level's frontier statistics
+    are read with the termination flag, so dense and bottom-up levels
+    keep one host read (queue levels two), plus one read of the sources'
+    statistics before the first level.
 
 This module holds the options, source validation and the level loop; the
 public lifecycle (``plan -> compile -> run``) lives in ``core/engine.py``.
-The queue and direction-optimizing ``auto`` modes wait for ROADMAP Queue A
-item 6.
 """
 
 from __future__ import annotations
@@ -153,30 +167,71 @@ def _owned_update(dist: torch.Tensor, own_cand: torch.Tensor,
     return new.to(torch.uint8)
 
 
-def make_dense_level(part: Partition1D, s: int, mesh: LocalMesh, axis,
-                     axes_sizes, dense_strategy: ex.ExchangeStrategy,
-                     edge_rows, expand_fn: Optional[Callable] = None,
-                     expand_emits_packed: bool = False,
-                     fused: bool = False) -> Callable:
-    """Build one dense BFS level over stacked shards.
+def make_level_loop(part: Partition1D, s: int, e_total: int,
+                    mesh: LocalMesh, axis, axes_sizes, opts: BFSOptions,
+                    dense_strategy: ex.ExchangeStrategy,
+                    queue_strategy: ex.ExchangeStrategy, edge_rows,
+                    out_edges=None, in_rows=None,
+                    expand_fn: Optional[Callable] = None,
+                    expand_emits_packed: bool = False,
+                    bottom_up_wire: str = "bytes", sieve: bool = False,
+                    fused: bool = False) -> Callable:
+    """Build the level loop of one engine over stacked shards.
 
-    ``dense_level(frontier, dist, level, words) -> (new, level_bytes,
-    new_words)`` takes the ``(p, shard, S)`` uint8 frontier, the same
-    frontier packed as ``(p, W, S)`` words or ``None``, and the int32 dist
-    (updated in place); it returns the ``(p, shard, S)`` uint8
-    newly-discovered mask and, where the fused tail packed it, the same
-    mask as words (else ``None``).
+    Returns ``run(dist, frontier, max_levels)``, which runs levels on the
+    padded global ``(n, S)`` buffers (``dist`` updated in place) until no
+    shard discovers a vertex (or ``max_levels``) and returns ``(levels,
+    comm_bytes, overflowed, mode_counts, sieve_hits, level_seconds)``:
+    the level count as the JAX loop reports it, the analytic per-chip
+    bytes summed in float32 as the JAX loop sums them, whether a queue
+    level escalated to dense, the (dense, queue, bottom_up) level counts,
+    the candidates the sieve dropped, and each level's host wall time.
 
     ``edge_rows`` are ``frontier.dense_edge_index`` rows of the out-edge
     blocks (the default scatter-max expansion); ``expand_fn(frontier,
     words)`` replaces that expansion (the ``use_kernel`` bit-tile path)
     and, with ``expand_emits_packed``, hands the packed exchange its words
-    directly.  ``fused`` (needs a packed dense wire) replaces the unpack
-    -> update tail with kernel A1.
+    directly.  ``out_edges`` — the ``(p, e_cap)`` ``src_local`` and
+    ``dst_global`` blocks — feed queue levels and the ``auto`` statistics;
+    ``in_rows`` are ``frontier.bottom_up_edge_index`` rows for the
+    resolved ``bottom_up_wire`` (``auto`` only).  ``fused`` (needs a
+    packed dense wire) replaces the dense unpack -> update tail with
+    kernel A1 and carries the packed frontier generation between levels,
+    which the packed bottom-up gather reads.
     """
     p, shard, n = part.p, part.shard_size, part.n
-    dense_bytes = dense_strategy.bytes_model(n, p, s, 1, axes_sizes)
+    mode, cap = opts.mode, opts.queue_cap
+    dev = mesh.device
+    itemsize = 1  # uint8 masks (the "bytes" wire format)
+    queue_edge_cutoff = max(1, int(opts.queue_threshold * e_total))
+    bottom_up_cutoff = max(1, int(opts.bottom_up_threshold * part.n_logical))
+    # compressed queue wire: bucket row j encodes ids relative to j*shard
+    use_compressed = queue_strategy.wire == "compressed"
+    q_byte_cap = fr.compressed_capacity(cap, shard)
+    sv_bits, sv_bucket, sv_words = fr.sieve_layout(shard)
+    sieve_gather_bytes = float((p - 1) * sv_words * 4) if sieve else 0.0
+    # each level's bytes as the float32 the JAX loop adds
+    dense_bytes = np.float32(dense_strategy.bytes_model(n, p, s, itemsize,
+                                                        axes_sizes))
+    escalated_bytes = np.float32(dense_bytes + np.float32(sieve_gather_bytes))
+    queue_bytes = np.float32(queue_strategy.bytes_model(
+        p, cap, 4, cap / shard) + sieve_gather_bytes)
+    bottom_up_bytes = np.float32(ex.bottomup_level_bytes(
+        n, p, s, itemsize, wire=bottom_up_wire))
     packed_wire = dense_strategy.wire == "packed"
+    me = mesh.axis_index(axis)                                  # (p,)
+    base = torch.arange(p, device=dev, dtype=torch.int32)[:, None] * shard
+    valid_local = torch.arange(n, device=dev).view(p, shard) < part.n_logical
+    vwords = fr.pack_bits(valid_local[..., None].to(torch.uint8))
+    if out_edges is not None:
+        src_local, dst_global = out_edges
+        out_valid = dst_global >= 0
+        src_idx = torch.where(out_valid, src_local.long(), 0)
+        # valid out-edges of each local vertex: the auto rule's f_edges is
+        # the frontier's column 0 weighted by them
+        out_deg = torch.zeros((p, shard), dtype=torch.int64,
+                              device=dev).scatter_add_(1, src_idx,
+                                                       out_valid.long())
 
     def dense_level(frontier, dist, level, words=None):
         if expand_fn is not None:
@@ -201,36 +256,127 @@ def make_dense_level(part: Partition1D, s: int, mesh: LocalMesh, axis,
             own = dense_strategy.impl(cand, mesh, axis)
         return _owned_update(dist, own, level), dense_bytes, None
 
-    return dense_level
+    def bottom_up_level(frontier, fwords, dist, level):
+        if bottom_up_wire == "packed":
+            # gather the packed frontier and read source bits straight
+            # out of the words; a fused plan gathers the carried words
+            fw = fwords if fwords is not None else fr.pack_bits(frontier)
+            fglob = ex.allgather_frontier(fw, mesh, axis)  # (p, p*W, S)
+        else:
+            fglob = ex.allgather_frontier(frontier, mesh, axis)  # (p, n, S)
+        cand = fr.expand_bottom_up_edges(fglob, in_rows, p * shard)
+        new = _owned_update(dist, cand.view(p, shard, s), level)
+        return new, bottom_up_bytes, fr.pack_bits(new) if fused else None
 
+    def queue_level(frontier, dist, level, width):
+        active = (frontier[..., 0].gather(1, src_idx) > 0) & out_valid
+        # Each shard's active edges, in edge order, packed to the left of
+        # a (p, width) block (``width``: the most any shard has, read with
+        # the last level's statistics).  Buckets, dedupe and overflow
+        # depend only on that order, so they stay the JAX shard's bitwise
+        # while the sorts below cost the frontier's edges, not e_cap.
+        # (one scan over the flattened mask: a scan along the rows of a
+        # (p, e_cap) array runs one thread block a row on the card)
+        rank = active.view(-1).cumsum(0).view(p, -1)
+        before = torch.cat([rank.new_zeros(1), rank[:-1, -1]])
+        pos = torch.where(active, rank - before[:, None] - 1, width)
+        dst = dst_global.new_full((p, width + 1), -1).scatter_(
+            1, pos, dst_global)[:, :width]
+        active = active.new_zeros((p, width + 1)).scatter_(
+            1, pos, active)[:, :width]
+        hits = torch.zeros((), dtype=torch.int64, device=dev)
+        if sieve:
+            # replicate each shard's coarse visited summary and drop
+            # candidates whose whole bucket is already visited
+            own_sum = fr.sieve_summary(dist[..., 0], sv_bits, sv_bucket)
+            gsum = mesh.all_gather(own_sum, axis).flatten(1, 2)
+            drop = fr.sieve_lookup(gsum, dst, shard, sv_bits, sv_bucket,
+                                   sv_words) & active
+            hits = drop.sum()
+            active = active & ~drop
+        buckets, local_mask, _, overflow = fr.build_queue_buckets(
+            dst, active, part, me, cap, local_update=opts.local_update,
+            dedupe=opts.dedupe)
+        if use_compressed:
+            rel = torch.where(buckets >= 0, buckets - base, -1)
+            payload, enc_ovf = fr.encode_delta_varint(rel, q_byte_cap, shard)
+            overflow = overflow | enc_ovf.any(-1)
+        # Exactness: if any shard's bucket (or compressed stream)
+        # overflowed, the whole level runs densely instead
+        ovf, hits = torch.stack([overflow.any().long(), hits]).tolist()
+        if ovf:
+            new, _, nwords = dense_level(frontier, dist, level)
+            # the sieve gather (if any) already ran before escalation
+            return new, escalated_bytes, nwords, True, hits
+        if use_compressed:
+            recv = queue_strategy.impl(payload, mesh, axis)  # (p, p, bytes)
+            rec_ids = fr.decode_delta_varint(recv, cap, shard)
+            rec_ids = torch.where(rec_ids >= 0,
+                                  rec_ids + me[:, None, None] * shard, -1)
+        else:
+            rec_ids = queue_strategy.impl(buckets, mesh, axis)
+        own = torch.maximum(fr.apply_queue(rec_ids, me, shard), local_mask)
+        new = _owned_update(dist, own[..., None], level)
+        nwords = fr.pack_bits(new) if fused else None
+        return new, queue_bytes, nwords, False, hits
 
-def run_dense_levels(dense_level: Callable, dist: torch.Tensor,
-                     frontier: torch.Tensor, part: Partition1D,
-                     max_levels: int):
-    """Run levels until no shard discovers a vertex (or ``max_levels``).
+    def frontier_stats(frontier):
+        """One host read of ``(f_verts, f_edges)``: the frontier's pairs
+        over every column, and each shard's valid out-edges from column
+        0's frontier (a queue level's active edges)."""
+        f_edges = (frontier[..., 0].long() * out_deg).sum(1)
+        stats = torch.cat([frontier.sum(dtype=torch.int64).view(1),
+                           f_edges]).tolist()
+        return stats[0], stats[1:]
 
-    ``dist`` and ``frontier`` are the padded global ``(n, S)`` buffers;
-    ``dist`` is updated in place.  Returns ``(levels, comm_bytes,
-    level_seconds)``: the level count as the JAX loop reports it, the
-    analytic per-chip bytes summed in float32 as the JAX loop sums them,
-    and each level's host wall time (it ends in the level's sync).
-    """
-    p, shard, n = part.p, part.shard_size, part.n
-    s = dist.shape[1]
-    dist_sh = dist.view(p, shard, s)
-    frontier = frontier.view(p, shard, s)
-    bytes_acc = np.float32(0)
-    level_seconds = []
-    level, active, words = 1, True, None
-    while active and level <= max_levels:
-        t0 = time.perf_counter()
-        new, b, words = dense_level(frontier, dist_sh, level, words)
-        # padding vertices (ids >= n_logical) can never be visited
-        new.view(n, s)[part.n_logical:] = 0
-        dist[part.n_logical:] = INF
-        active = bool(new.any())
-        bytes_acc = np.float32(bytes_acc + np.float32(b))
-        frontier = new
-        level += 1
-        level_seconds.append(time.perf_counter() - t0)
-    return level - 1, float(bytes_acc), tuple(level_seconds)
+    def run(dist, frontier, max_levels):
+        dist_sh = dist.view(p, shard, s)
+        frontier = frontier.view(p, shard, s)
+        bytes_acc = np.float32(0)
+        overflowed, modes, hits_acc, level_seconds = False, [0, 0, 0], 0, []
+        level, active, fwords = 1, True, None
+        if mode != "dense":
+            f_verts, f_edges = frontier_stats(frontier)
+        while active and level <= max_levels:
+            t0 = time.perf_counter()
+            ovf, hits = False, 0
+            if mode == "auto":
+                if f_verts > bottom_up_cutoff:
+                    which = 2
+                elif s == 1 and sum(f_edges) < queue_edge_cutoff:
+                    which = 1
+                else:
+                    which = 0
+            else:
+                which = 1 if mode == "queue" else 0
+            if which == 0:
+                new, b, nwords = dense_level(frontier, dist_sh, level, fwords)
+            elif which == 1:
+                new, b, nwords, ovf, hits = queue_level(
+                    frontier, dist_sh, level, max(1, max(f_edges)))
+            else:
+                new, b, nwords = bottom_up_level(frontier, fwords, dist_sh,
+                                                 level)
+            modes[which] += 1
+            # padding vertices (ids >= n_logical) can never be visited
+            new.view(n, s)[part.n_logical:] = 0
+            dist[part.n_logical:] = INF
+            if fused:
+                # the next packed generation, pad bits cleared to match
+                # the masked byte frontier
+                fwords = nwords & vwords
+            if mode != "dense":
+                f_verts, f_edges = frontier_stats(new)
+                active = f_verts > 0
+            else:
+                active = bool(fr.frontier_nonzero(new))
+            bytes_acc = np.float32(bytes_acc + b)
+            overflowed |= ovf
+            hits_acc += hits
+            frontier = new
+            level += 1
+            level_seconds.append(time.perf_counter() - t0)
+        return (level - 1, float(bytes_acc), overflowed, tuple(modes),
+                hits_acc, tuple(level_seconds))
+
+    return run

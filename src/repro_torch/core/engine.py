@@ -1,23 +1,26 @@
 """Compile-once BFS lifecycle: ``plan() -> BFSPlan -> compile() -> BFSEngine``
-— the port of ``repro.core.engine`` (dense mode, 1-D partition).
+— the port of ``repro.core.engine`` (1-D partition: dense, queue and
+``auto`` modes).
 
   * ``plan(graph, opts, mesh=..., device=...)`` — host-side validation and
     static-shape derivation: checks options, resolves exchange strategies
     from the registry, fixes the ``LocalMesh`` and the source-batch
     capacity S.  Cheap; pure metadata (``BFSPlan``).
   * ``BFSPlan.compile()`` — uploads the graph's edge rows (or, under
-    ``use_kernel``, the one-bit blocked adjacency) to the device and
-    allocates the ``(n, S)`` dist and frontier buffers once.
+    ``use_kernel``, the one-bit blocked adjacency; queue and ``auto``
+    plans also the out-edge blocks, ``auto`` the in-edge rows of the
+    bottom-up levels) to the device and allocates the ``(n, S)`` dist and
+    frontier buffers once.
   * ``BFSEngine.run(sources)`` — per traversal: sources are injected on
     the device into the reused buffers (the analogue of JAX's donated
     dist buffer), then the level loop runs.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; on a
 machine without CUDA, ``plan()`` without a device raises rather than
-carrying on on the CPU.  The queue/auto modes (ROADMAP Queue A item 6),
-the 2-D partition (item 8), ``plan_key`` / ``estimated_device_bytes`` and
-the serving fault seams (item 9) and the H100 roofline in ``describe()``
-(item 11) come with later slices.
+carrying on on the CPU.  The 2-D partition (ROADMAP Queue A item 8),
+``plan_key`` / ``estimated_device_bytes`` and the serving fault seams
+(item 9) and the H100 roofline in ``describe()`` (item 11) come with later
+slices.
 """
 
 from __future__ import annotations
@@ -30,8 +33,8 @@ import torch
 
 from repro_torch.core import exchange as ex
 from repro_torch.core import frontier as fr
-from repro_torch.core.bfs import (BFSOptions, BFSStats, INF, make_dense_level,
-                                  run_dense_levels, validate_sources)
+from repro_torch.core.bfs import (BFSOptions, BFSStats, INF, make_level_loop,
+                                  validate_sources)
 from repro_torch.core.mesh import LocalMesh
 
 if TYPE_CHECKING:   # graphs.formats imports core.partition, which runs core
@@ -65,7 +68,7 @@ class BFSRunStats:
 
     levels: int
     comm_bytes: float          # analytic per-chip, summed in float32
-    overflowed: bool           # a queue level overflowed (never in dense)
+    overflowed: bool           # a queue level overflowed (and ran dense)
     mode_counts: tuple         # (dense, queue, bottom_up) levels
     sieve_hits: int            # candidates dropped pre-collective
     level_seconds: tuple = ()  # host wall time of each level, ending in
@@ -317,10 +320,6 @@ def plan(graph: ShardedGraph, opts: BFSOptions = BFSOptions(), *,
                              "available with partition='2d'")
         raise ValueError("partition='2d' is not ported yet (ROADMAP Queue A "
                          "item 8)")
-    if opts.mode != "dense":
-        raise ValueError(f"mode={opts.mode!r} is not ported yet: the queue "
-                         "and auto level loops come with ROADMAP Queue A "
-                         "item 6; use mode='dense'")
 
     if mesh is None:
         mesh = LocalMesh.flat(part.p, resolve_device(device))
@@ -366,8 +365,10 @@ class BFSEngine:
     Holds, for its lifetime, the edge rows of the dense expansion (or,
     under ``use_kernel``, the one-bit tiles, their column masks, the
     block-row pointer, the block columns and each tile's block row:
-    ``kernel_arrays``) and the ``(n, S)`` dist and frontier buffers,
-    which every ``run`` reinitializes in place.
+    ``kernel_arrays``), for queue and ``auto`` plans the out-edge blocks,
+    for ``auto`` plans the in-edge rows of the bottom-up levels, and the
+    ``(n, S)`` dist and frontier buffers, which every ``run`` reinitializes
+    in place.
 
     ``trace_count`` stays at ``compile_traces`` (the level function is
     built once at construction and never rebuilt), for parity with the
@@ -392,10 +393,27 @@ class BFSEngine:
             edge_rows = fr.dense_edge_index(src_local, dst_global,
                                             part.shard_size, part.n)
         self._edge_rows = edge_rows
-        self._level = make_dense_level(
-            part, s, plan_.mesh, plan_.axis, plan_.axes_sizes,
-            plan_.dense_strategy, edge_rows, expand_fn=expand_fn,
-            expand_emits_packed=expand_packed, fused=plan_.use_fused_tail)
+        out_edges = in_rows = None
+        if opts.mode != "dense":
+            # queue levels and the auto statistics read the out-edge
+            # blocks; only auto runs bottom-up levels over the in-edges
+            out_edges = (src_local, dst_global)
+        if opts.mode == "auto":
+            packed = plan_.bottom_up_wire == "packed"
+            w = fr.packed_words(part.shard_size)
+            in_rows = fr.bottom_up_edge_index(
+                torch.as_tensor(graph.in_src_global).to(dev),
+                torch.as_tensor(graph.in_dst_local).to(dev),
+                part.shard_size, part.p * w if packed else part.n,
+                w if packed else None)
+        self._run_levels = make_level_loop(
+            part, s, graph.n_edges, plan_.mesh, plan_.axis,
+            plan_.axes_sizes, opts, plan_.dense_strategy,
+            plan_.queue_strategy, edge_rows, out_edges=out_edges,
+            in_rows=in_rows, expand_fn=expand_fn,
+            expand_emits_packed=expand_packed,
+            bottom_up_wire=plan_.bottom_up_wire, sieve=plan_.sieve,
+            fused=plan_.use_fused_tail)
         self._dist = torch.empty((part.n, s), dtype=torch.int32, device=dev)
         self._frontier = torch.empty((part.n, s), dtype=torch.uint8,
                                      device=dev)
@@ -468,7 +486,8 @@ class BFSEngine:
 
         ``sources`` may hold 1..S vertex ids; unused engine columns stay
         empty (all-INF, sliced off by ``dist_host``).  The level loop
-        itself reads one flag per level from the device.
+        itself reads one or two values a level from the device (see
+        ``core.bfs``).
         """
         pl_ = self.plan
         part = pl_.graph.part
@@ -484,14 +503,10 @@ class BFSEngine:
         src_dev = torch.from_numpy(padded).to(pl_.device)
         fr.init_dist_frontier(src_dev, part.n, part.n_logical,
                               out=(self._dist, self._frontier))
-        levels, comm_bytes, level_seconds = run_dense_levels(
-            self._level, self._dist, self._frontier, part, pl_.max_levels)
+        stats = BFSRunStats(*self._run_levels(self._dist, self._frontier,
+                                              pl_.max_levels))
         return BFSResult(
-            dist=self._dist,
-            run_stats=BFSRunStats(levels=levels, comm_bytes=comm_bytes,
-                                  overflowed=False,
-                                  mode_counts=(levels, 0, 0), sieve_hits=0,
-                                  level_seconds=level_seconds),
+            dist=self._dist, run_stats=stats,
             n_logical=part.n_logical, n_sources=n_req,
             _engine=self, _generation=self._generation)
 

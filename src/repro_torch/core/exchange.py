@@ -151,13 +151,13 @@ EXPAND_ROW_SPARSE_STRATEGIES = _StrategyNames("expand_row_sparse")
 FOLD_COL_SPARSE_STRATEGIES = _StrategyNames("fold_col_sparse")
 
 
-def _not_ported(kind: str, name: str, roadmap_item: int) -> Callable:
-    """Implementation placeholder for a strategy whose byte model plans
-    already use but whose collective belongs to a later slice."""
+def _not_ported(kind: str, name: str) -> Callable:
+    """Implementation placeholder for a 2-D strategy whose byte model plans
+    already use but whose collective belongs to the 2-D slice."""
     def impl(*args, **kwargs):
         raise NotImplementedError(
             f"{kind} exchange {name!r} is not ported yet "
-            f"(ROADMAP Queue A item {roadmap_item})")
+            "(ROADMAP Queue A item 8)")
     return impl
 
 
@@ -378,9 +378,34 @@ def _bytes_fold_sparse_allgather_compressed(r, c, cap, itemsize,
     return (r - 1) * r * _compressed_payload(cap, density)
 
 
+for _kind, _name, _model, _wire in (
+        ("expand_row", "allgather", _bytes_expand_allgather, "bytes"),
+        ("fold_col", "alltoall_reduce", _bytes_fold_alltoall, "bytes"),
+        ("fold_col", "reduce_scatter", _bytes_fold_reduce_scatter, "bytes"),
+        ("expand_row", "allgather_packed", _bytes_expand_allgather_packed,
+         "packed"),
+        ("fold_col", "alltoall_reduce_packed", _bytes_fold_alltoall_packed,
+         "packed"),
+        ("fold_col", "reduce_scatter_packed", _bytes_fold_alltoall_packed,
+         "packed"),
+        ("expand_row_sparse", "allgather", _bytes_expand_sparse_allgather,
+         "bytes"),
+        ("fold_col_sparse", "alltoall_direct", _bytes_fold_sparse_alltoall,
+         "bytes"),
+        ("fold_col_sparse", "allgather_merge", _bytes_fold_sparse_allgather,
+         "bytes"),
+        ("expand_row_sparse", "allgather_compressed",
+         _bytes_expand_sparse_allgather_compressed, "compressed"),
+        ("fold_col_sparse", "alltoall_direct_compressed",
+         _bytes_fold_sparse_alltoall_compressed, "compressed"),
+        ("fold_col_sparse", "allgather_merge_compressed",
+         _bytes_fold_sparse_allgather_compressed, "compressed")):
+    register_exchange(_kind, _name, _model, wire=_wire)(
+        _not_ported(_kind, _name))
+
+
 # ---------------------------------------------------------------------------
-# Sparse queue exchange byte models (implementations: ROADMAP Queue A
-# items 6 and 7)
+# Sparse queue exchange: stacked (p, p, cap) per-destination id buffers
 # ---------------------------------------------------------------------------
 
 def _qbytes_alltoall_direct(p, cap, itemsize, density=1.0):
@@ -391,6 +416,27 @@ def _qbytes_allgather_merge(p, cap, itemsize, density=1.0):
     return (p - 1) * p * cap * itemsize
 
 
+@register_exchange("queue", "allgather_merge", _qbytes_allgather_merge)
+def _queue_allgather_merge(buckets: torch.Tensor, mesh: LocalMesh,
+                           axis) -> torch.Tensor:
+    # [2]-style aggregate-everywhere: every shard receives every buffer
+    # (p^2 cap ids on the wire) and picks out the rows addressed to it.
+    allb = mesh.all_gather(buckets, axis)          # (p, p_src, p_dst, cap)
+    return allb[torch.arange(mesh.p, device=allb.device), :,
+                mesh.axis_index(axis)]
+
+
+@register_exchange("queue", "alltoall_direct", _qbytes_alltoall_direct)
+def _queue_alltoall_direct(buckets: torch.Tensor, mesh: LocalMesh,
+                           axis) -> torch.Tensor:
+    # Paper §5.1-2 applied to queues: MPI_Alltoallv equivalent.
+    return mesh.all_to_all(buckets, axis)
+
+
+# --- compressed queue twins: per-destination delta+varint byte buffers.
+# Bucket row j carries shard j's candidates *base-relative* (id - j*shard);
+# the level loop encodes before and decodes after the collective.
+
 def _qbytes_alltoall_direct_compressed(p, cap, itemsize, density=1.0):
     return (p - 1) * _compressed_payload(cap, density)
 
@@ -399,36 +445,41 @@ def _qbytes_allgather_merge_compressed(p, cap, itemsize, density=1.0):
     return (p - 1) * p * _compressed_payload(cap, density)
 
 
-for _kind, _name, _model, _wire, _item in (
-        ("expand_row", "allgather", _bytes_expand_allgather, "bytes", 8),
-        ("fold_col", "alltoall_reduce", _bytes_fold_alltoall, "bytes", 8),
-        ("fold_col", "reduce_scatter", _bytes_fold_reduce_scatter, "bytes", 8),
-        ("expand_row", "allgather_packed", _bytes_expand_allgather_packed,
-         "packed", 8),
-        ("fold_col", "alltoall_reduce_packed", _bytes_fold_alltoall_packed,
-         "packed", 8),
-        ("fold_col", "reduce_scatter_packed", _bytes_fold_alltoall_packed,
-         "packed", 8),
-        ("expand_row_sparse", "allgather", _bytes_expand_sparse_allgather,
-         "bytes", 8),
-        ("fold_col_sparse", "alltoall_direct", _bytes_fold_sparse_alltoall,
-         "bytes", 8),
-        ("fold_col_sparse", "allgather_merge", _bytes_fold_sparse_allgather,
-         "bytes", 8),
-        ("expand_row_sparse", "allgather_compressed",
-         _bytes_expand_sparse_allgather_compressed, "compressed", 8),
-        ("fold_col_sparse", "alltoall_direct_compressed",
-         _bytes_fold_sparse_alltoall_compressed, "compressed", 8),
-        ("fold_col_sparse", "allgather_merge_compressed",
-         _bytes_fold_sparse_allgather_compressed, "compressed", 8),
-        ("queue", "allgather_merge", _qbytes_allgather_merge, "bytes", 6),
-        ("queue", "alltoall_direct", _qbytes_alltoall_direct, "bytes", 6),
-        ("queue", "alltoall_direct_compressed",
-         _qbytes_alltoall_direct_compressed, "compressed", 7),
-        ("queue", "allgather_merge_compressed",
-         _qbytes_allgather_merge_compressed, "compressed", 7)):
-    register_exchange(_kind, _name, _model, wire=_wire)(
-        _not_ported(_kind, _name, _item))
+# the collectives move opaque rows, so the compressed (p, p, byte_cap)
+# uint8 payloads route exactly as the id buffers do
+register_exchange("queue", "alltoall_direct_compressed",
+                  _qbytes_alltoall_direct_compressed, wire="compressed")(
+    _queue_alltoall_direct)
+register_exchange("queue", "allgather_merge_compressed",
+                  _qbytes_allgather_merge_compressed, wire="compressed")(
+    _queue_allgather_merge)
+
+
+def exchange_queue(buckets: torch.Tensor, mesh: LocalMesh, axis,
+                   strategy: str) -> torch.Tensor:
+    """Route per-destination id buffers to their owners.
+
+    buckets: stacked (p, p, cap); shard i's row j holds candidate global
+    ids owned by shard j (-1 padded).  Returns (p, p, cap): shard i's row
+    j = what shard j sent shard i.
+    """
+    g = mesh.axis_size(axis)
+    if buckets.shape[1] != g:
+        raise ValueError(f"queue exchange needs {g} buckets a shard, got "
+                         f"{buckets.shape[1]}")
+    return get_exchange("queue", strategy).impl(buckets, mesh, axis)
+
+
+def allgather_frontier(frontier: torch.Tensor, mesh: LocalMesh,
+                       axis) -> torch.Tensor:
+    """(p, shard, S) -> (p, n, S): replicate the frontier (bottom-up pass).
+
+    The *frontier* (n bits) crosses the wire instead of the *candidate*
+    set (up to E entries).  On a ``LocalMesh`` the result is one array
+    seen through a stride-0 shard dimension, not p copies.
+    """
+    return mesh.all_gather(frontier, axis).flatten(1, 2)
+
 
 
 # ---------------------------------------------------------------------------

@@ -1,30 +1,52 @@
-"""Dense frontier primitives and the packed-bitset wire format (paper
-fig. 2) — the port of ``repro.core.frontier``'s dense part.
+"""Frontier representations and the send-buffer builder (paper fig. 2) —
+the port of ``repro.core.frontier``'s 1-D part.
 
-The frontier is a dense ``(shard, S)`` uint8 bitmap; expansion scatters
-into a full-length ``(n, S)`` candidate mask, which the owner exchange
-merges.  ``pack_bits``/``unpack_bits`` are the packed wire format of the
-dense phases: 32 mask bytes collapse into one 32-bit word (LSB-first),
-each owner's segment packed into its own ``ceil(m/32)`` words so block
+Two frontier representations:
+
+  * dense bitmap — a ``(shard, S)`` uint8 mask; top-down expansion
+    scatters into a full-length ``(n, S)`` candidate mask, which the owner
+    exchange merges; bottom-up expansion reads the replicated frontier
+    through each shard's in-edges.
+  * sparse queue — the paper's per-destination buffers (``SendBuf_j``): a
+    ``(p, cap)`` block of candidate global ids bucketed by owner, with the
+    §5.1 local update (candidates a shard owns skip the wire), optional
+    dedupe, and an overflow flag on which the caller escalates the level
+    to the dense representation.
+
+``pack_bits``/``unpack_bits`` are the packed wire format of the dense
+phases: 32 mask bytes collapse into one 32-bit word (LSB-first), each
+owner's segment packed into its own ``ceil(m/32)`` words so block
 boundaries stay word-aligned and a block's pad bits are zero.
+``encode_delta_varint``/``decode_delta_varint`` are the compressed wire
+of the sparse phase (sorted ids as delta varints, or the id range's
+bitset when that is shorter), and ``sieve_summary``/``sieve_lookup`` the
+replicated coarse visited summary that drops candidates before the wire.
 
 Word convention: torch has no ``<<``, ``>>`` or ``max`` on uint32, so the
 port carries every packed word as **int32 holding the uint32 bit
 pattern**.  Bit 31 set reads as a negative int32; ``>>`` sign-extends,
 which every bit test below undoes with ``& 1``.  Compare with the JAX
-package through ``.numpy().view(np.uint32)``.
+package through ``.numpy().view(np.uint32)``.  The codec's header and
+varint arithmetic runs in int64, masked to 32 bits where JAX's uint32
+would wrap.
 
 Every function takes optional leading batch dimensions (the stacked
 shards of a ``LocalMesh``) in front of the shapes its docstring names.
-The sparse-queue, bottom-up and 2-D primitives wait for later slices;
-the byte-size helpers the exchange byte models need are here already.
+JAX sorts stably, so every sort here passes ``stable=True`` where the
+order of equal keys reaches an output; a JAX gather clamps an
+out-of-range index where torch raises, so indices that could leave their
+range are masked or clamped first.  The 2-D primitives wait for a later
+slice.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+
+from repro_torch.core.partition import Partition1D
 
 INF = 2 ** 30  # unreached sentinel (shared with bfs/engine/ref)
 
@@ -105,6 +127,210 @@ def expand_dense(frontier: torch.Tensor, src_local: torch.Tensor,
     return cand.reshape(*lead, n, s)
 
 
+def bottom_up_edge_index(in_src_global: torch.Tensor,
+                         in_dst_local: torch.Tensor, shard: int, n_cols: int,
+                         words_per_block: Optional[int] = None):
+    """Gather/scatter rows of the *live* in-edges of ``(g, E)`` stacked
+    in-edge blocks, for the bottom-up expansion.
+
+    An in-edge is live only when *both* endpoints are in range: a padded
+    slot whose destination is ``-1`` but whose source holds a valid id
+    must not scatter into the shard's last row (the JAX contract; a torch
+    ``-1`` index wraps just as ``.at[-1]`` does).  Returns ``(blk, col,
+    bit, dst)``: each live edge's block, its column in the gathered
+    frontier (the source's row of the ``(n, S)`` byte frontier, or with
+    ``words_per_block`` the source's word in the ``(p*W, S)`` packed
+    frontier, ``bit`` its int32 bit there, else ``None``), clamped below
+    ``n_cols`` as a JAX gather clamps, and its target's row in the
+    ``(g*shard, S)`` stacked candidates.
+    """
+    g = in_src_global.shape[0]
+    base = torch.arange(g, device=in_src_global.device,
+                        dtype=torch.int64)[:, None]
+    valid = ((in_src_global >= 0)
+             & (in_dst_local >= 0) & (in_dst_local < shard))
+    blk = base.expand_as(valid)[valid]
+    src = in_src_global.to(torch.int64)[valid]
+    dst = (in_dst_local.to(torch.int64) + base * shard)[valid]
+    bit = None
+    if words_per_block is not None:
+        owner = src // shard
+        loc = src - owner * shard
+        src = owner * words_per_block + loc // 32
+        bit = (loc % 32).to(torch.int32)
+    return blk, src.clamp_(max=n_cols - 1), bit, dst
+
+
+def expand_bottom_up_edges(fglobal: torch.Tensor, rows,
+                           n_rows: int) -> torch.Tensor:
+    """Bottom-up expansion over precomputed ``bottom_up_edge_index`` rows:
+    ``(g, n_cols, S)`` gathered frontier (uint8 bytes, or int32 words when
+    the rows carry bits; a stride-0 view of one replicated array is fine)
+    -> ``(n_rows, S)`` uint8 candidates, merged by scatter-max."""
+    blk, col, bit, dst = rows
+    vals = fglobal[blk, col]                                    # (E, S)
+    if bit is not None:
+        # read each source's bit straight out of its word: the (n, S)
+        # byte mask is never materialized
+        vals >>= bit[:, None]
+        vals = vals.bitwise_and_(1).to(torch.uint8)
+    cand = torch.zeros((n_rows, fglobal.shape[-1]), dtype=torch.uint8,
+                       device=fglobal.device)
+    return cand.scatter_reduce_(0, dst[:, None].expand_as(vals), vals,
+                                "amax")
+
+
+def expand_bottom_up(frontier_global: torch.Tensor,
+                     in_src_global: torch.Tensor, in_dst_local: torch.Tensor,
+                     shard: int) -> torch.Tensor:
+    """Bottom-up: each local vertex checks whether any in-neighbour is in
+    the (replicated) frontier.  frontier_global: (n, S) uint8;
+    in_src_global/in_dst_local: (E,) int32 padded in-edges.  Returns
+    (shard, S) uint8 candidates."""
+    lead = in_src_global.shape[:-1]
+    g = math.prod(lead)
+    n, s = frontier_global.shape[-2:]
+    rows = bottom_up_edge_index(in_src_global.reshape(g, -1),
+                                in_dst_local.reshape(g, -1), shard, n)
+    cand = expand_bottom_up_edges(frontier_global.reshape(g, n, s), rows,
+                                  g * shard)
+    return cand.reshape(*lead, shard, s)
+
+
+def expand_bottom_up_packed(frontier_words: torch.Tensor,
+                            in_src_global: torch.Tensor,
+                            in_dst_local: torch.Tensor, shard: int,
+                            words_per_block: int) -> torch.Tensor:
+    """Bottom-up expansion straight from the *packed* replicated frontier:
+    ``frontier_words`` is the allgather of every shard's packed frontier
+    (``(p * W, S)`` words, block ``k`` = shard ``k``'s ``pack_bits``
+    output).  Same both-endpoints masking as ``expand_bottom_up``."""
+    lead = in_src_global.shape[:-1]
+    g = math.prod(lead)
+    total_w, s = frontier_words.shape[-2:]
+    rows = bottom_up_edge_index(in_src_global.reshape(g, -1),
+                                in_dst_local.reshape(g, -1), shard, total_w,
+                                words_per_block)
+    cand = expand_bottom_up_edges(frontier_words.reshape(g, total_w, s),
+                                  rows, g * shard)
+    return cand.reshape(*lead, shard, s)
+
+
+# ---------------------------------------------------------------------------
+# Sparse queue: per-owner send buffers (paper fig. 2 lines 8-19)
+# ---------------------------------------------------------------------------
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """``(..., E)`` -> ``(g, E)``: the leading dims as one batch dim."""
+    return x.reshape(-1, x.shape[-1])
+
+
+def _dedupe_owner(ids: torch.Tensor, active: torch.Tensor,
+                  owner: torch.Tensor, sentinel: int,
+                  n_owners: int) -> torch.Tensor:
+    """Mask ``owner`` to ``n_owners`` for every duplicate active id: sort
+    by target (stably), keep each id's first occurrence.  ``sentinel``
+    must be the *padded* id-space size, strictly above every storable id
+    (``padded_size + 1`` would overflow int32 at ``INT32_MAX``)."""
+    tgt = torch.where(active, ids.to(torch.int64), sentinel)
+    sorted_tgt, order = torch.sort(_rows(tgt), dim=-1, stable=True)
+    first = torch.ones_like(sorted_tgt, dtype=torch.bool)
+    first[:, 1:] = sorted_tgt[:, 1:] != sorted_tgt[:, :-1]
+    keep = torch.zeros_like(first).scatter_(-1, order, first)
+    return torch.where(keep.reshape(ids.shape), owner, n_owners)
+
+
+def _pack_buckets(ids: torch.Tensor, owner: torch.Tensor, n_owners: int,
+                  cap: int):
+    """Stable bucket packing: sort ids by owner, rank within bucket.
+
+    ``owner[k] == n_owners`` marks id ``k`` unsendable (inactive, deduped
+    or locally applied).  Returns ((n_owners, cap) int32 buckets -1
+    padded, () int32 sent count, () bool overflow).
+    """
+    lead = ids.shape[:-1]
+    owner_s, sort_idx = torch.sort(_rows(owner.to(torch.int64)), dim=-1,
+                                   stable=True)
+    ids_s = _rows(ids).gather(-1, sort_idx).to(torch.int32)
+    g, e = owner_s.shape
+    dev = ids.device
+    bounds = torch.arange(n_owners + 1, device=dev).expand(g, -1).contiguous()
+    starts = torch.searchsorted(owner_s, bounds)
+    rank = (torch.arange(e, device=dev)
+            - starts.gather(-1, owner_s.clamp(0, n_owners)))
+    sendable = owner_s < n_owners
+    in_cap = sendable & (rank < cap)
+    slot = torch.where(in_cap, owner_s * cap + rank, n_owners * cap)
+    # in-cap slots are distinct; every other id lands in the dump slot
+    buf = torch.full((g, n_owners * cap + 1), -1, dtype=torch.int32,
+                     device=dev).scatter_(-1, slot,
+                                          torch.where(in_cap, ids_s, -1))
+    buckets = buf[:, : n_owners * cap].reshape(*lead, n_owners, cap)
+    n_sent = in_cap.sum(-1, dtype=torch.int32).reshape(lead)
+    overflow = (sendable & (rank >= cap)).any(-1).reshape(lead)
+    return buckets, n_sent, overflow
+
+
+def build_queue_buckets(dst_global: torch.Tensor, active: torch.Tensor,
+                        part: Partition1D, me, cap: int,
+                        local_update: bool = True, dedupe: bool = True):
+    """Pack active edge targets into per-owner send buffers.
+
+    dst_global: (E,) int32 targets; active: (E,) bool (source in frontier
+    and edge valid); ``me``: this shard's index (one per stacked shard).
+    Returns:
+      buckets:   (p, cap) int32 global ids, -1 padded — ``SendBuf_j``.
+      local_mask:(shard,) uint8 — candidates applied locally (opt 5.1-1);
+                 all-zero when ``local_update=False`` (they go in buckets).
+      n_sent:    () int32 — total ids placed in send buffers.
+      overflow:  () bool — some bucket exceeded cap (the caller escalates
+                 to the dense representation).
+    """
+    p, shard = part.p, part.shard_size
+    lead = dst_global.shape[:-1]
+    dev = dst_global.device
+    me = torch.as_tensor(me, device=dev).to(torch.int64).reshape(*lead, 1)
+    dst = dst_global.to(torch.int64)
+    owner = torch.where(active, torch.div(dst, shard, rounding_mode="floor"),
+                        p)
+    if dedupe:
+        owner = _dedupe_owner(dst, active, owner, part.n, p)
+
+    local_mask = torch.zeros((*lead, shard), dtype=torch.uint8, device=dev)
+    if local_update:
+        mine = owner == me
+        lid = torch.where(mine, dst - me * shard, shard)
+        local_mask = torch.zeros((math.prod(lead), shard + 1),
+                                 dtype=torch.uint8, device=dev).scatter_reduce_(
+            -1, _rows(lid), _rows(mine).to(torch.uint8), "amax")
+        local_mask = local_mask[:, :shard].reshape(*lead, shard)
+        owner = torch.where(mine, p, owner)
+
+    buckets, n_sent, overflow = _pack_buckets(dst_global, owner, p, cap)
+    return buckets, local_mask, n_sent, overflow
+
+
+def apply_queue(recv: torch.Tensor, me, shard: int) -> torch.Tensor:
+    """Scatter received global ids, ``(p, cap)``, into this shard's
+    ``(shard,)`` uint8 candidate bitmap; pads and foreign ids drop."""
+    lead = recv.shape[:-2]
+    me = torch.as_tensor(me, device=recv.device).to(torch.int64).reshape(
+        *lead, 1)
+    flat = recv.reshape(*lead, -1).to(torch.int64)
+    lid = flat - me * shard
+    valid = (flat >= 0) & (lid >= 0) & (lid < shard)
+    lid = torch.where(valid, lid, shard)
+    mask = torch.zeros((math.prod(lead), shard + 1), dtype=torch.uint8,
+                       device=recv.device).scatter_reduce_(
+        -1, _rows(lid), _rows(valid).to(torch.uint8), "amax")
+    return mask[:, :shard].reshape(*lead, shard)
+
+
+def frontier_nonzero(frontier: torch.Tensor) -> torch.Tensor:
+    """() bool: some vertex of the frontier is set (one reduction)."""
+    return frontier.any()
+
+
 # ---------------------------------------------------------------------------
 # Packed-bitset wire format (dense phases)
 # ---------------------------------------------------------------------------
@@ -156,9 +382,13 @@ def unpack_bits(words: torch.Tensor, m: int, n_blocks: int = 1) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Byte sizes of the compressed wire and the visited sieve (host-side; the
-# exchange byte models and plan description price them for every plan)
+# Compressed sparse-id wire format (delta + varint, bitmap-adaptive)
 # ---------------------------------------------------------------------------
+# Sorted ids delta-encode to small gaps and gaps varint-encode to about one
+# byte each ("Compression and Sieve", Lv et al.).  Buffers keep a fixed
+# byte capacity (``compressed_capacity``), an overflow flag that escalates
+# the level to dense, and a bitmap mode for when the whole id range packs
+# smaller than the ids.
 
 def varint_len(value: int) -> int:
     """Bytes a base-128 varint needs for ``value`` (>= 0)."""
@@ -178,6 +408,145 @@ def compressed_capacity(cap: int, id_range: int) -> int:
     return min(varint_cap, bitmap_cap)
 
 
+_U32 = 0xFFFFFFFF
+
+
+def _le_bytes(word: torch.Tensor) -> torch.Tensor:
+    """() 32-bit word (any integer dtype) -> (4,) uint8 little-endian."""
+    shifts = 8 * torch.arange(4, device=word.device, dtype=torch.int64)
+    return ((word.to(torch.int64)[..., None] >> shifts) & 0xFF).to(
+        torch.uint8)
+
+
+def encode_delta_varint(ids: torch.Tensor, byte_cap: int, id_range: int):
+    """Encode a -1-padded id buffer into a fixed-size compressed payload.
+
+    ids: (cap,) int32, valid entries in ``[0, id_range)``, -1 = padding,
+    any order (they are sorted here).  Returns ``(buf (byte_cap,) uint8,
+    overflow () bool)``.
+
+    Layout: a 4-byte little-endian header word (bits 0-30 = id count,
+    bit 31 = bitmap mode), then either the sorted ids' delta stream as
+    LSB-first base-128 varints (high bit = continuation) or, in bitmap
+    mode, the range's packed bitset words, little-endian.  Bitmap mode
+    engages when it statically fits ``byte_cap`` and the varint stream
+    runs longer; ``overflow`` is True only when the varints spill *and*
+    no bitmap slot exists.
+    """
+    lead, cap = ids.shape[:-1], ids.shape[-1]
+    dev = ids.device
+    valid = (ids >= 0) & (ids < id_range)
+    count = valid.sum(-1)                                       # int64
+    key = torch.where(valid, ids.to(torch.int64), id_range)
+    srt = torch.sort(key, dim=-1, stable=True).values
+    k = torch.arange(cap, device=dev)
+    live = k < count[..., None]
+    prev = torch.where(k > 0, srt[..., (k - 1).clamp(min=0)], 0)
+    delta = torch.where(live, srt - prev, 0)
+
+    nlen = (1 + (delta >= 1 << 7).long() + (delta >= 1 << 14).long()
+            + (delta >= 1 << 21).long() + (delta >= 1 << 28).long())
+    nlen = torch.where(live, nlen, 0)
+    off = torch.cumsum(nlen, -1) - nlen                         # exclusive
+    total = 4 + nlen.sum(-1)
+    varint_ovf = total > byte_cap
+
+    # slot k's group j (j < nlen[k]) lands at byte 4 + off[k] + j; spilled
+    # or dead bytes divert to the dump slot at index byte_cap
+    j = torch.arange(5, device=dev)
+    emit = j < nlen[..., None]                                  # (cap, 5)
+    grp = (delta[..., None] >> (7 * j)) & 0x7F
+    cont = j < (nlen - 1)[..., None]
+    payload = torch.where(cont, grp | 0x80, grp)
+    payload = torch.where(emit, payload, 0).to(torch.uint8)
+    pos = 4 + off[..., None] + j
+    pos = torch.where(emit & (pos < byte_cap), pos, byte_cap)
+    g = math.prod(lead)
+    buf = torch.zeros((g, byte_cap + 1), dtype=torch.uint8,
+                      device=dev).scatter_reduce_(
+        -1, pos.reshape(g, cap * 5), payload.reshape(g, cap * 5), "amax")
+    buf = buf[:, :byte_cap].reshape(*lead, byte_cap)
+
+    hdr = count
+    w = packed_words(id_range)
+    if 4 + 4 * w <= byte_cap:                # bitmap rescue statically fits
+        mask = torch.zeros((g, id_range + 1), dtype=torch.uint8,
+                           device=dev).scatter_reduce_(
+            -1, _rows(key), _rows(valid).to(torch.uint8), "amax")
+        words = pack_bits(mask[:, :id_range, None])[..., 0]     # (g, w)
+        bbuf = torch.zeros((g, byte_cap), dtype=torch.uint8, device=dev)
+        bbuf[:, 4:4 + 4 * w] = _le_bytes(words).reshape(g, 4 * w)
+        use_bitmap = total > 4 + 4 * w
+        buf = torch.where(use_bitmap[..., None],
+                          bbuf.reshape(*lead, byte_cap), buf)
+        hdr = hdr | (use_bitmap.long() << 31)
+        overflow = torch.zeros_like(varint_ovf)  # bitmap always representable
+    else:
+        overflow = varint_ovf
+    buf[..., :4] = _le_bytes(hdr)
+    return buf, overflow
+
+
+def decode_delta_varint(buf: torch.Tensor, cap: int, id_range: int):
+    """Inverse of ``encode_delta_varint``: (byte_cap,) uint8 payload ->
+    (cap,) int32 sorted ids, -1 padded at the tail.
+
+    Trailing zero bytes would decode as phantom zero-delta groups; the
+    header count masks everything past the real ids to -1.  The header's
+    bit 31 (bitmap mode) is read as ``(hdr >> 31) & 1`` of the int64 word.
+    """
+    lead, byte_cap = buf.shape[:-1], buf.shape[-1]
+    dev = buf.device
+    shifts = 8 * torch.arange(4, device=dev, dtype=torch.int64)
+    hdr = (buf[..., :4].to(torch.int64) << shifts).sum(-1)
+    count = hdr & 0x7FFFFFFF
+    use_bitmap = ((hdr >> 31) & 1) > 0
+    data = buf[..., 4:].to(torch.int64)
+    d = data.shape[-1]
+
+    # group index per byte = exclusive count of terminators (high bit 0)
+    # before it; within-group position from the previous terminator
+    term = (data & 0x80) == 0
+    g = torch.cumsum(term.long(), -1) - term.long()
+    idx = torch.arange(d, device=dev)
+    startm = torch.cummax(torch.where(term, idx + 1, 0), -1).values
+    start = torch.cat([torch.zeros_like(startm[..., :1]),
+                       startm[..., :-1]], -1)
+    within = idx - start
+    # a 32-bit lane: the fifth group's top bits fall off as in uint32
+    contrib = torch.where(within <= 4,
+                          ((data & 0x7F) << (7 * within.clamp(max=4))) & _U32,
+                          0)
+    rows = math.prod(lead)
+    deltas = torch.zeros((rows, cap + 1), dtype=torch.int64,
+                         device=dev).scatter_add_(
+        -1, _rows(g.clamp(max=cap)), _rows(contrib))[:, :cap] & _U32
+    # int32 running sum of the uint32 deltas, wrapping as JAX's does
+    acc = torch.cumsum(deltas, -1).to(torch.int32).reshape(*lead, cap)
+    k = torch.arange(cap, device=dev)
+    ids_varint = torch.where(k < count[..., None], acc, -1).to(torch.int32)
+
+    w = packed_words(id_range)
+    if 4 + 4 * w <= byte_cap:                # bitmap mode statically possible
+        wraw = data[..., : 4 * w].reshape(*lead, w, 4)
+        words = (wraw << shifts).sum(-1).to(torch.int32)        # (..., w)
+        mask = unpack_bits(words[..., None], id_range)[..., 0]
+        lid = torch.where(mask > 0, torch.arange(id_range, device=dev),
+                          id_range)
+        if cap > id_range:
+            lid = torch.cat([lid, lid.new_full((*lead, cap - id_range),
+                                               id_range)], -1)
+        packed = torch.sort(lid, dim=-1, stable=True).values[..., :cap]
+        ids_bitmap = torch.where(packed < id_range, packed, -1).to(
+            torch.int32)
+        return torch.where(use_bitmap[..., None], ids_bitmap, ids_varint)
+    return ids_varint
+
+
+# ---------------------------------------------------------------------------
+# Visited sieve: replicated coarse visited summary ("Compression and Sieve")
+# ---------------------------------------------------------------------------
+
 SIEVE_MAX_BITS = 1024     # summary bits per shard (<= 32 words = 128 B)
 
 
@@ -187,3 +556,38 @@ def sieve_layout(shard: int):
     bucket = -(-shard // bits)
     bits = -(-shard // bucket)
     return bits, bucket, packed_words(bits)
+
+
+def sieve_summary(dist_col: torch.Tensor, bits: int,
+                  bucket: int) -> torch.Tensor:
+    """(shard,) int32 distances -> (words,) int32 summary words; bit ``k``
+    is set iff *every* vertex of bucket ``k`` is visited, so a candidate
+    landing there is provably redundant and sieving never changes a
+    distance.  Pad slots of a straddling final bucket count as visited
+    (they are never candidates), keeping the bit exact."""
+    *lead, shard = dist_col.shape
+    visited = dist_col < INF
+    if bits * bucket != shard:
+        visited = torch.cat([visited, visited.new_ones(
+            (*lead, bits * bucket - shard))], -1)
+    full = visited.reshape(*lead, bits, bucket).all(-1)
+    return pack_bits(full[..., None].to(torch.uint8))[..., 0]
+
+
+def sieve_lookup(gwords: torch.Tensor, gids: torch.Tensor, shard: int,
+                 bits: int, bucket: int, words: int) -> torch.Tensor:
+    """Look candidate *global* ids up in the replicated summary.
+
+    gwords: (n_shards * words,) summary words, block ``k`` = shard ``k``'s
+    ``sieve_summary``; gids: (E,) int32 candidates (negatives pass through
+    unhit).  Returns a bool mask, True where the candidate's whole bucket
+    is already visited.  The word index is clamped as a JAX gather clamps
+    it."""
+    ok = gids >= 0
+    gid = torch.where(ok, gids.to(torch.int64), 0)
+    owner = torch.div(gid, shard, rounding_mode="floor")
+    bit = torch.div(gid - owner * shard, bucket, rounding_mode="floor")
+    widx = (owner * words + bit // 32).clamp_(max=gwords.shape[-1] - 1)
+    word = gwords.gather(-1, widx)
+    hit = ((word >> (bit % 32).to(word.dtype)) & 1) > 0
+    return hit & ok

@@ -251,6 +251,36 @@ def test_engine_on_the_card_matches_the_oracle(cuda, p, opts):
     validate_bfs(src, dst, roots, res.dist[:n, :4])
 
 
+@pytest.mark.parametrize("p,s,opts", [
+    (4, 1, BFSOptions(mode="queue")),
+    (2, 1, BFSOptions(mode="queue", queue_cap=4, wire_format="compressed")),
+    (3, 1, BFSOptions(mode="queue", wire_format="bytes", dedupe=False,
+                      queue_exchange="allgather_merge")),
+    (4, 1, BFSOptions(mode="auto")),
+    (1, 1, BFSOptions(mode="auto", wire_format="packed", sieve=True)),
+    (4, 4, BFSOptions(mode="auto")),
+    (2, 4, BFSOptions(mode="auto", wire_format="bytes"))])
+def test_sparse_engines_on_the_card_equal_the_cpu(cuda, p, s, opts):
+    """Queue and auto engines on the card: dist bitwise and every run
+    stat equal to the same plan on the CPU (whose runs the CPU tests hold
+    to the JAX engine), and A1 once a dense level under the fused tail."""
+    n = 1001
+    src, dst = generate("rmat", n, seed=4)
+    roots = [0, 5, 77, 1000][:s]
+    g = shard_graph(src, dst, n, p)
+    pl = plan(g, opts, num_sources=s)
+    a1 = fold_update.launches
+    res = pl.compile().run(roots)
+    assert res.dist.device.type == "cuda"
+    cpu = plan(g, opts, num_sources=s, device="cpu").compile().run(roots)
+    np.testing.assert_array_equal(res.dist_host, cpu.dist_host)
+    st = res.run_stats.to_host()
+    assert st == cpu.run_stats.to_host()
+    dense = st["mode_counts"]["dense"]
+    assert fold_update.launches - a1 == (dense if pl.use_fused_tail else 0)
+    validate_bfs(src, dst, roots, res.dist[:n, :s])
+
+
 def _attn_tolerance(dtype, v):
     """f32: the kernel's online softmax and FMA order against the plain
     version's materialized f32 scores: 2e-5, the JAX package's own

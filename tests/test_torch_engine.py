@@ -202,8 +202,12 @@ def test_plan_rejects_what_this_slice_does_not_port():
     for mode in ("queue", "auto"):
         with pytest.raises(ValueError, match="mode='dense'"):
             plan(g, BFSOptions(mode=mode, use_kernel=True), device="cpu")
-    with pytest.raises(ValueError, match="item 6"):
-        plan(g, BFSOptions(mode="auto"), num_sources=2, device="cpu")
+    # auto plans with S > 1 since the sparse slice: no queue level, so no
+    # sieve, and the run is the oracle's
+    pl = plan(g, BFSOptions(mode="auto"), num_sources=2, device="cpu")
+    assert not pl.sieve and pl.describe()["mode"] == "auto"
+    np.testing.assert_array_equal(pl.compile().run([0, 5]).dist_host,
+                                  bfs_reference(src, dst, 128, [0, 5]))
     with pytest.raises(ValueError, match="single source"):
         plan(g, BFSOptions(mode="queue"), num_sources=2, device="cpu")
     with pytest.raises(ValueError, match="1-D dense path"):

@@ -1,6 +1,7 @@
 """Port exchange registry and LocalMesh collectives: byte models and plan-
 time strategy resolution equal the JAX package's; every dense strategy
-hands each owner the OR of all shards' slices."""
+hands each owner the OR of all shards' slices, and every queue strategy
+hands shard i row i of every shard's buffers."""
 
 import itertools
 
@@ -209,11 +210,45 @@ def test_dense_strategies_or_merge_owned_slices(strategy, shape, shard):
 
 
 def test_not_ported_strategies_raise_with_roadmap_item():
-    st = ex.get_exchange("queue", "alltoall_direct")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    st = ex.get_exchange("expand_row_sparse", "allgather_compressed")
+    with pytest.raises(NotImplementedError, match="item 8"):
         st.impl(torch.zeros((1, 4), dtype=torch.int32), None, "p")
     with pytest.raises(NotImplementedError, match="item 8"):
         ex.get_exchange("fold_col", "alltoall_reduce").impl(None, None, "c")
+
+
+@pytest.mark.parametrize("strategy", list(ex.QUEUE_STRATEGIES))
+@pytest.mark.parametrize("shape", [(1,), (2,), (4,), (2, 2)])
+def test_queue_strategies_route_rows_to_owners(strategy, shape):
+    """Shard i receives row i of every shard's (p, cap) buffers: JAX's
+    tiled all_to_all for the direct strategies, the all_gather plus own
+    row for the merge ones; id buffers and compressed payloads alike."""
+    names = ("a", "b")[:len(shape)]
+    mesh = LocalMesh(shape, names, "cpu")
+    p = mesh.p
+    st = ex.get_exchange("queue", strategy)
+    rng = np.random.default_rng(p)
+    if st.wire == "compressed":
+        x = torch.from_numpy(rng.integers(0, 256, (p, p, 9)).astype(np.uint8))
+    else:
+        x = torch.from_numpy(rng.integers(-1, 1000, (p, p, 5)).astype(
+            np.int32))
+    got = ex.exchange_queue(x, mesh, tuple(names), strategy)
+    assert got.dtype == x.dtype
+    assert torch.equal(got, x.transpose(0, 1)), strategy
+    with pytest.raises(ValueError, match="buckets a shard"):
+        ex.exchange_queue(torch.cat([x, x], 1), mesh, tuple(names), strategy)
+
+
+@pytest.mark.parametrize("shape", [(1,), (3,), (2, 2)])
+def test_allgather_frontier_replicates_every_shard(shape):
+    names = ("a", "b")[:len(shape)]
+    mesh = LocalMesh(shape, names, "cpu")
+    f = torch.arange(mesh.p * 5 * 2, dtype=torch.int32).reshape(mesh.p, 5, 2)
+    got = ex.allgather_frontier(f, mesh, tuple(names))
+    assert got.shape == (mesh.p, mesh.p * 5, 2)
+    for i in range(mesh.p):
+        assert torch.equal(got[i], f.reshape(-1, 2))
 
 
 def test_registry_register_select_unregister():
