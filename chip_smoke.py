@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (1-D BFS in the dense, queue and auto
-modes, LM prefill, DeepFM serving and the EmbeddingBag op) on one card.
+"""Drive the PyTorch/CUDA port (BFS on the 1-D and 2-D partitions in the
+dense, queue and auto modes, LM prefill, DeepFM serving and the
+EmbeddingBag op) on one card.
 
     python3 chip_smoke.py            # full size, as the acceptance run
     python3 chip_smoke.py --profile  # also profile one run of each path
@@ -42,7 +43,18 @@ Phases (any failed check raises and the script exits non-zero):
    Distances bitwise path 1's (columns); (a)'s and (b)'s ``mode_counts``
    equal a numpy replay of the auto rule from the distances; A1 launches
    once per dense level of (a) and no other kernel does.
-6. prefill — gemma3-12b at full width (d_model 3840, 16 q / 8 kv heads of
+6. path 5 — the same graph and roots on the 2-D edge partition:
+   ``to_2d(g, 2, 2)`` on a 2 x 2 ``LocalMesh.grid``, default options
+   (packed expand and fold wires, A1 on the fused fold tail): (a)
+   ``mode="dense"``, S = 64, three runs, A1 exactly once a level and no
+   other kernel, ``comm_bytes`` the float32 sum of ``dense_level_bytes``
+   a level; (b) ``mode="auto"``, S = 64; (c) ``mode="auto"`` and (d)
+   ``mode="queue"``, S = 1, on the first 8 roots.  Distances bitwise path
+   1's (columns); the auto ``mode_counts`` equal the numpy replay (the
+   2-D auto rule is the 1-D rule on the same statistics).  Logs each
+   cell's edges, ``e_cap`` and the host seconds of ``to_2d`` and of the
+   bottom-up blocks.
+7. prefill — gemma3-12b at full width (d_model 3840, 16 q / 8 kv heads of
    256, d_ff 15360, vocab 262144, bf16) through ``build_bundle(...,
    "prefill_32k")``, cut to 12 layers (two 5 local + 1 global groups) and
    batch 2 x seq 8192, with random weights from a seeded generator on the
@@ -51,7 +63,7 @@ Phases (any failed check raises and the script exits non-zero):
    and 3 bitwise equal; then the same prefill with the plain attention,
    held to a stated tolerance (the first layer's cache bitwise), which
    two planted faults (every local window one key off) must fail.
-7. recsys — DeepFM at its full configuration (39 fields x 1,000,000 rows
+8. recsys — DeepFM at its full configuration (39 fields x 1,000,000 rows
    x 10, a 1.56 GB f32 table, MLP 403-400-400-400-1), not cut, through
    ``build_bundle(get_arch("deepfm"), ...)`` for ``serve_p99``,
    ``serve_bulk`` and ``retrieval_cand``, with random weights from a
@@ -61,7 +73,7 @@ Phases (any failed check raises and the script exits non-zero):
    scores at a stated relative L2 limit.  Two planted faults must fail
    that hold: every field offset one row off, and (serve) TF32 products.  DeepFM looks its fields up
    with a row gather, as the JAX package does, so no kernel launches.
-8. embedding bag — the lookup op ``kernels.embedding_bag.ops.embedding_bag``
+9. embedding bag — the lookup op ``kernels.embedding_bag.ops.embedding_bag``
    (kernel A5) on (a) the ``serve_bulk`` batch's own flat ids as bags
    over DeepFM's table (the op's main path, three calls; also held to the
    serve path's ``emb.sum(1)``), (b) the same bags cut to seeded ragged
@@ -75,7 +87,7 @@ Phases (any failed check raises and the script exits non-zero):
    useful bytes and that of the 32-byte sectors the rows span; and on
    (a)'s ids over a (V, 8) f32 table (one sector a row) and over the
    table's first 100,000 rows (a 4 MB table, the plain-load route).
-9. kernels — each kernel against its plain torch version on the card at
+10. kernels — each kernel against its plain torch version on the card at
    the shapes of the paths (A4 also each (batch, head) slice, with the
    window one key off failing; ``bsr_expand_bits`` on path 2's densest
    level and on a random 5% frontier, and the f32 A2 + A3 chain of
@@ -446,39 +458,91 @@ def mode_counts(modes) -> dict:
     return {m: modes.count(m) for m in ("dense", "queue", "bottom_up")}
 
 
+def build_engine(label: str, g, opts, s: int, **plan_kw):
+    """Plan and compile one engine of a BFS path; logs its resolved wires
+    and compile time.  Returns (plan, engine, describe())."""
+    from repro_torch.core import plan
+
+    reset_peak()
+    t0 = time.perf_counter()
+    pl = plan(g, opts, num_sources=s, **plan_kw)
+    eng = pl.compile()
+    torch.cuda.synchronize()
+    compile_ms = (time.perf_counter() - t0) * 1e3
+    d = pl.describe()
+    keys = ("dense_exchange", "queue_exchange", "expand_exchange",
+            "fold_exchange", "expand_sparse_exchange",
+            "fold_sparse_exchange")
+    log(f"{label}: wires {d['wire_formats']}, "
+        f"{', '.join(f'{k} {d[k]}' for k in keys if k in d)}, sieve "
+        f"{d['sieve']}, fused {d['use_fused_tail']}; compile "
+        f"{compile_ms:.1f} ms")
+    return pl, eng, d
+
+
+def report_modes(label: str, run_ms, st: dict, modes, res) -> None:
+    log(f"{label}: runs {[round(t, 3) for t in run_ms]} ms; "
+        f"levels {st['levels']}; per-level ms (mode) "
+        f"{[f'{t * 1e3:.3f} ({m})' for t, m in zip(res.run_stats.level_seconds, modes)]}; "
+        f"comm_bytes {st['comm_bytes']}; sieve_hits {st['sieve_hits']}; "
+        f"overflowed {st['overflowed']}; mode_counts {st['mode_counts']}")
+
+
+def single_source_roots(kernels, label: str, eng, mode: str, roots, want,
+                        deg, n_edges: int, profile: bool) -> None:
+    """One S = 1 engine over the first 8 roots (the first three times):
+    each root's distances bitwise ``want``'s column, ``auto``'s
+    ``mode_counts`` equal to the numpy replay, ``queue`` a queue level a
+    level."""
+    from repro_torch.core.frontier import INF
+
+    totals = dict.fromkeys(("dense", "queue", "bottom_up"), 0)
+    for i, root in enumerate(roots[:8]):
+        if i == 0:
+            host, run_ms, res, _ = drive(kernels, eng, [root])
+        else:
+            t0 = time.perf_counter()
+            res = eng.run([root])
+            run_ms = [(time.perf_counter() - t0) * 1e3]
+            host = res.dist_host
+        st = res.run_stats.to_host()
+        check(np.array_equal(host, want[:, i:i + 1]),
+              f"{label}: root {i}'s distances differ from path 1's column "
+              f"{i}")
+        levels, modes = replay_modes(host, deg, n_edges, 1, INF)
+        if mode == "auto":
+            check(levels == st["levels"]
+                  and mode_counts(modes) == st["mode_counts"],
+                  f"{label}: root {i}'s mode_counts {st['mode_counts']}, "
+                  f"the replay {mode_counts(modes)}")
+        else:
+            modes = ["queue"] * st["levels"]
+            check(st["levels"] == levels
+                  and st["mode_counts"]["queue"] == levels,
+                  f"{label}: root {i} ran {st}")
+        for k in totals:
+            totals[k] += st["mode_counts"][k]
+        report_modes(f"{label} root {i}", run_ms, st, modes, res)
+        if profile and i == 0:
+            profile_run(f"{label} root 0", lambda: eng.run([root]))
+    log(f"{label}: 8 roots bitwise path 1's columns; mode totals {totals}; "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 def path4_phase(kernels, g, src, roots, want, profile: bool) -> None:
     """``rmat_1m`` on the queue and ``auto`` modes (module docstring, phase
     5): (a) auto, S = 64; (b) auto and (c) queue, S = 1, on the first 8
     roots; distances bitwise path 1's p4_default columns."""
-    from repro_torch.core import BFSOptions, plan
+    from repro_torch.core import BFSOptions
     from repro_torch.core.frontier import INF
 
     deg = np.bincount(src, minlength=g.part.n_logical)
     others = [k for k in kernels if k != "fold_update"]
 
-    def build(label, opts, s):
-        reset_peak()
-        t0 = time.perf_counter()
-        pl = plan(g, opts, num_sources=s)
-        eng = pl.compile()
-        torch.cuda.synchronize()
-        compile_ms = (time.perf_counter() - t0) * 1e3
-        d = pl.describe()
-        log(f"path 4 {label}: wires {d['wire_formats']}, dense_exchange "
-            f"{d['dense_exchange']}, queue_exchange {d['queue_exchange']}, "
-            f"sieve {d['sieve']}, fused {d['use_fused_tail']}; compile "
-            f"{compile_ms:.1f} ms")
-        return pl, eng, d
-
-    def report(label, run_ms, st, modes, res):
-        log(f"path 4 {label}: runs {[round(t, 3) for t in run_ms]} ms; "
-            f"levels {st['levels']}; per-level ms (mode) "
-            f"{[f'{t * 1e3:.3f} ({m})' for t, m in zip(res.run_stats.level_seconds, modes)]}; "
-            f"comm_bytes {st['comm_bytes']}; sieve_hits {st['sieve_hits']}; "
-            f"overflowed {st['overflowed']}; mode_counts {st['mode_counts']}")
-
     # (a) auto, S = 64: dense and bottom-up levels only
-    pl, eng, d = build("(a) auto S=64", BFSOptions(mode="auto"), S)
+    pl, eng, d = build_engine("path 4 (a) auto S=64", g,
+                              BFSOptions(mode="auto"), S)
     check(d["wire_formats"]["bottom_up"] == "packed" and d["use_fused_tail"],
           "path 4 (a): the plan does not resolve a packed bottom-up wire "
           "and the fused tail")
@@ -495,7 +559,7 @@ def path4_phase(kernels, g, src, roots, want, profile: bool) -> None:
           f"of {st['mode_counts']['dense']} dense levels")
     check(not any(counts[k] for k in others),
           f"path 4 (a): a kernel off the path launched: {counts}")
-    report("(a) auto S=64", run_ms, st, modes, res)
+    report_modes("path 4 (a) auto S=64", run_ms, st, modes, res)
     log(f"path 4 (a): launches {counts}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if profile:
@@ -505,43 +569,107 @@ def path4_phase(kernels, g, src, roots, want, profile: bool) -> None:
     # (b) auto and (c) queue, S = 1: the first root three times, the next
     # seven once each
     for label, mode in (("(b) auto S=1", "auto"), ("(c) queue S=1", "queue")):
-        pl, eng, d = build(label, BFSOptions(mode=mode), 1)
+        pl, eng, d = build_engine(f"path 4 {label}", g,
+                                  BFSOptions(mode=mode), 1)
         check(d["sieve"], f"path 4 {label}: the sieve is off")
-        totals = dict.fromkeys(("dense", "queue", "bottom_up"), 0)
-        for i, root in enumerate(roots[:8]):
-            if i == 0:
-                host, run_ms, res, _ = drive(kernels, eng, [root])
-            else:
-                t0 = time.perf_counter()
-                res = eng.run([root])
-                run_ms = [(time.perf_counter() - t0) * 1e3]
-                host = res.dist_host
-            st = res.run_stats.to_host()
-            check(np.array_equal(host, want[:, i:i + 1]),
-                  f"path 4 {label}: root {i}'s distances differ from path "
-                  f"1's column {i}")
-            levels, modes = replay_modes(host, deg, g.n_edges, 1, INF)
-            if mode == "auto":
-                check(levels == st["levels"]
-                      and mode_counts(modes) == st["mode_counts"],
-                      f"path 4 {label}: root {i}'s mode_counts "
-                      f"{st['mode_counts']}, the replay {mode_counts(modes)}")
-            else:
-                modes = ["queue"] * st["levels"]
-                check(st["levels"] == levels
-                      and st["mode_counts"]["queue"] == levels,
-                      f"path 4 {label}: root {i} ran {st}")
-            for k in totals:
-                totals[k] += st["mode_counts"][k]
-            report(f"{label} root {i}", run_ms, st, modes, res)
-            if profile and i == 0:
-                profile_run(f"path 4 {label} root 0",
-                            lambda: eng.run([root]))
-        log(f"path 4 {label}: 8 roots bitwise path 1's columns; mode totals "
-            f"{totals}; peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        del eng, res
+        single_source_roots(kernels, f"path 4 {label}", eng, mode, roots,
+                            want, deg, g.n_edges, profile)
+        del eng
     torch.cuda.empty_cache()
+
+
+def path5_phase(kernels, g, src, roots, want, profile: bool) -> int:
+    """``rmat_1m`` on the 2-D partition, a 2 x 2 ``LocalMesh`` grid with
+    default options (module docstring, phase 6): (a) dense, S = 64; (b)
+    auto, S = 64; (c) auto and (d) queue, S = 1, on the first 8 roots;
+    distances bitwise path 1's p4_default (columns).  Returns A1's
+    launches in (a)."""
+    from repro_torch.core import BFSOptions, LocalMesh
+    from repro_torch.core.frontier import INF
+    from repro_torch.graphs import to_2d
+
+    t0 = time.perf_counter()
+    g2 = to_2d(g, 2, 2)
+    to2d_s = time.perf_counter() - t0
+    per_cell = (g2.dst_fold >= 0).sum(1).tolist()
+    log(f"path 5: to_2d(2, 2) in {to2d_s:.3f} s (host); e_cap "
+        f"{g2.e_cap}, edges per cell {per_cell} (mean "
+        f"{g2.n_edges / 4:.0f})")
+    mesh = LocalMesh.grid(2, 2, torch.device("cuda", 0))
+    deg = np.bincount(src, minlength=g.part.n_logical)
+    others = [k for k in kernels if k != "fold_update"]
+
+    # (a) dense, S = 64: packed expand and fold, A1 on the fused fold tail
+    label = "path 5 (a) dense S=64"
+    pl, eng, d = build_engine(label, g2, BFSOptions(), S, mesh=mesh)
+    check(d["grid"] == (2, 2) and d["wire_formats"]["expand"] == "packed"
+          and d["wire_formats"]["fold"] == "packed" and d["use_fused_tail"],
+          f"{label}: the plan does not resolve packed expand and fold "
+          f"wires and the fused tail: {d['wire_formats']}")
+    host, run_ms, res, counts = drive(kernels, eng, roots)
+    st = res.run_stats.to_host()
+    check(np.array_equal(host, want),
+          f"{label}: distances differ from path 1's p4_default")
+    levels = st["levels"]
+    check(st["mode_counts"] == {"dense": levels, "queue": 0,
+                                "bottom_up": 0},
+          f"{label}: mode_counts {st['mode_counts']}")
+    check(counts["fold_update"] == 3 * levels,
+          f"{label}: A1 launched {counts['fold_update']} times in 3 runs of "
+          f"{levels} levels")
+    check(not any(counts[k] for k in others),
+          f"{label}: a kernel off the path launched: {counts}")
+    want_bytes = np.float32(0)
+    for _ in range(levels):
+        want_bytes = np.float32(want_bytes
+                                + np.float32(d["dense_level_bytes"]))
+    check(st["comm_bytes"] == float(want_bytes),
+          f"{label}: comm_bytes {st['comm_bytes']}, not {levels} x "
+          f"{d['dense_level_bytes']} as float32")
+    report_modes(label, run_ms, st, ["dense"] * levels, res)
+    log(f"{label}: launches {counts}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if profile:
+        profile_run(label, lambda: eng.run(roots))
+    a1_launches = counts["fold_update"]
+    del eng, res
+
+    # (b) auto, S = 64: the bottom-up blocks are built here, on first use
+    t0 = time.perf_counter()
+    g2.bottom_up_blocks()
+    log(f"path 5: bottom_up_blocks in {time.perf_counter() - t0:.3f} s "
+        f"(host); in_e_cap {g2.in_e_cap}")
+    label = "path 5 (b) auto S=64"
+    pl, eng, d = build_engine(label, g2, BFSOptions(mode="auto"), S,
+                              mesh=mesh)
+    host, run_ms, res, counts = drive(kernels, eng, roots)
+    st = res.run_stats.to_host()
+    check(np.array_equal(host, want),
+          f"{label}: distances differ from path 1's p4_default")
+    levels, modes = replay_modes(host, deg, g2.n_edges, S, INF)
+    check(levels == st["levels"] and mode_counts(modes) == st["mode_counts"],
+          f"{label}: mode_counts {st['mode_counts']} over {st['levels']} "
+          f"levels, the replay {mode_counts(modes)} over {levels}")
+    check(counts["fold_update"] == 3 * st["mode_counts"]["dense"]
+          and not any(counts[k] for k in others),
+          f"{label}: launches {counts} in 3 runs of {st['mode_counts']}")
+    report_modes(label, run_ms, st, modes, res)
+    log(f"{label}: launches {counts}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if profile:
+        profile_run(label, lambda: eng.run(roots))
+    del eng, res
+
+    # (c) auto and (d) queue, S = 1, the first 8 roots
+    for label, mode in (("(c) auto S=1", "auto"), ("(d) queue S=1", "queue")):
+        pl, eng, d = build_engine(f"path 5 {label}", g2,
+                                  BFSOptions(mode=mode), 1, mesh=mesh)
+        check(d["sieve"], f"path 5 {label}: the sieve is off")
+        single_source_roots(kernels, f"path 5 {label}", eng, mode, roots,
+                            want, deg, g2.n_edges, profile)
+        del eng
+    torch.cuda.empty_cache()
+    return a1_launches
 
 
 def profile_run(name, run) -> None:
@@ -1420,9 +1548,16 @@ def main(argv=None) -> int:
     # (after path 2, so that path 2 runs where it ran before path 4 came)
     path4_phase(kernels, g1_p4, src1, roots1, path1["p4_default"][0],
                 args.profile)
-    del g1_p4
     log("path 4: auto (S = 64 and 1) and queue (S = 1) distances == path 1, "
         "auto mode_counts == the numpy replay, A1 once a dense level: ok")
+
+    # --------------------------------------------------------------- path 5
+    a1_path5 = path5_phase(kernels, g1_p4, src1, roots1,
+                           path1["p4_default"][0], args.profile)
+    del g1_p4
+    log("path 5: the 2 x 2 grid in dense (S = 64), auto (S = 64 and 1) and "
+        "queue (S = 1): distances == path 1, auto mode_counts == the numpy "
+        "replay, A1 once a dense level: ok")
 
     # -------------------------------------------------------------- prefill
     lay = prefill_phase(kernels, dev, args.profile)
@@ -1464,6 +1599,7 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/bfs_kernels.cu",
         "replaces": "src/repro/kernels/fold_update.py:57",
         "launches": path1["p4_default"][1]["fold_update"],
+        "launches_path5": a1_path5,
         "max_abs_err": err1,
         "ms": timed_ms(lambda: fold_update(words, dist, 7), 50),
         "plain_ms": timed_ms(lambda: fold_update_plain(words, dist, 7),

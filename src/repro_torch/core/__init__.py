@@ -1,10 +1,11 @@
-"""The paper's primary contribution, ported to PyTorch: 1-D partitioned
-distributed BFS with optimized owner-exchange communication.
+"""The paper's primary contribution, ported to PyTorch: 1-D (and 2-D)
+partitioned distributed BFS with optimized owner-exchange communication.
 
 Public lifecycle: ``plan(graph, opts, mesh=..., device=...) -> BFSPlan ->
 .compile() -> BFSEngine -> .run(sources) / .run_async(sources) ->
 BFSResult``, in the dense, queue and ``auto`` modes, over a ``LocalMesh`` of
-p shards on one device.
+p shards on one device (an ``r x c`` ``LocalMesh.grid`` under
+``partition="2d"``).
 """
 
 from repro_torch.core.bfs import (BFSOptions, BFSStats, INF,
@@ -20,13 +21,14 @@ from repro_torch.core.exchange import (DENSE_STRATEGIES,
                                        exchange_dense, get_exchange,
                                        register_exchange, select_exchange,
                                        unregister_exchange)
-from repro_torch.core.mesh import LocalMesh
-from repro_torch.core.partition import Partition1D
+from repro_torch.core.mesh import LocalMesh, default_grid
+from repro_torch.core.partition import Partition1D, Partition2D
 
 __all__ = [
     "BFSOptions", "BFSStats", "INF", "validate_sources",
     "BFSEngine", "BFSPlan", "BFSResult", "BFSRunStats", "plan",
-    "resolve_device", "LocalMesh", "Partition1D",
+    "resolve_device", "LocalMesh", "default_grid", "Partition1D",
+    "Partition2D",
     "exchange_dense", "ExchangeStrategy", "register_exchange",
     "unregister_exchange", "get_exchange", "select_exchange",
     "DENSE_STRATEGIES", "QUEUE_STRATEGIES", "EXPAND_ROW_STRATEGIES",

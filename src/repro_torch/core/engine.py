@@ -1,6 +1,6 @@
 """Compile-once BFS lifecycle: ``plan() -> BFSPlan -> compile() -> BFSEngine``
-— the port of ``repro.core.engine`` (1-D partition: dense, queue and
-``auto`` modes).
+— the port of ``repro.core.engine`` (the 1-D and 2-D partitions, each in
+the dense, queue and ``auto`` modes).
 
   * ``plan(graph, opts, mesh=..., device=...)`` — host-side validation and
     static-shape derivation: checks options, resolves exchange strategies
@@ -9,17 +9,19 @@
   * ``BFSPlan.compile()`` — uploads the graph's edge rows (or, under
     ``use_kernel``, the one-bit blocked adjacency; queue and ``auto``
     plans also the out-edge blocks, ``auto`` the in-edge rows of the
-    bottom-up levels) to the device and allocates the ``(n, S)`` dist and
-    frontier buffers once.
+    bottom-up levels; a 2-D plan its grid cells' edge blocks) to the
+    device and allocates the ``(n, S)`` dist and frontier buffers once.
   * ``BFSEngine.run(sources)`` — per traversal: sources are injected on
     the device into the reused buffers (the analogue of JAX's donated
     dist buffer), then the level loop runs.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; on a
 machine without CUDA, ``plan()`` without a device raises rather than
-carrying on on the CPU.  The 2-D partition (ROADMAP Queue A item 8),
-``plan_key`` / ``estimated_device_bytes`` and the serving fault seams
-(item 9) and the H100 roofline in ``describe()`` (item 11) come with later
+carrying on on the CPU.  ``partition="2d"`` (inferred from a
+``ShardedGraph2D``) runs the 2-D edge partition over an ``r x c``
+``LocalMesh`` (``LocalMesh.grid``).  ``plan_key`` /
+``estimated_device_bytes`` and the serving fault seams (ROADMAP Queue A
+item 9) and the H100 roofline in ``describe()`` (item 11) come with later
 slices.
 """
 
@@ -34,11 +36,11 @@ import torch
 from repro_torch.core import exchange as ex
 from repro_torch.core import frontier as fr
 from repro_torch.core.bfs import (BFSOptions, BFSStats, INF, make_level_loop,
-                                  validate_sources)
+                                  make_level_loop_2d, validate_sources)
 from repro_torch.core.mesh import LocalMesh
 
 if TYPE_CHECKING:   # graphs.formats imports core.partition, which runs core
-    from repro_torch.graphs.formats import ShardedGraph
+    from repro_torch.graphs.formats import ShardedGraph, ShardedGraph2D
 
 
 def resolve_device(device=None) -> torch.device:
@@ -149,9 +151,16 @@ class BFSPlan:
     axes_sizes: tuple
     num_sources: int           # compiled source-batch capacity S
     max_levels: int
-    dense_strategy: ex.ExchangeStrategy
-    queue_strategy: ex.ExchangeStrategy
+    dense_strategy: Optional[ex.ExchangeStrategy] = None
+    queue_strategy: Optional[ex.ExchangeStrategy] = None
+    # 2-D plans: the r x c cell blocks and the four phase strategies that
+    # replace the dense and queue exchanges
     partition: str = "1d"
+    graph2d: Optional["ShardedGraph2D"] = None
+    expand_strategy: Optional[ex.ExchangeStrategy] = None
+    fold_strategy: Optional[ex.ExchangeStrategy] = None
+    expand_sparse_strategy: Optional[ex.ExchangeStrategy] = None
+    fold_sparse_strategy: Optional[ex.ExchangeStrategy] = None
     bottom_up_wire: str = "bytes"
     sieve: bool = False
     use_fused_tail: bool = False
@@ -162,12 +171,11 @@ class BFSPlan:
 
     def describe(self) -> dict:
         """Static plan metadata: shapes, resolved strategies and wires, and
-        the analytic per-level exchange bytes of each level kind."""
+        the analytic per-level exchange bytes of each level kind (the JAX
+        plan's keys, bar its TPU roofline)."""
         part = self.graph.part
-        density = self.opts.queue_cap / part.shard_size
-        sieve_bytes = ((part.p - 1) * fr.sieve_layout(part.shard_size)[2] * 4
-                       if self.sieve else 0)
-        return {
+        s, cap = self.num_sources, self.opts.queue_cap
+        meta = {
             "mode": self.opts.mode,
             "partition": self.partition,
             "device": str(self.device),
@@ -175,31 +183,79 @@ class BFSPlan:
             "n": part.n,
             "n_logical": part.n_logical,
             "shard_size": part.shard_size,
-            "num_sources": self.num_sources,
+            "num_sources": s,
             "max_levels": self.max_levels,
             "axes": self.axis if isinstance(self.axis, tuple) else (self.axis,),
             "axes_sizes": self.axes_sizes,
+            "use_fused_tail": self.use_fused_tail,
+            "use_kernel": self.opts.use_kernel,
+            "sieve": self.sieve,
+        }
+
+        # sparse phases report their payload layout: "ids" or "compressed"
+        def sparse_wire(strategy):
+            return "ids" if strategy.wire == "bytes" else strategy.wire
+
+        if self.partition == "2d":
+            part2 = self.graph2d.part
+            r, c, b = part2.r, part2.c, part2.shard_size
+            density = cap / b
+            sieve_bytes = ((part2.p - 1) * fr.sieve_layout(b)[2] * 4
+                           if self.sieve else 0)
+            phase_bytes = {
+                "expand": self.expand_strategy.bytes_model(part2.n, r, c, s,
+                                                           1),
+                "fold": self.fold_strategy.bytes_model(part2.n, r, c, s, 1),
+                "expand_sparse": self.expand_sparse_strategy.bytes_model(
+                    r, c, cap, 4, density),
+                "fold_sparse": self.fold_sparse_strategy.bytes_model(
+                    r, c, cap, 4, density),
+            }
+            meta.update({
+                "grid": (r, c),
+                "expand_exchange": self.expand_strategy.name,
+                "fold_exchange": self.fold_strategy.name,
+                "expand_sparse_exchange": self.expand_sparse_strategy.name,
+                "fold_sparse_exchange": self.fold_sparse_strategy.name,
+                "wire_formats": {
+                    "expand": self.expand_strategy.wire,
+                    "fold": self.fold_strategy.wire,
+                    "expand_sparse": sparse_wire(self.expand_sparse_strategy),
+                    "fold_sparse": sparse_wire(self.fold_sparse_strategy),
+                    "bottom_up": self.bottom_up_wire,
+                },
+                # no in_e_cap: the bottom-up blocks build at compile time
+                "e_cap": self.graph2d.e_cap,
+                "phase_bytes": phase_bytes,
+                "dense_level_bytes": (phase_bytes["expand"]
+                                      + phase_bytes["fold"]),
+                "queue_level_bytes": (phase_bytes["expand_sparse"]
+                                      + phase_bytes["fold_sparse"]
+                                      + sieve_bytes),
+                "bottom_up_level_bytes": ex.bottomup_level_bytes(
+                    part2.n, part2.p, s, 1, wire=self.bottom_up_wire),
+            })
+            return meta
+        sieve_bytes = ((part.p - 1) * fr.sieve_layout(part.shard_size)[2] * 4
+                       if self.sieve else 0)
+        meta.update({
             "dense_exchange": self.dense_strategy.name,
             "queue_exchange": self.queue_strategy.name,
             "wire_formats": {
                 "dense": self.dense_strategy.wire,
-                "queue": ("ids" if self.queue_strategy.wire == "bytes"
-                          else self.queue_strategy.wire),
+                "queue": sparse_wire(self.queue_strategy),
                 "bottom_up": self.bottom_up_wire,
             },
-            "sieve": self.sieve,
-            "use_fused_tail": self.use_fused_tail,
-            "use_kernel": self.opts.use_kernel,
             "e_cap": self.graph.e_cap,
             "in_e_cap": self.graph.in_e_cap,
             "dense_level_bytes": self.dense_strategy.bytes_model(
-                part.n, part.p, self.num_sources, 1, self.axes_sizes),
+                part.n, part.p, s, 1, self.axes_sizes),
             "queue_level_bytes": self.queue_strategy.bytes_model(
-                part.p, self.opts.queue_cap, 4, density) + sieve_bytes,
+                part.p, cap, 4, cap / part.shard_size) + sieve_bytes,
             "bottom_up_level_bytes": ex.bottomup_level_bytes(
-                part.n, part.p, self.num_sources, 1,
-                wire=self.bottom_up_wire),
-        }
+                part.n, part.p, s, 1, wire=self.bottom_up_wire),
+        })
+        return meta
 
     def compile(self) -> "BFSEngine":
         return BFSEngine(self)
@@ -297,12 +353,16 @@ def plan(graph: ShardedGraph, opts: BFSOptions = BFSOptions(), *,
     own device.  ``num_sources`` fixes the source-batch capacity S; an
     engine accepts any 1..S sources per run.
     """
+    # deferred: graphs.formats imports core.partition, which runs core
+    from repro_torch.graphs.formats import ShardedGraph2D, to_2d
+
     opts.validate()
     part = graph.part
     s = int(num_sources)
     if num_sources < 1:
         raise ValueError(f"num_sources must be >= 1 ({num_sources})")
-    partition = partition or "1d"
+    if partition is None:
+        partition = "2d" if isinstance(graph, ShardedGraph2D) else "1d"
     if partition not in ("1d", "2d"):
         raise ValueError(f"unknown partition scheme {partition!r}; "
                          "expected '1d' | '2d'")
@@ -318,8 +378,65 @@ def plan(graph: ShardedGraph, opts: BFSOptions = BFSOptions(), *,
             raise ValueError("use_kernel is a 1-D dense path (the blocked "
                              "adjacency is encoded per vertex shard); not "
                              "available with partition='2d'")
-        raise ValueError("partition='2d' is not ported yet (ROADMAP Queue A "
-                         "item 8)")
+        if mesh is None:
+            if part.p != 1:
+                raise ValueError("pass a 2-axis mesh whose r*c equals the "
+                                 f"graph's p={part.p}")
+            mesh = LocalMesh.grid(1, 1, resolve_device(device))
+        elif device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device!r} differs from the mesh's "
+                             f"{mesh.device}")
+        axes = mesh.axes(axis if axis is not None else mesh.axis_names)
+        if len(axes) != 2:
+            raise ValueError(f"partition='2d' needs exactly two mesh axes "
+                             f"(rows, cols); got {axes}")
+        r, c = (mesh.axis_size(a) for a in axes)
+        if r * c != part.p or mesh.p != part.p:
+            raise ValueError(f"mesh grid {r}x{c} does not multiply to the "
+                             f"graph's p={part.p}")
+        if isinstance(graph, ShardedGraph2D):
+            # the cell blocks are encoded for one grid shape; another
+            # would index them wrongly
+            if (part.r, part.c) != (r, c):
+                raise ValueError(
+                    f"graph's edge blocks are laid out for a "
+                    f"{part.r}x{part.c} grid; mesh is {r}x{c}")
+            graph2d = graph
+        else:
+            graph2d = to_2d(graph, r, c)
+        grid_args = (graph2d.part.n, r, c, s, 1)
+        # sparse models take the plan's frontier density, so compressed
+        # twins price the payload the loop ships
+        sparse_args = (r, c, opts.queue_cap, 4,
+                       opts.queue_cap / graph2d.part.shard_size)
+        # the fused tail reads the fold words, so it keys off the fold wire
+        fold_strategy = _resolve_strategy(
+            "fold_col", opts.fold_exchange, grid_args, opts.wire_format)
+        return BFSPlan(
+            graph=graph, opts=opts, mesh=mesh, axis=axes,
+            axes_sizes=(r, c), num_sources=s,
+            max_levels=opts.max_levels or part.n_logical,
+            partition="2d", graph2d=graph2d,
+            expand_strategy=_resolve_strategy(
+                "expand_row", opts.expand_exchange, grid_args,
+                opts.wire_format),
+            fold_strategy=fold_strategy,
+            expand_sparse_strategy=_resolve_strategy(
+                "expand_row_sparse", opts.expand_sparse_exchange,
+                sparse_args, opts.wire_format),
+            fold_sparse_strategy=_resolve_strategy(
+                "fold_col_sparse", opts.fold_sparse_exchange, sparse_args,
+                opts.wire_format),
+            bottom_up_wire=_resolve_bottom_up_wire(
+                opts.wire_format, graph2d.part.n, part.p, s),
+            sieve=_resolve_sieve(opts.sieve, opts.mode, part.p, s),
+            use_fused_tail=_resolve_fused_tail(
+                opts.use_fused_tail, opts.mode, fold_strategy.wire),
+        )
+
+    if isinstance(graph, ShardedGraph2D):
+        raise ValueError("partition='1d' needs a 1-D ShardedGraph; this "
+                         "graph holds 2-D edge blocks")
 
     if mesh is None:
         mesh = LocalMesh.flat(part.p, resolve_device(device))
@@ -368,7 +485,8 @@ class BFSEngine:
     ``kernel_arrays``), for queue and ``auto`` plans the out-edge blocks,
     for ``auto`` plans the in-edge rows of the bottom-up levels, and the
     ``(n, S)`` dist and frontier buffers, which every ``run`` reinitializes
-    in place.
+    in place.  A 2-D plan holds its cells' blocks the same way
+    (``_build_2d``).
 
     ``trace_count`` stays at ``compile_traces`` (the level function is
     built once at construction and never rebuilt), for parity with the
@@ -382,9 +500,72 @@ class BFSEngine:
         dev = plan_.device
         s = plan_.num_sources
         self._generation = 0
-
-        expand_fn, expand_packed, edge_rows = None, False, None
         self.kernel_arrays = None
+        if plan_.partition == "2d":
+            self._run_levels = self._build_2d()
+        else:
+            self._run_levels = self._build_1d()
+        self._dist = torch.empty((part.n, s), dtype=torch.int32, device=dev)
+        self._frontier = torch.empty((part.n, s), dtype=torch.uint8,
+                                     device=dev)
+        self._trace_count = 1
+        self.compile_traces = self._trace_count
+
+    def _build_2d(self):
+        """Upload the cell blocks and build the 2-D level loop.
+
+        Every mode keeps the expansion's edge rows: the packed rows of
+        ``expand_dense_2d_packed`` where the fused tail reads a packed
+        expand, else the row block's byte rows.  Queue and ``auto`` plans
+        keep the ``(p, e_cap)`` blocks for queue levels and statistics,
+        and only ``auto`` builds the bottom-up in-edge blocks and uploads
+        their rows.
+        """
+        pl_, opts = self.plan, self.plan.opts
+        g2 = pl_.graph2d
+        part2 = g2.part
+        dev = pl_.device
+        b, c = part2.shard_size, part2.c
+        src_rowlocal = torch.as_tensor(g2.src_rowlocal).to(dev)
+        dst_fold = torch.as_tensor(g2.dst_fold).to(dev)
+        if pl_.use_fused_tail and pl_.expand_strategy.wire == "packed":
+            edge_rows = fr.dense_2d_packed_edge_index(
+                src_rowlocal, dst_fold, b, part2.fold_size)
+        else:
+            edge_rows = fr.dense_edge_index(src_rowlocal, dst_fold, c * b,
+                                            part2.fold_size)
+        out_edges = (src_rowlocal, dst_fold) if opts.mode != "dense" else None
+        in_rows = None
+        if opts.mode == "auto":
+            in_rows = self._bottom_up_rows(g2.in_src_global, g2.in_dst_local,
+                                           part2)
+        return make_level_loop_2d(
+            part2, pl_.num_sources, g2.n_edges, pl_.mesh, pl_.axis[0],
+            pl_.axis[1], opts, pl_.expand_strategy, pl_.fold_strategy,
+            pl_.expand_sparse_strategy, pl_.fold_sparse_strategy, edge_rows,
+            out_edges=out_edges, in_rows=in_rows,
+            bottom_up_wire=pl_.bottom_up_wire, sieve=pl_.sieve,
+            fused=pl_.use_fused_tail)
+
+    def _bottom_up_rows(self, in_src_global, in_dst_local, part):
+        """Upload in-edge blocks as ``bottom_up_edge_index`` rows for the
+        plan's bottom-up wire."""
+        packed = self.plan.bottom_up_wire == "packed"
+        w = fr.packed_words(part.shard_size)
+        dev = self.plan.device
+        return fr.bottom_up_edge_index(
+            torch.as_tensor(in_src_global).to(dev),
+            torch.as_tensor(in_dst_local).to(dev), part.shard_size,
+            part.p * w if packed else part.n, w if packed else None)
+
+    def _build_1d(self):
+        """Upload the 1-D blocks and build the 1-D level loop."""
+        plan_ = self.plan
+        graph, opts = plan_.graph, plan_.opts
+        part = graph.part
+        dev = plan_.device
+        s = plan_.num_sources
+        expand_fn, expand_packed, edge_rows = None, False, None
         if opts.use_kernel:
             expand_fn, expand_packed = self._build_kernel_expand()
         else:
@@ -399,14 +580,9 @@ class BFSEngine:
             # blocks; only auto runs bottom-up levels over the in-edges
             out_edges = (src_local, dst_global)
         if opts.mode == "auto":
-            packed = plan_.bottom_up_wire == "packed"
-            w = fr.packed_words(part.shard_size)
-            in_rows = fr.bottom_up_edge_index(
-                torch.as_tensor(graph.in_src_global).to(dev),
-                torch.as_tensor(graph.in_dst_local).to(dev),
-                part.shard_size, part.p * w if packed else part.n,
-                w if packed else None)
-        self._run_levels = make_level_loop(
+            in_rows = self._bottom_up_rows(graph.in_src_global,
+                                           graph.in_dst_local, part)
+        return make_level_loop(
             part, s, graph.n_edges, plan_.mesh, plan_.axis,
             plan_.axes_sizes, opts, plan_.dense_strategy,
             plan_.queue_strategy, edge_rows, out_edges=out_edges,
@@ -414,11 +590,6 @@ class BFSEngine:
             expand_emits_packed=expand_packed,
             bottom_up_wire=plan_.bottom_up_wire, sieve=plan_.sieve,
             fused=plan_.use_fused_tail)
-        self._dist = torch.empty((part.n, s), dtype=torch.int32, device=dev)
-        self._frontier = torch.empty((part.n, s), dtype=torch.uint8,
-                                     device=dev)
-        self._trace_count = 1
-        self.compile_traces = self._trace_count
 
     @property
     def trace_count(self) -> int:

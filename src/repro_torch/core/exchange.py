@@ -8,13 +8,13 @@ per-chip byte model; plans resolve strategy names through this registry
 (``"auto"`` picks the smallest modeled bytes), so a port plan names the
 same strategies a JAX plan does.
 
-The byte models of **every** kind are copied verbatim from the JAX package
-(pure Python), so plan-time resolution matches it for all of them.  Only
-the ``dense`` kind has implementations in this slice: each runs over a
-``LocalMesh`` (``impl(x, mesh, axis)``, ``x`` stacked ``(p, ...)`` over
-shards).  The queue and 2-D kinds register their byte models with an
-implementation that raises until their slice lands (ROADMAP Queue A items
-6 and 8).
+The byte models of every kind are copied verbatim from the JAX package
+(pure Python), so plan-time resolution matches it.  Every strategy runs
+over a ``LocalMesh`` (``impl(x, mesh, axis)``, ``x`` stacked ``(p, ...)``
+over shards): the 1-D ``dense`` and ``queue`` kinds over the plan's axes,
+the 2-D kinds over one grid axis each — ``expand_row*`` over the columns
+axis (the ``c`` cells of a grid row), ``fold_col*`` over the rows axis
+(the ``r`` cells of a grid column).
 
 Packed twins (``<name>_packed``) carry int32 words holding the uint32 bit
 pattern of ``frontier.pack_bits`` and merge with bitwise OR.
@@ -149,16 +149,6 @@ EXPAND_ROW_STRATEGIES = _StrategyNames("expand_row")
 FOLD_COL_STRATEGIES = _StrategyNames("fold_col")
 EXPAND_ROW_SPARSE_STRATEGIES = _StrategyNames("expand_row_sparse")
 FOLD_COL_SPARSE_STRATEGIES = _StrategyNames("fold_col_sparse")
-
-
-def _not_ported(kind: str, name: str) -> Callable:
-    """Implementation placeholder for a 2-D strategy whose byte model plans
-    already use but whose collective belongs to the 2-D slice."""
-    def impl(*args, **kwargs):
-        raise NotImplementedError(
-            f"{kind} exchange {name!r} is not ported yet "
-            "(ROADMAP Queue A item 8)")
-    return impl
 
 
 def _or_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -315,8 +305,58 @@ def exchange_dense(cand: torch.Tensor, mesh: LocalMesh, axis,
 
 
 # ---------------------------------------------------------------------------
-# 2-D grid exchange byte models (implementations: ROADMAP Queue A item 8)
+# Collectives of the queue and 2-D kinds (registered in their sections)
 # ---------------------------------------------------------------------------
+
+def _compressed_payload(cap, density):
+    """Static byte size of one compressed id buffer (the model-side twin
+    of ``frontier.compressed_capacity``)."""
+    if density and density > 0:
+        id_range = max(1, int(round(cap / density)))
+    else:
+        id_range = max(1, cap)
+    return _fr.compressed_capacity(cap, id_range)
+
+
+def _queue_allgather_merge(buckets: torch.Tensor, mesh: LocalMesh,
+                           axis) -> torch.Tensor:
+    # [2]-style aggregate-everywhere: every shard receives every buffer
+    # (p^2 cap ids on the wire) and picks out the rows addressed to it.
+    allb = mesh.all_gather(buckets, axis)          # (p, p_src, p_dst, cap)
+    return allb[torch.arange(mesh.p, device=allb.device), :,
+                mesh.axis_index(axis)]
+
+
+def _queue_alltoall_direct(buckets: torch.Tensor, mesh: LocalMesh,
+                           axis) -> torch.Tensor:
+    # Paper §5.1-2 applied to queues: MPI_Alltoallv equivalent.
+    return mesh.all_to_all(buckets, axis)
+
+
+def allgather_frontier(frontier: torch.Tensor, mesh: LocalMesh,
+                       axis) -> torch.Tensor:
+    """(p, shard, S) -> (p, G*shard, S): the tiled all-gather over
+    ``axis`` — the bottom-up pass's replicated frontier, and the 2-D
+    expand's grid-row frontier (words, ids or payloads alike).
+
+    The *frontier* (n bits) crosses the wire instead of the *candidate*
+    set (up to E entries).  On a ``LocalMesh`` the result is one array
+    seen through a stride-0 shard dimension, not p copies.
+    """
+    return mesh.all_gather(frontier, axis).flatten(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# 2-D grid exchange: expand across a grid row, fold across a grid column
+# ---------------------------------------------------------------------------
+# Two small collectives a level instead of one over all p shards: an
+# ``expand_row`` gather of the frontier among the c cells of a grid row
+# (the columns axis) and a ``fold_col`` merge of transposed candidates
+# among the r cells of a grid column (the rows axis).  Each is a 1-D
+# collective above run over one grid axis, so the 2-D kinds register those
+# implementations under their own names and byte models: dense
+# ``(n, r, c, s, itemsize)`` with n the padded global vertex count, sparse
+# ``(r, c, cap, itemsize, density=1.0)``.
 
 def _bytes_expand_allgather(n, r, c, s, itemsize):
     return (c - 1) * (n // (r * c)) * s * itemsize
@@ -340,16 +380,6 @@ def _bytes_expand_allgather_packed(n, r, c, s, itemsize):
 
 def _bytes_fold_alltoall_packed(n, r, c, s, itemsize):
     return (r - 1) * _grid_words(n, r, c) * 4 * s
-
-
-def _compressed_payload(cap, density):
-    """Static byte size of one compressed id buffer (the model-side twin
-    of ``frontier.compressed_capacity``)."""
-    if density and density > 0:
-        id_range = max(1, int(round(cap / density)))
-    else:
-        id_range = max(1, cap)
-    return _fr.compressed_capacity(cap, id_range)
 
 
 def _bytes_expand_sparse_allgather(r, c, cap, itemsize, density=1.0):
@@ -378,30 +408,70 @@ def _bytes_fold_sparse_allgather_compressed(r, c, cap, itemsize,
     return (r - 1) * r * _compressed_payload(cap, density)
 
 
-for _kind, _name, _model, _wire in (
-        ("expand_row", "allgather", _bytes_expand_allgather, "bytes"),
-        ("fold_col", "alltoall_reduce", _bytes_fold_alltoall, "bytes"),
-        ("fold_col", "reduce_scatter", _bytes_fold_reduce_scatter, "bytes"),
+# (kind, name, byte model, wire, implementation).  expand: the tiled
+# gather of each cell's (b, S) chunk, W words or cap ids (or the
+# compressed payload) into its grid row's, in column order.  fold: block
+# rr of each column cell's (r*b, S) candidates (W words) goes to the cell
+# at row rank rr, which merges the r it receives (max; OR; a bf16 sum);
+# the sparse folds route (r, cap) id buckets (or payloads) by row.
+for _kind, _name, _model, _wire, _impl in (
+        ("expand_row", "allgather", _bytes_expand_allgather, "bytes",
+         allgather_frontier),
+        ("fold_col", "alltoall_reduce", _bytes_fold_alltoall, "bytes",
+         _dense_alltoall_direct),
+        ("fold_col", "reduce_scatter", _bytes_fold_reduce_scatter, "bytes",
+         _dense_reduce_scatter),
         ("expand_row", "allgather_packed", _bytes_expand_allgather_packed,
-         "packed"),
+         "packed", allgather_frontier),
         ("fold_col", "alltoall_reduce_packed", _bytes_fold_alltoall_packed,
-         "packed"),
+         "packed", _dense_alltoall_direct_packed),
         ("fold_col", "reduce_scatter_packed", _bytes_fold_alltoall_packed,
-         "packed"),
+         "packed", _dense_alltoall_direct_packed),
         ("expand_row_sparse", "allgather", _bytes_expand_sparse_allgather,
-         "bytes"),
+         "bytes", allgather_frontier),
         ("fold_col_sparse", "alltoall_direct", _bytes_fold_sparse_alltoall,
-         "bytes"),
+         "bytes", _queue_alltoall_direct),
         ("fold_col_sparse", "allgather_merge", _bytes_fold_sparse_allgather,
-         "bytes"),
+         "bytes", _queue_allgather_merge),
         ("expand_row_sparse", "allgather_compressed",
-         _bytes_expand_sparse_allgather_compressed, "compressed"),
+         _bytes_expand_sparse_allgather_compressed, "compressed",
+         allgather_frontier),
         ("fold_col_sparse", "alltoall_direct_compressed",
-         _bytes_fold_sparse_alltoall_compressed, "compressed"),
+         _bytes_fold_sparse_alltoall_compressed, "compressed",
+         _queue_alltoall_direct),
         ("fold_col_sparse", "allgather_merge_compressed",
-         _bytes_fold_sparse_allgather_compressed, "compressed")):
-    register_exchange(_kind, _name, _model, wire=_wire)(
-        _not_ported(_kind, _name))
+         _bytes_fold_sparse_allgather_compressed, "compressed",
+         _queue_allgather_merge)):
+    register_exchange(_kind, _name, _model, wire=_wire)(_impl)
+
+
+def expand_row(frontier: torch.Tensor, mesh: LocalMesh, axis,
+               strategy: str) -> torch.Tensor:
+    """2-D expand phase: stacked (p, b, S) chunks -> (p, c*b, S) grid-row
+    frontiers.  Packed strategies are transparent (pack before, unpack
+    after); the engine keeps the words packed instead."""
+    st = get_exchange("expand_row", strategy)
+    if st.wire == "packed":
+        c = mesh.axis_size(axis)
+        words = st.impl(_fr.pack_bits(frontier), mesh, axis)
+        return _fr.unpack_bits(words, frontier.shape[1],
+                               n_blocks=c).to(frontier.dtype)
+    return st.impl(frontier, mesh, axis)
+
+
+def fold_col(cand: torch.Tensor, mesh: LocalMesh, axis,
+             strategy: str) -> torch.Tensor:
+    """2-D fold phase: stacked (p, r*b, S) fold-ordered candidates ->
+    (p, b, S) owned.  Packed strategies are transparent here."""
+    r = mesh.axis_size(axis)
+    if cand.shape[1] % r:
+        raise ValueError(f"fold needs len ({cand.shape[1]}) divisible by "
+                         f"r ({r})")
+    st = get_exchange("fold_col", strategy)
+    if st.wire == "packed":
+        words = st.impl(_fr.pack_bits(cand, n_blocks=r), mesh, axis)
+        return _fr.unpack_bits(words, cand.shape[1] // r).to(cand.dtype)
+    return st.impl(cand, mesh, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -416,21 +486,10 @@ def _qbytes_allgather_merge(p, cap, itemsize, density=1.0):
     return (p - 1) * p * cap * itemsize
 
 
-@register_exchange("queue", "allgather_merge", _qbytes_allgather_merge)
-def _queue_allgather_merge(buckets: torch.Tensor, mesh: LocalMesh,
-                           axis) -> torch.Tensor:
-    # [2]-style aggregate-everywhere: every shard receives every buffer
-    # (p^2 cap ids on the wire) and picks out the rows addressed to it.
-    allb = mesh.all_gather(buckets, axis)          # (p, p_src, p_dst, cap)
-    return allb[torch.arange(mesh.p, device=allb.device), :,
-                mesh.axis_index(axis)]
-
-
-@register_exchange("queue", "alltoall_direct", _qbytes_alltoall_direct)
-def _queue_alltoall_direct(buckets: torch.Tensor, mesh: LocalMesh,
-                           axis) -> torch.Tensor:
-    # Paper §5.1-2 applied to queues: MPI_Alltoallv equivalent.
-    return mesh.all_to_all(buckets, axis)
+register_exchange("queue", "allgather_merge", _qbytes_allgather_merge)(
+    _queue_allgather_merge)
+register_exchange("queue", "alltoall_direct", _qbytes_alltoall_direct)(
+    _queue_alltoall_direct)
 
 
 # --- compressed queue twins: per-destination delta+varint byte buffers.
@@ -468,18 +527,6 @@ def exchange_queue(buckets: torch.Tensor, mesh: LocalMesh, axis,
         raise ValueError(f"queue exchange needs {g} buckets a shard, got "
                          f"{buckets.shape[1]}")
     return get_exchange("queue", strategy).impl(buckets, mesh, axis)
-
-
-def allgather_frontier(frontier: torch.Tensor, mesh: LocalMesh,
-                       axis) -> torch.Tensor:
-    """(p, shard, S) -> (p, n, S): replicate the frontier (bottom-up pass).
-
-    The *frontier* (n bits) crosses the wire instead of the *candidate*
-    set (up to E entries).  On a ``LocalMesh`` the result is one array
-    seen through a stride-0 shard dimension, not p copies.
-    """
-    return mesh.all_gather(frontier, axis).flatten(1, 2)
-
 
 
 # ---------------------------------------------------------------------------

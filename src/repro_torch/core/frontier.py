@@ -1,5 +1,5 @@
 """Frontier representations and the send-buffer builder (paper fig. 2) —
-the port of ``repro.core.frontier``'s 1-D part.
+the port of ``repro.core.frontier``.
 
 Two frontier representations:
 
@@ -22,6 +22,13 @@ of the sparse phase (sorted ids as delta varints, or the id range's
 bitset when that is shorter), and ``sieve_summary``/``sieve_lookup`` the
 replicated coarse visited summary that drops candidates before the wire.
 
+The 2-D edge partition reuses both representations per phase:
+``expand_dense_2d`` (and ``expand_dense_2d_packed``, straight from the
+gathered words) scatters a cell's edges into the transposed fold layout;
+``pack_frontier_ids``/``unpack_row_frontier`` make the expand phase
+sparse, and ``build_queue_buckets_2d`` buckets fold-layout candidates by
+the row rank of their owner.
+
 Word convention: torch has no ``<<``, ``>>`` or ``max`` on uint32, so the
 port carries every packed word as **int32 holding the uint32 bit
 pattern**.  Bit 31 set reads as a negative int32; ``>>`` sign-extends,
@@ -34,9 +41,8 @@ Every function takes optional leading batch dimensions (the stacked
 shards of a ``LocalMesh``) in front of the shapes its docstring names.
 JAX sorts stably, so every sort here passes ``stable=True`` where the
 order of equal keys reaches an output; a JAX gather clamps an
-out-of-range index where torch raises, so indices that could leave their
-range are masked or clamped first.  The 2-D primitives wait for a later
-slice.
+out-of-range index where torch raises (or wraps a ``-1``), so indices
+that could leave their range are masked or clamped first.
 """
 
 from __future__ import annotations
@@ -127,6 +133,72 @@ def expand_dense(frontier: torch.Tensor, src_local: torch.Tensor,
     return cand.reshape(*lead, n, s)
 
 
+def expand_dense_2d(frontier_row: torch.Tensor, src_rowlocal: torch.Tensor,
+                    dst_fold: torch.Tensor, fold_len: int) -> torch.Tensor:
+    """2-D edge expansion into the *transposed* fold-phase layout.
+
+    frontier_row: (c*b, S) uint8 — the grid row's frontier segment (the
+    expand-phase gather).  src_rowlocal/dst_fold: (E,) int32 padded COO of
+    one cell; ``dst_fold`` indexes candidates as ``row_rank(owner(dst)) *
+    b + local_id(dst)`` (-1 = padding).  Returns (fold_len, S) uint8 with
+    ``fold_len = r*b``: the 1-D expansion with the row block as the shard
+    and the fold layout as the id space.
+    """
+    return expand_dense(frontier_row, src_rowlocal, dst_fold, fold_len)
+
+
+def _word_rows(src: torch.Tensor, m: int, words_per_block: int):
+    """The word and the int32 bit of each id of ``src`` in a blocked
+    ``pack_bits`` layout of ``m``-row blocks."""
+    blk = torch.div(src, m, rounding_mode="floor")
+    loc = src - blk * m
+    return blk * words_per_block + loc // 32, (loc % 32).to(torch.int32)
+
+
+def dense_2d_packed_edge_index(src_rowlocal: torch.Tensor,
+                               dst_fold: torch.Tensor, m: int, fold_len: int):
+    """Gather/scatter rows of the *valid* edges of ``(g, E)`` stacked cell
+    blocks for ``expand_dense_2d_packed``: ``(blk, col, bit, dst)`` as
+    ``bottom_up_edge_index`` returns them — each edge's cell, its
+    source's word in the cell's gathered row words (``m`` vertices a
+    block; a valid source lies in the row block, so no clamp) and bit
+    there, and its target's row in the ``(g * fold_len, S)`` stacked
+    candidates.  Padding edges (``dst_fold == -1``, source 0) are dropped
+    here, once."""
+    g = src_rowlocal.shape[0]
+    base = torch.arange(g, device=src_rowlocal.device,
+                        dtype=torch.int64)[:, None]
+    valid = dst_fold >= 0
+    blk = base.expand_as(valid)[valid]
+    col, bit = _word_rows(src_rowlocal.to(torch.int64)[valid], m,
+                          packed_words(m))
+    dst = (dst_fold.to(torch.int64) + base * fold_len)[valid]
+    return blk, col, bit, dst
+
+
+def expand_dense_2d_packed(frontier_words: torch.Tensor,
+                           src_rowlocal: torch.Tensor,
+                           dst_fold: torch.Tensor, fold_len: int,
+                           m: int) -> torch.Tensor:
+    """2-D top-down expansion straight from the *packed* row frontier.
+
+    ``frontier_words`` is the expand-phase gather kept packed: ``(c * W,
+    S)`` words, block ``k`` = row peer ``k``'s ``pack_bits`` output over
+    its ``m``-vertex chunk.  Each edge gathers one word and extracts its
+    source's bit, so the ``(c*b, S)`` row byte mask is never made.  Equal
+    to ``expand_dense_2d(unpack_bits(frontier_words, m, c), ...)``.
+    """
+    lead = frontier_words.shape[:-2]
+    g = math.prod(lead)
+    total_w, s = frontier_words.shape[-2:]
+    e = src_rowlocal.shape[-1]
+    rows = dense_2d_packed_edge_index(src_rowlocal.reshape(g, e),
+                                      dst_fold.reshape(g, e), m, fold_len)
+    cand = expand_bottom_up_edges(frontier_words.reshape(g, total_w, s),
+                                  rows, g * fold_len)
+    return cand.reshape(*lead, fold_len, s)
+
+
 def bottom_up_edge_index(in_src_global: torch.Tensor,
                          in_dst_local: torch.Tensor, shard: int, n_cols: int,
                          words_per_block: Optional[int] = None):
@@ -154,16 +226,14 @@ def bottom_up_edge_index(in_src_global: torch.Tensor,
     dst = (in_dst_local.to(torch.int64) + base * shard)[valid]
     bit = None
     if words_per_block is not None:
-        owner = src // shard
-        loc = src - owner * shard
-        src = owner * words_per_block + loc // 32
-        bit = (loc % 32).to(torch.int32)
+        src, bit = _word_rows(src, shard, words_per_block)
     return blk, src.clamp_(max=n_cols - 1), bit, dst
 
 
 def expand_bottom_up_edges(fglobal: torch.Tensor, rows,
                            n_rows: int) -> torch.Tensor:
-    """Bottom-up expansion over precomputed ``bottom_up_edge_index`` rows:
+    """Expansion over precomputed ``bottom_up_edge_index`` rows (or the
+    ``dense_2d_packed_edge_index`` rows of the 2-D packed expand):
     ``(g, n_cols, S)`` gathered frontier (uint8 bytes, or int32 words when
     the rows carry bits; a stride-0 view of one replicated array is fine)
     -> ``(n_rows, S)`` uint8 candidates, merged by scatter-max."""
@@ -271,6 +341,35 @@ def _pack_buckets(ids: torch.Tensor, owner: torch.Tensor, n_owners: int,
     return buckets, n_sent, overflow
 
 
+def _build_buckets(ids: torch.Tensor, active: torch.Tensor, n_owners: int,
+                   shard: int, me, cap: int, local_update: bool,
+                   dedupe: bool):
+    """Owner buckets of the active ``ids`` (owner ``id // shard``), with
+    the §5.1 local update for owner ``me`` and the dedupe sentinel
+    ``n_owners * shard``, the padded id-space size."""
+    lead = ids.shape[:-1]
+    dev = ids.device
+    me = torch.as_tensor(me, device=dev).to(torch.int64).reshape(*lead, 1)
+    dst = ids.to(torch.int64)
+    owner = torch.where(active, torch.div(dst, shard, rounding_mode="floor"),
+                        n_owners)
+    if dedupe:
+        owner = _dedupe_owner(dst, active, owner, n_owners * shard, n_owners)
+
+    local_mask = torch.zeros((*lead, shard), dtype=torch.uint8, device=dev)
+    if local_update:
+        mine = owner == me
+        lid = torch.where(mine, dst - me * shard, shard)
+        local_mask = torch.zeros((math.prod(lead), shard + 1),
+                                 dtype=torch.uint8, device=dev).scatter_reduce_(
+            -1, _rows(lid), _rows(mine).to(torch.uint8), "amax")
+        local_mask = local_mask[:, :shard].reshape(*lead, shard)
+        owner = torch.where(mine, n_owners, owner)
+
+    buckets, n_sent, overflow = _pack_buckets(ids, owner, n_owners, cap)
+    return buckets, local_mask, n_sent, overflow
+
+
 def build_queue_buckets(dst_global: torch.Tensor, active: torch.Tensor,
                         part: Partition1D, me, cap: int,
                         local_update: bool = True, dedupe: bool = True):
@@ -286,28 +385,73 @@ def build_queue_buckets(dst_global: torch.Tensor, active: torch.Tensor,
       overflow:  () bool — some bucket exceeded cap (the caller escalates
                  to the dense representation).
     """
-    p, shard = part.p, part.shard_size
-    lead = dst_global.shape[:-1]
-    dev = dst_global.device
-    me = torch.as_tensor(me, device=dev).to(torch.int64).reshape(*lead, 1)
-    dst = dst_global.to(torch.int64)
-    owner = torch.where(active, torch.div(dst, shard, rounding_mode="floor"),
-                        p)
-    if dedupe:
-        owner = _dedupe_owner(dst, active, owner, part.n, p)
+    return _build_buckets(dst_global, active, part.p, part.shard_size, me,
+                          cap, local_update, dedupe)
 
-    local_mask = torch.zeros((*lead, shard), dtype=torch.uint8, device=dev)
-    if local_update:
-        mine = owner == me
-        lid = torch.where(mine, dst - me * shard, shard)
-        local_mask = torch.zeros((math.prod(lead), shard + 1),
-                                 dtype=torch.uint8, device=dev).scatter_reduce_(
-            -1, _rows(lid), _rows(mine).to(torch.uint8), "amax")
-        local_mask = local_mask[:, :shard].reshape(*lead, shard)
-        owner = torch.where(mine, p, owner)
 
-    buckets, n_sent, overflow = _pack_buckets(dst_global, owner, p, cap)
-    return buckets, local_mask, n_sent, overflow
+def build_queue_buckets_2d(dst_fold: torch.Tensor, active: torch.Tensor,
+                           part2, me_row, cap: int,
+                           local_update: bool = True, dedupe: bool = True):
+    """2-D analog of ``build_queue_buckets`` in the fold layout.
+
+    Buckets active candidate targets by the *row rank* of their owner
+    (``dst_fold // b``): bucket ``rr`` travels down the cell's grid column
+    to the cell at row rank ``rr``, which owns the fold slice ``[rr*b,
+    (rr+1)*b)``.  The local update applies with the cell's own row rank
+    ``me_row``; the dedupe sentinel is the padded fold size ``r*b``.
+    Returns (buckets (r, cap) int32 fold ids -1 padded, local_mask (b,)
+    uint8, n_sent () int32, overflow () bool).
+    """
+    return _build_buckets(dst_fold, active, part2.r, part2.shard_size,
+                          me_row, cap, local_update, dedupe)
+
+
+def pack_frontier_ids(frontier: torch.Tensor, cap: int):
+    """Pack the active local frontier (single-source column) into a
+    fixed-capacity id buffer for the sparse expand phase.
+
+    frontier: (shard, 1) uint8.  Returns (ids (cap,) int32 ascending local
+    ids, -1 padded; count () int32; overflow () bool — more active
+    vertices than ``cap``, on which the caller escalates the level).  The
+    ids are JAX's sorted ones: each active vertex goes to its rank among
+    the active ones (one scan over the flattened mask).
+    """
+    lead = frontier.shape[:-2]
+    shard = frontier.shape[-2]
+    g = math.prod(lead)
+    act = (frontier[..., 0] > 0).reshape(g, shard)
+    rank = act.reshape(-1).cumsum(0).view(g, shard)
+    before = torch.cat([rank.new_zeros(1), rank[:-1, -1]])
+    pos = rank - before[:, None] - 1
+    slot = torch.where(act & (pos < cap), pos, cap)
+    lid = torch.arange(shard, device=frontier.device,
+                       dtype=torch.int32).expand(g, shard)
+    ids = torch.full((g, cap + 1), -1, dtype=torch.int32,
+                     device=frontier.device).scatter_(1, slot, lid)[:, :cap]
+    count = act.sum(-1, dtype=torch.int32).reshape(lead)
+    return ids.reshape(*lead, cap), count, count > cap
+
+
+def unpack_row_frontier(all_ids: torch.Tensor, c: int,
+                        shard: int) -> torch.Tensor:
+    """Rebuild a grid row's frontier bitmap from ``c`` gathered id buffers.
+
+    all_ids: (c*cap,) int32 — the row gather of every row peer's
+    ``pack_frontier_ids`` buffer, segment ``j`` holding local ids of the
+    chunk at grid column ``j``.  Returns (c*shard, 1) uint8, the row-block
+    layout ``expand_dense_2d`` reads.  Ids outside ``[0, shard)`` drop.
+    """
+    lead = all_ids.shape[:-1]
+    cap = all_ids.shape[-1] // c
+    g = math.prod(lead)
+    ids = all_ids.reshape(g, c, cap).to(torch.int64)
+    ok = (ids >= 0) & (ids < shard)
+    seg = torch.arange(c, device=all_ids.device)[:, None] * shard
+    pos = torch.where(ok, ids + seg, c * shard).reshape(g, c * cap)
+    frow = torch.zeros((g, c * shard + 1), dtype=torch.uint8,
+                       device=all_ids.device).scatter_(
+        1, pos, ok.reshape(g, c * cap).to(torch.uint8))
+    return frow[:, : c * shard].reshape(*lead, c * shard, 1)
 
 
 def apply_queue(recv: torch.Tensor, me, shard: int) -> torch.Tensor:

@@ -16,8 +16,10 @@ the row-major coordinate of ``k`` over ``shape``, as ``Mesh``'s devices
 do.  A collective over a tuple of axes spans the shards that differ only
 in those coordinates, linearized major-first in the order given (JAX's
 rule), so the hierarchical exchange can hop one axis at a time.
-Collectives across real cards (``torch.distributed``) wait for a
-multi-card slice.
+``LocalMesh.grid(r, c, device)`` is the ``(rows, cols)`` mesh of the 2-D
+partition: shard ``k`` sits at grid cell ``(k // c, k % c)`` and owns
+vertex chunk ``k``.  Collectives across real cards
+(``torch.distributed``) wait for a multi-card slice.
 """
 
 from __future__ import annotations
@@ -48,6 +50,14 @@ class LocalMesh:
     def flat(cls, p: int, device, name: str = "bfs_p") -> "LocalMesh":
         """A one-axis mesh of ``p`` shards."""
         return cls((p,), (name,), device)
+
+    @classmethod
+    def grid(cls, r: int, c: int, device,
+             names: tuple = ("rows", "cols")) -> "LocalMesh":
+        """An ``r x c`` mesh for the 2-D edge partition: the expand phase
+        gathers over ``names[1]`` (within a grid row), the fold phase
+        merges over ``names[0]`` (within a grid column)."""
+        return cls((r, c), names, device)
 
     @property
     def p(self) -> int:
@@ -123,6 +133,18 @@ class LocalMesh:
         y = y.reshape(g, o, g, length // g, *y.shape[3:]).sum(
             dim=0, dtype=x.dtype)                        # (O, G_dst, blk, ...)
         return self._from_groups(y.transpose(0, 1), axis)
+
+
+def default_grid(p: int) -> tuple:
+    """Most-square ``(r, c)`` factorization of ``p`` (``r <= c``).
+
+    The 2-D exchange cost scales with ``r + c``, which a square grid
+    minimizes; a prime ``p`` degenerates to ``(1, p)`` (no fold phase).
+    """
+    r = int(p ** 0.5)
+    while p % r:
+        r -= 1
+    return r, p // r
 
 
 def own_block(x: torch.Tensor, index: torch.Tensor, blk: int) -> torch.Tensor:

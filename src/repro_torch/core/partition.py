@@ -1,4 +1,4 @@
-"""1-D vertex-block partition (paper §2.1), the port of ``repro.core.partition``.
+"""Vertex-block partitions (paper §2.1), the port of ``repro.core.partition``.
 
 Every vertex of ``G(V, E)`` has exactly one *owner* shard, and only the
 owner decides visitation and assigns a BFS level (owner-computes rule,
@@ -7,8 +7,8 @@ owned by ``v // ceil(n/p)`` — so ``find_owner`` is one integer divide and
 a shard's slice of any vertex-indexed array is a plain static slice.
 
 The id maps are arithmetic only, so they work unchanged on python ints,
-numpy arrays and torch tensors.  The 2-D partition waits for the 2-D slice
-of the port.
+numpy arrays and torch tensors.  ``Partition2D`` keeps ``Partition1D``'s
+vertex chunks and assigns each edge to a cell of an ``r x c`` grid.
 """
 
 from __future__ import annotations
@@ -100,3 +100,81 @@ class Partition1D(_BlockVertexMixin):
     def n(self) -> int:
         """Padded global size (``p * shard_size``)."""
         return self.shard_size * self.p
+
+
+@dataclasses.dataclass(frozen=True)
+class Partition2D(_BlockVertexMixin):
+    """2-D block partition of the adjacency matrix over an ``r x c`` grid.
+
+    Vertices keep the same contiguous chunks as ``Partition1D(n, r*c)``
+    (chunk ``k`` on grid cell ``(k // c, k % c)``), so vertex-indexed
+    arrays shard identically under both schemes.  Edge ``(u, v)`` lives on
+    the cell at grid row ``grid_row(owner(u))`` and grid column
+    ``grid_col(owner(v))``.
+
+    The blocks of each level's two-phase exchange:
+
+      * row block ``i`` (expand phase) — the ``c`` contiguous chunks owned
+        by grid row ``i``: global ids ``[i*c*b, (i+1)*c*b)``, gathered
+        among the ``c`` cells of the row.
+      * fold layout (column phase) — a cell's candidates target the ``r``
+        chunks of its grid column ``j`` (chunks ``j, c+j, ...``), stored
+        transposed as ``fold_index(v) = row_rank(owner(v)) * b +
+        local_id(v)`` so the column all-to-all (``r`` participants)
+        delivers chunk-contiguous slices straight to their owners.
+    """
+
+    n_logical: int
+    r: int
+    c: int
+
+    def __post_init__(self):
+        if self.n_logical <= 0 or self.r <= 0 or self.c <= 0:
+            raise ValueError(
+                f"bad partition ({self.n_logical=}, {self.r=}, {self.c=})")
+
+    @property
+    def kind(self) -> str:
+        return "2d"
+
+    @property
+    def p(self) -> int:
+        return self.r * self.c
+
+    @property
+    def shard_size(self) -> int:
+        return -(-self.n_logical // self.p)  # ceil div
+
+    @property
+    def n(self) -> int:
+        return self.shard_size * self.p
+
+    # --- grid coordinate maps ---
+    def grid_row(self, shard):
+        return shard // self.c
+
+    def grid_col(self, shard):
+        return shard - (shard // self.c) * self.c
+
+    @property
+    def row_block_size(self) -> int:
+        """Vertices per grid row (the expand-phase frontier segment)."""
+        return self.c * self.shard_size
+
+    @property
+    def fold_size(self) -> int:
+        """Length of the transposed fold-phase candidate layout (r * b)."""
+        return self.r * self.shard_size
+
+    def row_start(self, grid_row: int) -> int:
+        return grid_row * self.row_block_size
+
+    def fold_index(self, v):
+        """Transposed candidate index: ``row_rank(owner(v)) * b + local``."""
+        own = self.owner(v)
+        return self.grid_row(own) * self.shard_size + self.local_id(v)
+
+    @property
+    def flat(self) -> Partition1D:
+        """The equivalent 1-D vertex partition (identical owner map)."""
+        return Partition1D(self.n_logical, self.p)

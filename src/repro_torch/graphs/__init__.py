@@ -1,6 +1,7 @@
-from repro_torch.graphs.formats import (ShardedGraph, block_sparse_adjacency,
-                                        csr_from_coo, from_jax_arrays,
-                                        shard_graph)
+from repro_torch.graphs.formats import (ShardedGraph, ShardedGraph2D,
+                                        block_sparse_adjacency, csr_from_coo,
+                                        from_jax_arrays, from_jax_arrays_2d,
+                                        shard_graph, shard_graph_2d, to_2d)
 from repro_torch.graphs.generators import (GENERATORS, batched_molecules,
                                            chain_graph, dedupe_edges,
                                            erdos_renyi, generate, rmat,

@@ -1,5 +1,5 @@
 """Partitioned, statically-shaped graph containers — the port of
-``repro.graphs.formats`` (1-D part).
+``repro.graphs.formats``.
 
 A ``ShardedGraph`` stores, for each of the ``p`` shards, a fixed-capacity
 COO edge block padded with sentinel edges (``dst == -1``).  Out-edges are
@@ -7,8 +7,9 @@ partitioned by ``owner(src)`` (the paper's 1-D partitioning: the owner of a
 vertex expands it) and, for the bottom-up pass of a later slice, in-edges
 by ``owner(dst)``.
 
-The host arrays are numpy and equal ``repro.graphs.shard_graph``'s output
-bitwise; ``from_jax_arrays`` carries a JAX-built container across so both
+The host arrays are numpy and equal ``repro.graphs.shard_graph``'s (and
+``shard_graph_2d``'s) output bitwise; ``from_jax_arrays`` (and
+``from_jax_arrays_2d``) carries a JAX-built container across so both
 engines traverse the identical graph, and ``to_device`` uploads the edge
 blocks as torch tensors.  The blocked adjacency (``bsr_shards`` in f32, and
 ``bsr_bit_shards`` at one bit an entry, the ``use_kernel`` engine's) is
@@ -24,7 +25,7 @@ import hashlib
 import numpy as np
 import torch
 
-from repro_torch.core.partition import Partition1D
+from repro_torch.core.partition import Partition1D, Partition2D
 
 _ALIGN = 128  # pad per-shard edge capacity to a lane-aligned multiple
 
@@ -304,6 +305,178 @@ def shard_graph(src: np.ndarray, dst: np.ndarray, n: int, p: int,
         in_src_global=in_s_glob, in_dst_local=in_d_loc,
         n_edges=int(src.size),
     )
+
+
+@dataclasses.dataclass
+class ShardedGraph2D:
+    """2-D edge-partitioned graph: one padded COO block per grid cell.
+
+    Block ``(i, j)`` (at linear index ``i*c + j``) holds every edge whose
+    source is owned by grid row ``i`` and whose target is owned by grid
+    column ``j``, pre-encoded for the two-phase level:
+
+      src_rowlocal: (p, e_cap) int32 — source id relative to the row block
+        (an index into the expand phase's ``(c*b, S)`` gathered frontier);
+        0 in padding slots.
+      dst_fold:     (p, e_cap) int32 — target in the transposed fold layout
+        ``row_rank(owner(dst)) * b + local_id(dst)``; -1 = padding.
+
+    The bottom-up level's in-edge blocks, bucketed by the owner of the
+    target, are built on first use and cached (``bottom_up_blocks``), so
+    dense and queue engines never pay for them:
+
+      in_src_global: (p, in_e_cap) int32 — global source id; -1 = padding.
+      in_dst_local:  (p, in_e_cap) int32 — target local id; -1 = padding.
+      out_degree:    (p, b) int32 — out-degree of every owned vertex.
+    """
+
+    part: Partition2D
+    src_rowlocal: np.ndarray
+    dst_fold: np.ndarray
+    n_edges: int
+
+    @property
+    def p(self) -> int:
+        return self.part.p
+
+    @property
+    def e_cap(self) -> int:
+        return self.src_rowlocal.shape[1]
+
+    def edge_list(self):
+        """Reconstruct the global COO edge list from the cell blocks
+        (cell-bucketed order, not the original insertion order)."""
+        part = self.part
+        b, c = part.shard_size, part.c
+        cell = np.arange(self.p, dtype=np.int64)[:, None]
+        valid = self.dst_fold >= 0
+        src = (self.src_rowlocal.astype(np.int64)
+               + (cell // c) * part.row_block_size)[valid]
+        vf = self.dst_fold.astype(np.int64)
+        # invert fold_index: owner = row_rank * c + grid_col(cell)
+        dst = (((vf // b) * c + cell % c) * b + vf % b)[valid]
+        return src, dst
+
+    def bottom_up_in_cap(self) -> int:
+        """Padded per-cell capacity of the bottom-up in-edge blocks (a
+        cached bincount; under degree skew it exceeds ``e_cap``)."""
+        cached = self.__dict__.get("_bottom_up_blocks")
+        if cached is not None:
+            return cached[0].shape[1]
+        cap = self.__dict__.get("_bottom_up_in_cap")
+        if cap is None:
+            src, dst = self.edge_list()
+            own_d = np.asarray(self.part.owner(dst))
+            max_in = (int(np.bincount(own_d, minlength=self.p).max())
+                      if src.size else 0)
+            cap = max(_pad_to(max(max_in, 1), _ALIGN), _ALIGN)
+            self.__dict__["_bottom_up_in_cap"] = cap
+        return cap
+
+    def bottom_up_blocks(self):
+        """(in_src_global, in_dst_local, out_degree), built and cached on
+        first use (only the ``auto`` engine's bottom-up level reads them)."""
+        cached = self.__dict__.get("_bottom_up_blocks")
+        if cached is None:
+            part = self.part
+            src, dst = self.edge_list()
+            own_d = np.asarray(part.owner(dst))
+            (in_s_glob, in_d_loc), _ = _bucket(
+                own_d, self.p, [src, np.asarray(part.local_id(dst))],
+                self.bottom_up_in_cap(), fills=(-1, -1))
+            out_degree = np.bincount(src, minlength=part.n).reshape(
+                self.p, part.shard_size).astype(np.int32)
+            cached = (in_s_glob, in_d_loc, out_degree)
+            self.__dict__["_bottom_up_blocks"] = cached
+        return cached
+
+    @property
+    def in_src_global(self) -> np.ndarray:
+        return self.bottom_up_blocks()[0]
+
+    @property
+    def in_dst_local(self) -> np.ndarray:
+        return self.bottom_up_blocks()[1]
+
+    @property
+    def out_degree(self) -> np.ndarray:
+        return self.bottom_up_blocks()[2]
+
+    @property
+    def in_e_cap(self) -> int:
+        return self.in_src_global.shape[1]
+
+    def fingerprint(self) -> tuple:
+        """Content identity (cached): a hash of the cell blocks."""
+        fp = self.__dict__.get("_fingerprint")
+        if fp is None:
+            fp = _content_fingerprint(
+                ("sharded_graph_2d", self.part.n_logical, self.part.r,
+                 self.part.c, self.e_cap, self.n_edges),
+                (self.src_rowlocal, self.dst_fold))
+            self.__dict__["_fingerprint"] = fp
+        return fp
+
+
+def shard_graph_2d(src: np.ndarray, dst: np.ndarray, n: int, r: int, c: int,
+                   e_cap: int | None = None) -> ShardedGraph2D:
+    """Partition a COO edge list over an ``r x c`` grid (2-D edge blocks).
+
+    Edge ``(u, v)`` goes to grid cell ``(grid_row(owner(u)),
+    grid_col(owner(v)))``; ``e_cap`` defaults to the max per-cell edge
+    count rounded up to 128, as in ``shard_graph``.
+    """
+    part = Partition2D(n, r, c)
+    src = np.asarray(src, dtype=np.int64)
+    dst = np.asarray(dst, dtype=np.int64)
+    if src.size and (src.max() >= n or dst.max() >= n
+                     or src.min() < 0 or dst.min() < 0):
+        raise ValueError(f"edge endpoints must lie in [0, {n})")
+
+    own_s = np.asarray(part.owner(src))
+    own_d = np.asarray(part.owner(dst))
+    gi = np.asarray(part.grid_row(own_s))   # source's grid row
+    gj = np.asarray(part.grid_col(own_d))   # target's grid column
+    cell = gi * c + gj
+    src_rowlocal = src - gi * part.row_block_size
+    dst_fold = np.asarray(part.fold_index(dst))
+
+    max_cell = int(np.bincount(cell, minlength=part.p).max()) if src.size else 0
+    cap = e_cap or max(_pad_to(max(max_cell, 1), _ALIGN), _ALIGN)
+    (s_row, d_fold), _ = _bucket(
+        cell, part.p, [src_rowlocal, dst_fold], cap, fills=(0, -1))
+    return ShardedGraph2D(part=part, src_rowlocal=s_row, dst_fold=d_fold,
+                          n_edges=int(src.size))
+
+
+def to_2d(graph: ShardedGraph, r: int, c: int) -> ShardedGraph2D:
+    """The 2-D edge blocks of a 1-D sharded graph, built once per grid
+    and cached on the graph (the same object for the same ``(r, c)``).
+    Requires ``r*c`` equal to the graph's shard count, so the vertex
+    chunks line up exactly."""
+    if r * c != graph.part.p:
+        raise ValueError(f"grid {r}x{c} does not match the graph's "
+                         f"p={graph.part.p} vertex chunks")
+    cache = graph.__dict__.setdefault("_graph2d", {})
+    g2 = cache.get((r, c))
+    if g2 is None:
+        src, dst = graph.edge_list()
+        g2 = cache[(r, c)] = shard_graph_2d(src, dst, graph.part.n_logical,
+                                            r, c)
+    return g2
+
+
+def from_jax_arrays_2d(graph) -> ShardedGraph2D:
+    """Carry a ``repro.graphs.ShardedGraph2D`` across to the port (the
+    twin of ``from_jax_arrays``): its numpy cell blocks, so both engines
+    traverse the identical grid.  The bottom-up blocks are rebuilt from
+    them on first use, by the same rule."""
+    part = graph.part
+    return ShardedGraph2D(
+        part=Partition2D(int(part.n_logical), int(part.r), int(part.c)),
+        src_rowlocal=np.asarray(graph.src_rowlocal, np.int32),
+        dst_fold=np.asarray(graph.dst_fold, np.int32),
+        n_edges=int(graph.n_edges))
 
 
 def csr_from_coo(src: np.ndarray, dst: np.ndarray, n: int):

@@ -281,6 +281,52 @@ def test_sparse_engines_on_the_card_equal_the_cpu(cuda, p, s, opts):
     validate_bfs(src, dst, roots, res.dist[:n, :s])
 
 
+@pytest.mark.parametrize("grid,s,opts", [
+    ((2, 2), 4, BFSOptions()),
+    ((2, 2), 4, BFSOptions(wire_format="bytes")),
+    ((4, 1), 4, BFSOptions()),
+    ((1, 4), 4, BFSOptions()),
+    ((2, 2), 1, BFSOptions(mode="queue")),
+    ((2, 2), 1, BFSOptions(mode="queue", queue_cap=4,
+                           wire_format="compressed", use_fused_tail=True)),
+    ((1, 4), 1, BFSOptions(mode="queue", wire_format="bytes", dedupe=False,
+                           fold_sparse_exchange="allgather_merge")),
+    ((2, 2), 1, BFSOptions(mode="auto")),
+    ((4, 1), 1, BFSOptions(mode="auto", queue_cap=4)),
+    ((2, 2), 4, BFSOptions(mode="auto"))])
+def test_grid_engines_on_the_card_equal_the_cpu(cuda, grid, s, opts):
+    """2-D engines on the card: dist bitwise and every run stat equal to
+    the same plan on the CPU (whose runs the CPU tests hold to the JAX
+    2-D engine), and A1 once a dense level under the fused tail."""
+    from repro_torch.core import LocalMesh
+
+    n = 1001
+    r, c = grid
+    src, dst = generate("rmat", n, seed=4)
+    roots = [0, 5, 77, 1000][:s]
+    g = shard_graph(src, dst, n, r * c)
+    pl = plan(g, opts, num_sources=s, mesh=LocalMesh.grid(r, c, cuda),
+              partition="2d")
+    a1 = fold_update.launches
+    res = pl.compile().run(roots)
+    assert res.dist.device.type == "cuda"
+    cpu = plan(g, opts, num_sources=s, mesh=LocalMesh.grid(r, c, "cpu"),
+               partition="2d").compile().run(roots)
+    np.testing.assert_array_equal(res.dist_host, cpu.dist_host)
+    st = res.run_stats.to_host()
+    assert st == cpu.run_stats.to_host()
+    dense = st["mode_counts"]["dense"] + (st["mode_counts"]["queue"]
+                                          if st["overflowed"] else 0)
+    launched = fold_update.launches - a1
+    if not pl.use_fused_tail:
+        assert launched == 0
+    elif not st["overflowed"]:
+        assert launched == dense
+    else:                  # escalated queue levels run the fused tail too
+        assert st["mode_counts"]["dense"] <= launched <= dense
+    validate_bfs(src, dst, roots, res.dist[:n, :s])
+
+
 def _attn_tolerance(dtype, v):
     """f32: the kernel's online softmax and FMA order against the plain
     version's materialized f32 scores: 2e-5, the JAX package's own

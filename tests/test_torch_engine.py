@@ -18,7 +18,8 @@ from repro.graphs import shard_graph as j_shard_graph
 from repro_torch.core import BFSOptions, LocalMesh, plan
 from repro_torch.core.engine import resolve_device
 from repro_torch.core.ref import bfs_reference, validate_bfs
-from repro_torch.graphs import from_jax_arrays, generate, shard_graph
+from repro_torch.graphs import (from_jax_arrays, generate, shard_graph,
+                                to_2d)
 
 # tiny shapes: one intra-op thread, so parallel test workers do not
 # oversubscribe the cores
@@ -212,8 +213,22 @@ def test_plan_rejects_what_this_slice_does_not_port():
         plan(g, BFSOptions(mode="queue"), num_sources=2, device="cpu")
     with pytest.raises(ValueError, match="1-D dense path"):
         plan(g, BFSOptions(use_kernel=True), partition="2d", device="cpu")
-    with pytest.raises(ValueError, match="item 8"):
-        plan(g, partition="2d", device="cpu")
+    # the 2-D partition plans since the grid slice; its grid validation
+    pl2 = plan(g, partition="2d", device="cpu")
+    assert pl2.describe()["grid"] == (1, 1)
+    np.testing.assert_array_equal(pl2.compile().run([0]).dist_host,
+                                  bfs_reference(src, dst, 128, [0]))
+    g4 = shard_graph(src, dst, 128, 4)
+    with pytest.raises(ValueError, match="2-axis mesh"):
+        plan(g4, partition="2d", device="cpu")
+    with pytest.raises(ValueError, match="does not multiply"):
+        plan(g4, mesh=LocalMesh.grid(2, 1, "cpu"), partition="2d")
+    with pytest.raises(ValueError, match="exactly two mesh axes"):
+        plan(g4, mesh=LocalMesh.flat(4, "cpu"), partition="2d")
+    with pytest.raises(ValueError, match="laid out for a 2x2 grid"):
+        plan(to_2d(g4, 2, 2), mesh=LocalMesh.grid(4, 1, "cpu"))
+    with pytest.raises(ValueError, match="needs a 1-D ShardedGraph"):
+        plan(to_2d(g4, 2, 2), mesh=LocalMesh.flat(4, "cpu"), partition="1d")
     with pytest.raises(ValueError, match="packed wire"):
         plan(g, BFSOptions(use_fused_tail=True, wire_format="bytes"),
              device="cpu")

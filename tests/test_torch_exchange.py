@@ -210,11 +210,26 @@ def test_dense_strategies_or_merge_owned_slices(strategy, shape, shard):
 
 
 def test_not_ported_strategies_raise_with_roadmap_item():
+    """The 2-D strategies this test once held to their placeholder now
+    route blocks to their owners on a 2 x 2 grid: the compressed sparse
+    expand gathers the grid row's payloads, the fold sends block ``rr``
+    of each column cell to row rank ``rr`` and max-merges there."""
+    mesh = LocalMesh((2, 2), ("rows", "cols"), "cpu")
+    pay = torch.arange(4 * 5, dtype=torch.uint8).reshape(4, 5)
     st = ex.get_exchange("expand_row_sparse", "allgather_compressed")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        st.impl(torch.zeros((1, 4), dtype=torch.int32), None, "p")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ex.get_exchange("fold_col", "alltoall_reduce").impl(None, None, "c")
+    got = st.impl(pay, mesh, "cols")
+    for k in range(4):
+        row = k // 2
+        assert torch.equal(got[k], pay[2 * row: 2 * row + 2].reshape(-1))
+    cand = torch.randint(0, 2, (4, 2 * 3, 2), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(0))
+    own = ex.get_exchange("fold_col", "alltoall_reduce").impl(cand, mesh,
+                                                              "rows")
+    for k in range(4):
+        rr, col = k // 2, k % 2
+        want = torch.maximum(cand[col, 3 * rr:3 * rr + 3],
+                             cand[2 + col, 3 * rr:3 * rr + 3])
+        assert torch.equal(own[k], want)
 
 
 @pytest.mark.parametrize("strategy", list(ex.QUEUE_STRATEGIES))
