@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (BFS on the 1-D and 2-D partitions in the
-dense, queue and auto modes, LM prefill, DeepFM serving and the
-EmbeddingBag op) on one card.
+dense, queue and auto modes, BFS serving over HTTP, LM prefill, DeepFM
+serving and the EmbeddingBag op) on one card.
 
     python3 chip_smoke.py            # full size, as the acceptance run
     python3 chip_smoke.py --profile  # also profile one run of each path
@@ -54,7 +54,33 @@ Phases (any failed check raises and the script exits non-zero):
    2-D auto rule is the 1-D rule on the same statistics).  Logs each
    cell's edges, ``e_cap`` and the host seconds of ``to_2d`` and of the
    bottom-up blocks.
-7. prefill — gemma3-12b at full width (d_model 3840, 16 q / 8 kv heads of
+7. path 6 — serving: path 1's ``rmat_1m`` and path 2's
+   ``small_world_100k`` behind ``BFSService`` and ``serve_http``, with one
+   ``GraphCatalog`` and one ``EngineCache``, ladder (1, 8, 64) on four
+   lanes: ``rmat`` (p = 4, default options: A1 on the fused tail),
+   ``rmat2d`` (the catalog's 2 x 2 view, path 5's cached ``to_2d``),
+   ``sw`` (``use_kernel``, packed wire: ``bsr_expand_bits`` and A1) and
+   ``rmat_alias`` (rmat's graph under a second name: its plans key equal,
+   so it compiles nothing).  Every rung is compiled through the cache and
+   run once at full S first: its ``estimated_device_bytes()`` must cover
+   the measured ``max_memory_allocated`` rise, and a lane's later rungs
+   hold the first rung's block uploads (memory grows by their working
+   buffers).  Then 8 client threads (stdlib ``urllib``, 60 s a call) send
+   48 ``POST /v1/traverse``, lanes in rotation, fan-outs drawn from
+   {1, 3, 8, 17, 64}, sources from the paths' 64 roots, a quarter with
+   parents: depths bitwise the paths' columns, parents by the JAX
+   client's rule, the cache's compiles equal the 9 distinct plan keys, A1
+   launched once a level of the 48 runs and ``bsr_expand_bits`` once a
+   level of the ``sw`` runs, no other kernel; a ``BFSService.step`` of
+   one request a lane against the lanes one at a time (the round's
+   overlap); ``/admin/shutdown`` drains and stops.  Then a second cache
+   with a byte budget between two and three ``rmat`` rung estimates:
+   serving S = 1, 8, 64 evicts S = 1, freeing at least its working
+   buffers, and S = 1 then recompiles bitwise.  Last, a ``FaultPlan``
+   failing ``cache.compile`` for ``rmat``'s S = 64 rung: a 40-source
+   request is served by the ``split:8`` arm, five runs of one engine,
+   bitwise, and ``/metrics`` shows the arm.
+8. prefill — gemma3-12b at full width (d_model 3840, 16 q / 8 kv heads of
    256, d_ff 15360, vocab 262144, bf16) through ``build_bundle(...,
    "prefill_32k")``, cut to 12 layers (two 5 local + 1 global groups) and
    batch 2 x seq 8192, with random weights from a seeded generator on the
@@ -63,7 +89,7 @@ Phases (any failed check raises and the script exits non-zero):
    and 3 bitwise equal; then the same prefill with the plain attention,
    held to a stated tolerance (the first layer's cache bitwise), which
    two planted faults (every local window one key off) must fail.
-8. recsys — DeepFM at its full configuration (39 fields x 1,000,000 rows
+9. recsys — DeepFM at its full configuration (39 fields x 1,000,000 rows
    x 10, a 1.56 GB f32 table, MLP 403-400-400-400-1), not cut, through
    ``build_bundle(get_arch("deepfm"), ...)`` for ``serve_p99``,
    ``serve_bulk`` and ``retrieval_cand``, with random weights from a
@@ -73,7 +99,7 @@ Phases (any failed check raises and the script exits non-zero):
    scores at a stated relative L2 limit.  Two planted faults must fail
    that hold: every field offset one row off, and (serve) TF32 products.  DeepFM looks its fields up
    with a row gather, as the JAX package does, so no kernel launches.
-9. embedding bag — the lookup op ``kernels.embedding_bag.ops.embedding_bag``
+10. embedding bag — the lookup op ``kernels.embedding_bag.ops.embedding_bag``
    (kernel A5) on (a) the ``serve_bulk`` batch's own flat ids as bags
    over DeepFM's table (the op's main path, three calls; also held to the
    serve path's ``emb.sum(1)``), (b) the same bags cut to seeded ragged
@@ -87,7 +113,7 @@ Phases (any failed check raises and the script exits non-zero):
    useful bytes and that of the 32-byte sectors the rows span; and on
    (a)'s ids over a (V, 8) f32 table (one sector a row) and over the
    table's first 100,000 rows (a 4 MB table, the plain-load route).
-10. kernels — each kernel against its plain torch version on the card at
+11. kernels — each kernel against its plain torch version on the card at
    the shapes of the paths (A4 also each (batch, head) slice, with the
    window one key off failing; ``bsr_expand_bits`` on path 2's densest
    level and on a random 5% frontier, and the f32 A2 + A3 chain of
@@ -107,6 +133,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
@@ -672,6 +699,469 @@ def path5_phase(kernels, g, src, roots, want, profile: bool) -> int:
     return a1_launches
 
 
+# ---------------------------------------------------------------------------
+# path 6: BFS serving over HTTP
+# ---------------------------------------------------------------------------
+
+LADDER = (1, 8, 64)
+FANOUTS = (1, 3, 8, 17, 64)
+N_REQUESTS, N_CLIENTS, CLIENT_TIMEOUT_S = 48, 8, 60.0
+
+
+def http_call(url: str, path: str, body=None) -> bytes:
+    """One stdlib HTTP call with the client timeout; returns the body."""
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(
+        url + path, data=data, method="GET" if body is None else "POST",
+        headers={"Content-Type": "application/json"} if data else {})
+    with urllib.request.urlopen(req, timeout=CLIENT_TIMEOUT_S) as rsp:
+        return rsp.read()
+
+
+def depth_rows(want: np.ndarray, roots) -> dict:
+    """Each root's row of depths as the server writes it inside a
+    response (``schema.json_int_rows``: fixed-width numbers), keyed by
+    root: a response's depths are checked by comparing bytes, not by
+    parsing a million ints a source."""
+    from repro_torch.serve.frontend.schema import json_int_rows
+
+    n = want.shape[0]
+    text = memoryview(json_int_rows(np.ascontiguousarray(want.T)))
+    width = len(text[1:]) // len(roots)
+    check(width * len(roots) + 1 == len(text) and width % n == 0,
+          "path 6: the depth rows are not fixed-width")
+    return {int(r): bytes(text[1 + i * width: (i + 1) * width])
+            for i, r in enumerate(roots)}
+
+
+def read_traverse(body: bytes, sources, rows: dict, n: int) -> dict:
+    """A ``/v1/traverse`` response whose depths must equal ``rows``'
+    (bytes, each row but its closing byte, then the closings); returns
+    its other fields (json), with the parents parsed by numpy."""
+    tag = b'"depths": '
+    start = body.index(tag) + len(tag)
+    width = len(rows[sources[0]]) + 1
+    end = start + 1 + len(sources) * width
+    view = memoryview(body)
+    check(view[start] == ord("[") and bytes(view[end - 2:end]) == b"]]"
+          and body.startswith(b', "stats": ', end),
+          "path 6: a response's depths are not the expected layout")
+    for q, s in enumerate(sources):
+        a = start + 1 + q * width
+        check(view[a:a + width - 1] == rows[s]
+              and view[a + width - 1] in b",]",
+              f"path 6: the depths of source {s} differ from the path's")
+    parents = None
+    tag = b', "parents": '
+    k = body.find(tag, end)
+    if k >= 0:
+        text = body[k + len(tag):-1]
+        parents = np.fromstring(text.translate(None, b"[]"), dtype=np.int64,
+                                sep=",")
+        check(parents.size == len(sources) * n,
+              f"path 6: {parents.size} parents for {len(sources)} x {n}")
+        tail = body[end:k] + b"}"
+    else:
+        tail = body[end:]
+    out = json.loads(body[:start] + b"null" + tail)
+    out["parents"] = (None if parents is None
+                      else parents.reshape(len(sources), n))
+    return out
+
+
+def check_parents(depths, parents, sources, unreached) -> None:
+    """The JAX client's rule (``bfs_client._verify_depths``): each root
+    is its own parent, an unreached vertex has -1, and every other
+    reached vertex's parent is one level up."""
+    for d, par, s in zip(depths, parents, sources):
+        reached = d < unreached
+        inner = reached & (d > 0)
+        ok = (par[s] == s and np.all(par[reached] >= 0)
+              and np.all(par[~reached] == -1)
+              and np.all(d[par[inner]] == d[inner] - 1))
+        check(bool(ok), f"path 6: the parents of source {s} break the rule")
+
+
+def run_clients(url, requests, want, roots):
+    """The requests from ``N_CLIENTS`` threads, each response checked:
+    depths by bytes against the paths' distances (each lane's smallest
+    response also parsed whole by json), parents by the JAX client's rule.
+    Returns ``(results, errors)``: a request's client seconds, stats and
+    bucket."""
+    lanes = list(want)
+    col = {name: {int(r): j for j, r in enumerate(roots[name])}
+           for name in lanes}
+    rows, by_array = {}, {}
+    for name in lanes:                  # rmat's rows serve its 3 lanes
+        if id(want[name]) not in by_array:
+            by_array[id(want[name])] = depth_rows(want[name], roots[name])
+        rows[name] = by_array[id(want[name])]
+    smallest = {name: min((i for i, q in enumerate(requests)
+                           if q[0] == name),
+                          key=lambda i: len(requests[i][1]))
+                for name in lanes}
+    results, errors = [None] * len(requests), []
+
+    def client(c):
+        for i in range(c, len(requests), N_CLIENTS):
+            name, srcs, parents = requests[i]
+            n = want[name].shape[0]
+            t0 = time.perf_counter()
+            try:
+                body = http_call(url, "/v1/traverse", {
+                    "graph": name, "sources": srcs,
+                    "include_parents": parents})
+                dt = time.perf_counter() - t0
+                out = read_traverse(body, srcs, rows[name], n)
+                cols = [col[name][s] for s in srcs]
+                if i == smallest[name]:
+                    whole = json.loads(body)
+                    check(np.array_equal(np.asarray(whole["depths"]),
+                                         want[name][:, cols].T),
+                          f"path 6: request {i}'s json depths differ")
+                if parents:
+                    check_parents(want[name][:, cols].T, out["parents"],
+                                  srcs, out["unreached"])
+                results[i] = (dt, out["stats"], out["bucket"])
+            except Exception as exc:          # reported by the caller
+                errors.append(f"request {i}: {type(exc).__name__}: {exc}")
+
+    return client, results, errors
+
+
+def client_process(conn, url, requests, want, roots) -> None:
+    """The body of path 6's client process: build the expected rows, say
+    "ready", wait for "go", send the 48 requests from ``N_CLIENTS``
+    threads, send back ``(results, errors)``."""
+    import threading
+
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        client, results, errors = run_clients(url, requests, want, roots)
+        conn.send("ready")
+        conn.recv()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(N_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        conn.send((results, errors))
+    except Exception as exc:
+        conn.send(([], [f"client process: {type(exc).__name__}: {exc}"]))
+
+
+def rung_memory(label, cache, plan_, roots, want):
+    """Compile one rung through ``cache`` and run it once at full S,
+    reading the device memory it takes: the ``max_memory_allocated``
+    rise over both, against ``estimated_device_bytes``, and what stays
+    allocated after."""
+    reset_peak()
+    m0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = cache.get_or_compile(plan_)
+    torch.cuda.synchronize()
+    compile_ms = (time.perf_counter() - t0) * 1e3
+    s = plan_.num_sources
+    res = eng.run(roots[:s])
+    check(np.array_equal(res.dist_host, want[:, :s]),
+          f"{label}: distances differ from the path's own")
+    del res
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - m0
+    kept = torch.cuda.memory_allocated() - m0
+    est = plan_.estimated_device_bytes()
+    terms = plan_.device_byte_terms()
+    t0 = time.perf_counter()
+    eng.run(roots[:s]).dist_host
+    run_ms = (time.perf_counter() - t0) * 1e3
+    log(f"{label}: compile {compile_ms:.1f} ms; a second run {run_ms:.3f} "
+        f"ms; device bytes: estimate {est} ({terms}), measured peak rise "
+        f"{rise} (estimate / measured {est / max(rise, 1):.3f}), kept {kept}")
+    check(est >= rise, f"{label}: estimated_device_bytes {est} is below the "
+                       f"measured rise {rise}")
+    return {"compile_ms": compile_ms, "run_ms": run_ms, "estimate": est,
+            "measured": rise, "kept": kept, "work": terms["work"]}
+
+
+def serving_phase(kernels, g1, want1, roots1, g2, want2, roots2, dev,
+                  card: str) -> dict:
+    """``BFSService`` behind ``serve_http`` (module docstring, phase 7):
+    four lanes, 48 requests from 8 client threads, the cache's counters,
+    the shared blocks, the memory estimate, a byte budget's eviction and
+    a split arm under an injected compile fault.  Returns A1's and
+    ``bsr_expand_bits``' launches in the traffic."""
+    import gc
+    import threading
+
+    from repro_torch.core import BFSOptions, LocalMesh
+    from repro_torch.core.frontier import INF
+    from repro_torch.graphs import device_block_cache, to_2d
+    from repro_torch.serve.bfs_service import BFSService, TraversalRequest
+    from repro_torch.serve.engine_cache import EngineCache, GraphCatalog
+    from repro_torch.serve.frontend import serve_http
+    from repro_torch.serve.resilience import faults
+    from repro_torch.serve.resilience.faults import FaultPlan, FaultSpec
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    catalog = GraphCatalog()
+    catalog.register("rmat", g1)
+    catalog.register("rmat_alias", g1)
+    catalog.register("sw", g2)
+    g1_2d = catalog.get_2d("rmat", 2, 2)
+    check(g1_2d is to_2d(g1, 2, 2) and "_graph2d" in g1.__dict__,
+          "path 6: the catalog's 2 x 2 view is not path 5's cached to_2d")
+    cache = EngineCache()
+    svc = BFSService(opts=BFSOptions(), batch_buckets=LADDER, cache=cache,
+                     catalog=catalog, device=dev)
+    svc.add_graph("rmat")
+    svc.add_graph("rmat2d", g1_2d, mesh=LocalMesh.grid(2, 2, dev))
+    svc.add_graph("sw", opts=BFSOptions(use_kernel=True,
+                                        wire_format="packed"))
+    svc.add_graph("rmat_alias")
+    lanes = svc.graph_names()
+    want = {"rmat": want1, "rmat2d": want1, "rmat_alias": want1,
+            "sw": want2}
+    roots = {"rmat": roots1, "rmat2d": roots1, "rmat_alias": roots1,
+             "sw": roots2}
+    keys = {name: [pl.plan_key() for pl in svc.lane(name).plans.values()]
+            for name in lanes}
+    check(keys["rmat_alias"] == keys["rmat"],
+          "path 6: rmat_alias's plans key apart from rmat's")
+    distinct = {k for ks in keys.values() for k in ks}
+    check(len(distinct) == 9, f"path 6: {len(distinct)} distinct plan keys")
+    for name in lanes:
+        d = svc.lane(name).plan.describe()
+        log(f"path 6 lane {name}: p={d['p']} partition={d['partition']} "
+            f"wires {d['wire_formats']} fused={d['use_fused_tail']} "
+            f"use_kernel={d['use_kernel']} ladder {svc.lane(name).ladder}")
+
+    # every rung compiled through the cache and run once at full S, with
+    # its device memory read; a graph's rungs share one upload a group
+    rungs = {}
+    for name in ("rmat", "rmat2d", "sw"):
+        lane = svc.lane(name)
+        owner = lane.plan.graph2d if name == "rmat2d" else lane.graph
+        blocks = device_block_cache(owner)
+        groups = None
+        for s in LADDER:
+            label = f"path 6 {name} S={s}"
+            rungs[label] = row = rung_memory(label, cache, lane.plans[s],
+                                             roots[name], want[name])
+            held = dict(blocks.map.items())
+            if groups is not None:
+                check(held == groups, f"{label}: the block map changed: "
+                      f"{sorted(k[2] for k in groups)} -> "
+                      f"{sorted(k[2] for k in held)}")
+                # dist and frontier: each block may round up to 2 MiB
+                check(row["kept"] <= 1.05 * row["work"] + 2 * 2**21,
+                      f"{label}: memory grew by {row['kept']} bytes, past "
+                      f"its working buffers {row['work']} plus 5% and "
+                      "the allocator's rounding")
+            groups = held
+        log(f"path 6 {name}: block groups {sorted(k[2] for k in groups)}, "
+            "one upload each across the rungs")
+    st = cache.stats()
+    check(st["misses"] == 9 and st["entries"] == 9,
+          f"path 6: {st['misses']} compiles for 9 plan keys")
+
+    # the traffic: 48 requests from 8 client threads over HTTP
+    spec = {"rmat": {"kind": "rmat", "n": g1.part.n_logical, "seed": SEED},
+            "sw": {"kind": "small_world", "n": g2.part.n_logical,
+                   "seed": SEED}}
+    httpd, fe = serve_http(svc, "127.0.0.1", 0, max_queue_depth=64,
+                           max_inflight_mb=65536.0, graph_specs=spec,
+                           log=lambda *a: None)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    rng = np.random.default_rng(SEED)
+    with_parents = set(rng.choice(N_REQUESTS, N_REQUESTS // 4,
+                                  replace=False).tolist())
+    requests = []
+    for i in range(N_REQUESTS):
+        name = lanes[i % len(lanes)]
+        k = int(rng.choice(FANOUTS))
+        srcs = rng.choice(roots[name], k, replace=False).tolist()
+        requests.append((name, srcs, i in with_parents))
+    # the clients run in a process of their own, so that their reading
+    # and checking of the responses does not hold the server's GIL
+    ctx = multiprocessing.get_context("spawn")
+    conn, child = ctx.Pipe()
+    proc = ctx.Process(target=client_process, daemon=True,
+                       args=(child, url, requests, want, roots))
+    proc.start()
+    def receive(what):
+        while not conn.poll(1.0):
+            check(proc.is_alive(), f"path 6: the client process died {what}")
+        return conn.recv()
+
+    try:
+        check(receive("starting") == "ready",
+              "path 6: the client process did not start")
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        conn.send("go")
+        results, errors = receive("sending")
+        wall = time.perf_counter() - t0
+    finally:
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join()
+    counts = {name: k.launches for name, k in kernels.items()}
+    check(not errors, f"path 6: {len(errors)} requests failed: {errors[:3]}")
+    levels = sum(r[1]["levels"] for r in results)
+    sw_levels = sum(r[1]["levels"] for r, q in zip(results, requests)
+                    if q[0] == "sw")
+    check(counts["fold_update"] == levels,
+          f"path 6: A1 launched {counts['fold_update']} times in "
+          f"{levels} levels of the 48 runs")
+    check(counts["bsr_expand_bits"] == sw_levels,
+          f"path 6: bsr_expand_bits launched {counts['bsr_expand_bits']} "
+          f"times in {sw_levels} levels of the sw runs")
+    check(not any(v for k, v in counts.items()
+                  if k not in ("fold_update", "bsr_expand_bits")),
+          f"path 6: a kernel off the path launched: {counts}")
+    metrics = json.loads(http_call(url, "/metrics"))
+    st = metrics["engine_cache"]
+    check(st["misses"] == 9 and st["evictions"] == 0,
+          f"path 6: the traffic compiled or evicted: {st}")
+    # the engines' own time for the 48 requests, each at its rung's
+    # solo run time: what the card was busy with at most
+    engine_s = sum(rungs[f"path 6 {'rmat' if q[0] == 'rmat_alias' else q[0]}"
+                         f" S={r[2]}"]["run_ms"] for r, q in
+                   zip(results, requests)) / 1e3
+    log(f"path 6: {card}; 48 requests from {N_CLIENTS} clients in "
+        f"{wall:.3f} s ({N_REQUESTS / wall:.3f} requests/s); the runs "
+        f"alone take {engine_s:.3f} s (card busy at most "
+        f"{engine_s / wall:.3f} of the traffic); launches {counts}; cache "
+        f"{st}")
+    per_lane = {}
+    for name in lanes:
+        m = metrics["lanes"][name]
+        dts = sorted(r[0] for r, q in zip(results, requests)
+                     if q[0] == name)
+        per_lane[name] = {
+            "requests": m["completed"], "buckets": m["buckets"],
+            "e2e_p50_ms": m["e2e"]["p50_ms"], "e2e_p99_ms": m["e2e"]["p99_ms"],
+            "queue_wait_s": m["queue_wait"]["sum_ms"] / 1e3,
+            "device_s": m["device"]["sum_ms"] / 1e3,
+            "client_p50_s": dts[len(dts) // 2], "client_max_s": dts[-1]}
+        log(f"path 6 lane {name}: {per_lane[name]}")
+
+    col = {name: {int(r): j for j, r in enumerate(roots[name])}
+           for name in lanes}
+    # the overlap of one round: a request a lane through BFSService.step
+    # against the same requests one lane at a time
+    alone = 0.0
+    for name in ("rmat", "rmat2d", "sw"):
+        t0 = time.perf_counter()
+        svc.traverse(name, [int(roots[name][0])])
+        alone += time.perf_counter() - t0
+    for i, name in enumerate(("rmat", "rmat2d", "sw")):
+        svc.submit(TraversalRequest(rid=i, source=int(roots[name][0]),
+                                    graph=name))
+    t0 = time.perf_counter()
+    done = svc.step()
+    step_s = time.perf_counter() - t0
+    check(len(done) == 3 and all(np.array_equal(
+        r.dist, want[r.graph][:, col[r.graph][r.source]]) for r in done),
+        "path 6: a step's results differ from the path's distances")
+    log(f"path 6: one step of a request a lane {step_s:.4f} s, the lanes "
+        f"one at a time {alone:.4f} s (overlap {1 - step_s / alone:.3f})")
+
+    http_call(url, "/admin/shutdown", {})
+    server.join(timeout=60.0)
+    check(not server.is_alive() and fe.draining,
+          "path 6: the server did not drain and stop")
+    httpd.server_close()
+
+    # a byte budget between two and three rmat rungs: the LRU rung goes
+    ests = [svc.lane("rmat").plans[s].estimated_device_bytes()
+            for s in LADDER]
+    budget = (sum(ests) + ests[1] + ests[2]) // 2
+    cache2 = EngineCache(max_device_bytes=budget)
+    svc2 = BFSService(opts=BFSOptions(), batch_buckets=LADDER, cache=cache2,
+                      catalog=catalog, device=dev)
+    svc2.add_graph("rmat")
+    for s in LADDER[:2]:
+        res, _ = svc2.traverse("rmat", roots1[:s])
+        check(np.array_equal(res.dist_host, want1[:, :s]),
+              f"path 6 budget: S={s} differs")
+        del res
+    torch.cuda.synchronize()
+    m_before = torch.cuda.memory_allocated()
+    res, _ = svc2.traverse("rmat", roots1[:S])
+    check(np.array_equal(res.dist_host, want1), "path 6 budget: S=64 differs")
+    del res
+    torch.cuda.synchronize()
+    m_after = torch.cuda.memory_allocated()
+    plans2 = svc2.lane("rmat").plans
+    work = {s: plans2[s].device_byte_terms()["work"] for s in LADDER}
+    freed = m_before + work[S] - m_after
+    st2 = cache2.stats()
+    check(st2["evictions"] == 1 and plans2[1] not in cache2
+          and plans2[8] in cache2 and plans2[64] in cache2,
+          f"path 6 budget: not the LRU rung evicted: {st2}")
+    check(freed >= work[1], f"path 6 budget: the eviction freed {freed} "
+                            f"bytes, below the rung's {work[1]}")
+    res, _ = svc2.traverse("rmat", roots1[:1])
+    check(np.array_equal(res.dist_host, want1[:, :1])
+          and cache2.stats()["misses"] == 4,
+          "path 6 budget: the evicted rung did not recompile bitwise")
+    del res
+    log(f"path 6 budget: {budget} bytes; the S=1 rung evicted for S=64, "
+        f"{freed} bytes freed (its work {work[1]}), recompiled bitwise; "
+        f"cache {cache2.stats()}")
+    del svc2, cache2
+
+    # a compile fault on rmat's S=64 rung: 40 sources on the split:8 arm,
+    # five runs of one engine, each read back before the next
+    svc3 = BFSService(opts=BFSOptions(), batch_buckets=LADDER,
+                      cache=EngineCache(), catalog=catalog, device=dev)
+    svc3.add_graph("rmat")
+    tag = faults.plan_tag(svc3.lane("rmat").plans[S])
+    httpd, fe = serve_http(svc3, "127.0.0.1", 0, max_inflight_mb=65536.0,
+                           log=lambda *a: None)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    srcs = roots1[:40].tolist()
+    reset_counts(kernels)
+    with faults.active(FaultPlan([FaultSpec(site="cache.compile",
+                                            match=tag)])):
+        out = read_traverse(http_call(url, "/v1/traverse",
+                                      {"graph": "rmat", "sources": srcs}),
+                            srcs, depth_rows(want1, roots1), want1.shape[0])
+    lane_m = json.loads(http_call(url, "/metrics"))["lanes"]["rmat"]
+    check(lane_m["degraded"] == {"split:8": 1} and out["bucket"] == 8,
+          f"path 6 degraded: /metrics shows {lane_m['degraded']}, bucket "
+          f"{out['bucket']}")
+    check(kernels["fold_update"].launches == out["stats"]["mode_counts"][
+        "dense"], "path 6 degraded: A1 not once a level of the five runs")
+    log(f"path 6 degraded: {tag!r} failing, 40 sources served on "
+        f"{lane_m['degraded']} (retries {lane_m['retries']}), bitwise path "
+        f"1's; cache {svc3.cache.stats()}")
+    http_call(url, "/admin/shutdown", {})
+    server.join(timeout=60.0)
+    check(not server.is_alive(), "path 6 degraded: the server did not stop")
+    httpd.server_close()
+    wall6 = time.perf_counter() - t_phase
+    log(f"path 6: wall {wall6:.1f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {"fold_update": counts["fold_update"],
+            "bsr_expand_bits": counts["bsr_expand_bits"], "rungs": rungs,
+            "lanes": per_lane, "requests_per_s": N_REQUESTS / wall,
+            "engine_s": engine_s,
+            "wall_s": wall6}
+
+
+
 def profile_run(name, run) -> None:
     """One more call of ``run`` under ``torch.profiler``: device time by
     op, and the share of the call's wall time the device was busy."""
@@ -771,7 +1261,7 @@ def shifted_windows(cfg, delta: int):
 
 def prefill_phase(kernels, dev, profile: bool) -> dict:
     """gemma3-12b prefill at full width, cut in depth and size (module
-    docstring, phase 4); returns A4's launches and what the kernel phase
+    docstring, phase 8); returns A4's launches and what the kernel phase
     needs of the run."""
     from repro_torch.configs import get_arch, get_shape
     from repro_torch.launch.steps import build_bundle
@@ -1076,7 +1566,7 @@ def hold_retrieval(cfg, params, batch, scores, twin: dict) -> dict:
 
 def recsys_phase(kernels, dev, profile: bool) -> dict:
     """DeepFM's serve and retrieval steps at the full configuration (module
-    docstring, phase 5); returns the table and the serve_bulk batch for the
+    docstring, phase 9); returns the table and the serve_bulk batch for the
     EmbeddingBag phase."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.steps import build_bundle
@@ -1195,7 +1685,7 @@ def sector_bytes(idx: torch.Tensor, table: torch.Tensor) -> int:
 
 def bag_phase(rec: dict, kernels, dev) -> dict:
     """Kernel A5 through the lookup op on DeepFM's table (module docstring,
-    phase 7); returns A5's row of the kernels line."""
+    phase 10); returns A5's row of the kernels line."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.embedding_bag import ops as bag_ops
@@ -1554,10 +2044,18 @@ def main(argv=None) -> int:
     # --------------------------------------------------------------- path 5
     a1_path5 = path5_phase(kernels, g1_p4, src1, roots1,
                            path1["p4_default"][0], args.profile)
-    del g1_p4
     log("path 5: the 2 x 2 grid in dense (S = 64), auto (S = 64 and 1) and "
         "queue (S = 1): distances == path 1, auto mode_counts == the numpy "
         "replay, A1 once a dense level: ok")
+
+    # --------------------------------------------------------------- path 6
+    path6 = serving_phase(kernels, g1_p4, path1["p4_default"][0], roots1,
+                          g2, host2, roots2, dev, card)
+    del g1_p4
+    log("path 6: 48 HTTP requests on four lanes bitwise the paths' "
+        "distances, parents valid, 9 compiles for 9 plan keys, one block "
+        "upload a group, estimates above the measured peaks, the LRU rung "
+        "evicted and freed, the split:8 arm bitwise: ok")
 
     # -------------------------------------------------------------- prefill
     lay = prefill_phase(kernels, dev, args.profile)
@@ -1600,6 +2098,7 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/fold_update.py:57",
         "launches": path1["p4_default"][1]["fold_update"],
         "launches_path5": a1_path5,
+        "launches_path6": path6["fold_update"],
         "max_abs_err": err1,
         "ms": timed_ms(lambda: fold_update(words, dist, 7), 50),
         "plain_ms": timed_ms(lambda: fold_update_plain(words, dist, 7),
@@ -1648,7 +2147,8 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/bfs_kernels.cu",
         "replaces": "src/repro/kernels/bsr_spmm/kernel.py:38",
         "fuses": "src/repro/kernels/bsr_spmm/kernel.py:100",
-        "launches": counts2["bsr_expand_bits"], "max_abs_err": errx,
+        "launches": counts2["bsr_expand_bits"],
+        "launches_path6": path6["bsr_expand_bits"], "max_abs_err": errx,
         "ms": x_ms, "plain_ms": x_plain_ms, "bound_ms": xb["bound_ms"],
         "bound_by": xb["bound_by"], "library_ms": None,
         "bound_all_tiles_ms": xb["bound_all_tiles_ms"],

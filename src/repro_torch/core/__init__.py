@@ -11,7 +11,9 @@ p shards on one device (an ``r x c`` ``LocalMesh.grid`` under
 from repro_torch.core.bfs import (BFSOptions, BFSStats, INF,
                                   validate_sources)
 from repro_torch.core.engine import (BFSEngine, BFSPlan, BFSResult,
-                                     BFSRunStats, plan, resolve_device)
+                                     BFSRunStats, normalize_ladder,
+                                     pick_bucket, plan, plan_ladder,
+                                     resolve_device)
 from repro_torch.core.exchange import (DENSE_STRATEGIES,
                                        EXPAND_ROW_STRATEGIES,
                                        EXPAND_ROW_SPARSE_STRATEGIES,
@@ -27,7 +29,7 @@ from repro_torch.core.partition import Partition1D, Partition2D
 __all__ = [
     "BFSOptions", "BFSStats", "INF", "validate_sources",
     "BFSEngine", "BFSPlan", "BFSResult", "BFSRunStats", "plan",
-    "resolve_device", "LocalMesh", "default_grid", "Partition1D",
+    "plan_ladder", "normalize_ladder", "pick_bucket", "resolve_device", "LocalMesh", "default_grid", "Partition1D",
     "Partition2D",
     "exchange_dense", "ExchangeStrategy", "register_exchange",
     "unregister_exchange", "get_exchange", "select_exchange",

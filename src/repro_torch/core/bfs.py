@@ -288,11 +288,46 @@ def _level_runner(part, s: int, mode: str, e_total: int, opts: BFSOptions,
     return run
 
 
-def _valid_words(part, dev) -> torch.Tensor:
+def valid_words(part, dev) -> torch.Tensor:
     """(p, W, 1) packed mask of the real (non-padding) vertices."""
     valid = (torch.arange(part.n, device=dev).view(part.p, part.shard_size)
              < part.n_logical)
     return fr.pack_bits(valid[..., None].to(torch.uint8))
+
+
+def out_edge_state(src_local: torch.Tensor, dst_global: torch.Tensor,
+                   shard: int) -> tuple:
+    """What queue levels and the ``auto`` statistics read of the 1-D
+    out-edge blocks: ``(src_idx, dst_global, out_valid, out_deg)`` — the
+    int64 source rows (padding at 0), the targets, the validity mask and
+    each local vertex's valid out-edges (the auto rule's ``f_edges`` is
+    the frontier's column 0 weighted by them)."""
+    out_valid = dst_global >= 0
+    src_idx = torch.where(out_valid, src_local.long(), 0)
+    out_deg = torch.zeros((src_local.shape[0], shard), dtype=torch.int64,
+                          device=src_local.device).scatter_add_(
+        1, src_idx, out_valid.long())
+    return src_idx, dst_global, out_valid, out_deg
+
+
+def out_edge_state_2d(src_rowlocal: torch.Tensor, dst_fold: torch.Tensor,
+                      part2: Partition2D) -> tuple:
+    """The 2-D twin of ``out_edge_state``: ``(src_idx, dst_fold,
+    out_valid, out_deg_col)``, where ``out_deg_col`` ``(p, b, c)`` counts
+    each owned vertex's out-edges into each grid column, from the cell
+    blocks (cell (i, j)'s sources are row block i's): a cell's active
+    edges are its row's frontier weighted by its column's."""
+    p, b, c = part2.p, part2.shard_size, part2.c
+    dev = src_rowlocal.device
+    out_valid = dst_fold >= 0
+    src_idx = torch.where(out_valid, src_rowlocal.long(), 0)
+    cell = torch.arange(p, device=dev)[:, None]
+    src_col = (src_idx + (cell // c) * c * b) * c + cell % c
+    out_deg_col = torch.zeros(p * b * c, dtype=torch.int64,
+                              device=dev).index_add_(
+        0, src_col[out_valid], torch.ones_like(src_col[out_valid])
+    ).view(p, b, c)
+    return src_idx, dst_fold, out_valid, out_deg_col
 
 
 def make_level_loop(part: Partition1D, s: int, e_total: int,
@@ -303,7 +338,7 @@ def make_level_loop(part: Partition1D, s: int, e_total: int,
                     expand_fn: Optional[Callable] = None,
                     expand_emits_packed: bool = False,
                     bottom_up_wire: str = "bytes", sieve: bool = False,
-                    fused: bool = False) -> Callable:
+                    fused: bool = False, vwords=None) -> Callable:
     """Build the 1-D level loop of one engine over stacked shards.
 
     Returns ``run(dist, frontier, max_levels)``, which runs levels on the
@@ -319,13 +354,14 @@ def make_level_loop(part: Partition1D, s: int, e_total: int,
     blocks (the default scatter-max expansion); ``expand_fn(frontier,
     words)`` replaces that expansion (the ``use_kernel`` bit-tile path)
     and, with ``expand_emits_packed``, hands the packed exchange its words
-    directly.  ``out_edges`` — the ``(p, e_cap)`` ``src_local`` and
-    ``dst_global`` blocks — feed queue levels and the ``auto`` statistics;
-    ``in_rows`` are ``frontier.bottom_up_edge_index`` rows for the
-    resolved ``bottom_up_wire`` (``auto`` only).  ``fused`` (needs a
-    packed dense wire) replaces the dense unpack -> update tail with
-    kernel A1 and carries the packed frontier generation between levels,
-    which the packed bottom-up gather reads.
+    directly.  ``out_edges`` — ``out_edge_state`` of the ``(p, e_cap)``
+    ``src_local`` and ``dst_global`` blocks — feed queue levels and the
+    ``auto`` statistics; ``in_rows`` are ``frontier.bottom_up_edge_index``
+    rows for the resolved ``bottom_up_wire`` (``auto`` only).  ``fused``
+    (needs a packed dense wire) replaces the dense unpack -> update tail
+    with kernel A1 and carries the packed frontier generation between
+    levels, which the packed bottom-up gather reads.  ``vwords`` is
+    ``valid_words(part, device)``, made here when not given.
     """
     p, shard, n = part.p, part.shard_size, part.n
     cap = opts.queue_cap
@@ -349,14 +385,7 @@ def make_level_loop(part: Partition1D, s: int, e_total: int,
     base = torch.arange(p, device=dev, dtype=torch.int32)[:, None] * shard
     frontier_stats = None
     if out_edges is not None:
-        src_local, dst_global = out_edges
-        out_valid = dst_global >= 0
-        src_idx = torch.where(out_valid, src_local.long(), 0)
-        # valid out-edges of each local vertex: the auto rule's f_edges is
-        # the frontier's column 0 weighted by them
-        out_deg = torch.zeros((p, shard), dtype=torch.int64,
-                              device=dev).scatter_add_(1, src_idx,
-                                                       out_valid.long())
+        src_idx, dst_global, out_valid, out_deg = out_edges
 
         def frontier_stats(frontier):
             """One host read: the frontier's pairs over every column and
@@ -436,7 +465,8 @@ def make_level_loop(part: Partition1D, s: int, e_total: int,
                                           fused)
     return _level_runner(part, s, opts.mode, e_total, opts, dense_level,
                          queue_level, bottom_up_level, frontier_stats, fused,
-                         _valid_words(part, dev))
+                         vwords if vwords is not None
+                         else valid_words(part, dev))
 
 
 def make_level_loop_2d(part2: Partition2D, s: int, e_total: int,
@@ -447,7 +477,7 @@ def make_level_loop_2d(part2: Partition2D, s: int, e_total: int,
                        fold_sparse_strategy: ex.ExchangeStrategy, edge_rows,
                        out_edges=None, in_rows=None,
                        bottom_up_wire: str = "bytes", sieve: bool = False,
-                       fused: bool = False) -> Callable:
+                       fused: bool = False, vwords=None) -> Callable:
     """Build the 2-D level loop (the port of ``_make_shard_fn_2d``) over
     the stacked cells of an ``r x c`` grid mesh; returns ``run`` as
     ``make_level_loop`` does.
@@ -472,8 +502,9 @@ def make_level_loop_2d(part2: Partition2D, s: int, e_total: int,
     frontier-pack, bucket or codec overflow runs the level densely, at the
     dense bytes plus the sparse expand and sieve bytes already spent.  A
     bottom-up level gathers the frontier over both axes.  ``out_edges``
-    — the ``(p, e_cap)`` ``src_rowlocal`` and ``dst_fold`` blocks — feed
-    queue levels and the statistics; ``in_rows`` the bottom-up level.
+    — ``out_edge_state_2d`` of the ``(p, e_cap)`` ``src_rowlocal`` and
+    ``dst_fold`` blocks — feed queue levels and the statistics;
+    ``in_rows`` the bottom-up level.
     """
     r, c, b, p = part2.r, part2.c, part2.shard_size, part2.p
     n, fold_len, cap = part2.n, part2.fold_size, opts.queue_cap
@@ -502,18 +533,7 @@ def make_level_loop_2d(part2: Partition2D, s: int, e_total: int,
     me_col = mesh.axis_index(col_axis)
     frontier_stats = None
     if out_edges is not None:
-        src_rowlocal, dst_fold = out_edges
-        out_valid = dst_fold >= 0
-        src_idx = torch.where(out_valid, src_rowlocal.long(), 0)
-        # out-edges of each owned vertex into each grid column, from the
-        # cell blocks (cell (i, j)'s sources are row block i's): a cell's
-        # active edges are its row's frontier weighted by its column's
-        cell = torch.arange(p, device=dev)[:, None]
-        src_col = (src_idx + (cell // c) * c * b) * c + cell % c
-        out_deg_col = torch.zeros(p * b * c, dtype=torch.int64,
-                                  device=dev).index_add_(
-            0, src_col[out_valid], torch.ones_like(src_col[out_valid])
-        ).view(p, b, c)
+        src_idx, dst_fold, out_valid, out_deg_col = out_edges
         rr_base = torch.arange(r, device=dev, dtype=torch.int32)[:, None] * b
 
         def frontier_stats(frontier):
@@ -627,4 +647,5 @@ def make_level_loop_2d(part2: Partition2D, s: int, e_total: int,
                                           fused)
     return _level_runner(part2, s, opts.mode, e_total, opts, dense_level,
                          queue_level, bottom_up_level, frontier_stats, fused,
-                         _valid_words(part2, dev))
+                         vwords if vwords is not None
+                         else valid_words(part2, dev))

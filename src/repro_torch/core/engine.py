@@ -19,25 +19,37 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``; on a
 machine without CUDA, ``plan()`` without a device raises rather than
 carrying on on the CPU.  ``partition="2d"`` (inferred from a
 ``ShardedGraph2D``) runs the 2-D edge partition over an ``r x c``
-``LocalMesh`` (``LocalMesh.grid``).  ``plan_key`` /
-``estimated_device_bytes`` and the serving fault seams (ROADMAP Queue A
-item 9) and the H100 roofline in ``describe()`` (item 11) come with later
-slices.
+``LocalMesh`` (``LocalMesh.grid``).
+
+The serving surface: ``BFSPlan.plan_key()`` (what the ``EngineCache``
+keys on), ``estimated_device_bytes()`` (what it charges), the bucket
+ladder helpers ``normalize_ladder`` / ``pick_bucket`` / ``plan_ladder``,
+the fault seams ``engine.compile`` and ``engine.dispatch``, and one
+upload of each block group per graph and mesh, shared by every engine
+that needs it.  The H100 roofline in ``describe()`` comes with a later
+slice.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
+import weakref
 from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core import bfs
 from repro_torch.core import exchange as ex
 from repro_torch.core import frontier as fr
 from repro_torch.core.bfs import (BFSOptions, BFSStats, INF, make_level_loop,
                                   make_level_loop_2d, validate_sources)
 from repro_torch.core.mesh import LocalMesh
+# chaos layer: a no-op global read unless a FaultPlan is installed (a
+# stdlib-only module; degrade.py defers its engine import, so no cycle)
+from repro_torch.serve.resilience import faults as _faults
 
 if TYPE_CHECKING:   # graphs.formats imports core.partition, which runs core
     from repro_torch.graphs.formats import ShardedGraph, ShardedGraph2D
@@ -118,14 +130,18 @@ class BFSResult:
         """Host copy of the distances sliced to the logical vertices and
         the requested sources (made once and cached)."""
         if not hasattr(self, "_dist_host"):
-            if (self._engine is not None
-                    and self._engine._generation != self._generation):
-                raise RuntimeError("this result's dist buffer was reused by "
-                                   "a later run of its engine; read "
-                                   "dist_host before running again")
-            # a copy even on the CPU, where .cpu() would alias the buffer
-            self._dist_host = self.dist[: self.n_logical, : self.n_sources].to(
-                "cpu", copy=True).numpy()
+            lock = (self._engine._lock if self._engine is not None
+                    else contextlib.nullcontext())
+            with lock:       # no run of the engine overlaps the copy
+                if (self._engine is not None
+                        and self._engine._generation != self._generation):
+                    raise RuntimeError("this result's dist buffer was reused "
+                                       "by a later run of its engine; read "
+                                       "dist_host before running again")
+                # a copy even on the CPU, where .cpu() would alias the buffer
+                self._dist_host = self.dist[
+                    : self.n_logical, : self.n_sources].to(
+                    "cpu", copy=True).numpy()
         return self._dist_host
 
     def stats(self) -> BFSStats:
@@ -256,6 +272,128 @@ class BFSPlan:
                 part.n, part.p, s, 1, wire=self.bottom_up_wire),
         })
         return meta
+
+    def plan_key(self) -> tuple:
+        """Canonical hashable fingerprint of everything a compile depends
+        on: graph content, options, mesh, partition scheme, source
+        capacity and the *resolved* exchange strategies (the JAX plan's
+        key).  Two plans with equal keys build identical engines, so the
+        ``EngineCache`` (serve/engine_cache.py) hands out one engine for
+        both.  Strategies enter by resolved name, so ``"auto"`` and the
+        strategy it resolved to key the same; the graph enters by content
+        hash, so two block-identical graphs share engines.  The mesh
+        enters by axis names, shape and ``torch.device``: a CPU plan and
+        a card plan never share an engine.
+        """
+        mesh_key = (self.mesh.axis_names, self.mesh.shape, self.mesh.device)
+        o = self.opts
+        opt_key = (o.mode, o.local_update, o.dedupe, o.queue_cap,
+                   o.queue_threshold, o.bottom_up_threshold, o.use_kernel,
+                   # the bottom-up gather and the sieve have no registry
+                   # strategy, so their resolutions key here, as does the
+                   # resolved fused tail
+                   self.bottom_up_wire, self.sieve, self.use_fused_tail)
+        strat_key = tuple(
+            st.name if st is not None else None
+            for st in (self.dense_strategy, self.queue_strategy,
+                       self.expand_strategy, self.fold_strategy,
+                       self.expand_sparse_strategy, self.fold_sparse_strategy))
+        graph_fp = (self.graph2d.fingerprint() if self.partition == "2d"
+                    else self.graph.fingerprint())
+        axis_key = (tuple(self.axis) if isinstance(self.axis, tuple)
+                    else self.axis)
+        return ("bfs_plan", graph_fp, self.partition, mesh_key, axis_key,
+                opt_key, strat_key, self.num_sources, self.max_levels)
+
+    def device_byte_terms(self) -> dict:
+        """The three parts of ``estimated_device_bytes``, in bytes:
+
+          * ``resident`` — what a compiled engine holds for its lifetime
+            and shares with every engine of the graph on the same mesh
+            (``DeviceBlockCache``): the int64 rows of the valid edges
+            (``dense_edge_index``, 16 bytes an edge; a fused packed 2-D
+            expand's ``dense_2d_packed_edge_index``, 28), or under
+            ``use_kernel`` the one-bit tiles (2 KiB a tile) with their
+            column masks, block rows, columns and row pointer; in queue
+            and ``auto`` the out-edge state of the padded blocks
+            (``out_edge_state``: int64 sources, int32 targets and the
+            mask, 13 bytes a slot, and int64 out-degrees); in ``auto``
+            the bottom-up rows (``bottom_up_edge_index``: 24 bytes an
+            edge, 28 with the packed wire's bit); the validity words and
+            the shards' mesh indices.
+          * ``work`` — the ``(n, S)`` int32 dist and uint8 frontier, one
+            generation, reused in place by every run.
+          * ``transient`` — the most one step allocates on top: a level
+            (below) or the build of a block group (int64 index
+            temporaries over the padded blocks, under 64 bytes a slot).
+
+        The level transients: the plain dense expansion gathers an
+        ``(E, S)`` uint8 array and scatters into ``(p, n, S)`` candidates,
+        which ``pack_bits`` turns into words through a bool, a padded
+        bool and two int32 copies (10 bytes a candidate all told); a
+        packed 2-D or bottom-up expansion gathers ``(E, S)`` int32 words
+        and a uint8 copy (5 bytes an edge a column); a queue level's
+        packing, sort and bucket temporaries over the padded blocks stay
+        under 96 bytes a slot, and it may escalate to a dense level;
+        besides, every level holds the previous and the new frontier and
+        the packed generations (``4 n S``).
+        """
+        s = self.num_sources
+        opts = self.opts
+        mode = opts.mode
+        if self.partition == "2d":
+            g = self.graph2d
+            part = g.part
+            n, p, b = part.n, part.p, part.shard_size
+            r, c = part.r, part.c
+            slots = p * g.e_cap
+            slots_in = p * g.bottom_up_in_cap() if mode == "auto" else 0
+            packed_rows = (self.use_fused_tail
+                           and self.expand_strategy.wire == "packed")
+            resident = g.n_edges * (28 if packed_rows else 16)
+            if mode != "dense":
+                resident += 13 * slots + 8 * p * b * c
+            dense_t = 5 * g.n_edges * s + 10 * (r + c) * n * s
+        else:
+            g = self.graph
+            part = g.part
+            n, p = part.n, part.p
+            slots = p * g.e_cap
+            slots_in = p * g.in_e_cap if mode == "auto" else 0
+            if opts.use_kernel:
+                kmax, blk = g.bsr_shard_caps()
+                resident = (p * kmax * (blk * blk // 8 + blk // 8 + 8)
+                            + 4 * (p * (-(-n // blk)) + 1))
+                dense_t = 10 * p * n * s
+            else:
+                resident = 16 * g.n_edges
+                dense_t = g.n_edges * s + 10 * p * n * s
+            if mode != "dense":
+                resident += 13 * slots + 8 * n
+        e_in = g.n_edges if mode == "auto" else 0
+        resident += e_in * (28 if self.bottom_up_wire == "packed" else 24)
+        # the validity words, and each shard's indices along the mesh
+        resident += 4 * fr.packed_words(part.shard_size) * p + 32 * p
+        levels = [dense_t]
+        if mode != "dense":
+            levels.append(96 * slots + 10 * p * n + dense_t)
+        if mode == "auto":
+            levels.append(5 * e_in * s + p * n * s + 10 * n * s)
+        build = 64 * max(slots, slots_in)
+        if opts.use_kernel:
+            build += 64 * g.n_edges
+        return {"resident": int(resident), "work": 5 * n * s,
+                "transient": int(max(max(levels) + 4 * n * s, build))}
+
+    def estimated_device_bytes(self) -> int:
+        """Upper bound on the device memory a compiled engine of this plan
+        takes over its compile and a run: ``resident + work + transient``
+        of ``device_byte_terms``.  It is what the serving ``EngineCache``
+        charges against its budget, priced from the static shapes before
+        compiling.  It counts each engine's shared blocks in full, the
+        safe direction for an eviction budget.
+        """
+        return sum(self.device_byte_terms().values())
 
     def compile(self) -> "BFSEngine":
         return BFSEngine(self)
@@ -472,9 +610,74 @@ def plan(graph: ShardedGraph, opts: BFSOptions = BFSOptions(), *,
     )
 
 
+def normalize_ladder(ladder) -> tuple:
+    """Canonicalize a batch-size bucket ladder: ints, deduped, ascending.
+
+    The serving front end compiles one engine per rung and routes every
+    request to the smallest rung that fits, so a malformed ladder must
+    fail at configuration time, not on the first mid-sized request.
+    """
+    rungs = tuple(sorted({int(s) for s in ladder}))
+    if not rungs:
+        raise ValueError("bucket ladder must name at least one batch size")
+    if rungs[0] < 1:
+        raise ValueError(f"bucket ladder sizes must be >= 1 ({list(ladder)})")
+    return rungs
+
+
+def pick_bucket(n_sources: int, ladder) -> int:
+    """Smallest ladder rung that fits ``n_sources`` (bucket routing).
+
+    The engine leaves unused source columns empty (``run_async`` accepts
+    1..S sources), so routing to a larger rung costs only the padded
+    columns' device work, never a recompile.
+    """
+    n = int(n_sources)
+    if n < 1:
+        raise ValueError(f"n_sources must be >= 1 ({n_sources})")
+    for s in normalize_ladder(ladder):
+        if n <= s:
+            return s
+    raise ValueError(
+        f"{n} sources exceed the largest bucket {max(ladder)} of ladder "
+        f"{sorted(set(int(s) for s in ladder))}; add a larger rung or "
+        "split the request")
+
+
+def plan_ladder(graph, opts: BFSOptions = BFSOptions(), *,
+                mesh: Optional[LocalMesh] = None, axis=None,
+                ladder=(1, 8, 64), partition: Optional[str] = None,
+                device=None) -> dict:
+    """Plan one engine per batch-size bucket: ``{S: BFSPlan}`` ascending.
+
+    All rungs share the graph's device blocks (the per-(mesh, axis,
+    group) upload dedup), so an extra rung costs its ``(n, S)`` working
+    buffers, not a second copy of the graph.
+    """
+    return {s: plan(graph, opts, mesh=mesh, axis=axis, num_sources=s,
+                    partition=partition, device=device)
+            for s in normalize_ladder(ladder)}
+
+
 # ---------------------------------------------------------------------------
 # Engine: device-resident graph and reused (n, S) buffers
 # ---------------------------------------------------------------------------
+
+class _BlockGroup:
+    """Weakref-able holder for one group of uploaded device tensors.
+
+    The per-graph dedup map (``graphs.formats.DeviceBlockCache``) holds
+    these *weakly* while each engine keeps a strong reference for its
+    lifetime: engines of one graph share a single upload, and when the
+    last engine holding a group is dropped (say, evicted from the
+    serving ``EngineCache``) its device memory frees.
+    """
+
+    __slots__ = ("arrays", "__weakref__")
+
+    def __init__(self, arrays):
+        self.arrays = arrays
+
 
 class BFSEngine:
     """A compiled traversal: run any number of source sets.
@@ -482,11 +685,17 @@ class BFSEngine:
     Holds, for its lifetime, the edge rows of the dense expansion (or,
     under ``use_kernel``, the one-bit tiles, their column masks, the
     block-row pointer, the block columns and each tile's block row:
-    ``kernel_arrays``), for queue and ``auto`` plans the out-edge blocks,
+    ``kernel_arrays``), for queue and ``auto`` plans the out-edge state,
     for ``auto`` plans the in-edge rows of the bottom-up levels, and the
     ``(n, S)`` dist and frontier buffers, which every ``run`` reinitializes
     in place.  A 2-D plan holds its cells' blocks the same way
-    (``_build_2d``).
+    (``_build_2d``).  The blocks are uploaded once per graph, mesh, axis
+    and group (``graphs.formats.DeviceBlockCache``), so every engine of a
+    ladder shares them, and they free with the last engine holding them.
+
+    Runs of one engine are serialized by a lock, which reading a result's
+    ``dist_host`` also takes.  ``settle()`` reads the last result's host
+    copy before a run reuses its buffer (the serving layer calls it).
 
     ``trace_count`` stays at ``compile_traces`` (the level function is
     built once at construction and never rebuilt), for parity with the
@@ -494,94 +703,140 @@ class BFSEngine:
     """
 
     def __init__(self, plan_: BFSPlan):
+        from repro_torch.graphs.formats import device_block_cache
+
         self.plan = plan_
-        graph, opts = plan_.graph, plan_.opts
-        part = graph.part
+        _faults.fire("engine.compile", _faults.plan_tag(plan_))
+        part = plan_.graph.part
         dev = plan_.device
         s = plan_.num_sources
         self._generation = 0
+        self._lock = threading.RLock()
+        self._last = None             # weakref to the last run's result
         self.kernel_arrays = None
-        if plan_.partition == "2d":
-            self._run_levels = self._build_2d()
-        else:
-            self._run_levels = self._build_1d()
+        self._block_holders = []
+        owner = plan_.graph2d if plan_.partition == "2d" else plan_.graph
+        # engines compile from several threads (EngineCache compiles
+        # outside its lock), so the check-then-upload runs under the
+        # graph's own lock: one graph's group is never uploaded twice,
+        # and compiles of unrelated graphs never wait on each other
+        blocks = device_block_cache(owner)
+        with blocks.lock:
+            def cached(group, build):
+                key = (plan_.mesh, plan_.axis, group)
+                holder = blocks.map.get(key)
+                if holder is None:
+                    holder = blocks.map[key] = _BlockGroup(build())
+                self._block_holders.append(holder)
+                return holder.arrays
+
+            if plan_.partition == "2d":
+                self._run_levels = self._build_2d(cached)
+            else:
+                self._run_levels = self._build_1d(cached)
         self._dist = torch.empty((part.n, s), dtype=torch.int32, device=dev)
         self._frontier = torch.empty((part.n, s), dtype=torch.uint8,
                                      device=dev)
         self._trace_count = 1
         self.compile_traces = self._trace_count
 
-    def _build_2d(self):
+    def estimated_device_bytes(self) -> int:
+        """What the serving ``EngineCache`` charges for this engine: its
+        plan's ``estimated_device_bytes()``."""
+        return self.plan.estimated_device_bytes()
+
+    def _build_2d(self, cached):
         """Upload the cell blocks and build the 2-D level loop.
 
         Every mode keeps the expansion's edge rows: the packed rows of
         ``expand_dense_2d_packed`` where the fused tail reads a packed
         expand, else the row block's byte rows.  Queue and ``auto`` plans
-        keep the ``(p, e_cap)`` blocks for queue levels and statistics,
-        and only ``auto`` builds the bottom-up in-edge blocks and uploads
-        their rows.
+        keep the ``(p, e_cap)`` blocks' ``out_edge_state_2d`` for queue
+        levels and statistics, and only ``auto`` builds the bottom-up
+        in-edge blocks and uploads their rows.
         """
         pl_, opts = self.plan, self.plan.opts
         g2 = pl_.graph2d
         part2 = g2.part
         dev = pl_.device
         b, c = part2.shard_size, part2.c
-        src_rowlocal = torch.as_tensor(g2.src_rowlocal).to(dev)
-        dst_fold = torch.as_tensor(g2.dst_fold).to(dev)
-        if pl_.use_fused_tail and pl_.expand_strategy.wire == "packed":
-            edge_rows = fr.dense_2d_packed_edge_index(
-                src_rowlocal, dst_fold, b, part2.fold_size)
+        uploads = {}
+
+        def cells():
+            if not uploads:
+                uploads["cells"] = (torch.as_tensor(g2.src_rowlocal).to(dev),
+                                    torch.as_tensor(g2.dst_fold).to(dev))
+            return uploads["cells"]
+
+        packed_rows = pl_.use_fused_tail and pl_.expand_strategy.wire == "packed"
+        if packed_rows:
+            edge_rows = cached("edges_2d:packed",
+                               lambda: fr.dense_2d_packed_edge_index(
+                                   *cells(), b, part2.fold_size))
         else:
-            edge_rows = fr.dense_edge_index(src_rowlocal, dst_fold, c * b,
-                                            part2.fold_size)
-        out_edges = (src_rowlocal, dst_fold) if opts.mode != "dense" else None
-        in_rows = None
+            edge_rows = cached("edges_2d:bytes",
+                               lambda: fr.dense_edge_index(
+                                   *cells(), c * b, part2.fold_size))
+        out_edges = in_rows = None
+        if opts.mode != "dense":
+            out_edges = cached("out_edges_2d",
+                               lambda: bfs.out_edge_state_2d(*cells(), part2))
+        uploads.clear()
         if opts.mode == "auto":
-            in_rows = self._bottom_up_rows(g2.in_src_global, g2.in_dst_local,
-                                           part2)
+            in_rows = self._bottom_up_rows(cached, "bottom_up_2d", g2, part2)
+        vwords = cached("valid_2d", lambda: bfs.valid_words(part2, dev))
         return make_level_loop_2d(
             part2, pl_.num_sources, g2.n_edges, pl_.mesh, pl_.axis[0],
             pl_.axis[1], opts, pl_.expand_strategy, pl_.fold_strategy,
             pl_.expand_sparse_strategy, pl_.fold_sparse_strategy, edge_rows,
             out_edges=out_edges, in_rows=in_rows,
             bottom_up_wire=pl_.bottom_up_wire, sieve=pl_.sieve,
-            fused=pl_.use_fused_tail)
+            fused=pl_.use_fused_tail, vwords=vwords)
 
-    def _bottom_up_rows(self, in_src_global, in_dst_local, part):
-        """Upload in-edge blocks as ``bottom_up_edge_index`` rows for the
-        plan's bottom-up wire."""
-        packed = self.plan.bottom_up_wire == "packed"
+    def _bottom_up_rows(self, cached, group, graph, part):
+        """The in-edge blocks as ``bottom_up_edge_index`` rows for the
+        plan's bottom-up wire (one shared group per wire)."""
+        wire = self.plan.bottom_up_wire
+        packed = wire == "packed"
         w = fr.packed_words(part.shard_size)
         dev = self.plan.device
-        return fr.bottom_up_edge_index(
-            torch.as_tensor(in_src_global).to(dev),
-            torch.as_tensor(in_dst_local).to(dev), part.shard_size,
-            part.p * w if packed else part.n, w if packed else None)
+        return cached(f"{group}:{wire}", lambda: fr.bottom_up_edge_index(
+            torch.as_tensor(graph.in_src_global).to(dev),
+            torch.as_tensor(graph.in_dst_local).to(dev), part.shard_size,
+            part.p * w if packed else part.n, w if packed else None))
 
-    def _build_1d(self):
+    def _build_1d(self, cached):
         """Upload the 1-D blocks and build the 1-D level loop."""
         plan_ = self.plan
         graph, opts = plan_.graph, plan_.opts
         part = graph.part
         dev = plan_.device
         s = plan_.num_sources
+        uploads = {}
+
+        def blocks():
+            if not uploads:
+                uploads["out"] = (torch.as_tensor(graph.src_local).to(dev),
+                                  torch.as_tensor(graph.dst_global).to(dev))
+            return uploads["out"]
+
         expand_fn, expand_packed, edge_rows = None, False, None
         if opts.use_kernel:
-            expand_fn, expand_packed = self._build_kernel_expand()
+            expand_fn, expand_packed = self._build_kernel_expand(cached)
         else:
-            src_local = torch.as_tensor(graph.src_local).to(dev)
-            dst_global = torch.as_tensor(graph.dst_global).to(dev)
-            edge_rows = fr.dense_edge_index(src_local, dst_global,
-                                            part.shard_size, part.n)
+            edge_rows = cached("edges", lambda: fr.dense_edge_index(
+                *blocks(), part.shard_size, part.n))
         self._edge_rows = edge_rows
         out_edges = in_rows = None
         if opts.mode != "dense":
             # queue levels and the auto statistics read the out-edge
             # blocks; only auto runs bottom-up levels over the in-edges
-            out_edges = (src_local, dst_global)
+            out_edges = cached("out_edges", lambda: bfs.out_edge_state(
+                *blocks(), part.shard_size))
+        uploads.clear()
         if opts.mode == "auto":
-            in_rows = self._bottom_up_rows(graph.in_src_global,
-                                           graph.in_dst_local, part)
+            in_rows = self._bottom_up_rows(cached, "bottom_up", graph, part)
+        vwords = cached("valid", lambda: bfs.valid_words(part, dev))
         return make_level_loop(
             part, s, graph.n_edges, plan_.mesh, plan_.axis,
             plan_.axes_sizes, opts, plan_.dense_strategy,
@@ -589,13 +844,13 @@ class BFSEngine:
             in_rows=in_rows, expand_fn=expand_fn,
             expand_emits_packed=expand_packed,
             bottom_up_wire=plan_.bottom_up_wire, sieve=plan_.sieve,
-            fused=plan_.use_fused_tail)
+            fused=plan_.use_fused_tail, vwords=vwords)
 
     @property
     def trace_count(self) -> int:
         return self._trace_count
 
-    def _build_kernel_expand(self):
+    def _build_kernel_expand(self, cached):
         """Bit-tile frontier expansion (``bsr_expand_bits``).
 
         Each shard's 128x128-blocked *transposed* adjacency (rows = global
@@ -620,19 +875,23 @@ class BFSEngine:
         part = graph.part
         p, shard, n = part.p, part.shard_size, part.n
         dev = self.plan.device
-        bits, cmask, brs, bcs, row_pad, col_pad = graph.bsr_bit_shards(
-            device=dev)
-        kmax, blk = bits.shape[1], DEFAULT_BLOCK
+        blk = DEFAULT_BLOCK
+        row_pad, col_pad = -(-n // blk) * blk, -(-shard // blk) * blk
         nbr, nbc = row_pad // blk, col_pad // blk
-        offs = torch.arange(p, device=dev, dtype=torch.int32)[:, None]
-        rows = (brs + offs * nbr).reshape(-1)
-        cols = (bcs + offs * nbc).reshape(-1).contiguous()
-        tiles = bits.reshape(p * kmax, blk, blk // 32)
-        cmask = cmask.reshape(p * kmax, blk // 32)
-        row_ptr = block_row_ptr(rows, cols, p * nbr, p * nbc)
+
+        def build():
+            bits, cmask, brs, bcs, _, _ = graph.bsr_bit_shards(device=dev)
+            kmax = bits.shape[1]
+            offs = torch.arange(p, device=dev, dtype=torch.int32)[:, None]
+            rows = (brs + offs * nbr).reshape(-1)
+            cols = (bcs + offs * nbc).reshape(-1).contiguous()
+            return (bits.reshape(p * kmax, blk, blk // 32),
+                    cmask.reshape(p * kmax, blk // 32),
+                    block_row_ptr(rows, cols, p * nbr, p * nbc), rows, cols)
+
         # the closure holds the arrays, not the engine: no cycle keeps a
         # dropped engine's tiles on the device
-        arrays = self.kernel_arrays = (tiles, cmask, row_ptr, rows, cols)
+        arrays = self.kernel_arrays = cached("kernel_bits", build)
         packed = self.plan.dense_strategy.wire == "packed"
         w_in, w_out = fr.packed_words(shard), col_pad // 32
 
@@ -652,13 +911,26 @@ class BFSEngine:
 
         return expand_fn, packed
 
+    def settle(self) -> None:
+        """Read the host copy of this engine's last result, if that result
+        is still held and unread, so the next run may reuse its buffer.
+
+        The serving layer calls this before every run: lanes that share
+        an engine within one round, and the parts of a split, each keep
+        their own distances, while a caller that drives the engine
+        directly keeps the plain contract (a reused result raises).
+        """
+        last = self._last() if self._last is not None else None
+        if last is not None:
+            last.dist_host
+
     def run_async(self, sources) -> BFSResult:
         """Run one traversal without a final device sync.
 
         ``sources`` may hold 1..S vertex ids; unused engine columns stay
         empty (all-INF, sliced off by ``dist_host``).  The level loop
         itself reads one or two values a level from the device (see
-        ``core.bfs``).
+        ``core.bfs``), so this returns after the traversal's last level.
         """
         pl_ = self.plan
         part = pl_.graph.part
@@ -670,16 +942,20 @@ class BFSEngine:
                              "distance/source buffers are int32")
         padded = np.full((pl_.num_sources,), -1, dtype=np.int32)
         padded[:n_req] = src_arr
-        self._generation += 1
-        src_dev = torch.from_numpy(padded).to(pl_.device)
-        fr.init_dist_frontier(src_dev, part.n, part.n_logical,
-                              out=(self._dist, self._frontier))
-        stats = BFSRunStats(*self._run_levels(self._dist, self._frontier,
-                                              pl_.max_levels))
-        return BFSResult(
-            dist=self._dist, run_stats=stats,
-            n_logical=part.n_logical, n_sources=n_req,
-            _engine=self, _generation=self._generation)
+        _faults.fire("engine.dispatch", _faults.plan_tag(pl_))
+        with self._lock:
+            self._generation += 1
+            src_dev = torch.from_numpy(padded).to(pl_.device)
+            fr.init_dist_frontier(src_dev, part.n, part.n_logical,
+                                  out=(self._dist, self._frontier))
+            stats = BFSRunStats(*self._run_levels(self._dist, self._frontier,
+                                                  pl_.max_levels))
+            res = BFSResult(
+                dist=self._dist, run_stats=stats,
+                n_logical=part.n_logical, n_sources=n_req,
+                _engine=self, _generation=self._generation)
+            self._last = weakref.ref(res)
+        return res
 
     def run(self, sources) -> BFSResult:
         """Run one traversal to completion (syncs the device)."""

@@ -1,4 +1,5 @@
-from repro_torch.graphs.formats import (ShardedGraph, ShardedGraph2D,
+from repro_torch.graphs.formats import (DeviceBlockCache, ShardedGraph,
+                                        ShardedGraph2D, device_block_cache,
                                         block_sparse_adjacency, csr_from_coo,
                                         from_jax_arrays, from_jax_arrays_2d,
                                         shard_graph, shard_graph_2d, to_2d)

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import threading
+import weakref
 
 import numpy as np
 import torch
@@ -28,6 +30,42 @@ import torch
 from repro_torch.core.partition import Partition1D, Partition2D
 
 _ALIGN = 128  # pad per-shard edge capacity to a lane-aligned multiple
+
+# Guard only the creation of each graph's to_2d lock and of its
+# DeviceBlockCache; the conversions and uploads themselves run under the
+# per-graph locks, so engine compiles of unrelated graphs never wait on
+# each other.
+_TO2D_CREATE_LOCK = threading.Lock()
+_DEVICE_BLOCKS_CREATE_LOCK = threading.Lock()
+
+
+class DeviceBlockCache:
+    """Per-graph dedup state for uploaded device tensors: a *weak*
+    per-(mesh, axis, group) map plus the lock that guards its
+    check-then-insert.  Engines hold the strong references
+    (``core.engine._BlockGroup``), so every engine of one graph on one
+    mesh shares one upload of each group, and when the last engine using
+    a group is dropped its device memory frees.  A ``to_2d`` view shares
+    its parent's instance."""
+
+    __slots__ = ("lock", "map")
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.map = weakref.WeakValueDictionary()
+
+    def __len__(self) -> int:
+        return len(self.map)
+
+
+def device_block_cache(graph) -> DeviceBlockCache:
+    """Get-or-create ``graph._device_blocks`` (every creation path —
+    engine compile or ``to_2d`` — funnels through here)."""
+    with _DEVICE_BLOCKS_CREATE_LOCK:
+        m = graph.__dict__.get("_device_blocks")
+        if m is None:
+            m = graph.__dict__["_device_blocks"] = DeviceBlockCache()
+        return m
 
 
 def _content_fingerprint(meta: tuple, arrays: tuple) -> tuple:
@@ -451,18 +489,26 @@ def shard_graph_2d(src: np.ndarray, dst: np.ndarray, n: int, r: int, c: int,
 
 def to_2d(graph: ShardedGraph, r: int, c: int) -> ShardedGraph2D:
     """The 2-D edge blocks of a 1-D sharded graph, built once per grid
-    and cached on the graph (the same object for the same ``(r, c)``).
+    and cached on the graph (the same object for the same ``(r, c)``,
+    thread-safe: engine-cache compiles may convert concurrently).  The
+    view shares its parent's ``DeviceBlockCache``, so the two partitions
+    of one graph dedup their uploads against one map under one lock.
     Requires ``r*c`` equal to the graph's shard count, so the vertex
     chunks line up exactly."""
     if r * c != graph.part.p:
         raise ValueError(f"grid {r}x{c} does not match the graph's "
                          f"p={graph.part.p} vertex chunks")
-    cache = graph.__dict__.setdefault("_graph2d", {})
-    g2 = cache.get((r, c))
-    if g2 is None:
-        src, dst = graph.edge_list()
-        g2 = cache[(r, c)] = shard_graph_2d(src, dst, graph.part.n_logical,
-                                            r, c)
+    with _TO2D_CREATE_LOCK:
+        lock = graph.__dict__.setdefault("_to2d_lock", threading.Lock())
+    with lock:
+        cache = graph.__dict__.setdefault("_graph2d", {})
+        g2 = cache.get((r, c))
+        if g2 is None:
+            src, dst = graph.edge_list()
+            g2 = shard_graph_2d(src, dst, graph.part.n_logical, r, c)
+            # not yet published, so plain assignment cannot race
+            g2.__dict__["_device_blocks"] = device_block_cache(graph)
+            cache[(r, c)] = g2
     return g2
 
 

@@ -1,5 +1,6 @@
 """The port's CUDA kernels, engine, LM prefill and DeepFM steps on the
-card, against their plain torch versions and the serial oracle.  Imports only the port (no JAX), so
+card, against their plain torch versions and the serial oracle, and the
+traversal service with its HTTP front end.  Imports only the port (no JAX), so
 the machine with the card runs it as it is:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -635,3 +636,114 @@ def test_deepfm_steps_on_the_card_match_the_cpu(cuda):
         want = on_cpu.fn(host, host_batch)
         assert bool(torch.isfinite(got).all())
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the traversal service and its HTTP front end on the card
+# ---------------------------------------------------------------------------
+
+def _serving_graphs():
+    src, dst = generate("rmat", 3000, seed=2, edge_factor=8)
+    return src, dst, 3000, shard_graph(src, dst, 3000, 4)
+
+
+def test_service_on_the_card_equals_the_cpu_service(cuda):
+    """Mixed 1-D and 2-D lanes and a ``use_kernel`` lane: the card's
+    service answers as the CPU's, lanes of one graph share its blocks,
+    and A1 and ``bsr_expand_bits`` launch on the serving path."""
+    from repro_torch.core import LocalMesh
+    from repro_torch.graphs import device_block_cache
+    from repro_torch.serve.bfs_service import BFSService, TraversalRequest
+    from repro_torch.serve.engine_cache import EngineCache, GraphCatalog
+
+    src, dst, n, g = _serving_graphs()
+    g1 = shard_graph(src, dst, n, 1)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        cat = GraphCatalog()
+        cat.register("r", g)
+        cat.register("k", g1)
+        svc = BFSService(opts=BFSOptions(), batch_buckets=(1, 8),
+                         cache=EngineCache(), catalog=cat, device=dev)
+        svc.add_graph("r")
+        svc.add_graph("r2", cat.get_2d("r", 2, 2),
+                      mesh=LocalMesh.grid(2, 2, dev))
+        svc.add_graph("k", opts=BFSOptions(use_kernel=True,
+                                           wire_format="packed"))
+        fold_update.launches = bsr_expand_bits.launches = 0
+        reqs = [TraversalRequest(rid=i, source=s, graph=name)
+                for i, (name, s) in enumerate(
+                    [("r", 0), ("r2", 5), ("k", 9), ("r", 17), ("k", 0)])]
+        for r in reqs:
+            svc.submit(r)
+        svc.run_until_drained()
+        res = {name: svc.traverse(name, list(range(6)))[0].dist_host
+               for name in ("r", "r2", "k")}
+        out[dev.type] = ([r.dist for r in reqs], res,
+                         fold_update.launches, bsr_expand_bits.launches,
+                         len(device_block_cache(g)))
+    (cuda_step, cuda_res, a1, bits, groups), (cpu_step, cpu_res, *_) = \
+        out["cuda"], out["cpu"]
+    for got, want in zip(cuda_step, cpu_step):
+        np.testing.assert_array_equal(got, want)
+    for name in cuda_res:
+        np.testing.assert_array_equal(cuda_res[name], cpu_res[name])
+        np.testing.assert_array_equal(
+            cuda_res[name], bfs_reference(src, dst, n, list(range(6))))
+    assert a1 > 0 and bits > 0
+    assert groups == 4          # 1-D and 2-D rows and masks, once each
+
+
+def test_http_frontend_on_the_card(cuda):
+    """``serve_http`` over a card service: depths bitwise the oracle's,
+    parents derived on the card equal the host rule, and a split arm
+    under a compile fault."""
+    import json
+    import threading
+    import urllib.request
+
+    from repro_torch.serve.bfs_service import BFSService
+    from repro_torch.serve.engine_cache import EngineCache
+    from repro_torch.serve.frontend import derive_parents, serve_http
+    from repro_torch.serve.resilience import faults
+
+    src, dst, n, g = _serving_graphs()
+    svc = BFSService(opts=BFSOptions(), batch_buckets=(2, 8),
+                     cache=EngineCache(), device=cuda)
+    svc.add_graph("r", g)
+    httpd, fe = serve_http(svc, "127.0.0.1", 0, log=lambda *a: None,
+                           watchdog_timeout_s=30.0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/v1/traverse"
+
+    def call(body):
+        req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                     headers={"Content-Type":
+                                              "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as rsp:
+            return json.loads(rsp.read())
+
+    try:
+        # the S = 8 rung's first compile fails: four runs of S = 2
+        srcs = list(range(0, 80, 10))
+        with faults.active(faults.FaultPlan([faults.FaultSpec(
+                site="cache.compile", match="S=8 ")])):
+            out = call({"graph": "r", "sources": srcs})
+        np.testing.assert_array_equal(np.asarray(out["depths"]).T,
+                                      bfs_reference(src, dst, n, srcs))
+        assert out["bucket"] == 2
+        assert fe.metrics_payload()["lanes"]["r"]["degraded"] == {
+            "split:2": 1}
+        srcs = [3, 1, 2999]
+        out = call({"graph": "r", "sources": srcs, "include_parents": True})
+        want = bfs_reference(src, dst, n, srcs)
+        np.testing.assert_array_equal(np.asarray(out["depths"]).T, want)
+        np.testing.assert_array_equal(np.asarray(out["parents"]).T,
+                                      derive_parents(src, dst, want))
+        assert out["bucket"] == 8
+    finally:
+        fe.shutdown(timeout_s=30)
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)

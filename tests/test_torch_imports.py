@@ -31,7 +31,9 @@ assert not bad, bad
 
 def test_every_package_is_listed():
     assert {"repro_torch.graphs", "repro_torch.core",
-            "repro_torch.kernels.bsr_spmm"} <= set(PACKAGES)
+            "repro_torch.kernels.bsr_spmm", "repro_torch.serve",
+            "repro_torch.serve.frontend",
+            "repro_torch.serve.resilience"} <= set(PACKAGES)
 
 
 @pytest.mark.parametrize("package", PACKAGES)
