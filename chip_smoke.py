@@ -80,7 +80,26 @@ Phases (any failed check raises and the script exits non-zero):
    failing ``cache.compile`` for ``rmat``'s S = 64 rung: a 40-source
    request is served by the ``split:8`` arm, five runs of one engine,
    bitwise, and ``/metrics`` shows the arm.
-8. prefill — gemma3-12b at full width (d_model 3840, 16 q / 8 kv heads of
+8. path 7 — the launchers, each ``main(argv)`` called in process so the
+   kernel counts see its launches: (a) ``bfs_run --workload rmat_1m
+   --devices 4 --mode dense --sources 64 --repeats 2 --profile DIR`` (not
+   cut): run 0 (sources 0..63) prints the levels, visited, modes and
+   ``comm_bytes/chip`` of path 1's p = 4 engine on those sources, its
+   distances pass ``validate_bfs`` and scipy, A1 launches once a level of
+   the two runs and no other kernel, and ``analysis.trace_model``'s
+   summary has a row a level, its phases sum to within 5% of the device
+   time in the trace file, ``expand`` the largest; (b) the same on the
+   2 x 2 grid in ``auto`` (``--repeats 1``): levels, visited and modes of
+   path 5 (b)'s engine on 0..63; (c) after path 6's service is released,
+   ``bfs_serve --devices 4 --http`` on ``rmat:1048576``, its 2 x 2 twin
+   and ``small_world:100000`` (``bfs_serve``'s generator defaults, as the
+   JAX launcher's: rmat edge factor 8, small-world k = 8), ladder
+   (1, 8, 64), a 5 s watchdog, in a thread; ``bfs_client --requests 12
+   --max-retries 2 --verify`` on each lane in subprocesses (the last with
+   ``--shutdown``) exits 0, the server drains and returns 0, A1 launched;
+   (d) ``bfs_chaos --devices 4 --secs 20 --n 100000`` exits 0 with at
+   least one ``cache.get`` storm and a bitwise 200 requested after it.
+9. prefill — gemma3-12b at full width (d_model 3840, 16 q / 8 kv heads of
    256, d_ff 15360, vocab 262144, bf16) through ``build_bundle(...,
    "prefill_32k")``, cut to 12 layers (two 5 local + 1 global groups) and
    batch 2 x seq 8192, with random weights from a seeded generator on the
@@ -89,7 +108,7 @@ Phases (any failed check raises and the script exits non-zero):
    and 3 bitwise equal; then the same prefill with the plain attention,
    held to a stated tolerance (the first layer's cache bitwise), which
    two planted faults (every local window one key off) must fail.
-9. recsys — DeepFM at its full configuration (39 fields x 1,000,000 rows
+10. recsys — DeepFM at its full configuration (39 fields x 1,000,000 rows
    x 10, a 1.56 GB f32 table, MLP 403-400-400-400-1), not cut, through
    ``build_bundle(get_arch("deepfm"), ...)`` for ``serve_p99``,
    ``serve_bulk`` and ``retrieval_cand``, with random weights from a
@@ -99,7 +118,7 @@ Phases (any failed check raises and the script exits non-zero):
    scores at a stated relative L2 limit.  Two planted faults must fail
    that hold: every field offset one row off, and (serve) TF32 products.  DeepFM looks its fields up
    with a row gather, as the JAX package does, so no kernel launches.
-10. embedding bag — the lookup op ``kernels.embedding_bag.ops.embedding_bag``
+11. embedding bag — the lookup op ``kernels.embedding_bag.ops.embedding_bag``
    (kernel A5) on (a) the ``serve_bulk`` batch's own flat ids as bags
    over DeepFM's table (the op's main path, three calls; also held to the
    serve path's ``emb.sum(1)``), (b) the same bags cut to seeded ragged
@@ -113,7 +132,7 @@ Phases (any failed check raises and the script exits non-zero):
    useful bytes and that of the 32-byte sectors the rows span; and on
    (a)'s ids over a (V, 8) f32 table (one sector a row) and over the
    table's first 100,000 rows (a 4 MB table, the plain-load route).
-11. kernels — each kernel against its plain torch version on the card at
+12. kernels — each kernel against its plain torch version on the card at
    the shapes of the paths (A4 also each (batch, head) slice, with the
    window one key off failing; ``bsr_expand_bits`` on path 2's densest
    level and on a random 5% frontier, and the f32 A2 + A3 chain of
@@ -134,6 +153,8 @@ import argparse
 import dataclasses
 import json
 import multiprocessing
+import os
+import re
 import subprocess
 import sys
 import time
@@ -1162,6 +1183,250 @@ def serving_phase(kernels, g1, want1, roots1, g2, want2, roots2, dev,
 
 
 
+# ---------------------------------------------------------------------------
+# path 7: the launchers, called in process
+# ---------------------------------------------------------------------------
+
+class _Tee:
+    """Standard output that is printed and kept (a launcher's lines)."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, s: str) -> int:
+        self.out.write(s)
+        self.lines.append(s)
+        return len(s)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.lines)
+
+
+def run_launcher(label: str, main, argv, **kw):
+    """``main(argv)`` with its standard output printed and kept; returns
+    (exit code, output, wall seconds)."""
+    import contextlib
+
+    log(f"{label}: {' '.join(argv)}")
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        rc = main(argv, **kw)
+    wall = time.perf_counter() - t0
+    log(f"{label}: exit {rc}, wall {wall:.1f} s")
+    check(rc == 0, f"{label}: exit {rc}")
+    return rc, tee.text(), wall
+
+
+_RUN_LINE = (r"^run\[(\d+)\] sources=.*?: levels=(\d+) visited=(\d+) "
+             r"modes=(\{.*?\}) comm_bytes/chip=(\S+) wall=(\S+)s")
+
+
+def run_lines(text: str) -> list:
+    """The ``run[i]`` lines of ``bfs_run``: (levels, visited, modes,
+    comm_bytes/chip) each, as printed."""
+    return [m.groups()[1:5] for m in (re.match(_RUN_LINE, line)
+                                      for line in text.splitlines()) if m]
+
+
+def engine_line(res) -> tuple:
+    """A result's fields as ``bfs_run`` prints them on its run line."""
+    st = res.stats()
+    return (str(st.levels), str(st.visited), str(st.mode_counts),
+            f"{st.comm_bytes:.2e}")
+
+
+def trace_device_ms(logdir: str) -> float:
+    """Device time of a captured trace, read straight from the file: the
+    kernels, copies and sets, each once."""
+    from repro_torch.analysis import trace_model
+
+    with open(trace_model.find_trace_file(logdir)) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(float(e.get("dur", 0)) for e in events
+               if e.get("ph") == "X"
+               and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")) / 1e3
+
+
+def launchers_phase(kernels, g1, src1, dst1, dev, tmp: Path) -> dict:
+    """The launchers' ``main(argv)`` in process (module docstring, path
+    7): (a) ``bfs_run`` dense at p = 4 with ``--profile``, (b) ``bfs_run``
+    on the 2 x 2 grid in auto, (c) ``bfs_serve --http`` on three lanes
+    with the port's ``bfs_client --verify``, (d) ``bfs_chaos``.  Returns
+    A1's launches in each."""
+    import gc
+    import threading
+
+    from repro_torch.analysis import trace_model
+    from repro_torch.core import BFSOptions, LocalMesh, plan
+    from repro_torch.core.frontier import INF
+    from repro_torch.core.ref import validate_bfs
+    from repro_torch.graphs import to_2d
+    from repro_torch.launch import bfs_chaos, bfs_run, bfs_serve
+    from repro_torch.serve.engine_cache import default_engine_cache
+
+    t_phase = time.perf_counter()
+    n1 = g1.part.n_logical
+    sources = list(range(S))
+    others = [k for k in kernels if k != "fold_update"]
+    a1 = {}
+
+    def release():
+        default_engine_cache().clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a) the 1-D dense launcher against path 1's p = 4 engine on the
+    # launcher's run 0 sources, 0..63
+    eng = plan(g1, BFSOptions(), num_sources=S).compile()
+    ref = engine_line(eng.run(sources))
+    del eng
+    release()
+    run0 = []
+
+    def hold_run0(rep, srcs, res):
+        # the host copy the run line's stats read; checked after the
+        # launcher returns, so no check's device work enters the profile
+        if rep == 0:
+            run0.append((srcs, res.dist_host))
+
+    prof = tmp / "profile_a"
+    reset_counts(kernels)
+    _, out, wall_a = run_launcher(
+        "path 7 (a) bfs_run", bfs_run.main,
+        ["--workload", "rmat_1m", "--devices", "4", "--mode", "dense",
+         "--sources", str(S), "--repeats", "2", "--profile", str(prof)],
+        on_run=hold_run0)
+    counts = {name: k.launches for name, k in kernels.items()}
+    runs = run_lines(out)
+    check(len(runs) == 2 and len(run0) == 1 and run0[0][0] == sources,
+          f"path 7 (a): {len(runs)} run lines, run 0 {run0[:1]}")
+    validate_bfs(src1, dst1, np.asarray(sources),
+                 torch.from_numpy(run0[0][1]).to(dev))
+    scipy_check(src1, dst1, n1, np.asarray(sources), run0[0][1], INF)
+    del run0
+    check(runs[0] == ref, f"path 7 (a): run 0 {runs[0]}, path 1's p = 4 "
+          f"engine on sources 0..63 {ref}")
+    levels = sum(int(r[0]) for r in runs)
+    check(counts["fold_update"] == levels
+          and not any(counts[k] for k in others),
+          f"path 7 (a): launches {counts}, not A1 once a level of "
+          f"{levels}")
+    a1["a"] = counts["fold_update"]
+    t = trace_model.parse_trace(str(prof), n_levels=levels)
+    rows = sum(line.startswith("  level[") for line in out.splitlines())
+    dev_ms = trace_device_ms(str(prof))
+    phase_ms = {ph: s * 1e3 for ph, s in t.total_s.items()}
+    total = sum(phase_ms.values())
+    log(f"path 7 (a): trace {t.n_ops} device events, phases "
+        f"{ {ph: round(v, 3) for ph, v in phase_ms.items()} } ms, sum "
+        f"{total:.3f} ms against {dev_ms:.3f} ms of device time in the "
+        f"file; {len(t.levels)} level segments, {rows} level rows, "
+        f"{levels} levels")
+    check(len(t.levels) == levels and rows == levels,
+          f"path 7 (a): {len(t.levels)} segments and {rows} rows for "
+          f"{levels} levels")
+    check(abs(total - dev_ms) <= 0.05 * dev_ms,
+          f"path 7 (a): phases sum to {total:.3f} ms, device time "
+          f"{dev_ms:.3f} ms")
+    check(max(phase_ms, key=phase_ms.get) == "expand",
+          f"path 7 (a): expand is not the largest phase: {phase_ms}")
+    release()
+
+    # (b) the 2-D launcher against path 5 (b)'s engine on 0..63
+    g2 = to_2d(g1, 2, 2)
+    eng = plan(g2, BFSOptions(mode="auto"), num_sources=S,
+               mesh=LocalMesh.grid(2, 2, dev)).compile()
+    ref = engine_line(eng.run(sources))
+    del eng
+    release()
+    reset_counts(kernels)
+    _, out, wall_b = run_launcher(
+        "path 7 (b) bfs_run", bfs_run.main,
+        ["--workload", "rmat_1m", "--devices", "4", "--partition", "2d",
+         "--grid", "2x2", "--mode", "auto", "--sources", str(S),
+         "--repeats", "1"])
+    runs = run_lines(out)
+    check(len(runs) == 1 and runs[0][:3] == ref[:3],
+          f"path 7 (b): run 0 {runs}, path 5 (b)'s engine {ref}")
+    a1["b"] = kernels["fold_update"].launches
+    release()
+
+    # (c) bfs_serve --http on three lanes, the port's client verifying
+    log(f"path 7 (c): device memory in use at the start "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    port_file = tmp / "port"
+    reset_counts(kernels)
+    served = []
+    argv = ["--devices", "4", "--graph", "rmat=rmat:1048576", "--graph",
+            "rmat2d=rmat:1048576:2x2", "--graph", "sw=small_world:100000",
+            "--http", "127.0.0.1:0", "--buckets", "1,8,64",
+            "--watchdog-secs", "5", "--port-file", str(port_file)]
+    log(f"path 7 (c) bfs_serve: {' '.join(argv)}")
+    t0 = time.perf_counter()
+    server = threading.Thread(target=lambda: served.append(
+        bfs_serve.main(argv)), daemon=True)
+    server.start()
+    while not (port_file.exists() and port_file.read_text()):
+        check(server.is_alive(), "path 7 (c): the server exited early")
+        check(time.perf_counter() - t0 < 120, "path 7 (c): no port")
+        time.sleep(0.2)
+    url = f"http://127.0.0.1:{int(port_file.read_text())}"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+    def client(lane, *extra):
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.bfs_client", "--url",
+             url, "--graph", lane, "--requests", "12", "--max-retries", "2",
+             "--verify", *extra], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+
+    outs = {}
+    for group in (("rmat", "rmat2d"), ("sw",)):
+        procs = {lane: client(lane, *(("--shutdown",) if lane == "sw"
+                                      else ())) for lane in group}
+        for lane, proc in procs.items():
+            text, _ = proc.communicate(timeout=300)
+            outs[lane] = text
+            log(f"path 7 (c) bfs_client --graph {lane}: exit "
+                f"{proc.returncode}\n{text.strip()}")
+            check(proc.returncode == 0 and "match the numpy reference "
+                  "bitwise" in text, f"path 7 (c): the {lane} client failed")
+    server.join(timeout=120)
+    wall_c = time.perf_counter() - t0
+    check(not server.is_alive() and served == [0],
+          f"path 7 (c): the server did not drain and stop ({served})")
+    a1["c"] = kernels["fold_update"].launches
+    check(a1["c"] > 0, "path 7 (c): A1 never launched")
+    log(f"path 7 (c): wall {wall_c:.1f} s")
+    release()
+
+    # (d) the chaos soak at the size of erdos_renyi_100k
+    reset_counts(kernels)
+    _, out, wall_d = run_launcher(
+        "path 7 (d) bfs_chaos", bfs_chaos.main,
+        ["--devices", "4", "--secs", "20", "--n", "100000", "--seed", "0",
+         "--out", str(tmp / "chaos.json")])
+    ledger = json.loads((tmp / "chaos.json").read_text())
+    after = re.search(r"; (\d+) bitwise 200\(s\) requested after the first",
+                      out)
+    storms = ledger["faults"]["by_kind"].get("storm", 0)
+    log(f"path 7 (d): faults {ledger['faults']['by_kind']}, outcomes "
+        f"{ledger['outcomes']}, watchdog {ledger['watchdog']}")
+    check(ledger["ok"] and storms >= 1 and after and int(after.group(1)) >= 1,
+          f"path 7 (d): {storms} storms, 200s after one: "
+          f"{after.group(1) if after else None}")
+    a1["d"] = kernels["fold_update"].launches
+    release()
+    log(f"path 7: walls (a) {wall_a:.1f} s, (b) {wall_b:.1f} s, (c) "
+        f"{wall_c:.1f} s, (d) {wall_d:.1f} s; A1 launches {a1}; path 7 "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return a1
+
+
 def profile_run(name, run) -> None:
     """One more call of ``run`` under ``torch.profiler``: device time by
     op, and the share of the call's wall time the device was busy."""
@@ -2051,11 +2316,23 @@ def main(argv=None) -> int:
     # --------------------------------------------------------------- path 6
     path6 = serving_phase(kernels, g1_p4, path1["p4_default"][0], roots1,
                           g2, host2, roots2, dev, card)
-    del g1_p4
     log("path 6: 48 HTTP requests on four lanes bitwise the paths' "
         "distances, parents valid, 9 compiles for 9 plan keys, one block "
         "upload a group, estimates above the measured peaks, the LRU rung "
         "evicted and freed, the split:8 arm bitwise: ok")
+
+    # --------------------------------------------------------------- path 7
+    tmp7 = ROOT / "build" / "chip_smoke_path7"
+    if tmp7.exists():
+        import shutil
+        shutil.rmtree(tmp7)
+    tmp7.mkdir(parents=True)
+    path7 = launchers_phase(kernels, g1_p4, src1, dst1, dev, tmp7)
+    del g1_p4
+    log("path 7: bfs_run (1-D dense with its phase split, 2-D auto) equal "
+        "to the engines, A1 once a level, bfs_serve --http verified by "
+        "bfs_client on three lanes and drained, the chaos soak's verdict "
+        "with a storm served: ok")
 
     # -------------------------------------------------------------- prefill
     lay = prefill_phase(kernels, dev, args.profile)
@@ -2099,6 +2376,7 @@ def main(argv=None) -> int:
         "launches": path1["p4_default"][1]["fold_update"],
         "launches_path5": a1_path5,
         "launches_path6": path6["fold_update"],
+        "launches_path7": sum(path7.values()),
         "max_abs_err": err1,
         "ms": timed_ms(lambda: fold_update(words, dist, 7), 50),
         "plain_ms": timed_ms(lambda: fold_update_plain(words, dist, 7),

@@ -5,7 +5,10 @@ Public lifecycle: ``plan(graph, opts, mesh=..., device=...) -> BFSPlan ->
 .compile() -> BFSEngine -> .run(sources) / .run_async(sources) ->
 BFSResult``, in the dense, queue and ``auto`` modes, over a ``LocalMesh`` of
 p shards on one device (an ``r x c`` ``LocalMesh.grid`` under
-``partition="2d"``).
+``partition="2d"``).  The one-shot ``bfs()`` remains as a deprecated
+wrapper over that lifecycle, as in the JAX package, in
+``repro_torch.core.bfs``; unlike there it is not re-exported here, where
+its name would shadow that module.
 """
 
 from repro_torch.core.bfs import (BFSOptions, BFSStats, INF,
@@ -20,7 +23,8 @@ from repro_torch.core.exchange import (DENSE_STRATEGIES,
                                        FOLD_COL_STRATEGIES,
                                        FOLD_COL_SPARSE_STRATEGIES,
                                        QUEUE_STRATEGIES, ExchangeStrategy,
-                                       exchange_dense, get_exchange,
+                                       exchange_dense, exchange_queue,
+                                       expand_row, fold_col, get_exchange,
                                        register_exchange, select_exchange,
                                        unregister_exchange)
 from repro_torch.core.mesh import LocalMesh, default_grid
@@ -31,7 +35,8 @@ __all__ = [
     "BFSEngine", "BFSPlan", "BFSResult", "BFSRunStats", "plan",
     "plan_ladder", "normalize_ladder", "pick_bucket", "resolve_device", "LocalMesh", "default_grid", "Partition1D",
     "Partition2D",
-    "exchange_dense", "ExchangeStrategy", "register_exchange",
+    "exchange_dense", "exchange_queue", "expand_row", "fold_col",
+    "ExchangeStrategy", "register_exchange",
     "unregister_exchange", "get_exchange", "select_exchange",
     "DENSE_STRATEGIES", "QUEUE_STRATEGIES", "EXPAND_ROW_STRATEGIES",
     "FOLD_COL_STRATEGIES", "EXPAND_ROW_SPARSE_STRATEGIES",

@@ -29,14 +29,23 @@ the same three modes with a two-phase exchange a level — a gather over
 the grid row, a fold over the grid column — and the same host reads; both
 loops share the runner (``_level_runner``) and the bottom-up level.
 
-This module holds the options, source validation and the level loops; the
-public lifecycle (``plan -> compile -> run``) lives in ``core/engine.py``.
+Each level runs inside a ``bfs.level`` profiler range and its parts inside
+``bfs.expand``, ``bfs.fold`` and ``bfs.owner_update`` (``core.spans``;
+ranges only while a profiler records), which ``analysis.trace_model``
+reads.  A1, the fused fold tail, unpacks, updates and re-packs in one
+kernel; it runs in ``bfs.owner_update``, after the fold range's pack and
+exchange.
+
+This module holds the options, source validation, the level loops and the
+deprecated one-shot ``bfs()``; the public lifecycle (``plan -> compile ->
+run``) lives in ``core/engine.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
@@ -46,6 +55,8 @@ from repro_torch.core import exchange as ex
 from repro_torch.core import frontier as fr
 from repro_torch.core.mesh import LocalMesh
 from repro_torch.core.partition import Partition1D, Partition2D
+from repro_torch.core.spans import (EXPAND, FOLD, LEVEL, OWNER_UPDATE,
+                                    span)
 # the module, not the function: kernels.fold_update imports core.frontier,
 # so importing it first runs core/__init__, which lands here half-way
 from repro_torch.kernels import fold_update as a1
@@ -200,16 +211,18 @@ def _bottom_up_level_fn(p: int, shard: int, s: int, mesh: LocalMesh, axis,
     (``in_rows``: ``frontier.bottom_up_edge_index`` rows for ``wire``)."""
 
     def bottom_up_level(frontier, fwords, dist, level):
-        if wire == "packed":
-            # gather the packed frontier and read source bits straight
-            # out of the words; a fused plan gathers the carried words
-            fw = fwords if fwords is not None else fr.pack_bits(frontier)
-            fglob = ex.allgather_frontier(fw, mesh, axis)  # (p, p*W, S)
-        else:
-            fglob = ex.allgather_frontier(frontier, mesh, axis)  # (p, n, S)
-        cand = fr.expand_bottom_up_edges(fglob, in_rows, p * shard)
-        new = _owned_update(dist, cand.view(p, shard, s), level)
-        return new, level_bytes, fr.pack_bits(new) if fused else None
+        with span(EXPAND):
+            if wire == "packed":
+                # gather the packed frontier and read source bits straight
+                # out of the words; a fused plan gathers the carried words
+                fw = fwords if fwords is not None else fr.pack_bits(frontier)
+                fglob = ex.allgather_frontier(fw, mesh, axis)  # (p, p*W, S)
+            else:
+                fglob = ex.allgather_frontier(frontier, mesh, axis)
+            cand = fr.expand_bottom_up_edges(fglob, in_rows, p * shard)
+        with span(OWNER_UPDATE):
+            new = _owned_update(dist, cand.view(p, shard, s), level)
+            return new, level_bytes, fr.pack_bits(new) if fused else None
 
     return bottom_up_level
 
@@ -245,42 +258,44 @@ def _level_runner(part, s: int, mode: str, e_total: int, opts: BFSOptions,
             f_verts, f_edges, width = frontier_stats(frontier)
         while active and level <= max_levels:
             t0 = time.perf_counter()
-            ovf, hits = False, 0
-            if mode == "auto":
-                if f_verts > bottom_up_cutoff:
-                    which = 2
-                elif s == 1 and f_edges < queue_edge_cutoff:
-                    which = 1
+            with span(LEVEL):
+                ovf, hits = False, 0
+                if mode == "auto":
+                    if f_verts > bottom_up_cutoff:
+                        which = 2
+                    elif s == 1 and f_edges < queue_edge_cutoff:
+                        which = 1
+                    else:
+                        which = 0
                 else:
-                    which = 0
-            else:
-                which = 1 if mode == "queue" else 0
-            if which == 0:
-                new, b, nwords = dense_level(frontier, fwords, dist_sh, level)
-            elif which == 1:
-                new, b, nwords, ovf, hits = queue_level(
-                    frontier, fwords, dist_sh, level, width)
-            else:
-                new, b, nwords = bottom_up_level(frontier, fwords, dist_sh,
+                    which = 1 if mode == "queue" else 0
+                if which == 0:
+                    new, b, nwords = dense_level(frontier, fwords, dist_sh,
                                                  level)
-            modes[which] += 1
-            # padding vertices (ids >= n_logical) can never be visited
-            new.view(n, s)[part.n_logical:] = 0
-            dist[part.n_logical:] = INF
-            if fused:
-                # the next packed generation, pad bits cleared to match
-                # the masked byte frontier
-                fwords = nwords & vwords
-            if mode != "dense":
-                f_verts, f_edges, width = frontier_stats(new)
-                active = f_verts > 0
-            else:
-                active = bool(fr.frontier_nonzero(new))
-            bytes_acc = np.float32(bytes_acc + b)
-            overflowed |= ovf
-            hits_acc += hits
-            frontier = new
-            level += 1
+                elif which == 1:
+                    new, b, nwords, ovf, hits = queue_level(
+                        frontier, fwords, dist_sh, level, width)
+                else:
+                    new, b, nwords = bottom_up_level(frontier, fwords,
+                                                     dist_sh, level)
+                modes[which] += 1
+                # padding vertices (ids >= n_logical) can never be visited
+                new.view(n, s)[part.n_logical:] = 0
+                dist[part.n_logical:] = INF
+                if fused:
+                    # the next packed generation, pad bits cleared to match
+                    # the masked byte frontier
+                    fwords = nwords & vwords
+                if mode != "dense":
+                    f_verts, f_edges, width = frontier_stats(new)
+                    active = f_verts > 0
+                else:
+                    active = bool(fr.frontier_nonzero(new))
+                bytes_acc = np.float32(bytes_acc + b)
+                overflowed |= ovf
+                hits_acc += hits
+                frontier = new
+                level += 1
             level_seconds.append(time.perf_counter() - t0)
         return (level - 1, float(bytes_acc), overflowed, tuple(modes),
                 hits_acc, tuple(level_seconds))
@@ -397,68 +412,80 @@ def make_level_loop(part: Partition1D, s: int, e_total: int,
             return stats[0], sum(stats[1:]), max(1, max(stats[1:]))
 
     def dense_level(frontier, fwords, dist, level):
-        if expand_fn is not None:
-            cand = expand_fn(frontier, fwords)
-        else:
-            cand = fr.expand_dense_edges(
-                frontier.reshape(p * shard, s), *edge_rows,
-                p * n).reshape(p, n, s)
-        if packed_wire:
-            # candidates stay packed through the exchange: pack once
-            # (unless the kernel path emitted words), OR-merge, and only
-            # the owned W-word slice is read back
-            cwords = (cand if expand_fn is not None and expand_emits_packed
-                      else fr.pack_bits(cand, n_blocks=p))
-            merged = dense_strategy.impl(cwords, mesh, axis)  # (p, W, S)
+        with span(EXPAND):
+            if expand_fn is not None:
+                cand = expand_fn(frontier, fwords)
+            else:
+                cand = fr.expand_dense_edges(
+                    frontier.reshape(p * shard, s), *edge_rows,
+                    p * n).reshape(p, n, s)
+        with span(FOLD):
+            if packed_wire:
+                # candidates stay packed through the exchange: pack once
+                # (unless the kernel path emitted words), OR-merge, and
+                # only the owned W-word slice is read back
+                cwords = (cand if expand_fn is not None
+                          and expand_emits_packed
+                          else fr.pack_bits(cand, n_blocks=p))
+                merged = dense_strategy.impl(cwords, mesh, axis)  # (p, W, S)
+                if not fused:
+                    own = fr.unpack_bits(merged, shard)
+            else:
+                own = dense_strategy.impl(cand, mesh, axis)
+        with span(OWNER_UPDATE):
             if fused:
+                # A1 unpacks, updates and re-packs in one pass
                 _, new, new_words = a1.fold_update(merged, dist, level,
                                                    inplace=True)
                 return new, dense_bytes, new_words
-            own = fr.unpack_bits(merged, shard)
-        else:
-            own = dense_strategy.impl(cand, mesh, axis)
-        return _owned_update(dist, own, level), dense_bytes, None
+            return _owned_update(dist, own, level), dense_bytes, None
 
     def queue_level(frontier, fwords, dist, level, width):
-        active = (frontier[..., 0].gather(1, src_idx) > 0) & out_valid
-        # each shard's active edges packed to the left of a (p, width)
-        # block (width: the most any shard has, read with the statistics)
-        dst, active, _ = _pack_active(active, dst_global, width)
-        hits = torch.zeros((), dtype=torch.int64, device=dev)
-        if sieve:
-            # replicate each shard's coarse visited summary and drop
-            # candidates whose whole bucket is already visited
-            own_sum = fr.sieve_summary(dist[..., 0], sv_bits, sv_bucket)
-            gsum = mesh.all_gather(own_sum, axis).flatten(1, 2)
-            drop = fr.sieve_lookup(gsum, dst, shard, sv_bits, sv_bucket,
-                                   sv_words) & active
-            hits = drop.sum()
-            active = active & ~drop
-        buckets, local_mask, _, overflow = fr.build_queue_buckets(
-            dst, active, part, me, cap, local_update=opts.local_update,
-            dedupe=opts.dedupe)
-        if use_compressed:
-            rel = torch.where(buckets >= 0, buckets - base, -1)
-            payload, enc_ovf = fr.encode_delta_varint(rel, q_byte_cap, shard)
-            overflow = overflow | enc_ovf.any(-1)
-        # Exactness: if any shard's bucket (or compressed stream)
-        # overflowed, the whole level runs densely instead
-        ovf, hits = torch.stack([overflow.any().long(), hits]).tolist()
+        with span(EXPAND):
+            active = (frontier[..., 0].gather(1, src_idx) > 0) & out_valid
+            # each shard's active edges packed to the left of a (p, width)
+            # block (width: the most any shard has, read with the
+            # statistics)
+            dst, active, _ = _pack_active(active, dst_global, width)
+            hits = torch.zeros((), dtype=torch.int64, device=dev)
+            if sieve:
+                # replicate each shard's coarse visited summary and drop
+                # candidates whose whole bucket is already visited
+                own_sum = fr.sieve_summary(dist[..., 0], sv_bits, sv_bucket)
+                gsum = mesh.all_gather(own_sum, axis).flatten(1, 2)
+                drop = fr.sieve_lookup(gsum, dst, shard, sv_bits, sv_bucket,
+                                       sv_words) & active
+                hits = drop.sum()
+                active = active & ~drop
+            buckets, local_mask, _, overflow = fr.build_queue_buckets(
+                dst, active, part, me, cap, local_update=opts.local_update,
+                dedupe=opts.dedupe)
+            if use_compressed:
+                rel = torch.where(buckets >= 0, buckets - base, -1)
+                payload, enc_ovf = fr.encode_delta_varint(rel, q_byte_cap,
+                                                          shard)
+                overflow = overflow | enc_ovf.any(-1)
+            # Exactness: if any shard's bucket (or compressed stream)
+            # overflowed, the whole level runs densely instead
+            ovf, hits = torch.stack([overflow.any().long(), hits]).tolist()
         if ovf:
             new, _, nwords = dense_level(frontier, None, dist, level)
             # the sieve gather (if any) already ran before escalation
             return new, escalated_bytes, nwords, True, hits
-        if use_compressed:
-            recv = queue_strategy.impl(payload, mesh, axis)  # (p, p, bytes)
-            rec_ids = fr.decode_delta_varint(recv, cap, shard)
-            rec_ids = torch.where(rec_ids >= 0,
-                                  rec_ids + me[:, None, None] * shard, -1)
-        else:
-            rec_ids = queue_strategy.impl(buckets, mesh, axis)
-        own = torch.maximum(fr.apply_queue(rec_ids, me, shard), local_mask)
-        new = _owned_update(dist, own[..., None], level)
-        nwords = fr.pack_bits(new) if fused else None
-        return new, queue_bytes, nwords, False, hits
+        with span(FOLD):
+            if use_compressed:
+                recv = queue_strategy.impl(payload, mesh, axis)  # (p, p, B)
+                rec_ids = fr.decode_delta_varint(recv, cap, shard)
+                rec_ids = torch.where(rec_ids >= 0,
+                                      rec_ids + me[:, None, None] * shard, -1)
+            else:
+                rec_ids = queue_strategy.impl(buckets, mesh, axis)
+        with span(OWNER_UPDATE):
+            own = torch.maximum(fr.apply_queue(rec_ids, me, shard),
+                                local_mask)
+            new = _owned_update(dist, own[..., None], level)
+            nwords = fr.pack_bits(new) if fused else None
+            return new, queue_bytes, nwords, False, hits
 
     bottom_up_level = _bottom_up_level_fn(p, shard, s, mesh, axis, in_rows,
                                           bottom_up_wire, bottom_up_bytes,
@@ -550,31 +577,39 @@ def make_level_loop_2d(part2: Partition2D, s: int, e_total: int,
                                      p * fold_len)
 
     def dense_level(frontier, fwords, dist, level):
-        if packed_expand:
-            # fused plans gather the carried generation and read source
-            # bits straight from the words (expand_dense_2d_packed: a word
-            # gather and scatter-max over the edge rows); unfused ones
-            # pack here and unpack the c gathered segments
-            payload = fwords if fwords is not None else fr.pack_bits(frontier)
-            fw = expand_strategy.impl(payload, mesh, col_axis)  # (p, c*W, S)
-            if fused:
-                cand = fr.expand_bottom_up_edges(fw, edge_rows, p * fold_len)
+        with span(EXPAND):
+            if packed_expand:
+                # fused plans gather the carried generation and read source
+                # bits straight from the words (expand_dense_2d_packed: a
+                # word gather and scatter-max over the edge rows); unfused
+                # ones pack here and unpack the c gathered segments
+                payload = (fwords if fwords is not None
+                           else fr.pack_bits(frontier))
+                fw = expand_strategy.impl(payload, mesh, col_axis)
+                if fused:
+                    cand = fr.expand_bottom_up_edges(fw, edge_rows,
+                                                     p * fold_len)
+                else:
+                    cand = expand_row_bytes(fr.unpack_bits(fw, b,
+                                                           n_blocks=c))
             else:
-                cand = expand_row_bytes(fr.unpack_bits(fw, b, n_blocks=c))
-        else:
-            cand = expand_row_bytes(expand_strategy.impl(frontier, mesh,
-                                                         col_axis))
-        cand = cand.view(p, fold_len, s)
-        if fold_strategy.wire == "packed":
-            cw = fold_strategy.impl(fr.pack_bits(cand, n_blocks=r), mesh,
-                                    row_axis)                   # (p, W, S)
+                cand = expand_row_bytes(expand_strategy.impl(frontier, mesh,
+                                                             col_axis))
+            cand = cand.view(p, fold_len, s)
+        with span(FOLD):
+            if fold_strategy.wire == "packed":
+                cw = fold_strategy.impl(fr.pack_bits(cand, n_blocks=r), mesh,
+                                        row_axis)               # (p, W, S)
+                if not fused:
+                    own = fr.unpack_bits(cw, b)
+            else:
+                own = fold_strategy.impl(cand, mesh, row_axis)  # (p, b, S)
+        with span(OWNER_UPDATE):
             if fused:
+                # A1 unpacks, updates and re-packs in one pass
                 _, new, nwords = a1.fold_update(cw, dist, level, inplace=True)
                 return new, dense_bytes, nwords
-            own = fr.unpack_bits(cw, b)
-        else:
-            own = fold_strategy.impl(cand, mesh, row_axis)      # (p, b, S)
-        return _owned_update(dist, own, level), dense_bytes, None
+            return _owned_update(dist, own, level), dense_bytes, None
 
     def sieve_drop(dst, active, dist):
         """Candidates whose whole summary bucket is visited: fold index
@@ -589,58 +624,63 @@ def make_level_loop_2d(part2: Partition2D, s: int, e_total: int,
                                sv_words) & active
 
     def queue_level(frontier, fwords, dist, level, width):
-        ids, _, overflow = fr.pack_frontier_ids(frontier, cap)  # (p, cap)
-        if use_comp_expand:
-            pay, enc_ovf = fr.encode_delta_varint(ids, g_byte_cap, b)
-            overflow = overflow | enc_ovf
-            all_pay = expand_sparse_strategy.impl(pay, mesh, col_axis)
-            all_ids = fr.decode_delta_varint(
-                all_pay.view(p, c, g_byte_cap), cap, b).view(p, c * cap)
-        else:
-            all_ids = expand_sparse_strategy.impl(ids, mesh, col_axis)
-        frow = fr.unpack_row_frontier(all_ids, c, b)            # (p, c*b, 1)
-        full = (frow[..., 0].gather(1, src_idx) > 0) & out_valid
-        # width bounds each cell's active edges from the true frontier; a
-        # truncated compressed frontier can decode to more, but only where
-        # its overflow escalates the level
-        dst, active, counts = _pack_active(full, dst_fold, width)
-        over = (counts > width).any()
-        hits = torch.zeros((), dtype=torch.int64, device=dev)
-        if sieve:
-            drop = sieve_drop(dst, active, dist)
-            hits = drop.sum()
-            active = active & ~drop
-        buckets, local_mask, _, bucket_ovf = fr.build_queue_buckets_2d(
-            dst, active, part2, me_row, cap, local_update=opts.local_update,
-            dedupe=opts.dedupe)
-        if use_comp_fold:
-            rel = torch.where(buckets >= 0, buckets - rr_base, -1)
-            fpay, fenc_ovf = fr.encode_delta_varint(rel, g_byte_cap, b)
-            bucket_ovf = bucket_ovf | fenc_ovf.any(-1)
-        # Exactness: if any cell's frontier pack, bucket or compressed
-        # stream overflowed, the whole level runs densely instead
-        ovf, hits, over = torch.stack([(overflow | bucket_ovf).any().long(),
-                                       hits, over.long()]).tolist()
-        if over:
-            if not ovf:
-                raise RuntimeError("a queue level's active edges exceed the "
-                                   "width its statistics bound")
-            if sieve:     # the hits of every active edge, as JAX counts
-                hits = int(sieve_drop(dst_fold, full, dist).sum())
+        with span(EXPAND):
+            ids, _, overflow = fr.pack_frontier_ids(frontier, cap)  # (p, cap)
+            if use_comp_expand:
+                pay, enc_ovf = fr.encode_delta_varint(ids, g_byte_cap, b)
+                overflow = overflow | enc_ovf
+                all_pay = expand_sparse_strategy.impl(pay, mesh, col_axis)
+                all_ids = fr.decode_delta_varint(
+                    all_pay.view(p, c, g_byte_cap), cap, b).view(p, c * cap)
+            else:
+                all_ids = expand_sparse_strategy.impl(ids, mesh, col_axis)
+            frow = fr.unpack_row_frontier(all_ids, c, b)        # (p, c*b, 1)
+            full = (frow[..., 0].gather(1, src_idx) > 0) & out_valid
+            # width bounds each cell's active edges from the true
+            # frontier; a truncated compressed frontier can decode to
+            # more, but only where its overflow escalates the level
+            dst, active, counts = _pack_active(full, dst_fold, width)
+            over = (counts > width).any()
+            hits = torch.zeros((), dtype=torch.int64, device=dev)
+            if sieve:
+                drop = sieve_drop(dst, active, dist)
+                hits = drop.sum()
+                active = active & ~drop
+            buckets, local_mask, _, bucket_ovf = fr.build_queue_buckets_2d(
+                dst, active, part2, me_row, cap,
+                local_update=opts.local_update, dedupe=opts.dedupe)
+            if use_comp_fold:
+                rel = torch.where(buckets >= 0, buckets - rr_base, -1)
+                fpay, fenc_ovf = fr.encode_delta_varint(rel, g_byte_cap, b)
+                bucket_ovf = bucket_ovf | fenc_ovf.any(-1)
+            # Exactness: if any cell's frontier pack, bucket or compressed
+            # stream overflowed, the whole level runs densely instead
+            ovf, hits, over = torch.stack(
+                [(overflow | bucket_ovf).any().long(), hits,
+                 over.long()]).tolist()
+            if over:
+                if not ovf:
+                    raise RuntimeError("a queue level's active edges exceed "
+                                       "the width its statistics bound")
+                if sieve:     # the hits of every active edge, as JAX counts
+                    hits = int(sieve_drop(dst_fold, full, dist).sum())
         if ovf:
             new, bb, nwords = dense_level(frontier, fwords, dist, level)
             # the sparse expand (and sieve gather) above already ran
             return new, escalated_bytes, nwords, True, hits
-        if use_comp_fold:
-            recvp = fold_sparse_strategy.impl(fpay, mesh, row_axis)
-            rec = fr.decode_delta_varint(recvp, cap, b)         # (p, r, cap)
-            rec = torch.where(rec >= 0, rec + me_row[:, None, None] * b, -1)
-        else:
-            rec = fold_sparse_strategy.impl(buckets, mesh, row_axis)
-        own = torch.maximum(fr.apply_queue(rec, me_row, b), local_mask)
-        new = _owned_update(dist, own[..., None], level)
-        nwords = fr.pack_bits(new) if fused else None
-        return new, sparse_bytes, nwords, False, hits
+        with span(FOLD):
+            if use_comp_fold:
+                recvp = fold_sparse_strategy.impl(fpay, mesh, row_axis)
+                rec = fr.decode_delta_varint(recvp, cap, b)     # (p, r, cap)
+                rec = torch.where(rec >= 0, rec + me_row[:, None, None] * b,
+                                  -1)
+            else:
+                rec = fold_sparse_strategy.impl(buckets, mesh, row_axis)
+        with span(OWNER_UPDATE):
+            own = torch.maximum(fr.apply_queue(rec, me_row, b), local_mask)
+            new = _owned_update(dist, own[..., None], level)
+            nwords = fr.pack_bits(new) if fused else None
+            return new, sparse_bytes, nwords, False, hits
 
     bottom_up_level = _bottom_up_level_fn(p, b, s, mesh, grid_axes, in_rows,
                                           bottom_up_wire, bottom_up_bytes,
@@ -649,3 +689,37 @@ def make_level_loop_2d(part2: Partition2D, s: int, e_total: int,
                          queue_level, bottom_up_level, frontier_stats, fused,
                          vwords if vwords is not None
                          else valid_words(part2, dev))
+
+
+def bfs(graph, sources, mesh: Optional[LocalMesh] = None, axis=None,
+        opts: BFSOptions = BFSOptions(), device=None):
+    """One-shot BFS from ``sources`` (int or sequence -> batched).
+
+    .. deprecated::
+        ``bfs()`` is a thin wrapper over the compile-once lifecycle —
+        ``plan(graph, opts, mesh=...).compile().run(sources)`` — kept for
+        call sites of the JAX package's ``bfs()``.  Engines resolve
+        through the process-wide shared ``EngineCache``
+        (``serve.engine_cache.default_engine_cache``), so repeated calls
+        amortize the compile and share engines with the serving paths;
+        new code should hold a ``BFSEngine`` directly.  ``device`` is
+        ``plan()``'s (CUDA unless given, when ``mesh`` names none).
+
+    Returns (dist, stats): dist is (n_logical, S) int32 with INF for
+    unreachable vertices; stats is a BFSStats.
+    """
+    # deferred: the engine imports this module, the cache the engine
+    from repro_torch.core import engine as _engine
+    from repro_torch.serve.engine_cache import default_engine_cache
+
+    warnings.warn(
+        "repro_torch.core.bfs.bfs() is deprecated; use "
+        "plan(graph, opts, mesh=...).compile().run(sources)",
+        DeprecationWarning, stacklevel=2)
+    src_arr = validate_sources(sources, graph.part.n_logical)
+    pl = _engine.plan(graph, opts, mesh=mesh, axis=axis,
+                      num_sources=int(src_arr.shape[0]), device=device)
+    eng = default_engine_cache().get_or_compile(pl)
+    eng.settle()         # a shared engine: read its last result back first
+    res = eng.run(src_arr)
+    return res.dist_host, res.stats()

@@ -18,7 +18,8 @@ in those coordinates, linearized major-first in the order given (JAX's
 rule), so the hierarchical exchange can hop one axis at a time.
 ``LocalMesh.grid(r, c, device)`` is the ``(rows, cols)`` mesh of the 2-D
 partition: shard ``k`` sits at grid cell ``(k // c, k % c)`` and owns
-vertex chunk ``k``.  Collectives across real cards
+vertex chunk ``k``.  Each collective runs inside a ``bfs.collective``
+profiler range (``core.spans``).  Collectives across real cards
 (``torch.distributed``) wait for a multi-card slice.
 """
 
@@ -28,6 +29,8 @@ import dataclasses
 import math
 
 import torch
+
+from repro_torch.core.spans import COLLECTIVE, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,28 +114,33 @@ class LocalMesh:
         """Tiled all-to-all over dim 0 of each shard's array: block ``k``
         of shard ``i``'s ``(G*blk, ...)`` array lands as block ``i`` of
         shard ``k``'s result."""
-        y = self._to_groups(x, axis)                     # (G, O, G*blk, ...)
-        g, o, length = y.shape[:3]
-        y = y.reshape(g, o, g, length // g, *y.shape[3:])
-        y = y.permute(2, 1, 0, *range(3, y.dim()))      # (G_dst, O, G_src, ...)
-        return self._from_groups(y.reshape(g, o, length, *y.shape[4:]), axis)
+        with span(COLLECTIVE):
+            y = self._to_groups(x, axis)                 # (G, O, G*blk, ...)
+            g, o, length = y.shape[:3]
+            y = y.reshape(g, o, g, length // g, *y.shape[3:])
+            y = y.permute(2, 1, 0, *range(3, y.dim()))  # (G_dst, O, G_src, ...)
+            return self._from_groups(
+                y.reshape(g, o, length, *y.shape[4:]), axis)
 
     def all_gather(self, x: torch.Tensor, axis) -> torch.Tensor:
         """Untiled all-gather: ``(p, ...)`` -> ``(p, G, ...)``, row ``k`` of
         shard ``i``'s result is the array of group member ``k``."""
-        y = self._to_groups(x, axis)                     # (G_src, O, ...)
-        g = y.shape[0]
-        y = y.transpose(0, 1).unsqueeze(0).expand(g, *y.transpose(0, 1).shape)
-        return self._from_groups(y, axis)                # (p, G_src, ...)
+        with span(COLLECTIVE):
+            y = self._to_groups(x, axis)                 # (G_src, O, ...)
+            g = y.shape[0]
+            y = y.transpose(0, 1).unsqueeze(0).expand(
+                g, *y.transpose(0, 1).shape)
+            return self._from_groups(y, axis)            # (p, G_src, ...)
 
     def psum_scatter(self, x: torch.Tensor, axis) -> torch.Tensor:
         """Tiled reduce-scatter (sum) over dim 0: shard ``k`` receives the
         sum over its group of every member's block ``k``."""
-        y = self._to_groups(x, axis)                     # (G, O, G*blk, ...)
-        g, o, length = y.shape[:3]
-        y = y.reshape(g, o, g, length // g, *y.shape[3:]).sum(
-            dim=0, dtype=x.dtype)                        # (O, G_dst, blk, ...)
-        return self._from_groups(y.transpose(0, 1), axis)
+        with span(COLLECTIVE):
+            y = self._to_groups(x, axis)                 # (G, O, G*blk, ...)
+            g, o, length = y.shape[:3]
+            y = y.reshape(g, o, g, length // g, *y.shape[3:]).sum(
+                dim=0, dtype=x.dtype)                    # (O, G_dst, blk, ...)
+            return self._from_groups(y.transpose(0, 1), axis)
 
 
 def default_grid(p: int) -> tuple:

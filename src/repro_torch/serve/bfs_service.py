@@ -289,14 +289,29 @@ class BFSService:
         work, so bad remote input maps to a 400-style rejection instead
         of surfacing as a device-side error mid-``step()``.
         """
+        lane, engine, srcs, bucket = self.resolve(name, sources)
+        return self.dispatch(lane.name, engine, srcs), bucket
+
+    def resolve(self, name: Optional[str], sources):
+        """The first half of ``traverse_async``: validate ``sources`` and
+        compile (or fetch) the engine of the lane's smallest fitting
+        bucket, running nothing.  Returns ``(lane, engine, sources,
+        bucket)``.  The front end calls it outside its watchdog, so a slow
+        compile serves as it does in the JAX package."""
         lane = self.lane(name) if name is not None else self._sole_lane()
         srcs = validate_sources(sources, lane.n_logical,
                                 max_sources=lane.ladder[-1])
-        _faults.fire("service.dispatch", lane.name)
         plan_ = lane.plan_for(len(srcs))
-        engine = self.cache.get_or_compile(plan_)
+        return (lane, self.cache.get_or_compile(plan_),
+                [int(s) for s in srcs], plan_.num_sources)
+
+    def dispatch(self, name: str, engine, sources):
+        """The second half: the ``service.dispatch`` fault seam, then one
+        run of a resolved engine (the level loop, which reads the device
+        every level) after its previous result is read back."""
+        _faults.fire("service.dispatch", name)
         engine.settle()
-        return engine.run_async([int(s) for s in srcs]), plan_.num_sources
+        return engine.run_async(sources)
 
     def traverse(self, name: Optional[str], sources):
         """Blocking ``traverse_async``: returns ``(BFSResult, bucket)``

@@ -44,15 +44,22 @@ default (no deadline, no watchdog, retries only on ``TransientError``).
 
 Two things differ from the JAX dispatcher, both from the port's engine.
 Its ``run_async`` returns only after the level loop, which reads the
-device every level, so a wedged device hangs in *dispatch*: the watchdog
-guards the dispatch of each request as well as its sync.  And a result's
-distances live in its engine's reused buffer: the service settles an
-engine before each run (``BFSEngine.settle``), and the sync reads
-``dist_host`` on the dispatching side, before the waiting handler thread
-is woken, so no later round can reuse the buffer under it.  Parents,
-when a request asks for them, are derived there too, on the lane's
-device (``schema.derive_parents_on_device``, the host rule's values).
-The HTTP handler sends the encoded response bytes as they are.
+device every level, so a wedged device hangs in the *run*: the watchdog
+guards each engine run as well as its result read, the two together
+being the counterpart of JAX's sync.  The engine is resolved and
+compiled first, outside the guard (``BFSService.resolve``), and so are
+the retries' backoff sleeps and each degradation arm's compile: a slow
+compile serves, as in the JAX package.  And a result's distances live in
+its engine's reused buffer: the service settles an engine before each
+run (``BFSEngine.settle``), and the sync reads ``dist_host`` on the
+dispatching side, before the waiting handler thread is woken, so no
+later round can reuse the buffer under it.  Parents, when a request asks
+for them, are derived there too, on the lane's device
+(``schema.derive_parents_on_device``, the host rule's values), over an
+int64 edge list uploaded once per graph and device, shown in
+``/metrics`` as ``engine_cache.parents_device_bytes`` and freed when the
+front end drains.  The HTTP handler sends the encoded response bytes
+as they are.
 """
 
 from __future__ import annotations
@@ -155,9 +162,10 @@ class BFSFrontend:
         self.degrade_enabled = bool(degrade)
         self.default_deadline_ms = default_deadline_ms
         self._level_bytes: Dict[str, dict] = {}   # lane -> phase pricing
-        # graph id -> its (src, dst) edge list on the lane's device, for
-        # the parents (filled by the dispatching side only)
-        self._edges: Dict[int, tuple] = {}
+        # (graph id, device) -> (graph, src, dst): the graph's int64 edge
+        # list on that device, for the parents (filled by the dispatching
+        # side, emptied by a drain; the graph is held so its id stays)
+        self._edges: Dict[tuple, tuple] = {}
         # guarded-by(_cv): _running, _draining
         self._cv = threading.Condition()
         self._running = True
@@ -192,11 +200,13 @@ class BFSFrontend:
             self._draining = True
             self._cv.notify_all()
         deadline = time.monotonic() + timeout_s
-        while time.monotonic() < deadline:
-            if all(g.idle() for g in self.gates.values()):
-                return True
+        while not all(g.idle() for g in self.gates.values()):
+            if time.monotonic() >= deadline:
+                return False
             time.sleep(0.01)
-        return all(g.idle() for g in self.gates.values())
+        # no request is left to derive parents for
+        self._edges.clear()
+        return True
 
     def shutdown(self, timeout_s: float = 60.0) -> bool:
         """Graceful drain, then stop the dispatcher."""
@@ -207,6 +217,13 @@ class BFSFrontend:
         if self._dispatcher.is_alive():
             self._dispatcher.join(timeout=5.0)
         return drained
+
+    def parents_device_bytes(self) -> int:
+        """Device bytes of the edge lists held for the parents (16 bytes
+        an edge a graph and device); the engine cache's budget does not
+        hold them, since evicting an engine would not free them."""
+        return sum(src.nbytes + dst.nbytes
+                   for _, src, dst in list(self._edges.values()))
 
     # ------------------------------------------------------------ admission
     def _resolve_lane(self, graph: Optional[str]):
@@ -320,13 +337,15 @@ class BFSFrontend:
         graph's edge list, uploaded once per graph."""
         lane = self.service.lane(name)
         dev = lane.plan.device
-        edges = self._edges.get(id(lane.graph))
-        if edges is None:
+        key = (id(lane.graph), str(dev))
+        entry = self._edges.get(key)
+        if entry is None:
             src, dst = lane.graph.edge_list()
-            edges = self._edges[id(lane.graph)] = (
-                torch.as_tensor(src).to(dev), torch.as_tensor(dst).to(dev))
+            entry = self._edges[key] = (
+                lane.graph, torch.as_tensor(src).to(dev),
+                torch.as_tensor(dst).to(dev))
         parents = schema.derive_parents_on_device(
-            *edges, torch.as_tensor(depths).to(dev))
+            entry[1], entry[2], torch.as_tensor(depths).to(dev))
         return parents.cpu().numpy()
 
     # ------------------------------------------------------------- dispatch
@@ -371,22 +390,29 @@ class BFSFrontend:
     def _dispatch_one(self, name: str, pending: _Pending):
         """Resolve + dispatch one request: bounded retry on transient
         failures, then the degradation arms.  Returns the un-blocked
-        result handle + bucket; raises when every avenue is spent."""
+        result handle + bucket; raises when every avenue is spent.  Only
+        the engine runs are watchdog-guarded: the compiles, the backoff
+        sleeps and the arms' compiles are not."""
         lane_metrics = self.metrics.lane(name)
 
         def on_retry(attempt, exc, backoff_s):
             lane_metrics.record_retry()
 
+        def attempt():
+            _, engine, srcs, bucket = self.service.resolve(name,
+                                                           pending.sources)
+            return self._guarded(name, lambda: self.service.dispatch(
+                name, engine, srcs)), bucket
+
         try:
-            res, bucket = call_with_retry(
-                lambda: self.service.traverse_async(name, pending.sources),
-                self.retry_policy, on_retry=on_retry)
-            return res, bucket
+            return call_with_retry(attempt, self.retry_policy,
+                                   on_retry=on_retry)
         except TransientError:
             if not self.degrade_enabled:
                 raise
-        res, bucket, arm = degraded_traverse(self.service, name,
-                                             pending.sources)
+        res, bucket, arm = degraded_traverse(
+            self.service, name, pending.sources,
+            guard=lambda fn: self._guarded(name, fn))
         pending.arm = arm
         lane_metrics.record_degraded(arm)
         return res, bucket
@@ -436,8 +462,7 @@ class BFSFrontend:
             try:
                 if pending.deadline is not None:
                     pending.deadline.check("queue", f"lane {name!r}")
-                res, bucket = self._guarded(
-                    name, lambda: self._dispatch_one(name, pending))
+                res, bucket = self._dispatch_one(name, pending)
                 pending.bucket = bucket
                 batch.append((name, pending, cost, res))
             except DeadlineExceeded as exc:
@@ -528,6 +553,8 @@ class BFSFrontend:
             out["lanes"][name]["breaker"] = breaker.snapshot()
         if self.watchdog is not None:
             out["watchdog"] = self.watchdog.snapshot()
+        out["engine_cache"]["parents_device_bytes"] = \
+            self.parents_device_bytes()
         return out
 
     def ready(self) -> "tuple[bool, list]":

@@ -126,27 +126,34 @@ def degradation_arms(lane, n_sources: int):
         yield "wire:bytes", safe, None
 
 
-def degraded_traverse(service, name: str, sources):
+def _settled_run(engine, srcs):
+    engine.settle()                    # the previous result's buffer
+    return engine.run_async(srcs)
+
+
+def degraded_traverse(service, name: str, sources, guard=None):
     """Serve ``sources`` on the first working arm of lane ``name``.
 
     Returns ``(result, bucket, arm_label)`` — result un-blocked for
     single-run arms (the dispatcher pipelines it like any other), fully
     synced for split arms.  Re-raises the last transient failure when
-    every arm is exhausted.
+    every arm is exhausted.  ``guard(fn)``, when given, wraps each
+    engine run (the front end's watchdog); an arm's compile runs outside
+    it.
     """
     lane = service.lane(name)
     srcs = [int(s) for s in sources]
+    run = guard if guard is not None else (lambda fn: fn())
     last_exc = None
     for label, plan_, split in degradation_arms(lane, len(srcs)):
         try:
             engine = service.cache.get_or_compile(plan_)
-            engine.settle()
             if split is None:
-                return engine.run_async(srcs), plan_.num_sources, label
-            parts = []
-            for i in range(0, len(srcs), split):
-                engine.settle()        # the previous part's buffer
-                parts.append(engine.run(srcs[i:i + split]))
+                return (run(lambda: _settled_run(engine, srcs)),
+                        plan_.num_sources, label)
+            parts = [run(lambda chunk=srcs[i:i + split]:
+                         _settled_run(engine, chunk).block())
+                     for i in range(0, len(srcs), split)]
             return StitchedResult(parts, len(srcs)), split, label
         except TransientError as exc:
             last_exc = exc

@@ -747,3 +747,35 @@ def test_http_frontend_on_the_card(cuda):
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=30)
+
+
+def test_parents_of_a_cpu_lane_and_a_card_lane_of_one_graph(cuda):
+    """Two lanes of one graph, one on the CPU and one on the card: each
+    keeps its own device edge list (keyed by graph and device) and both
+    return the host rule's parents; a drain frees both lists."""
+    from repro_torch.core import LocalMesh
+    from repro_torch.serve.bfs_service import BFSService
+    from repro_torch.serve.engine_cache import EngineCache
+    from repro_torch.serve.frontend import derive_parents
+    from repro_torch.serve.frontend.server import BFSFrontend
+
+    src, dst, n, g = _serving_graphs()
+    svc = BFSService(opts=BFSOptions(), batch_buckets=(4,),
+                     cache=EngineCache())
+    svc.add_graph("host", g, mesh=LocalMesh.flat(4, "cpu"))
+    svc.add_graph("card", g, mesh=LocalMesh.flat(4, cuda))
+    fe = BFSFrontend(svc, log=lambda *a: None)
+    srcs = [3, 1, 2999]
+    want = bfs_reference(src, dst, n, srcs)
+    try:
+        for lane in ("host", "card"):
+            out = fe.traverse(lane, srcs, include_parents=True,
+                              timeout_s=60)
+            np.testing.assert_array_equal(np.asarray(out["depths"]).T, want)
+            np.testing.assert_array_equal(np.asarray(out["parents"]).T,
+                                          derive_parents(src, dst, want))
+        assert sorted(k[1] for k in fe._edges) == sorted(["cpu", str(cuda)])
+        assert fe.parents_device_bytes() == 2 * 16 * g.edge_list()[0].size
+        assert fe.drain(timeout_s=30) and not fe._edges
+    finally:
+        fe.shutdown(timeout_s=30)

@@ -33,7 +33,8 @@ def test_every_package_is_listed():
     assert {"repro_torch.graphs", "repro_torch.core",
             "repro_torch.kernels.bsr_spmm", "repro_torch.serve",
             "repro_torch.serve.frontend",
-            "repro_torch.serve.resilience"} <= set(PACKAGES)
+            "repro_torch.serve.resilience", "repro_torch.analysis",
+            "repro_torch.launch"} <= set(PACKAGES)
 
 
 @pytest.mark.parametrize("package", PACKAGES)
