@@ -11,7 +11,10 @@ part of its time).  Each kept event goes to the phase of the innermost
 the ``bfs.level`` range around it.  A device event does not sit inside
 the CPU ranges: it runs later, on a stream's timeline, so it is placed by
 its launch, the CUDA runtime call that shares its ``correlation`` id
-(the trace's ``ac2g`` flow ties the two as well).
+(the trace's ``ac2g`` flow ties the two as well).  A device event whose
+launch is not in the trace goes to ``other`` with no level, and is
+counted as ``unanchored``: its time says how much of the device time the
+join failed to place.
 
 Where JAX classifies XLA op names, the port classifies range names:
 
@@ -65,8 +68,9 @@ def classify(name: str) -> str:
 @dataclass
 class TraceOp:
     """One kept event: name, phase, start + duration (s), the index of
-    its ``bfs.level`` range (None outside every level) and its source
-    (``"device"`` events or ``"cpu"`` ops)."""
+    its ``bfs.level`` range (None outside every level), its source
+    (``"device"`` events or ``"cpu"`` ops) and whether its launch was
+    found (a CPU op is its own launch)."""
 
     name: str
     phase: str
@@ -74,6 +78,7 @@ class TraceOp:
     dur: float
     level: Optional[int] = None
     source: str = "device"
+    anchored: bool = True
 
 
 @dataclass
@@ -86,11 +91,15 @@ class PhaseTimings:
     span_s: float = 0.0                # first event start to last end
     n_ops: int = 0
     source: str = "device"             # "device" events or "cpu" ops
+    unanchored: int = 0                # device events with no launch found
+    unanchored_s: float = 0.0          # ... and their summed seconds
 
     def to_dict(self) -> dict:
         return {"total_s": self.total_s, "counts": self.counts,
                 "levels": self.levels, "span_s": self.span_s,
-                "n_ops": self.n_ops, "source": self.source}
+                "n_ops": self.n_ops, "source": self.source,
+                "unanchored": self.unanchored,
+                "unanchored_s": self.unanchored_s}
 
 
 def find_trace_file(path: str) -> str:
@@ -208,7 +217,7 @@ def load_events(path: str) -> List[TraceOp]:
     out = [TraceOp(name=ev.get("name", ""), phase=phases[i],
                    ts=float(ev["ts"]) * 1e-6,
                    dur=float(ev.get("dur", 0)) * 1e-6, level=levels[i],
-                   source=source)
+                   source=source, anchored=anchors[i] is not None)
            for i, ev in enumerate(kept)]
     out.sort(key=lambda o: o.ts)
     return out
@@ -234,6 +243,7 @@ def phase_timings(ops: List[TraceOp],
     seconds."""
     total = {ph: 0.0 for ph in PHASES}
     counts = {ph: 0 for ph in PHASES}
+    unanchored = [op.dur for op in ops if not op.anchored]
     for op in ops:
         total[op.phase] += op.dur
         counts[op.phase] += 1
@@ -247,7 +257,9 @@ def phase_timings(ops: List[TraceOp],
             if ops else 0.0)
     return PhaseTimings(total_s=total, counts=counts, levels=levels,
                         span_s=span, n_ops=len(ops),
-                        source=ops[0].source if ops else "device")
+                        source=ops[0].source if ops else "device",
+                        unanchored=len(unanchored),
+                        unanchored_s=sum(unanchored))
 
 
 def parse_trace(path: str, n_levels: Optional[int] = None) -> PhaseTimings:
@@ -282,8 +294,9 @@ def format_summary(t: PhaseTimings) -> str:
     phase totals, then one row a level."""
     tot = sum(t.total_s.values()) or 1.0
     kind = "device" if t.source == "device" else "cpu_op"
-    rows = [f"trace: {t.n_ops} {kind} events over {t.span_s * 1e3:.1f}ms "
-            f"wall, {len(t.levels)} level segment(s)"]
+    rows = [f"trace: {t.n_ops} {kind} events ({t.unanchored} with no "
+            f"launch found, {t.unanchored_s * 1e3:.3f}ms) over "
+            f"{t.span_s * 1e3:.1f}ms wall, {len(t.levels)} level segment(s)"]
     for ph in PHASES:
         s = t.total_s[ph]
         rows.append(f"  {ph:<13} {s * 1e3:9.3f}ms  {s / tot:6.1%}  "

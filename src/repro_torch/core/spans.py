@@ -8,7 +8,7 @@ collective runs inside ``bfs.collective``.  A range is a
 none, ``span`` returns a shared no-op context after one check of the
 profiler's state (about 0.1 us), where an idle ``record_function`` still
 costs some microseconds a range, several percent of a host-bound level
-loop.  ``ALWAYS = True`` records them regardless, to price that cost.
+loop.
 """
 
 from __future__ import annotations
@@ -22,7 +22,6 @@ try:
 except ImportError:                       # a build without the C hook
     from torch.autograd.profiler import _profiler_enabled
 
-ALWAYS = False
 _IDLE = contextlib.nullcontext()
 
 LEVEL = "bfs.level"
@@ -35,6 +34,6 @@ OWNER_UPDATE = "bfs.owner_update"
 def span(name: str):
     """A profiler range named ``name`` while a profiler records, else a
     no-op context."""
-    if ALWAYS or _profiler_enabled():
+    if _profiler_enabled():
         return torch.profiler.record_function(name)
     return _IDLE

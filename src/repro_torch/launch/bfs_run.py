@@ -44,9 +44,11 @@ from repro_torch.serve.engine_cache import default_engine_cache
 
 
 def main(argv=None, *, on_run=None) -> int:
-    """Run the launcher on ``argv``; returns the exit code.  ``on_run(rep,
-    sources, result)``, when given, is called after each timed run, while
-    the result's distances are still the engine's (the caller's check)."""
+    """Run the launcher on ``argv``; returns the exit code.
+
+    ``on_run(rep, sources, result)`` exists for in-process checks (the
+    command line has no counterpart): when given, it is called after each
+    timed run, while the result's distances are still the engine's."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", default=None,
                     choices=[w.name for w in BFS_WORKLOADS])

@@ -164,7 +164,8 @@ class BFSFrontend:
         self._level_bytes: Dict[str, dict] = {}   # lane -> phase pricing
         # (graph id, device) -> (graph, src, dst): the graph's int64 edge
         # list on that device, for the parents (filled by the dispatching
-        # side, emptied by a drain; the graph is held so its id stays)
+        # side, emptied by a drain and by shutdown; the graph is held so
+        # its id stays)
         self._edges: Dict[tuple, tuple] = {}
         # guarded-by(_cv): _running, _draining
         self._cv = threading.Condition()
@@ -209,13 +210,15 @@ class BFSFrontend:
         return True
 
     def shutdown(self, timeout_s: float = 60.0) -> bool:
-        """Graceful drain, then stop the dispatcher."""
+        """Graceful drain, then stop the dispatcher and free the parents'
+        edge lists, whether or not the drain finished in time."""
         drained = self.drain(timeout_s)
         with self._cv:
             self._running = False
             self._cv.notify_all()
         if self._dispatcher.is_alive():
             self._dispatcher.join(timeout=5.0)
+        self._edges.clear()
         return drained
 
     def parents_device_bytes(self) -> int:
@@ -721,16 +724,28 @@ class _Handler(BaseHTTPRequestHandler):
         # drain + stop from a side thread: shutdown() must not run on a
         # handler thread the server is about to join
         threading.Thread(target=self.server.drain_and_stop,
-                         daemon=True).start()
+                         name="bfs-stop", daemon=True).start()
 
 
 class _FrontendHTTPServer(ThreadingHTTPServer):
     daemon_threads = True
     frontend: BFSFrontend = None
+    _stopper: Optional[threading.Thread] = None   # runs drain_and_stop
 
     def drain_and_stop(self, timeout_s: float = 60.0) -> None:
+        self._stopper = threading.current_thread()
         self.frontend.shutdown(timeout_s)
         self.shutdown()
+
+    def server_close(self) -> None:
+        """Close the socket, then wait for the side thread that stopped
+        the server to end: a daemon thread that drops the last reference
+        to the front end's tensors while the interpreter finalizes
+        aborts the process."""
+        super().server_close()
+        stopper = self._stopper
+        if stopper is not None and stopper is not threading.current_thread():
+            stopper.join(timeout=30.0)
 
 
 def serve_http(service, host: str = "127.0.0.1", port: int = 0, *,

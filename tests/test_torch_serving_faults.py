@@ -7,12 +7,17 @@
    against both packages: 200, the oracle's depths bitwise, no trip.
 2. The parents' device edge list is keyed by graph and device, shown in
    ``/metrics`` as ``engine_cache.parents_device_bytes`` and freed when
-   the front end drains.
+   the front end drains, or shuts down after a drain that timed out.
+3. ``server_close`` waits for the thread that ``POST /admin/shutdown``
+   started, so a launcher that returns next never leaves that daemon
+   thread dropping the front end's tensors while the interpreter
+   finalizes (the process aborted).
 """
 
 import importlib
 import json
 import threading
+import time
 import urllib.request
 
 import numpy as np
@@ -169,6 +174,52 @@ def test_parents_edges_are_keyed_by_graph_and_device_and_freed_on_drain():
         assert not fe._edges and fe.parents_device_bytes() == 0
     finally:
         fe.shutdown(timeout_s=10)
+
+
+def test_parents_edges_are_freed_by_a_shutdown_whose_drain_times_out():
+    """A request admitted with no dispatcher keeps a gate busy, so the
+    drain times out; shutdown frees the edge list all the same."""
+    src, dst = _edges()
+    g = shard_graph(src, dst, N, 1)
+    fe = BFSFrontend(_port_service(g), log=lambda *a: None,
+                     start_dispatcher=False)
+    want = bfs_reference(src, dst, N, [1, 8])
+    np.testing.assert_array_equal(fe._parents("er", want),
+                                  derive_parents(src, dst, want))
+    assert fe.parents_device_bytes() == 16 * g.edge_list()[0].size
+    fe.submit("er", [3])
+    assert not fe.shutdown(timeout_s=0.05)
+    assert not fe._edges and fe.parents_device_bytes() == 0
+
+
+def test_server_close_waits_for_the_admin_shutdown_thread():
+    """The stopping thread lingers after it stops the accept loop;
+    ``server_close`` returns only once it has ended."""
+    from repro_torch.serve.frontend.server import serve_http
+
+    src, dst = _edges()
+    httpd, fe = serve_http(_port_service(shard_graph(src, dst, N, 1)),
+                           "127.0.0.1", 0, log=lambda *a: None)
+    stop = httpd.shutdown
+
+    def slow_stop():
+        stop()
+        time.sleep(0.5)
+
+    httpd.shutdown = slow_stop
+    serving = threading.Thread(target=httpd.serve_forever, daemon=True)
+    serving.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/admin/shutdown"
+    req = urllib.request.Request(url, data=b"{}", headers={
+        "Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=30) as rsp:
+        assert rsp.status == 200
+    serving.join(timeout=30)
+    assert not serving.is_alive()
+    httpd.server_close()
+    assert not any(t.name == "bfs-stop" and t.is_alive()
+                   for t in threading.enumerate())
+    assert not fe._edges
 
 
 @pytest.mark.parametrize("ladder", [(1,), (2, 4)])

@@ -5,7 +5,9 @@
 segment a level, its phases sum to the kept events' total and ``main``
 prints the JSON; a synthetic card trace (kernels on a stream timeline,
 their launches inside the CPU ranges) is joined through the correlation
-ids and the ``ac2g`` flow; and the ranges are no-ops with no profiler.
+ids and the ``ac2g`` flow, and a kernel launched outside every range or
+with no launch in the trace lands in ``other`` with no level (the latter
+counted as unanchored); and the ranges are no-ops with no profiler.
 """
 
 import json
@@ -63,6 +65,7 @@ def test_a_cpu_profile_splits_into_one_segment_a_level(cpu_profile):
     assert sum(t.total_s.values()) == pytest.approx(
         sum(op.dur for op in ops), rel=1e-12)
     assert sum(t.counts.values()) == t.n_ops == len(ops)
+    assert t.unanchored == 0 and t.unanchored_s == 0.0
     for lv in t.levels:
         assert lv["expand"] > 0 and lv["fold"] > 0 and lv["owner_update"] > 0
     assert t.counts["collective"] >= stats.levels
@@ -94,7 +97,9 @@ def test_outermost_cpu_ops_only(cpu_profile):
 
 def _synthetic_card_trace(path):
     """Two levels of ranges on thread 1; four kernels and a copy on a
-    stream timeline (thread 7), launched from inside the ranges."""
+    stream timeline (thread 7), launched from inside the ranges, one
+    kernel launched after every range, and one whose launch is not in
+    the trace."""
     x = lambda cat, name, ts, dur, tid=1, **args: {  # noqa: E731
         "ph": "X", "cat": cat, "name": name, "pid": 1, "tid": tid,
         "ts": ts, "dur": dur, "args": args}
@@ -111,12 +116,14 @@ def _synthetic_card_trace(path):
         x("cuda_runtime", "cudaLaunchKernel", 55, 2, correlation=12),
         x("cuda_runtime", "cudaMemcpyAsync", 75, 2, correlation=13),
         x("cuda_runtime", "cudaLaunchKernel", 95, 2, correlation=14),
+        x("cuda_runtime", "cudaMemcpyAsync", 250, 2, correlation=16),
         x("kernel", "scatter_max", 500, 40, tid=7, correlation=11),
         x("kernel", "all_to_all_copy", 560, 5, tid=7, correlation=12),
         x("gpu_memcpy", "Memcpy DtoH", 570, 3, tid=7, correlation=13),
         x("kernel", "pad_mask", 580, 2, tid=7, correlation=14),
         x("kernel", "fold_update_kernel", 600, 7, tid=7, correlation=15),
         x("kernel", "orphan", 700, 1, tid=7, correlation=99),
+        x("gpu_memcpy", "dist_readback", 800, 4, tid=7, correlation=16),
         # a launch seen only as the ac2g flow start
         {"ph": "s", "cat": "ac2g", "id": 15, "pid": 1, "tid": 1, "ts": 120,
          "name": "ac2g"},
@@ -129,22 +136,29 @@ def _synthetic_card_trace(path):
 
 def test_card_events_join_their_launch_ranges(tmp_path):
     ops = tm.load_events(_synthetic_card_trace(tmp_path / "x.pt.trace.json"))
-    got = {op.name: (op.phase, op.level, op.source) for op in ops}
+    got = {op.name: (op.phase, op.level, op.source, op.anchored)
+           for op in ops}
     assert got == {
-        "scatter_max": ("expand", 0, "device"),
-        "all_to_all_copy": ("collective", 0, "device"),
-        "Memcpy DtoH": ("owner_update", 0, "device"),
-        "pad_mask": ("other", 0, "device"),
-        "fold_update_kernel": ("expand", 1, "device"),
-        "orphan": ("other", None, "device"),
+        "scatter_max": ("expand", 0, "device", True),
+        "all_to_all_copy": ("collective", 0, "device", True),
+        "Memcpy DtoH": ("owner_update", 0, "device", True),
+        "pad_mask": ("other", 0, "device", True),
+        "fold_update_kernel": ("expand", 1, "device", True),
+        "orphan": ("other", None, "device", False),
+        "dist_readback": ("other", None, "device", True),
     }
     t = tm.phase_timings(ops)
     assert t.total_s["expand"] == pytest.approx(47e-6)
+    assert t.total_s["other"] == pytest.approx(7e-6)
     assert [sum(lv.values()) for lv in t.levels] == pytest.approx(
         [50e-6, 7e-6])
-    assert sum(t.total_s.values()) == pytest.approx(58e-6)
-    assert t.span_s == pytest.approx(201e-6)
-    assert "6 device events" in tm.format_summary(t)
+    assert t.levels[0]["other"] == pytest.approx(2e-6)
+    assert t.levels[1]["other"] == 0.0
+    assert sum(t.total_s.values()) == pytest.approx(62e-6)
+    assert t.unanchored == 1 and t.unanchored_s == pytest.approx(1e-6)
+    assert t.span_s == pytest.approx(304e-6)
+    summary = tm.format_summary(t)
+    assert "7 device events (1 with no launch found, 0.001ms)" in summary
 
 
 def test_find_trace_file_and_a_missing_trace(tmp_path):
