@@ -106,7 +106,26 @@ Phases (any failed check raises and the script exits non-zero):
    ``--shutdown``) exits 0, the server drains and returns 0, A1 launched;
    (d) ``bfs_chaos --devices 4 --secs 20 --n 100000`` exits 0 with at
    least one ``cache.get`` storm and a bitwise 200 requested after it.
-9. prefill — gemma3-12b at full width (d_model 3840, 16 q / 8 kv heads of
+9. path 8 — the plan audits (``analysis.collective_audit``, ``lint``,
+   ``locks``), each entry point called in process: (a) ``bfs_audit
+   --graph er:4096 --all-variants --devices 4 --census --out
+   build/chip_smoke_path8/BENCH_audit_torch.json`` exits 0: 48 variants
+   planned, each distinct one audited clean, with the host reads of
+   every level counted by ``torch.cuda.set_sync_debug_mode`` within the
+   budget; it prints the data collectives a level by level kind and the
+   least and most recorded-to-modeled byte ratio by role; (b) ``bfs_run
+   --workload rmat_1m --devices 4 --mode dense --sources 64 --repeats 2
+   --audit`` (not cut): the audit passes, each ``dense`` row receives
+   ``describe()["dense_level_bytes"]`` within the tolerance, the audited
+   run's distances are bitwise path 1's p = 4 engine on sources 0..63,
+   run 0 prints that engine's line, and A1 launches once a level of the
+   audited run, the audit's two buffer-check runs and the two timed
+   runs; then a ``use_kernel`` engine on ``small_world_100k`` at p = 4,
+   audited from path 2's roots: clean, distances bitwise path 2's,
+   ``bsr_expand_bits`` and A1 once a level.  Paths 1, 3, 4 (a) and 5 (a)
+   print each level kind's ``describe()["roofline"]`` ``t_level_s``
+   beside the measured ms a level, and the share.
+10. prefill — gemma3-12b at full width (d_model 3840, 16 q / 8 kv heads of
    256, d_ff 15360, vocab 262144, bf16) through ``build_bundle(...,
    "prefill_32k")``, cut to 12 layers (two 5 local + 1 global groups) and
    batch 2 x seq 8192, with random weights from a seeded generator on the
@@ -115,7 +134,7 @@ Phases (any failed check raises and the script exits non-zero):
    and 3 bitwise equal; then the same prefill with the plain attention,
    held to a stated tolerance (the first layer's cache bitwise), which
    two planted faults (every local window one key off) must fail.
-10. recsys — DeepFM at its full configuration (39 fields x 1,000,000 rows
+11. recsys — DeepFM at its full configuration (39 fields x 1,000,000 rows
    x 10, a 1.56 GB f32 table, MLP 403-400-400-400-1), not cut, through
    ``build_bundle(get_arch("deepfm"), ...)`` for ``serve_p99``,
    ``serve_bulk`` and ``retrieval_cand``, with random weights from a
@@ -125,7 +144,7 @@ Phases (any failed check raises and the script exits non-zero):
    scores at a stated relative L2 limit.  Two planted faults must fail
    that hold: every field offset one row off, and (serve) TF32 products.  DeepFM looks its fields up
    with a row gather, as the JAX package does, so no kernel launches.
-11. embedding bag — the lookup op ``kernels.embedding_bag.ops.embedding_bag``
+12. embedding bag — the lookup op ``kernels.embedding_bag.ops.embedding_bag``
    (kernel A5) on (a) the ``serve_bulk`` batch's own flat ids as bags
    over DeepFM's table (the op's main path, three calls; also held to the
    serve path's ``emb.sum(1)``), (b) the same bags cut to seeded ragged
@@ -139,7 +158,7 @@ Phases (any failed check raises and the script exits non-zero):
    useful bytes and that of the 32-byte sectors the rows span; and on
    (a)'s ids over a (V, 8) f32 table (one sector a row) and over the
    table's first 100,000 rows (a 4 MB table, the plain-load route).
-12. kernels — each kernel against its plain torch version on the card at
+13. kernels — each kernel against its plain torch version on the card at
    the shapes of the paths (A4 also each (batch, head) slice, with the
    window one key off failing; ``bsr_expand_bits`` on path 2's densest
    level and on a random 5% frontier, and the f32 A2 + A3 chain of
@@ -497,6 +516,8 @@ def path3_phase(kernels, g, src, dst, roots, want, dev, profile: bool):
     check(np.array_equal(host, want),
           "path 3: distances differ from path 1's p4_default")
     report_run("path 3 use_kernel p4", compile_ms, run_ms, res, counts)
+    roofline_line("path 3 use_kernel p4", d, res.run_stats,
+                  ["dense"] * levels)
     log(f"path 3: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if profile:
@@ -673,6 +694,7 @@ def path4_phase(kernels, g, src, roots, want, profile: bool) -> None:
     check(not any(counts[k] for k in others),
           f"path 4 (a): a kernel off the path launched: {counts}")
     report_modes("path 4 (a) auto S=64", run_ms, st, modes, res)
+    roofline_line("path 4 (a) auto S=64", d, res.run_stats, modes)
     log(f"path 4 (a): launches {counts}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if profile:
@@ -740,6 +762,7 @@ def path5_phase(kernels, g, src, roots, want, profile: bool) -> int:
           f"{label}: comm_bytes {st['comm_bytes']}, not {levels} x "
           f"{d['dense_level_bytes']} as float32")
     report_modes(label, run_ms, st, ["dense"] * levels, res)
+    roofline_line(label, d, res.run_stats, ["dense"] * levels)
     log(f"{label}: launches {counts}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if profile:
@@ -1499,6 +1522,197 @@ def launchers_phase(kernels, g1, src1, dst1, dev, tmp: Path) -> dict:
         f"{wall_c:.1f} s, (d) {wall_d:.1f} s; A1 launches {a1}; path 7 "
         f"{time.perf_counter() - t_phase:.1f} s")
     return a1
+
+
+# ---------------------------------------------------------------------------
+# path 8: the plan audits
+# ---------------------------------------------------------------------------
+
+def roofline_line(label: str, d: dict, stats, modes) -> dict:
+    """Each level kind's ``describe()["roofline"]`` ``t_level_s`` beside
+    the run's measured mean ms a level of that kind (``level_seconds``,
+    the host clock to the level's read) and the share, model over
+    measured; logged with the card's name and power limit."""
+    rows = {}
+    for kind, row in d["roofline"].items():
+        ms = [t * 1e3 for t, m in zip(stats.level_seconds, modes)
+              if m == kind]
+        if ms:
+            model = row["t_level_s"] * 1e3
+            rows[kind] = {"model_ms": model, "measured_ms": sum(ms) / len(ms),
+                          "levels": len(ms),
+                          "share": model / (sum(ms) / len(ms)),
+                          "bottleneck": row["bottleneck"]}
+    log(f"{label} roofline ({card_line()}): " + "; ".join(
+        f"{k} t_level_s {v['model_ms']:.6f} ms ({v['bottleneck']}) beside "
+        f"{v['measured_ms']:.3f} ms measured a level over {v['levels']}, "
+        f"share {v['share']:.6f}" for k, v in rows.items()))
+    return rows
+
+
+def census_rows(text: str, role: str) -> list:
+    """``(recv B, model B)`` of the ``role`` rows of a printed census
+    table."""
+    out = []
+    for line in text.splitlines():
+        f = line.split()
+        if len(f) >= 7 and f[0] == role and f[4].isdigit():
+            out.append((float(f[4]), float(f[5])))
+    return out
+
+
+def audit_phase(kernels, g1, src1, dst1, g_sw, host_sw, roots_sw, dev,
+                tmp: Path) -> dict:
+    """The plan audits on the card (module docstring, path 8): (a)
+    ``bfs_audit --all-variants``, (b) ``bfs_run --audit`` on ``rmat_1m``
+    and the audit of a ``use_kernel`` engine on ``small_world_100k``.
+    Returns the kernels' launches in (b)."""
+    import gc
+
+    from repro_torch.analysis import collective_audit
+    from repro_torch.core import BFSOptions, plan
+    from repro_torch.core.ref import validate_bfs
+    from repro_torch.graphs import shard_graph
+    from repro_torch.launch import bfs_audit, bfs_run
+    from repro_torch.serve.engine_cache import default_engine_cache
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    lo, hi = collective_audit.DEFAULT_TOLERANCE
+    launches = {}
+
+    def release():
+        default_engine_cache().clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a) the gate: every variant of er:4096 at p = 4 on the card
+    ledger_path = tmp / "BENCH_audit_torch.json"
+    _, out, wall_a = run_launcher(
+        "path 8 (a) bfs_audit", bfs_audit.main,
+        ["--graph", "er:4096", "--all-variants", "--devices", "4",
+         "--census", "--out", str(ledger_path)])
+    ledger = json.loads(ledger_path.read_text())["audit"]
+    reports = [r for r in ledger["reports"] if r["name"].startswith("census")]
+    check(ledger["ok"] and ledger["device"].startswith("cuda")
+          and ledger["variants"]["planned"] == 48
+          and len(reports) == ledger["variants"]["audited"],
+          f"path 8 (a): ledger {ledger['ok']}, variants "
+          f"{ledger['variants']}, {len(reports)} reports")
+    check(all(r["info"]["host_reads"]["counted_by"] == "sync"
+              for r in reports),
+          "path 8 (a): the host reads were not counted by sync debug mode")
+    per_level, reads = {}, {}
+    for r in reports:
+        for k, v in r["info"]["collectives"]["per_level"].items():
+            per_level.setdefault(k, set()).add(v)
+        for k, v in r["info"]["host_reads"]["max_per_level"].items():
+            reads[k] = max(reads.get(k, 0), v)
+    check(reads and all(reads[k] <= collective_audit.HOST_READ_BUDGET[k]
+                        for k in reads),
+          f"path 8 (a): host reads a level {reads}")
+    check(ledger["byte_ratios"] and per_level
+          and all(lo <= a and b <= hi
+                  for a, b in ledger["byte_ratios"].values()),
+          f"path 8 (a): byte ratios {ledger['byte_ratios']}, collectives a "
+          f"level {per_level}")
+    log(f"path 8 (a): {ledger['variants']['planned']} variants planned, "
+        f"{ledger['variants']['audited']} audited, all clean ({card}); data "
+        f"collectives a level by kind "
+        f"{ {k: sorted(v) for k, v in per_level.items()} }; synchronizing "
+        f"calls a level at most (sync debug mode) {reads}; recorded/modeled "
+        f"bytes by role (least, most) {ledger['byte_ratios']}; wall "
+        f"{wall_a:.1f} s")
+
+    # (b) bfs_run --audit on rmat_1m at p = 4, dense, S = 64 (not cut),
+    # against path 1's p = 4 engine on the audited sources 0..63, and on
+    # the two single sources the audit's buffer check runs
+    sources = list(range(S))
+    eng = plan(g1, BFSOptions(), num_sources=S).compile()
+    d = eng.plan.describe()
+    res = eng.run(sources)
+    want, ref = res.dist_host, engine_line(res)
+    check_levels = [eng.run([k]).run_stats.levels for k in (0, 1)]
+    del eng, res
+    release()
+    held = {}
+
+    def hold(rep, srcs, res):
+        if rep in ("audit", 0):
+            held[rep] = (list(srcs), res.dist_host, res.run_stats.levels)
+
+    reset_counts(kernels)
+    _, out, wall_b = run_launcher(
+        "path 8 (b) bfs_run --audit", bfs_run.main,
+        ["--workload", "rmat_1m", "--devices", "4", "--mode", "dense",
+         "--sources", str(S), "--repeats", "2", "--audit"], on_run=hold)
+    counts = {name: k.launches for name, k in kernels.items()}
+    runs = run_lines(out)
+    check(f"[census:1d:dense:auto:S{S}:fused] ok" in out,
+          "path 8 (b): the audit did not pass")
+    check(held["audit"][0] == sources
+          and np.array_equal(held["audit"][1], want),
+          "path 8 (b): the audited run's distances differ from path 1's "
+          "p = 4 engine on sources 0..63")
+    validate_bfs(src1, dst1, np.asarray(sources),
+                 torch.from_numpy(held["audit"][1]).to(dev))
+    check(len(runs) == 2 and runs[0] == ref,
+          f"path 8 (b): run 0 {runs[:1]}, path 1's engine {ref}")
+    levels = (held["audit"][2] + sum(check_levels)
+              + sum(int(r[0]) for r in runs))
+    check(counts["fold_update"] == levels
+          and not any(v for k, v in counts.items() if k != "fold_update"),
+          f"path 8 (b): launches {counts}, not A1 once a level of {levels}")
+    dense = census_rows(out, "dense")
+    check(dense and all(m == d["dense_level_bytes"] and lo <= r / m <= hi
+                        for r, m in dense),
+          f"path 8 (b): dense rows {dense}, model "
+          f"{d['dense_level_bytes']}")
+    launches["rmat"] = counts["fold_update"]
+    log(f"path 8 (b): the audited run bitwise path 1's engine on 0..63 "
+        f"({held['audit'][2]} levels), A1 {counts['fold_update']} launches "
+        f"= once a level of the audit, its two buffer-check runs "
+        f"{check_levels} and the two timed runs; dense received / modeled "
+        f"{[r / m for r, m in dense]}; wall {wall_b:.1f} s")
+    del held
+    release()
+
+    # (b) with use_kernel: small_world_100k at p = 4, bsr_expand_bits and
+    # A1 under the audit, from path 2's roots, bitwise path 2's distances
+    t0 = time.perf_counter()
+    eng = plan(shard_graph(g_sw[0], g_sw[1], g_sw[2], 4),
+               BFSOptions(use_kernel=True), num_sources=S).compile()
+    check_levels = [eng.run([k]).run_stats.levels for k in (0, 1)]
+    got = []
+    reset_counts(kernels)
+    rep = collective_audit.audit_engine(
+        eng, sources=roots_sw, on_result=lambda r: got.append(
+            (r.dist_host, r.run_stats.levels)))
+    counts = {name: k.launches for name, k in kernels.items()}
+    log(f"path 8 (b) use_kernel: {rep.summary()}\n"
+        + collective_audit.census_table(rep))
+    for v in rep.violations:
+        log(f"  {v}")
+    check(rep.ok() and rep.info["host_reads"]["counted_by"] == "sync",
+          "path 8 (b) use_kernel: the audit failed")
+    check(np.array_equal(got[0][0], host_sw),
+          "path 8 (b) use_kernel: distances differ from path 2's")
+    levels = got[0][1] + sum(check_levels)
+    check(counts["bsr_expand_bits"] == levels
+          and counts["fold_update"] == levels
+          and counts["bsr_spmm"] == counts["bitpack_words"] == 0,
+          f"path 8 (b) use_kernel: launches {counts}, not "
+          f"bsr_expand_bits and A1 once a level of {levels}")
+    launches["sw"] = counts
+    log(f"path 8 (b) use_kernel: small_world_100k p=4 from path 2's roots "
+        f"bitwise path 2's distances ({got[0][1]} levels); launches "
+        f"{counts}; host reads {rep.info['host_reads']}; wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    del eng, got
+    release()
+    log(f"path 8: walls (a) {wall_a:.1f} s, (b) {wall_b:.1f} s; path 8 "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def profile_run(name, run) -> None:
@@ -2319,6 +2533,8 @@ def main(argv=None) -> int:
               f"path 1 {label}: kernel A1 never launched")
         validate_bfs(src1, dst1, roots1, res.dist[:n1, :S])
         report_run(f"path 1 {label}", compile_ms, run_ms, res, counts)
+        roofline_line(f"path 1 {label}", d, res.run_stats,
+                      ["dense"] * res.run_stats.levels)
         if args.profile:
             profile_run(f"path 1 {label}", lambda: eng.run(roots1))
         path1[label] = (host, counts, d, res.run_stats)
@@ -2403,11 +2619,24 @@ def main(argv=None) -> int:
         shutil.rmtree(tmp7)
     tmp7.mkdir(parents=True)
     path7 = launchers_phase(kernels, g1_p4, src1, dst1, dev, tmp7)
-    del g1_p4
     log("path 7: bfs_run (1-D dense with its phase split, 2-D auto) equal "
         "to the engines, A1 once a level, bfs_serve --http verified by "
         "bfs_client on three lanes and drained, the chaos soak's verdict "
         "with a storm served: ok")
+
+    # --------------------------------------------------------------- path 8
+    tmp8 = ROOT / "build" / "chip_smoke_path8"
+    if tmp8.exists():
+        import shutil
+        shutil.rmtree(tmp8)
+    tmp8.mkdir(parents=True)
+    path8 = audit_phase(kernels, g1_p4, src1, dst1, (src2, dst2, n2), host2,
+                        roots2, dev, tmp8)
+    del g1_p4
+    log("path 8: bfs_audit --all-variants clean with the host reads counted "
+        "by sync debug mode, bfs_run --audit on rmat_1m bitwise path 1's "
+        "engine with A1 once a level, bsr_expand_bits audited on "
+        "small_world_100k bitwise path 2: ok")
 
     # -------------------------------------------------------------- prefill
     lay = prefill_phase(kernels, dev, args.profile)
@@ -2452,6 +2681,7 @@ def main(argv=None) -> int:
         "launches_path5": a1_path5,
         "launches_path6": path6["fold_update"],
         "launches_path7": sum(path7.values()),
+        "launches_path8": path8["rmat"] + path8["sw"]["fold_update"],
         "max_abs_err": err1,
         "ms": timed_ms(lambda: fold_update(words, dist, 7), 50),
         "plain_ms": timed_ms(lambda: fold_update_plain(words, dist, 7),
@@ -2501,7 +2731,8 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/bsr_spmm/kernel.py:38",
         "fuses": "src/repro/kernels/bsr_spmm/kernel.py:100",
         "launches": counts2["bsr_expand_bits"],
-        "launches_path6": path6["bsr_expand_bits"], "max_abs_err": errx,
+        "launches_path6": path6["bsr_expand_bits"],
+        "launches_path8": path8["sw"]["bsr_expand_bits"], "max_abs_err": errx,
         "ms": x_ms, "plain_ms": x_plain_ms, "bound_ms": xb["bound_ms"],
         "bound_by": xb["bound_by"], "library_ms": None,
         "bound_all_tiles_ms": xb["bound_all_tiles_ms"],

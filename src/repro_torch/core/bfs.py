@@ -62,6 +62,8 @@ from repro_torch.core.spans import (EXPAND, FOLD, LEVEL, OWNER_UPDATE,
 from repro_torch.kernels import fold_update as a1
 
 INF = fr.INF
+#: a level's kinds, indexed as ``mode_counts`` counts them
+LEVEL_KINDS = ("dense", "queue", "bottom_up")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,11 +160,13 @@ def validate_sources(sources, n_logical: int,
     arr = arr.astype(np.int64)
     bad = arr[(arr < 0) | (arr >= n_logical)]
     if bad.size:
+        # audit: allow(RX004) -- a numpy array of the caller's ids
         raise ValueError(f"source ids {bad.tolist()} outside "
                          f"[0, {n_logical})")
     uniq, counts = np.unique(arr, return_counts=True)
     dup = uniq[counts > 1]
     if dup.size:
+        # audit: allow(RX004) -- a numpy array of the caller's ids
         raise ValueError(f"duplicate source ids {dup.tolist()}; each "
                          "column of a batched traversal needs a distinct "
                          "source")
@@ -228,7 +232,8 @@ def _bottom_up_level_fn(p: int, shard: int, s: int, mesh: LocalMesh, axis,
 
 
 def _level_runner(part, s: int, mode: str, e_total: int, opts: BFSOptions,
-                  dense_level: Callable, queue_level: Callable,
+                  mesh: LocalMesh, dense_level: Callable,
+                  queue_level: Callable,
                   bottom_up_level: Optional[Callable],
                   frontier_stats: Optional[Callable], fused: bool,
                   vwords) -> Callable:
@@ -241,8 +246,9 @@ def _level_runner(part, s: int, mode: str, e_total: int, opts: BFSOptions,
     f_edges, width)``: the frontier's pairs over every column, the
     out-edges of column 0's frontier, and the most active edges any shard
     (or grid cell) can hold, read from the device with the termination
-    flag.  Returns ``run(dist, frontier, max_levels)`` (see
-    ``make_level_loop``).
+    flag.  Every read of the device goes through ``mesh.host_read``, and
+    the loop tells ``mesh.enter_level`` which level it runs and as what.
+    Returns ``run(dist, frontier, max_levels)`` (see ``make_level_loop``).
     """
     p, shard, n = part.p, part.shard_size, part.n
     queue_edge_cutoff = max(1, int(opts.queue_threshold * e_total))
@@ -255,8 +261,10 @@ def _level_runner(part, s: int, mode: str, e_total: int, opts: BFSOptions,
         overflowed, modes, hits_acc, level_seconds = False, [0, 0, 0], 0, []
         level, active, fwords = 1, True, None
         if mode != "dense":
+            mesh.enter_level(0, "sources")
             f_verts, f_edges, width = frontier_stats(frontier)
         while active and level <= max_levels:
+            # audit: allow(RX005) -- times level_seconds after the host read
             t0 = time.perf_counter()
             with span(LEVEL):
                 ovf, hits = False, 0
@@ -269,6 +277,7 @@ def _level_runner(part, s: int, mode: str, e_total: int, opts: BFSOptions,
                         which = 0
                 else:
                     which = 1 if mode == "queue" else 0
+                mesh.enter_level(level, LEVEL_KINDS[which])
                 if which == 0:
                     new, b, nwords = dense_level(frontier, fwords, dist_sh,
                                                  level)
@@ -290,13 +299,16 @@ def _level_runner(part, s: int, mode: str, e_total: int, opts: BFSOptions,
                     f_verts, f_edges, width = frontier_stats(new)
                     active = f_verts > 0
                 else:
-                    active = bool(fr.frontier_nonzero(new))
+                    # audit: allow(RX004) -- budget: a dense level's one read
+                    active = bool(mesh.host_read(fr.frontier_nonzero(new)))
                 bytes_acc = np.float32(bytes_acc + b)
                 overflowed |= ovf
                 hits_acc += hits
                 frontier = new
                 level += 1
+            # audit: allow(RX005) -- times level_seconds after the host read
             level_seconds.append(time.perf_counter() - t0)
+        mesh.enter_level(0, "outside")
         return (level - 1, float(bytes_acc), overflowed, tuple(modes),
                 hits_acc, tuple(level_seconds))
 
@@ -407,8 +419,9 @@ def make_level_loop(part: Partition1D, s: int, e_total: int,
             each shard's valid out-edges from column 0's frontier (a
             queue level's active edges)."""
             f_edges = (frontier[..., 0].long() * out_deg).sum(1)
-            stats = torch.cat([frontier.sum(dtype=torch.int64).view(1),
-                               f_edges]).tolist()
+            # audit: allow(RX004) -- budget: one read a level (stats)
+            stats = mesh.host_read(torch.cat(
+                [frontier.sum(dtype=torch.int64).view(1), f_edges]))
             return stats[0], sum(stats[1:]), max(1, max(stats[1:]))
 
     def dense_level(frontier, fwords, dist, level):
@@ -467,8 +480,11 @@ def make_level_loop(part: Partition1D, s: int, e_total: int,
                 overflow = overflow | enc_ovf.any(-1)
             # Exactness: if any shard's bucket (or compressed stream)
             # overflowed, the whole level runs densely instead
-            ovf, hits = torch.stack([overflow.any().long(), hits]).tolist()
+            # audit: allow(RX004) -- budget: a queue level's second read
+            ovf, hits = mesh.host_read(torch.stack([overflow.any().long(),
+                                                    hits]))
         if ovf:
+            mesh.enter_level(level, "escalated")
             new, _, nwords = dense_level(frontier, None, dist, level)
             # the sieve gather (if any) already ran before escalation
             return new, escalated_bytes, nwords, True, hits
@@ -490,8 +506,9 @@ def make_level_loop(part: Partition1D, s: int, e_total: int,
     bottom_up_level = _bottom_up_level_fn(p, shard, s, mesh, axis, in_rows,
                                           bottom_up_wire, bottom_up_bytes,
                                           fused)
-    return _level_runner(part, s, opts.mode, e_total, opts, dense_level,
-                         queue_level, bottom_up_level, frontier_stats, fused,
+    return _level_runner(part, s, opts.mode, e_total, opts, mesh,
+                         dense_level, queue_level, bottom_up_level,
+                         frontier_stats, fused,
                          vwords if vwords is not None
                          else valid_words(part, dev))
 
@@ -568,8 +585,9 @@ def make_level_loop_2d(part2: Partition2D, s: int, e_total: int,
             each cell's active edges from column 0's frontier."""
             per_chunk = (frontier[..., 0, None].long() * out_deg_col).sum(1)
             cells = per_chunk.view(r, c, c).sum(1).view(-1)     # (i, j)
-            stats = torch.cat([frontier.sum(dtype=torch.int64).view(1),
-                               cells]).tolist()
+            # audit: allow(RX004) -- budget: one read a level (stats)
+            stats = mesh.host_read(torch.cat(
+                [frontier.sum(dtype=torch.int64).view(1), cells]))
             return stats[0], sum(stats[1:]), max(1, max(stats[1:]))
 
     def expand_row_bytes(frow):                 # (p, c*b, S) -> (p*r*b, S)
@@ -655,16 +673,19 @@ def make_level_loop_2d(part2: Partition2D, s: int, e_total: int,
                 bucket_ovf = bucket_ovf | fenc_ovf.any(-1)
             # Exactness: if any cell's frontier pack, bucket or compressed
             # stream overflowed, the whole level runs densely instead
-            ovf, hits, over = torch.stack(
-                [(overflow | bucket_ovf).any().long(), hits,
-                 over.long()]).tolist()
+            # audit: allow(RX004) -- budget: a queue level's second read
+            ovf, hits, over = mesh.host_read(torch.stack(
+                [(overflow | bucket_ovf).any().long(), hits, over.long()]))
             if over:
                 if not ovf:
                     raise RuntimeError("a queue level's active edges exceed "
                                        "the width its statistics bound")
                 if sieve:     # the hits of every active edge, as JAX counts
-                    hits = int(sieve_drop(dst_fold, full, dist).sum())
+                    # audit: allow(RX004) -- an escalated level's third read
+                    hits = mesh.host_read(sieve_drop(dst_fold, full,
+                                                     dist).sum())
         if ovf:
+            mesh.enter_level(level, "escalated")
             new, bb, nwords = dense_level(frontier, fwords, dist, level)
             # the sparse expand (and sieve gather) above already ran
             return new, escalated_bytes, nwords, True, hits
@@ -685,8 +706,9 @@ def make_level_loop_2d(part2: Partition2D, s: int, e_total: int,
     bottom_up_level = _bottom_up_level_fn(p, b, s, mesh, grid_axes, in_rows,
                                           bottom_up_wire, bottom_up_bytes,
                                           fused)
-    return _level_runner(part2, s, opts.mode, e_total, opts, dense_level,
-                         queue_level, bottom_up_level, frontier_stats, fused,
+    return _level_runner(part2, s, opts.mode, e_total, opts, mesh,
+                         dense_level, queue_level, bottom_up_level,
+                         frontier_stats, fused,
                          vwords if vwords is not None
                          else valid_words(part2, dev))
 

@@ -26,8 +26,8 @@ keys on), ``estimated_device_bytes()`` (what it charges), the bucket
 ladder helpers ``normalize_ladder`` / ``pick_bucket`` / ``plan_ladder``,
 the fault seams ``engine.compile`` and ``engine.dispatch``, and one
 upload of each block group per graph and mesh, shared by every engine
-that needs it.  The H100 roofline in ``describe()`` comes with a later
-slice.
+that needs it.  ``describe()["roofline"]`` prices each level kind on the
+H100 (``launch.roofline``) from the JAX plan's byte and operation counts.
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ from repro_torch.core import frontier as fr
 from repro_torch.core.bfs import (BFSOptions, BFSStats, INF, make_level_loop,
                                   make_level_loop_2d, validate_sources)
 from repro_torch.core.mesh import LocalMesh
+from repro_torch.launch.roofline import roofline_row
 # chaos layer: a no-op global read unless a FaultPlan is installed (a
 # stdlib-only module; degrade.py defers its engine import, so no cycle)
 from repro_torch.serve.resilience import faults as _faults
@@ -186,9 +187,13 @@ class BFSPlan:
         return self.mesh.device
 
     def describe(self) -> dict:
-        """Static plan metadata: shapes, resolved strategies and wires, and
-        the analytic per-level exchange bytes of each level kind (the JAX
-        plan's keys, bar its TPU roofline)."""
+        """Static plan metadata: shapes, resolved strategies and wires, the
+        analytic per-level exchange bytes of each level kind (the JAX
+        plan's keys) and ``roofline``: each level kind's H100 roofline row
+        (``launch.roofline.roofline_row``, the collective priced as HBM
+        traffic and every term paid by each of the ``LocalMesh``'s shards
+        on its one card) over the JAX plan's byte and operation counts,
+        which equal JAX's exactly."""
         part = self.graph.part
         s, cap = self.num_sources, self.opts.queue_cap
         meta = {
@@ -251,6 +256,37 @@ class BFSPlan:
                 "bottom_up_level_bytes": ex.bottomup_level_bytes(
                     part2.n, part2.p, s, 1, wire=self.bottom_up_wire),
             })
+            # HBM traffic = edge index reads (8B/edge) + frontier gather/
+            # candidate scatter (1B/edge/source) + fold-width candidate
+            # array passes + the dist read/write + mask tails
+            e_p = self.graph2d.e_cap
+            # byte passes only the *unfused* tail pays: the frontier pack
+            # feeding the expand allgather, the c-segment row unpack the
+            # expansion reads, the fold-word unpack, and the separate
+            # new-frontier mask pass
+            elim_hbm = (c + 5) * b * s if self.use_fused_tail else 0
+            elim_flops = (c + 2) * b * s if self.use_fused_tail else 0
+            meta["roofline"] = {
+                "dense": roofline_row(
+                    meta["dense_level_bytes"],
+                    hbm_bytes=(8 * e_p + 2 * e_p * s
+                               + (3 * r * b + 10 * b) * s - elim_hbm),
+                    flops=(e_p + r * b + 4 * b) * s - elim_flops,
+                    overlap=self.use_fused_tail, shards=self.mesh.p),
+                "queue": roofline_row(
+                    meta["queue_level_bytes"],
+                    hbm_bytes=(8 * e_p + e_p * s + 16 * (r + c) * cap
+                               + 8 * b * s),
+                    flops=(e_p + (r + c) * cap) * s,
+                    overlap=False, shards=self.mesh.p),
+                "bottom_up": roofline_row(
+                    meta["bottom_up_level_bytes"],
+                    # the in-edge blocks build at compile time; the forward
+                    # e_cap is the same-order proxy describe() may use
+                    hbm_bytes=8 * e_p + e_p * s + 8 * b * s,
+                    flops=e_p * s,
+                    overlap=self.use_fused_tail, shards=self.mesh.p),
+            }
             return meta
         sieve_bytes = ((part.p - 1) * fr.sieve_layout(part.shard_size)[2] * 4
                        if self.sieve else 0)
@@ -271,6 +307,32 @@ class BFSPlan:
             "bottom_up_level_bytes": ex.bottomup_level_bytes(
                 part.n, part.p, s, 1, wire=self.bottom_up_wire),
         })
+        e_p, in_e = self.graph.e_cap, self.graph.in_e_cap
+        shard = part.shard_size
+        # unfused-only byte passes (the 1-D shape of the 2-D list: the
+        # expand-side frontier pack, the merged-word unpack, the separate
+        # new-frontier mask pass)
+        elim_hbm = 5 * shard * s if self.use_fused_tail else 0
+        elim_flops = 2 * shard * s if self.use_fused_tail else 0
+        meta["roofline"] = {
+            "dense": roofline_row(
+                meta["dense_level_bytes"],
+                hbm_bytes=(8 * e_p + 2 * e_p * s
+                           + (3 * part.n + 10 * shard) * s - elim_hbm),
+                flops=(e_p + part.n + 4 * shard) * s - elim_flops,
+                overlap=self.use_fused_tail, shards=self.mesh.p),
+            "queue": roofline_row(
+                meta["queue_level_bytes"],
+                hbm_bytes=(8 * e_p + e_p * s + 16 * part.p * cap
+                           + 8 * shard * s),
+                flops=(e_p + part.p * cap) * s,
+                overlap=False, shards=self.mesh.p),
+            "bottom_up": roofline_row(
+                meta["bottom_up_level_bytes"],
+                hbm_bytes=8 * in_e + in_e * s + 8 * shard * s,
+                flops=in_e * s,
+                overlap=self.use_fused_tail, shards=self.mesh.p),
+        }
         return meta
 
     def plan_key(self) -> tuple:

@@ -19,7 +19,8 @@ rule), so the hierarchical exchange can hop one axis at a time.
 ``LocalMesh.grid(r, c, device)`` is the ``(rows, cols)`` mesh of the 2-D
 partition: shard ``k`` sits at grid cell ``(k // c, k % c)`` and owns
 vertex chunk ``k``.  Each collective runs inside a ``bfs.collective``
-profiler range (``core.spans``).  Collectives across real cards
+profiler range (``core.spans``); the level loop's host reads go through
+``host_read``.  Collectives across real cards
 (``torch.distributed``) wait for a multi-card slice.
 """
 
@@ -101,6 +102,25 @@ class LocalMesh:
         inv = [perm.index(d) for d in range(nd)]
         y = y.permute(*inv, *range(nd, y.dim()))
         return y.reshape(self.p, *y.shape[nd:])
+
+    # --- the level loop's control plane ------------------------------------
+    def host_read(self, x: torch.Tensor):
+        """Read a small control tensor (a termination flag, the level
+        statistics, an overflow predicate) to the host: ``x.tolist()``.
+        The JAX loop reduces these with replicated psums; here every
+        device-to-host read of the level loop goes through this method,
+        so a recording mesh (``analysis.collective_audit``) counts them a
+        level."""
+        return x.tolist()
+
+    def enter_level(self, level: int, kind: str) -> None:
+        """The level loop says what it runs next: ``kind`` is ``"sources"``
+        (level 0, the sources' statistics), ``"dense"``, ``"queue"`` or
+        ``"bottom_up"`` (``level`` >= 1), ``"escalated"`` (a queue level
+        that overflowed and now runs its dense exchange) or ``"outside"``
+        (the loop is done).  Nothing here; a recording mesh
+        (``analysis.collective_audit``) files each collective and host
+        read under it."""
 
     # --- collectives on stacked (p, ...) arrays ----------------------------
     def axis_index(self, axis) -> torch.Tensor:

@@ -21,8 +21,11 @@ wall time are reported separately.  ``--graph`` is repeatable
 amortization (hits / misses / evictions / compile seconds).  The printed
 ``run[i]`` lines are the JAX launcher's, field for field.  ``--profile
 DIR`` captures a ``torch.profiler`` trace of the timed traversals and
-prints ``analysis.trace_model``'s phase split, one row a level.  JAX's
-``--audit`` (the HLO auditor) has no counterpart yet.
+prints ``analysis.trace_model``'s phase split, one row a level.
+``--audit`` runs the plan auditor (``analysis.collective_audit``) on each
+engine: one traversal from the first run's sources on a recording mesh,
+its census printed beside the modeled bytes; the launcher exits 1 if any
+engine fails the audit.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import time
 
 import numpy as np
 
-from repro_torch.analysis import trace_model
+from repro_torch.analysis import collective_audit, trace_model
 from repro_torch.configs.base import BFS_WORKLOADS
 from repro_torch.core import (FOLD_COL_STRATEGIES, BFSOptions, LocalMesh,
                               default_grid, plan)
@@ -48,7 +51,8 @@ def main(argv=None, *, on_run=None) -> int:
 
     ``on_run(rep, sources, result)`` exists for in-process checks (the
     command line has no counterpart): when given, it is called after each
-    timed run, while the result's distances are still the engine's."""
+    timed run, while the result's distances are still the engine's, and
+    with ``rep="audit"`` after the audited traversal of ``--audit``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", default=None,
                     choices=[w.name for w in BFS_WORKLOADS])
@@ -79,6 +83,13 @@ def main(argv=None, *, on_run=None) -> int:
                          "metadata — per-phase strategies, the wire "
                          "format 'auto' chose for each, and per-level "
                          "byte pricing")
+    ap.add_argument("--audit", action="store_true",
+                    help="run the plan auditor on each compiled engine "
+                         "(a traversal's collective census vs the resolved "
+                         "strategies and modeled bytes, host reads a "
+                         "level, dist buffer reuse) and print the census "
+                         "next to the modeled bytes; exits 1 if any "
+                         "engine fails the audit")
     ap.add_argument("--sources", type=int, default=1)
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="capture a torch.profiler trace of the timed "
@@ -153,6 +164,7 @@ def main(argv=None, *, on_run=None) -> int:
               f"sieve={args.sieve}")
 
     cache = default_engine_cache()
+    audit_failed = False
     for kind, n, kw in graphs:
         t0 = time.time()
         src, dst = generate(kind, n, seed=0, **kw)
@@ -192,6 +204,17 @@ def main(argv=None, *, on_run=None) -> int:
         if args.describe:
             for k in sorted(meta):
                 print(f"  describe.{k} = {meta[k]}")
+        if args.audit:
+            audit_srcs = collective_audit.default_sources(engine.plan)
+            rep = collective_audit.audit_engine(
+                engine, sources=audit_srcs,
+                on_result=None if on_run is None else
+                (lambda res: on_run("audit", audit_srcs, res)))
+            print(f"  {rep.summary()}")
+            print(collective_audit.census_table(rep))
+            for v in rep.violations:
+                print(f"  {v}")
+            audit_failed |= not rep.ok()
 
         rng = np.random.default_rng(0)
         profile_cm = (trace_model.capture(args.profile) if args.profile
@@ -233,7 +256,7 @@ def main(argv=None, *, on_run=None) -> int:
           f"evictions={st['evictions']} entries={st['entries']} "
           f"bytes={st['device_bytes']} "
           f"compile_s={st['compile_s_total']:.2f}")
-    return 0
+    return 1 if audit_failed else 0
 
 
 if __name__ == "__main__":

@@ -289,8 +289,8 @@ def test_queue_level_past_its_width_recounts_hits_or_raises(grid_jax,
     real = bfs._level_runner
     narrow_all = False
 
-    def narrow(part, s, mode, e_total, opts, dense, queue, bottom_up, stats,
-               fused, vwords):
+    def narrow(part, s, mode, e_total, opts, mesh, dense, queue, bottom_up,
+               stats, fused, vwords):
         def narrowed(f):
             f_verts, f_edges, width = stats(f)
             chunk_max = int((f[..., 0] > 0).sum(1).max())
@@ -298,8 +298,8 @@ def test_queue_level_past_its_width_recounts_hits_or_raises(grid_jax,
                 width = 1
             return f_verts, f_edges, width
 
-        return real(part, s, mode, e_total, opts, dense, queue, bottom_up,
-                    narrowed, fused, vwords)
+        return real(part, s, mode, e_total, opts, mesh, dense, queue,
+                    bottom_up, narrowed, fused, vwords)
 
     monkeypatch.setattr(bfs, "_level_runner", narrow)
     stats = _check_case("queue_cap4_escalates", (2, 2),

@@ -43,3 +43,22 @@ def test_package_imports_first_without_jax(package):
     out = subprocess.run([sys.executable, "-c", _PROBE, package], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", ["repro_torch.analysis",
+                                    "repro_torch.analysis.collective_audit",
+                                    "repro_torch.analysis.lint",
+                                    "repro_torch.analysis.locks",
+                                    "repro_torch.launch.bfs_audit",
+                                    "repro_torch.launch.roofline"])
+def test_audit_modules_import_first_without_jax(module):
+    """The audits and their gate import first, and load neither jax nor
+    the JAX package (the reference they port)."""
+    probe = ("import importlib, sys; importlib.import_module(sys.argv[1]); "
+             "bad = sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+             "m.startswith('repro.')); assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", probe, module], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -280,3 +280,43 @@ def test_core_reexports_the_exchange_helpers():
     for name in ("exchange_queue", "expand_row", "fold_col"):
         assert getattr(core, name) is getattr(exchange, name)
         assert name in core.__all__
+
+
+AUDIT_ARGS = ["--mode", "queue", "--wire-format", "bytes", "--sources", "1",
+              "--repeats", "1", "--audit", "--device", "cpu", "--devices",
+              "4"]
+
+
+def test_bfs_run_audit_prints_a_census_and_exits_0():
+    rc, out = _captured(bfs_run.main, ["--graph", "erdos_renyi:2000",
+                                       "--mode", "auto", "--sources", "1",
+                                       "--repeats", "1", "--audit",
+                                       "--device", "cpu", "--devices", "4"])
+    assert rc == 0, out
+    assert "[census:1d:auto:auto:S1:fused] ok" in out
+    rows = [ln.split()[0] for ln in out.splitlines()
+            if ln.split() and ln.split()[0] in ("dense", "queue", "sieve",
+                                                "bottom_up")]
+    assert set(rows) == {"dense", "queue", "sieve", "bottom_up"}
+    assert all("1.000" in ln for ln in out.splitlines()
+               if ln.split() and ln.split()[0] in rows)
+
+
+def test_bfs_run_audit_exits_1_under_a_lying_byte_model(monkeypatch):
+    """The real queue strategy priced 100x low fails the audit; the run
+    lines still print, and the launcher exits 1."""
+    from repro_torch.core import exchange as ex
+
+    real = ex.get_exchange("queue", "alltoall_direct")
+    monkeypatch.setitem(ex._REGISTRY, ("queue", "alltoall_direct"),
+                        ex.ExchangeStrategy(
+                            real.name, real.kind, real.impl,
+                            lambda p, cap, itemsize, density=1.0:
+                                real.bytes_model(p, cap, itemsize,
+                                                 density) / 100.0))
+    # a graph of its own: no engine of the honest model is cached for it
+    rc, out = _captured(bfs_run.main, ["--graph", "erdos_renyi:2040",
+                                       *AUDIT_ARGS])
+    assert rc == 1, out
+    assert "FAIL" in out and "HA003" in out and "ratio 100.000" in out
+    assert "run[0]" in out
