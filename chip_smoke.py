@@ -125,7 +125,32 @@ Phases (any failed check raises and the script exits non-zero):
    ``bsr_expand_bits`` and A1 once a level.  Paths 1, 3, 4 (a) and 5 (a)
    print each level kind's ``describe()["roofline"]`` ``t_level_s``
    beside the measured ms a level, and the share.
-10. prefill — gemma3-12b at full width (d_model 3840, 16 q / 8 kv heads of
+10. path 9 — ``DistMesh``, one shard a process (``core.dist_mesh``): the
+   parent writes the graphs and expected distances it already holds to
+   ``build/chip_smoke_path9/`` once (no rank regenerates R-MAT), then
+   starts the processes with ``spawn`` (the kernels were built before;
+   a process group's collectives time out after 120 s, and every process
+   is killed and failed at 420 s).  (a) ``nccl`` at world size 1:
+   ``rmat_1m`` at p = 1, packed wire, S = 64, path 1's roots: bitwise
+   path 1's p = 1 run, A1 once a level.  Then four ``gloo`` processes
+   sharing ``cuda:0`` (NCCL refuses two ranks on one GPU; a ``gloo``
+   collective that refuses CUDA tensors is staged through the host, and
+   the transport is printed): (b) ``rmat_1m`` p = 4, default options,
+   S = 64: distances, ``levels`` and ``comm_bytes`` bitwise path 1's
+   p = 4 run, A1 once a level on each rank, each rank's
+   ``estimated_device_bytes`` and ``memory_allocated`` after compile, and
+   the ranks' ``resident`` terms summing to the stacked engine's; (f)
+   every rank audits (b)'s engine and rank 0's census is printed: clean,
+   every role at ratio 1.000, the host reads within the budget; (c)
+   ``auto`` S = 1 on path 4's first 8 roots: bitwise, ``mode_counts``
+   equal to ``replay_modes``; (d) ``DistMesh.grid(2, 2)`` dense S = 64:
+   bitwise path 5 (a), its levels and ``comm_bytes``; (e)
+   ``small_world_100k`` with ``use_kernel`` at p = 4: bitwise path 2,
+   ``bsr_expand_bits`` once a level on each rank; and a planted fault,
+   rank 1 reporting the next shard's index, whose distances must fail
+   the check.  (b)'s and (d)'s ms a level print beside paths 1's and 5
+   (a)'s: ``gloo`` through the host on one card, not a multi-card figure.
+11. prefill — gemma3-12b at full width (d_model 3840, 16 q / 8 kv heads of
    256, d_ff 15360, vocab 262144, bf16) through ``build_bundle(...,
    "prefill_32k")``, cut to 12 layers (two 5 local + 1 global groups) and
    batch 2 x seq 8192, with random weights from a seeded generator on the
@@ -134,7 +159,7 @@ Phases (any failed check raises and the script exits non-zero):
    and 3 bitwise equal; then the same prefill with the plain attention,
    held to a stated tolerance (the first layer's cache bitwise), which
    two planted faults (every local window one key off) must fail.
-11. recsys — DeepFM at its full configuration (39 fields x 1,000,000 rows
+12. recsys — DeepFM at its full configuration (39 fields x 1,000,000 rows
    x 10, a 1.56 GB f32 table, MLP 403-400-400-400-1), not cut, through
    ``build_bundle(get_arch("deepfm"), ...)`` for ``serve_p99``,
    ``serve_bulk`` and ``retrieval_cand``, with random weights from a
@@ -144,7 +169,7 @@ Phases (any failed check raises and the script exits non-zero):
    scores at a stated relative L2 limit.  Two planted faults must fail
    that hold: every field offset one row off, and (serve) TF32 products.  DeepFM looks its fields up
    with a row gather, as the JAX package does, so no kernel launches.
-12. embedding bag — the lookup op ``kernels.embedding_bag.ops.embedding_bag``
+13. embedding bag — the lookup op ``kernels.embedding_bag.ops.embedding_bag``
    (kernel A5) on (a) the ``serve_bulk`` batch's own flat ids as bags
    over DeepFM's table (the op's main path, three calls; also held to the
    serve path's ``emb.sum(1)``), (b) the same bags cut to seeded ragged
@@ -158,7 +183,7 @@ Phases (any failed check raises and the script exits non-zero):
    useful bytes and that of the 32-byte sectors the rows span; and on
    (a)'s ids over a (V, 8) f32 table (one sector a row) and over the
    table's first 100,000 rows (a 4 MB table, the plain-load route).
-13. kernels — each kernel against its plain torch version on the card at
+14. kernels — each kernel against its plain torch version on the card at
    the shapes of the paths (A4 also each (batch, head) slice, with the
    window one key off failing; ``bsr_expand_bits`` on path 2's densest
    level and on a random 5% frontier, and the f32 A2 + A3 chain of
@@ -718,7 +743,7 @@ def path5_phase(kernels, g, src, roots, want, profile: bool) -> int:
     default options (module docstring, phase 6): (a) dense, S = 64; (b)
     auto, S = 64; (c) auto and (d) queue, S = 1, on the first 8 roots;
     distances bitwise path 1's p4_default (columns).  Returns A1's
-    launches in (a)."""
+    launches in (a) and (a)'s last run stats."""
     from repro_torch.core import BFSOptions, LocalMesh
     from repro_torch.core.frontier import INF
     from repro_torch.graphs import to_2d
@@ -767,7 +792,7 @@ def path5_phase(kernels, g, src, roots, want, profile: bool) -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if profile:
         profile_run(label, lambda: eng.run(roots))
-    a1_launches = counts["fold_update"]
+    a1_launches, stats_a = counts["fold_update"], res.run_stats
     del eng, res
 
     # (b) auto, S = 64: the bottom-up blocks are built here, on first use
@@ -805,7 +830,7 @@ def path5_phase(kernels, g, src, roots, want, profile: bool) -> int:
                             want, deg, g2.n_edges, profile)
         del eng
     torch.cuda.empty_cache()
-    return a1_launches
+    return a1_launches, stats_a
 
 
 # ---------------------------------------------------------------------------
@@ -1715,6 +1740,416 @@ def audit_phase(kernels, g1, src1, dst1, g_sw, host_sw, roots_sw, dev,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# path 9: the torch.distributed mesh, one shard a process
+# ---------------------------------------------------------------------------
+
+#: every process of path 9 is gone by then, or killed and failed
+PATH9_DEADLINE_S = 420
+#: the process groups' timeout: a collective that waits longer raises
+PATH9_PG_TIMEOUT_S = 120
+
+
+def save_blocks(d: Path, graph, names) -> None:
+    """Write a sharded graph's host blocks (one ``.npy`` each) and its
+    sizes, for path 9's processes to map."""
+    d.mkdir(parents=True, exist_ok=True)
+    for name in names:
+        np.save(d / f"{name}.npy", getattr(graph, name))
+    part = graph.part
+    (d / "meta.json").write_text(json.dumps({
+        "n": part.n_logical, "p": part.p, "n_edges": int(graph.n_edges),
+        "grid": [part.r, part.c] if hasattr(part, "r") else None}))
+
+
+def load_blocks(d: Path):
+    """The graph ``save_blocks`` wrote, its blocks mapped from the files
+    (copy on write: a rank reads the rows it uploads)."""
+    from repro_torch.core import Partition1D, Partition2D
+    from repro_torch.graphs import ShardedGraph, ShardedGraph2D
+
+    meta = json.loads((d / "meta.json").read_text())
+    arrays = {f.stem: np.load(f, mmap_mode="c") for f in d.glob("*.npy")}
+    if meta["grid"]:
+        return ShardedGraph2D(part=Partition2D(meta["n"], *meta["grid"]),
+                              n_edges=meta["n_edges"], **arrays)
+    return ShardedGraph(part=Partition1D(meta["n"], meta["p"]),
+                        n_edges=meta["n_edges"], **arrays)
+
+
+def path9_kernels() -> dict:
+    from repro_torch.kernels.bsr_spmm.kernel import bsr_expand_bits
+    from repro_torch.kernels.fold_update import fold_update
+
+    return {"fold_update": fold_update, "bsr_expand_bits": bsr_expand_bits}
+
+
+def path9_drive(kernels, eng, roots, runs: int = 2):
+    """``runs`` runs of ``eng`` (all ranks at once) with the launch counts
+    reset before: (last result, its host dist, counts, run ms)."""
+    reset_counts(kernels)
+    run_ms = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.run(roots)
+        run_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {name: k.launches for name, k in kernels.items()}
+    return res, res.dist_host, counts, run_ms
+
+
+def run_summary(res, counts, run_ms) -> dict:
+    st = res.run_stats
+    return {"stats": st.to_host(), "counts": counts, "run_ms": run_ms,
+            "level_ms": [t * 1e3 for t in st.level_seconds]}
+
+
+def path9_rank(rank: int, world: int, backend: str, tmp: str) -> None:
+    """One process of path 9: join the group (``file://`` rendezvous in
+    ``tmp``, no port), run its phases on ``cuda:0``, write its results
+    (``result_<backend>_<rank>.json``) and leave the group."""
+    import datetime
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    tmp = Path(tmp)
+    dist.init_process_group(
+        backend, init_method=f"file://{tmp / f'rendezvous_{backend}'}",
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=PATH9_PG_TIMEOUT_S))
+    try:
+        body = path9_nccl if backend == "nccl" else path9_gloo
+        out = body(rank, dev, tmp)
+        (tmp / f"result_{backend}_{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def path9_nccl(rank: int, dev, tmp: Path) -> dict:
+    """(a): ``nccl`` at world size 1: ``rmat_1m`` at p = 1 with the packed
+    wire, S = 64, on path 1's roots."""
+    import torch.distributed as dist
+
+    from repro_torch.core import BFSOptions, DistMesh, plan
+    from repro_torch.graphs import shard_graph
+
+    kernels = path9_kernels()
+    one = torch.ones(1, device=dev)
+    dist.all_reduce(one)                  # the communicator forms
+    want = np.load(tmp / "want1.npy", mmap_mode="r")
+    roots = np.load(tmp / "roots1.npy").tolist()
+    src = np.load(tmp / "src1.npy", mmap_mode="r")
+    dst = np.load(tmp / "dst1.npy", mmap_mode="r")
+    g = shard_graph(src, dst, want.shape[0], 1)
+    mesh = DistMesh.flat(dev)
+    pl = plan(g, BFSOptions(wire_format="packed"), mesh=mesh, num_sources=S)
+    eng = pl.compile()
+    res, host, counts, run_ms = path9_drive(kernels, eng, roots)
+    return {"a": run_summary(res, counts, run_ms) | {
+        "bitwise": bool(np.array_equal(host, want)),
+        "all_reduce": float(one.item()), "mesh": pl.describe()["mesh"],
+        "nccl": str(torch.cuda.nccl.version())}}
+
+
+def path9_gloo(rank: int, dev, tmp: Path) -> dict:
+    """(b)-(f) and the planted fault: ``gloo``, 4 ranks on ``cuda:0``."""
+    import gc
+
+    from repro_torch.analysis import collective_audit
+    from repro_torch.core import BFSOptions, DistMesh, plan
+    from repro_torch.core.frontier import INF
+
+    kernels = path9_kernels()
+    out = {}
+    want1 = np.load(tmp / "want1.npy", mmap_mode="r")
+    roots1 = np.load(tmp / "roots1.npy").tolist()
+    deg1 = np.load(tmp / "deg1.npy")
+    g1 = load_blocks(tmp / "rmat4")
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (b) dense, default options (packed wire, A1 on the fused tail)
+    mesh = DistMesh.flat(dev)
+    pl = plan(g1, BFSOptions(), mesh=mesh, num_sources=S)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = pl.compile()
+    torch.cuda.synchronize()
+    compile_ms = (time.perf_counter() - t0) * 1e3
+    allocated = torch.cuda.memory_allocated()
+    res, host, counts, run_ms = path9_drive(kernels, eng, roots1)
+    out["b"] = run_summary(res, counts, run_ms) | {
+        "bitwise": bool(np.array_equal(host, want1)),
+        "compile_ms": compile_ms, "memory_allocated": allocated,
+        "estimated_device_bytes": pl.estimated_device_bytes(),
+        "terms": pl.device_byte_terms(), "mesh": pl.describe()["mesh"],
+        "rows": list(eng._dist.shape),
+        "roofline_dense": pl.describe()["roofline"]["dense"]}
+
+    # (f) every rank audits (b)'s engine; rank 0's census is the one read
+    rep = collective_audit.audit_engine(eng, sources=roots1)
+    out["f"] = {"ok": rep.ok(), "summary": rep.summary(),
+                "violations": [str(v) for v in rep.violations],
+                "ratios": rep.info["ratios"],
+                "host_reads": rep.info["host_reads"],
+                "collectives": rep.info["collectives"],
+                "table": collective_audit.census_table(rep)}
+    del eng, res, rep
+    release()
+
+    # (c) auto, S = 1, path 4's first roots: bitwise, schedules replayed
+    pl = plan(g1, BFSOptions(mode="auto"), mesh=mesh, num_sources=1)
+    eng = pl.compile()
+    rows = []
+    for i, root in enumerate(roots1[:8]):
+        res, host, counts, run_ms = path9_drive(kernels, eng, [root], runs=1)
+        st = res.run_stats.to_host()
+        levels, modes = replay_modes(host, deg1, g1.n_edges, 1, INF)
+        rows.append(run_summary(res, counts, run_ms) | {
+            "bitwise": bool(np.array_equal(host, want1[:, i:i + 1])),
+            "replayed": levels == st["levels"]
+            and mode_counts(modes) == st["mode_counts"], "modes": modes})
+    out["c"] = rows
+    del eng, res
+    release()
+
+    # (d) the 2 x 2 grid, dense, S = 64 (path 5 (a))
+    g2d = load_blocks(tmp / "rmat2d")
+    pl = plan(g2d, BFSOptions(), mesh=DistMesh.grid(2, 2, dev),
+              num_sources=S)
+    eng = pl.compile()
+    res, host, counts, run_ms = path9_drive(kernels, eng, roots1)
+    out["d"] = run_summary(res, counts, run_ms) | {
+        "bitwise": bool(np.array_equal(host, want1)),
+        "rows": list(eng._dist.shape)}
+    del eng, res, g2d
+    release()
+
+    # (e) small_world_100k, use_kernel, p = 4 (path 2's roots)
+    want2 = np.load(tmp / "want2.npy")
+    roots2 = np.load(tmp / "roots2.npy").tolist()
+    g_sw = load_blocks(tmp / "sw4")
+    pl = plan(g_sw, BFSOptions(use_kernel=True), mesh=mesh, num_sources=S)
+    eng = pl.compile()
+    res, host, counts, run_ms = path9_drive(kernels, eng, roots2)
+    out["e"] = run_summary(res, counts, run_ms) | {
+        "bitwise": bool(np.array_equal(host, want2)),
+        "tiles": int(eng.kernel_arrays[0].shape[0])}
+    del eng, res
+    release()
+
+    # the planted fault: rank 1 reports the next shard's index
+    class WrongIndex(DistMesh):
+        @property
+        def local_shards(self):
+            k = (self.rank + 1) % self.p if self.rank == 1 else self.rank
+            return range(k, k + 1)
+
+    pl = plan(g_sw, BFSOptions(), mesh=WrongIndex((4,), ("bfs_p",), dev),
+              num_sources=S)
+    host = pl.compile().run(roots2).dist_host
+    out["fault"] = {"rejected": not np.array_equal(host, want2)}
+    return out
+
+
+def path9_group(ctx, world: int, backend: str, tmp: Path, deadline: float):
+    """Start ``world`` processes of ``path9_rank`` and wait for them until
+    ``deadline`` (``time.monotonic``), then kill the rest; returns their
+    results, or fails."""
+    procs = [ctx.Process(target=path9_rank, args=(k, world, backend,
+                                                  str(tmp)))
+             for k in range(world)]
+    for proc in procs:
+        proc.start()
+    try:
+        for proc in procs:
+            proc.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    codes = [proc.exitcode for proc in procs]
+    check(codes == [0] * world,
+          f"path 9 ({backend}): the processes exited {codes}")
+    return [json.loads((tmp / f"result_{backend}_{k}.json").read_text())
+            for k in range(world)]
+
+
+def path9_phase(g1, src1, dst1, roots1, want1, path1, path5_stats, g_sw_src,
+                host2, roots2, card: str, tmp: Path) -> dict:
+    """``DistMesh`` on the card (module docstring, path 9).  Writes the
+    graphs and expected distances once, then runs (a) in one ``nccl``
+    process and (b)-(f) and the planted fault in four ``gloo`` processes
+    on ``cuda:0``, all started with ``spawn`` after the parent built the
+    kernels.  Returns each rank's launches."""
+    import gc
+
+    from repro_torch.core import BFSOptions, plan
+    from repro_torch.graphs import shard_graph, to_2d
+    from repro_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    _build.build()                        # built before any rank starts
+    t0 = time.perf_counter()
+    names1 = ("src_local", "dst_global", "in_src_global", "in_dst_local")
+    save_blocks(tmp / "rmat4", g1, names1)
+    save_blocks(tmp / "rmat2d", to_2d(g1, 2, 2), ("src_rowlocal",
+                                                  "dst_fold"))
+    save_blocks(tmp / "sw4", shard_graph(*g_sw_src, 4), names1)
+    np.save(tmp / "src1.npy", src1.astype(np.int32))
+    np.save(tmp / "dst1.npy", dst1.astype(np.int32))
+    np.save(tmp / "deg1.npy", np.bincount(src1, minlength=g1.part.n_logical))
+    np.save(tmp / "roots1.npy", np.asarray(roots1))
+    np.save(tmp / "want1.npy", want1)
+    np.save(tmp / "roots2.npy", np.asarray(roots2))
+    np.save(tmp / "want2.npy", host2)
+    write_s = time.perf_counter() - t0
+    stacked = plan(g1, BFSOptions(), num_sources=S).device_byte_terms()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    deadline = time.monotonic() + PATH9_DEADLINE_S
+
+    # (a) nccl at world size 1
+    t0 = time.perf_counter()
+    a = path9_group(ctx, 1, "nccl", tmp, deadline)[0]["a"]
+    wall_a = time.perf_counter() - t0
+    p1 = path1["p1_packed"][3]
+    check(a["bitwise"] and a["mesh"]["backend"] == "nccl"
+          and a["all_reduce"] == 1.0,
+          f"path 9 (a): distances or the nccl group wrong: {a['mesh']}")
+    check(a["stats"]["levels"] == p1.levels
+          and a["stats"]["comm_bytes"] == p1.comm_bytes,
+          f"path 9 (a): {a['stats']}, path 1 p1_packed {p1.levels} levels")
+    check(a["counts"]["fold_update"] == 2 * a["stats"]["levels"]
+          and a["counts"]["bsr_expand_bits"] == 0,
+          f"path 9 (a): launches {a['counts']} in 2 runs")
+    log(f"path 9 (a) nccl {a['nccl']}, world size 1, rmat_1m p=1 packed "
+        f"S=64: bitwise path 1 p1_packed, levels {a['stats']['levels']}, "
+        f"comm_bytes {a['stats']['comm_bytes']}, runs {a['run_ms']} ms, "
+        f"per-level ms {a['level_ms']}, launches {a['counts']}; wall "
+        f"{wall_a:.1f} s ({card})")
+
+    # (b)-(f): gloo, four ranks sharing cuda:0
+    t0 = time.perf_counter()
+    ranks = path9_group(ctx, 4, "gloo", tmp, deadline)
+    wall_g = time.perf_counter() - t0
+    p4 = path1["p4_default"][3]
+    for k, r in enumerate(ranks):
+        b = r["b"]
+        check(b["bitwise"] and b["stats"]["levels"] == p4.levels
+              and b["stats"]["comm_bytes"] == p4.comm_bytes,
+              f"path 9 (b) rank {k}: bitwise {b['bitwise']}, {b['stats']}; "
+              f"path 1 p4_default {p4.levels} levels, {p4.comm_bytes}")
+        check(b["counts"]["fold_update"] == 2 * b["stats"]["levels"]
+              and b["counts"]["bsr_expand_bits"] == 0,
+              f"path 9 (b) rank {k}: launches {b['counts']} in 2 runs")
+        check(b["rows"] == [g1.part.shard_size, S]
+              and b["memory_allocated"] <= b["estimated_device_bytes"],
+              f"path 9 (b) rank {k}: dist {b['rows']}, allocated "
+              f"{b['memory_allocated']} over the estimate "
+              f"{b['estimated_device_bytes']}")
+    resident = [r["b"]["terms"]["resident"] for r in ranks]
+    check(sum(resident) == stacked["resident"],
+          f"path 9 (b): the ranks' resident bytes {resident} do not sum to "
+          f"the stacked engine's {stacked['resident']}")
+    transport = ranks[0]["b"]["mesh"]["transport"]
+    for k, r in enumerate(ranks):
+        log(f"path 9 (b) rank {k}: estimated_device_bytes "
+            f"{r['b']['estimated_device_bytes']} (resident "
+            f"{r['b']['terms']['resident']}), memory_allocated after compile "
+            f"{r['b']['memory_allocated']}, compile {r['b']['compile_ms']:.1f}"
+            f" ms, runs {r['b']['run_ms']} ms, launches {r['b']['counts']}")
+    b0 = ranks[0]["b"]
+    log(f"path 9 (b) {transport}, 4 ranks on one "
+        f"card ({card}), not a multi-card figure: rmat_1m p=4 dense S=64 "
+        f"bitwise path 1 p4_default, levels {b0['stats']['levels']}, "
+        f"comm_bytes {b0['stats']['comm_bytes']}; per-level ms (rank 0) "
+        f"{[round(t, 3) for t in b0['level_ms']]} beside path 1 p4_default "
+        f"{[round(t * 1e3, 3) for t in p4.level_seconds]}; the ranks' "
+        f"resident bytes {resident} sum to the stacked engine's "
+        f"{stacked['resident']}; roofline dense link "
+        f"{b0['roofline_dense']['link']} t_level_s "
+        f"{b0['roofline_dense']['t_level_s']}")
+
+    f = ranks[0]["f"]
+    log(f"path 9 (f) rank 0's census of (b): {f['summary']}\n{f['table']}")
+    check(all(r["f"]["ok"] for r in ranks),
+          f"path 9 (f): an audit failed: {f['violations']}")
+    check(f["ratios"] and all(v["min"] == v["max"] == 1.0
+                              for v in f["ratios"].values()),
+          f"path 9 (f): recorded/modeled ratios {f['ratios']}")
+    from repro_torch.analysis.collective_audit import HOST_READ_BUDGET
+    check(all(n <= HOST_READ_BUDGET[k]
+              for k, n in f["host_reads"]["max_per_level"].items()),
+          f"path 9 (f): host reads {f['host_reads']}")
+    log(f"path 9 (f): ratios {f['ratios']}; host reads a level "
+        f"{f['host_reads']['max_per_level']} (counted by "
+        f"{f['host_reads']['counted_by']}); collectives "
+        f"{f['collectives']}")
+
+    for k, r in enumerate(ranks):
+        for i, row in enumerate(r["c"]):
+            check(row["bitwise"] and row["replayed"],
+                  f"path 9 (c) rank {k} root {i}: bitwise {row['bitwise']},"
+                  f" {row['stats']['mode_counts']} against the replay")
+    c0 = ranks[0]["c"]
+    # A1 runs on the dense levels and on the queue levels that escalate
+    log(f"path 9 (c) auto S=1, {len(c0)} roots: bitwise path 4's columns, "
+        f"mode_counts == the replay: "
+        f"{[row['stats']['mode_counts'] for row in c0]}; overflowed "
+        f"{[row['stats']['overflowed'] for row in c0]}; A1 "
+        f"{[row['counts']['fold_update'] for row in c0]}; runs "
+        f"{[round(row['run_ms'][0], 3) for row in c0]} ms")
+
+    s5 = path5_stats
+    for k, r in enumerate(ranks):
+        d = r["d"]
+        check(d["bitwise"] and d["stats"]["levels"] == s5.levels
+              and d["stats"]["comm_bytes"] == s5.comm_bytes
+              and d["stats"]["mode_counts"]["dense"] == s5.levels,
+              f"path 9 (d) rank {k}: bitwise {d['bitwise']}, {d['stats']}")
+        check(d["counts"]["fold_update"] == 2 * d["stats"]["levels"],
+              f"path 9 (d) rank {k}: launches {d['counts']} in 2 runs")
+    d0 = ranks[0]["d"]
+    log(f"path 9 (d) 2 x 2 DistMesh.grid dense S=64, gloo through the host "
+        f"on one card ({card}): bitwise path 5 (a), levels "
+        f"{d0['stats']['levels']}, comm_bytes {d0['stats']['comm_bytes']}; "
+        f"per-level ms (rank 0) {[round(t, 3) for t in d0['level_ms']]} "
+        f"beside path 5 (a) {[round(t * 1e3, 3) for t in s5.level_seconds]}")
+
+    for k, r in enumerate(ranks):
+        e = r["e"]
+        check(e["bitwise"], f"path 9 (e) rank {k}: distances differ from "
+                            "path 2's")
+        check(e["counts"]["bsr_expand_bits"] == 2 * e["stats"]["levels"]
+              and e["counts"]["fold_update"] == 2 * e["stats"]["levels"],
+              f"path 9 (e) rank {k}: launches {e['counts']} in 2 runs of "
+              f"{e['stats']['levels']} levels")
+        check(r["fault"]["rejected"],
+              f"path 9 fault: rank {k}'s distances passed with a wrong "
+              "shard index")
+    e0 = ranks[0]["e"]
+    log(f"path 9 (e) small_world_100k use_kernel p=4: bitwise path 2, "
+        f"bsr_expand_bits {[r['e']['counts']['bsr_expand_bits'] for r in ranks]}"
+        f" a rank in 2 runs of {e0['stats']['levels']} levels; tiles a rank "
+        f"{[r['e']['tiles'] for r in ranks]}; the planted wrong shard index "
+        f"rejected on every rank")
+    log(f"path 9: writes {write_s:.1f} s, (a) {wall_a:.1f} s, (b)-(f) "
+        f"{wall_g:.1f} s; path 9 {time.perf_counter() - t_phase:.1f} s")
+    return {"fold_update": [a["counts"]["fold_update"]]
+            + [r["b"]["counts"]["fold_update"] for r in ranks],
+            "bsr_expand_bits": [r["e"]["counts"]["bsr_expand_bits"]
+                                for r in ranks]}
+
+
 def profile_run(name, run) -> None:
     """One more call of ``run`` under ``torch.profiler``: device time by
     op, and the share of the call's wall time the device was busy."""
@@ -2598,8 +3033,8 @@ def main(argv=None) -> int:
         "auto mode_counts == the numpy replay, A1 once a dense level: ok")
 
     # --------------------------------------------------------------- path 5
-    a1_path5 = path5_phase(kernels, g1_p4, src1, roots1,
-                           path1["p4_default"][0], args.profile)
+    a1_path5, path5_a = path5_phase(kernels, g1_p4, src1, roots1,
+                                    path1["p4_default"][0], args.profile)
     log("path 5: the 2 x 2 grid in dense (S = 64), auto (S = 64 and 1) and "
         "queue (S = 1): distances == path 1, auto mode_counts == the numpy "
         "replay, A1 once a dense level: ok")
@@ -2632,11 +3067,26 @@ def main(argv=None) -> int:
     tmp8.mkdir(parents=True)
     path8 = audit_phase(kernels, g1_p4, src1, dst1, (src2, dst2, n2), host2,
                         roots2, dev, tmp8)
-    del g1_p4
     log("path 8: bfs_audit --all-variants clean with the host reads counted "
         "by sync debug mode, bfs_run --audit on rmat_1m bitwise path 1's "
         "engine with A1 once a level, bsr_expand_bits audited on "
         "small_world_100k bitwise path 2: ok")
+
+    # --------------------------------------------------------------- path 9
+    import shutil
+    tmp9 = ROOT / "build" / "chip_smoke_path9"
+    shutil.rmtree(tmp9, ignore_errors=True)
+    tmp9.mkdir(parents=True)
+    path9 = path9_phase(g1_p4, src1, dst1, roots1, path1["p4_default"][0],
+                        path1, path5_a, (src2, dst2, n2), host2, roots2,
+                        card, tmp9)
+    shutil.rmtree(tmp9)            # the graphs' files, gigabytes of them
+    del g1_p4
+    log("path 9: DistMesh, nccl at world size 1 bitwise path 1 p=1; gloo, "
+        "4 ranks on the card: dense, auto S = 1, the 2 x 2 grid and "
+        "use_kernel bitwise paths 1, 4, 5 (a) and 2, A1 and "
+        "bsr_expand_bits once a level on every rank, the census at ratio "
+        "1.000 within the read budget, a wrong shard index rejected: ok")
 
     # -------------------------------------------------------------- prefill
     lay = prefill_phase(kernels, dev, args.profile)
@@ -2682,6 +3132,7 @@ def main(argv=None) -> int:
         "launches_path6": path6["fold_update"],
         "launches_path7": sum(path7.values()),
         "launches_path8": path8["rmat"] + path8["sw"]["fold_update"],
+        "launches_path9": path9["fold_update"],
         "max_abs_err": err1,
         "ms": timed_ms(lambda: fold_update(words, dist, 7), 50),
         "plain_ms": timed_ms(lambda: fold_update_plain(words, dist, 7),
@@ -2732,7 +3183,8 @@ def main(argv=None) -> int:
         "fuses": "src/repro/kernels/bsr_spmm/kernel.py:100",
         "launches": counts2["bsr_expand_bits"],
         "launches_path6": path6["bsr_expand_bits"],
-        "launches_path8": path8["sw"]["bsr_expand_bits"], "max_abs_err": errx,
+        "launches_path8": path8["sw"]["bsr_expand_bits"],
+        "launches_path9": path9["bsr_expand_bits"], "max_abs_err": errx,
         "ms": x_ms, "plain_ms": x_plain_ms, "bound_ms": xb["bound_ms"],
         "bound_by": xb["bound_by"], "library_ms": None,
         "bound_all_tiles_ms": xb["bound_all_tiles_ms"],

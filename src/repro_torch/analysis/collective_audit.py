@@ -6,11 +6,13 @@ collective and its byte cost is known ahead of time — and the planner
 trusts the analytic byte models of the exchange registry blindly.  The
 JAX pass parses the compiled while loop's HLO; the port has no HLO, so
 this pass drives one traversal of the engine's plan on a
-``RecordingMesh``: a ``LocalMesh`` that delegates each ``all_to_all`` /
-``all_gather`` / ``psum_scatter`` and records its kind, axis and group
-size, input and output shape and dtype, the bytes each shard receives
-(converted from the output bytes as ``_recv_bytes`` says: all-gather and
-all-to-all ``out*(g-1)/g``, reduce-scatter ``out*(g-1)``), the level and
+``RecordingMesh``: a wrapper of the plan's mesh (a ``LocalMesh``, or this
+rank's ``DistMesh``) that delegates each ``all_to_all`` / ``all_gather``
+/ ``psum_scatter`` / ``psum`` / ``pmax`` and records its kind, axis and
+group size, input and output shape and dtype, the bytes each shard
+receives (converted from the output bytes as ``_recv_bytes`` says:
+all-gather and all-to-all ``out*(g-1)/g``, reduce-scatter ``out*(g-1)``,
+all-reduce ``out*2(g-1)/g``), the level and
 its kind (the level runner announces each level, ``enter_level``), and
 the registered strategy that made the call (the plan strategy's ``impl``
 on the call stack).  It records shapes only: no sync and no copy.  The
@@ -33,14 +35,18 @@ census is then asserted against the plan's resolved strategies:
     in the compiled loop; the port's loop reads a flag a level by
     design).  On the CPU the recording mesh counts ``host_read``; on a
     card ``torch.cuda.set_sync_debug_mode`` counts every synchronizing
-    call of the level, the hidden ones too;
+    call of the level, the hidden ones too (not over ``gloo``, a host
+    transport whose every collective synchronizes: there it counts
+    ``host_read`` too);
   * optionally, two traversals from distinct sources leave
     ``trace_count`` at ``compile_traces`` (HA006).
 
 Small all-reduces (<= ``CONTROL_CUTOFF`` bytes) are a loop's control
-plane and are censused but never priced; the port's loop has none (its
-termination, overflow and mode flags are host reads, HA005), and the
-sieve's summary gather is priced by the ``sieve`` role, as in JAX.
+plane and are censused but never priced: the mesh's ``psum`` and
+``pmax`` of the termination flag, the level statistics and the overflow
+flag and sieve hits, each reduced before its host read (HA005), as JAX's
+psums.  The sieve's summary gather is priced by the ``sieve`` role, as in
+JAX.
 Everything lands in an ``AuditReport`` consumed by tests,
 ``bfs_run --audit`` and the ``bfs_audit`` gate.
 """
@@ -64,8 +70,8 @@ from repro_torch.core import bfs as _bfs
 from repro_torch.core import engine as _engine
 from repro_torch.core import exchange as ex
 from repro_torch.core import frontier as fr
+from repro_torch.core import dist_mesh as _dist_mesh
 from repro_torch.core import mesh as _mesh
-from repro_torch.core.mesh import LocalMesh
 
 # Replicated scalar reductions (termination, overflow, mode pick) are
 # control flow, not payload; a collective bigger than this many bytes must
@@ -89,7 +95,9 @@ HOST_READ_BUDGET = {"sources": 1, "dense": 1, "queue": 2, "bottom_up": 1,
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.dirname(_PKG_DIR)
-_SKIP_FILES = (os.path.abspath(_mesh.__file__), os.path.abspath(__file__))
+_SKIP_FILES = (os.path.abspath(_mesh.__file__),
+               os.path.abspath(_dist_mesh.__file__),
+               os.path.abspath(__file__))
 # a strategy kind's role, and the kind of level that calls it
 _KIND_ROLE = {"dense": "dense", "queue": "queue", "expand_row": "expand",
               "fold_col": "fold", "expand_row_sparse": "expand_sparse",
@@ -198,13 +206,16 @@ def _call_site(frame) -> tuple:
     return "", 0
 
 
-def _role_hint(frame, impls: dict, phase: str) -> tuple:
-    """``(hint, strategy)``: the role a collective made in ``phase`` (the
-    kind the runner announced) plays.  A bottom-up level's collective is
+def _role_hint(frame, impls: dict, phase: str, kind: str) -> tuple:
+    """``(hint, strategy)``: the role a collective of ``kind`` made in
+    ``phase`` (the kind the runner announced) plays.  An all-reduce is
+    the loop's control plane (no role); a bottom-up level's collective is
     the bottom-up gather; in a dense, queue or escalated level the
     innermost frame running a plan strategy's ``impl`` (``impls``: code
     -> [(kind, name)]) of that level's kinds names it, and a queue
     collective outside every strategy is the sieve's summary gather."""
+    if kind == "all-reduce":
+        return "", ""
     if phase == "bottom_up":
         return "bottom_up", ""
     want = {"dense": "dense", "escalated": "dense",
@@ -221,45 +232,46 @@ def _role_hint(frame, impls: dict, phase: str) -> tuple:
     return ("sieve", "") if want == "queue" else ("", "")
 
 
-class RecordingMesh(LocalMesh):
-    """A ``LocalMesh`` that records every collective and host read of the
-    level loop (``ops``: ``CollectiveOp`` rows, ``reads``: ``HostRead``
-    rows), then runs it as the plain mesh does.
+class RecordingMesh:
+    """A wrapper of a mesh (a ``LocalMesh`` or this rank's ``DistMesh``)
+    that records every collective and host read of the level loop
+    (``ops``: ``CollectiveOp`` rows, ``reads``: ``HostRead`` rows), then
+    runs it as the wrapped mesh does; anything else it reads from the
+    wrapped mesh.
 
-    It compares and hashes as the ``LocalMesh`` of its shape, names and
-    device, so an engine planned on it shares the device blocks of the
-    engines planned on that mesh (``DeviceBlockCache`` keys on the mesh).
+    It compares and hashes as the wrapped mesh, so an engine planned on
+    it shares the device blocks of the engines planned on that mesh
+    (``DeviceBlockCache`` keys on the mesh).
     """
 
-    def __post_init__(self):
-        super().__post_init__()
-        for name, value in (("ops", []), ("reads", []), ("levels", {}),
-                            ("escalated", set()), ("_impls", {}),
-                            ("_level", 0), ("_phase", "outside")):
-            object.__setattr__(self, name, value)
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.ops, self.reads, self.levels = [], [], {}
+        self.escalated, self._impls = set(), {}
+        self._level, self._phase = 0, "outside"
 
     @classmethod
-    def like(cls, mesh: LocalMesh, plan) -> "RecordingMesh":
+    def like(cls, mesh, plan) -> "RecordingMesh":
         """A recording twin of ``mesh``; ``plan`` names the strategies
         whose collectives it attributes."""
-        rec = cls(mesh.shape, mesh.axis_names, mesh.device)
+        rec = cls(mesh)
         for kind, st in _strategies(plan).items():
             rec._impls.setdefault(st.impl.__code__, []).append(
                 (kind, st.name))
         return rec
 
+    def __getattr__(self, name):
+        return getattr(self.__dict__["mesh"], name)
+
     def __eq__(self, other):
-        if not isinstance(other, LocalMesh):
-            return NotImplemented
-        return ((self.shape, self.axis_names, self.device)
-                == (other.shape, other.axis_names, other.device))
+        return self.mesh == (other.mesh if isinstance(other, RecordingMesh)
+                             else other)
 
     def __hash__(self):
-        return hash((self.shape, self.axis_names, self.device))
+        return hash(self.mesh)
 
     def enter_level(self, level: int, kind: str) -> None:
-        object.__setattr__(self, "_level", level)
-        object.__setattr__(self, "_phase", kind)
+        self._level, self._phase = level, kind
         if kind in _bfs.LEVEL_KINDS:
             self.levels[level] = kind
         elif kind == "escalated":
@@ -275,7 +287,7 @@ class RecordingMesh(LocalMesh):
         out_bytes = float(math.prod(y.shape[1:]) * y.element_size())
         level, level_kind = self.where()
         frame = sys._getframe(2)
-        hint, strategy = _role_hint(frame, self._impls, self._phase)
+        hint, strategy = _role_hint(frame, self._impls, self._phase, kind)
         file, line = _call_site(frame)
         self.ops.append(CollectiveOp(
             kind=kind, out_bytes=out_bytes,
@@ -288,22 +300,32 @@ class RecordingMesh(LocalMesh):
             dtype=str(y.dtype).replace("torch.", "")))
 
     def all_to_all(self, x, axis):
-        y = super().all_to_all(x, axis)
+        y = self.mesh.all_to_all(x, axis)
         self._record("all-to-all", x, y, axis)
         return y
 
     def all_gather(self, x, axis):
-        y = super().all_gather(x, axis)
+        y = self.mesh.all_gather(x, axis)
         self._record("all-gather", x, y, axis)
         return y
 
     def psum_scatter(self, x, axis):
-        y = super().psum_scatter(x, axis)
+        y = self.mesh.psum_scatter(x, axis)
         self._record("reduce-scatter", x, y, axis)
         return y
 
+    def psum(self, x, axis):
+        y = self.mesh.psum(x, axis)
+        self._record("all-reduce", x, y, axis)
+        return y
+
+    def pmax(self, x, axis):
+        y = self.mesh.pmax(x, axis)
+        self._record("all-reduce", x, y, axis)
+        return y
+
     def host_read(self, x):
-        out = super().host_read(x)
+        out = self.mesh.host_read(x)
         self.reads.append(HostRead(*self.where(),
                                    *_call_site(sys._getframe(1)),
                                    "host_read"))
@@ -383,7 +405,9 @@ def record(engine, sources: Optional[Sequence[int]] = None) -> Recording:
     mesh = RecordingMesh.like(plan.mesh, plan)
     twin = _engine.BFSEngine(dataclasses.replace(plan, mesh=mesh))
     srcs = default_sources(plan) if sources is None else list(sources)
-    syncs = [] if plan.device.type == "cuda" else None
+    # a host transport synchronizes in every collective: count host_read
+    syncs = ([] if plan.device.type == "cuda"
+             and not getattr(plan.mesh, "collectives_sync", False) else None)
     with _sync_capture(mesh, syncs):
         res = twin.run(srcs)
     return Recording(mesh.ops, mesh.reads, syncs, dict(mesh.levels),
@@ -778,12 +802,13 @@ def audit_engine(engine, tolerance=DEFAULT_TOLERANCE,
 
 def census_table(report: AuditReport) -> str:
     """Render a report's census next to the modeled bytes (CLI output):
-    one row per distinct collective, with the levels it ran in."""
+    one row per distinct priced collective, with the levels it ran in
+    (the control all-reduces are counted in ``info["collectives"]``)."""
     rows = ["role          kind            group  level kind  recv B"
             "       model B      ratio   ops  levels      source"]
     groups = collections.OrderedDict()
     for op in report.info.get("census", ()):
-        if not op["in_loop"]:
+        if not op["in_loop"] or op["role"] == "control":
             continue
         key = (op["role"], op["kind"], op["group_size"], op["level_kind"],
                op["recv_bytes"], op["model_bytes"], op["source"])

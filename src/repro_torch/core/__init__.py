@@ -5,7 +5,8 @@ Public lifecycle: ``plan(graph, opts, mesh=..., device=...) -> BFSPlan ->
 .compile() -> BFSEngine -> .run(sources) / .run_async(sources) ->
 BFSResult``, in the dense, queue and ``auto`` modes, over a ``LocalMesh`` of
 p shards on one device (an ``r x c`` ``LocalMesh.grid`` under
-``partition="2d"``).  The one-shot ``bfs()`` remains as a deprecated
+``partition="2d"``), or over a ``DistMesh``, one shard per rank of a
+``torch.distributed`` group.  The one-shot ``bfs()`` remains as a deprecated
 wrapper over that lifecycle, as in the JAX package, in
 ``repro_torch.core.bfs``; unlike there it is not re-exported here, where
 its name would shadow that module.
@@ -13,6 +14,7 @@ its name would shadow that module.
 
 from repro_torch.core.bfs import (BFSOptions, BFSStats, INF,
                                   validate_sources)
+from repro_torch.core.dist_mesh import DistMesh
 from repro_torch.core.engine import (BFSEngine, BFSPlan, BFSResult,
                                      BFSRunStats, normalize_ladder,
                                      pick_bucket, plan, plan_ladder,
@@ -33,7 +35,8 @@ from repro_torch.core.partition import Partition1D, Partition2D
 __all__ = [
     "BFSOptions", "BFSStats", "INF", "validate_sources",
     "BFSEngine", "BFSPlan", "BFSResult", "BFSRunStats", "plan",
-    "plan_ladder", "normalize_ladder", "pick_bucket", "resolve_device", "LocalMesh", "default_grid", "Partition1D",
+    "plan_ladder", "normalize_ladder", "pick_bucket", "resolve_device",
+    "LocalMesh", "DistMesh", "default_grid", "Partition1D",
     "Partition2D",
     "exchange_dense", "exchange_queue", "expand_row", "fold_col",
     "ExchangeStrategy", "register_exchange",

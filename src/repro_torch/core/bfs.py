@@ -3,10 +3,15 @@ the port of ``repro.core.bfs``'s level loops.
 
 Every iteration of the level loop is one BFS level: local expansion
 (computation step, paper §2.3), the owner exchange (communication step)
-and the owner-side distance update.  The p shards of a ``LocalMesh`` run
-as one stacked ``(p, ...)`` computation.  JAX's ``lax.while_loop`` becomes
-a Python loop over levels and each ``lax.cond`` a Python branch on a value
-read from the device.
+and the owner-side distance update.  The shards a mesh holds here run as
+one stacked ``(local, ...)`` computation: all p of a ``LocalMesh``, one
+of a ``DistMesh`` (``core.dist_mesh``, a rank a shard).  JAX's
+``lax.while_loop`` becomes a Python loop over levels and each ``lax.cond``
+a Python branch on a value read from the device.  The loop reads across
+shards only through the mesh: the termination flag, the level statistics,
+the overflow flag and the sieve's hits are per-shard values reduced by
+the mesh's replicated ``psum`` / ``pmax`` (JAX's ``lax.psum``) before the
+one read, so every rank takes the same branch.
 
 Modes (``BFSOptions.mode``):
   * ``dense`` — bitmap frontier, candidate exchange by a ``dense``
@@ -208,11 +213,12 @@ def _pack_active(active: torch.Tensor, ids: torch.Tensor, width: int):
     return packed[:, :width], act[:, :width], rank[:, -1] - before
 
 
-def _bottom_up_level_fn(p: int, shard: int, s: int, mesh: LocalMesh, axis,
-                        in_rows, wire: str, level_bytes, fused: bool):
+def _bottom_up_level_fn(local: int, shard: int, s: int, mesh: LocalMesh,
+                        axis, in_rows, wire: str, level_bytes, fused: bool):
     """The bottom-up level: gather the frontier over ``axis`` (every
     shard, in chunk order) and check each owned vertex's in-edges
-    (``in_rows``: ``frontier.bottom_up_edge_index`` rows for ``wire``)."""
+    (``in_rows``: ``frontier.bottom_up_edge_index`` rows for ``wire``) of
+    the ``local`` shards held here."""
 
     def bottom_up_level(frontier, fwords, dist, level):
         with span(EXPAND):
@@ -220,12 +226,12 @@ def _bottom_up_level_fn(p: int, shard: int, s: int, mesh: LocalMesh, axis,
                 # gather the packed frontier and read source bits straight
                 # out of the words; a fused plan gathers the carried words
                 fw = fwords if fwords is not None else fr.pack_bits(frontier)
-                fglob = ex.allgather_frontier(fw, mesh, axis)  # (p, p*W, S)
+                fglob = ex.allgather_frontier(fw, mesh, axis)  # (., p*W, S)
             else:
                 fglob = ex.allgather_frontier(frontier, mesh, axis)
-            cand = fr.expand_bottom_up_edges(fglob, in_rows, p * shard)
+            cand = fr.expand_bottom_up_edges(fglob, in_rows, local * shard)
         with span(OWNER_UPDATE):
-            new = _owned_update(dist, cand.view(p, shard, s), level)
+            new = _owned_update(dist, cand.view(local, shard, s), level)
             return new, level_bytes, fr.pack_bits(new) if fused else None
 
     return bottom_up_level
@@ -246,17 +252,24 @@ def _level_runner(part, s: int, mode: str, e_total: int, opts: BFSOptions,
     f_edges, width)``: the frontier's pairs over every column, the
     out-edges of column 0's frontier, and the most active edges any shard
     (or grid cell) can hold, read from the device with the termination
-    flag.  Every read of the device goes through ``mesh.host_read``, and
-    the loop tells ``mesh.enter_level`` which level it runs and as what.
-    Returns ``run(dist, frontier, max_levels)`` (see ``make_level_loop``).
+    flag.  Every read of the device goes through ``mesh.host_read`` of a
+    value reduced over every shard, and the loop tells
+    ``mesh.enter_level`` which level it runs and as what.  Returns
+    ``run(dist, frontier, max_levels)`` (see ``make_level_loop``).
     """
-    p, shard, n = part.p, part.shard_size, part.n
+    shard = part.shard_size
+    local = len(mesh.local_shards)
+    everyone = tuple(mesh.axis_names)
     queue_edge_cutoff = max(1, int(opts.queue_threshold * e_total))
     bottom_up_cutoff = max(1, int(opts.bottom_up_threshold * part.n_logical))
+    # padding vertices (ids >= n_logical) fill the tail of the last
+    # shards; the local rows from here on are padding
+    pad_from = min(max(part.n_logical - mesh.local_shards[0] * shard, 0),
+                   local * shard)
 
     def run(dist, frontier, max_levels):
-        dist_sh = dist.view(p, shard, s)
-        frontier = frontier.view(p, shard, s)
+        dist_sh = dist.view(local, shard, s)
+        frontier = frontier.view(local, shard, s)
         bytes_acc = np.float32(0)
         overflowed, modes, hits_acc, level_seconds = False, [0, 0, 0], 0, []
         level, active, fwords = 1, True, None
@@ -288,9 +301,9 @@ def _level_runner(part, s: int, mode: str, e_total: int, opts: BFSOptions,
                     new, b, nwords = bottom_up_level(frontier, fwords,
                                                      dist_sh, level)
                 modes[which] += 1
-                # padding vertices (ids >= n_logical) can never be visited
-                new.view(n, s)[part.n_logical:] = 0
-                dist[part.n_logical:] = INF
+                # padding vertices can never be visited
+                new.view(local * shard, s)[pad_from:] = 0
+                dist[pad_from:] = INF
                 if fused:
                     # the next packed generation, pad bits cleared to match
                     # the masked byte frontier
@@ -299,8 +312,10 @@ def _level_runner(part, s: int, mode: str, e_total: int, opts: BFSOptions,
                     f_verts, f_edges, width = frontier_stats(new)
                     active = f_verts > 0
                 else:
+                    found = mesh.pmax(new.view(local, -1).any(1).long(),
+                                      everyone)
                     # audit: allow(RX004) -- budget: a dense level's one read
-                    active = bool(mesh.host_read(fr.frontier_nonzero(new)))
+                    active = bool(mesh.host_read(found[0]))
                 bytes_acc = np.float32(bytes_acc + b)
                 overflowed |= ovf
                 hits_acc += hits
@@ -315,9 +330,12 @@ def _level_runner(part, s: int, mode: str, e_total: int, opts: BFSOptions,
     return run
 
 
-def valid_words(part, dev) -> torch.Tensor:
-    """(p, W, 1) packed mask of the real (non-padding) vertices."""
-    valid = (torch.arange(part.n, device=dev).view(part.p, part.shard_size)
+def valid_words(part, mesh: LocalMesh) -> torch.Tensor:
+    """(local, W, 1) packed mask of the real (non-padding) vertices of the
+    shards ``mesh`` holds here."""
+    shard, held = part.shard_size, mesh.local_shards
+    valid = (torch.arange(held[0] * shard, (held[-1] + 1) * shard,
+                          device=mesh.device).view(len(held), shard)
              < part.n_logical)
     return fr.pack_bits(valid[..., None].to(torch.uint8))
 
@@ -338,23 +356,42 @@ def out_edge_state(src_local: torch.Tensor, dst_global: torch.Tensor,
 
 
 def out_edge_state_2d(src_rowlocal: torch.Tensor, dst_fold: torch.Tensor,
-                      part2: Partition2D) -> tuple:
-    """The 2-D twin of ``out_edge_state``: ``(src_idx, dst_fold,
-    out_valid, out_deg_col)``, where ``out_deg_col`` ``(p, b, c)`` counts
-    each owned vertex's out-edges into each grid column, from the cell
-    blocks (cell (i, j)'s sources are row block i's): a cell's active
-    edges are its row's frontier weighted by its column's."""
-    p, b, c = part2.p, part2.shard_size, part2.c
-    dev = src_rowlocal.device
+                      part2: Partition2D, mesh: LocalMesh,
+                      col_axis) -> tuple:
+    """The 2-D twin of ``out_edge_state`` over the cells ``mesh`` holds:
+    ``(src_idx, dst_fold, out_valid, out_deg_col)``, where
+    ``out_deg_col`` ``(local, b, c)`` counts each owned vertex's out-edges
+    into each grid column.  Cell (i, j)'s sources are row block i's, so
+    each cell counts its edges by row-local source into its own column,
+    and a reduce-scatter over ``col_axis`` (the cells of grid row i)
+    hands each chunk of the row block its sources' counts: a cell's
+    active edges are its row's frontier weighted by its column's."""
+    b, c = part2.shard_size, part2.c
+    local = src_rowlocal.shape[0]
     out_valid = dst_fold >= 0
     src_idx = torch.where(out_valid, src_rowlocal.long(), 0)
-    cell = torch.arange(p, device=dev)[:, None]
-    src_col = (src_idx + (cell // c) * c * b) * c + cell % c
-    out_deg_col = torch.zeros(p * b * c, dtype=torch.int64,
-                              device=dev).index_add_(
-        0, src_col[out_valid], torch.ones_like(src_col[out_valid])
-    ).view(p, b, c)
+    col = mesh.axis_index(col_axis)[:, None]                    # (local, 1)
+    slot = (src_idx * c + col).view(local, -1)
+    counts = torch.zeros((local, c * b * c), dtype=torch.int64,
+                         device=src_rowlocal.device).scatter_add_(
+        1, slot, out_valid.long())
+    out_deg_col = mesh.psum_scatter(counts, col_axis).view(local, b, c)
     return src_idx, dst_fold, out_valid, out_deg_col
+
+
+def _reduced_stats(mesh: LocalMesh, axis, frontier: torch.Tensor,
+                   f_edges: torch.Tensor) -> tuple:
+    """``(f_verts, f_edges, width)`` read in one host read: the frontier's
+    pairs and the active edges (``f_edges``, one a shard or grid cell
+    held here) summed over every shard, and the most active edges any
+    one holds (at least 1)."""
+    local = frontier.shape[0]
+    f_verts = frontier.reshape(local, -1).sum(1, dtype=torch.int64)
+    total = mesh.psum(torch.stack([f_verts, f_edges], 1), axis)
+    most = mesh.pmax(f_edges[:, None], axis)
+    # audit: allow(RX004) -- budget: one read a level (stats)
+    stats = mesh.host_read(torch.cat([total[0], most[0]]))
+    return stats[0], stats[1], max(1, stats[2])
 
 
 def make_level_loop(part: Partition1D, s: int, e_total: int,
@@ -369,9 +406,11 @@ def make_level_loop(part: Partition1D, s: int, e_total: int,
     """Build the 1-D level loop of one engine over stacked shards.
 
     Returns ``run(dist, frontier, max_levels)``, which runs levels on the
-    padded global ``(n, S)`` buffers (``dist`` updated in place) until no
-    shard discovers a vertex (or ``max_levels``) and returns ``(levels,
-    comm_bytes, overflowed, mode_counts, sieve_hits, level_seconds)``:
+    ``(local * shard, S)`` buffers of the shards the mesh holds here (the
+    padded global ``(n, S)`` ones on a ``LocalMesh``; ``dist`` updated in
+    place) until no shard discovers a vertex (or ``max_levels``) and
+    returns ``(levels, comm_bytes, overflowed, mode_counts, sieve_hits,
+    level_seconds)``:
     the level count as the JAX loop reports it, the analytic per-chip
     bytes summed in float32 as the JAX loop sums them, whether a queue
     level escalated to dense, the (dense, queue, bottom_up) level counts,
@@ -388,9 +427,10 @@ def make_level_loop(part: Partition1D, s: int, e_total: int,
     (needs a packed dense wire) replaces the dense unpack -> update tail
     with kernel A1 and carries the packed frontier generation between
     levels, which the packed bottom-up gather reads.  ``vwords`` is
-    ``valid_words(part, device)``, made here when not given.
+    ``valid_words(part, mesh)``, made here when not given.
     """
     p, shard, n = part.p, part.shard_size, part.n
+    local = len(mesh.local_shards)
     cap = opts.queue_cap
     dev = mesh.device
     itemsize = 1  # uint8 masks (the "bytes" wire format)
@@ -408,21 +448,19 @@ def make_level_loop(part: Partition1D, s: int, e_total: int,
     bottom_up_bytes = np.float32(ex.bottomup_level_bytes(
         n, p, s, itemsize, wire=bottom_up_wire))
     packed_wire = dense_strategy.wire == "packed"
-    me = mesh.axis_index(axis)                                  # (p,)
+    me = mesh.axis_index(axis)                              # (local,)
+    # bucket row j's base (the compressed queue wire), over all p owners
     base = torch.arange(p, device=dev, dtype=torch.int32)[:, None] * shard
     frontier_stats = None
     if out_edges is not None:
         src_idx, dst_global, out_valid, out_deg = out_edges
 
         def frontier_stats(frontier):
-            """One host read: the frontier's pairs over every column and
-            each shard's valid out-edges from column 0's frontier (a
-            queue level's active edges)."""
+            """One host read: the frontier's pairs over every column, the
+            valid out-edges from column 0's frontier over every shard, and
+            the most any shard holds (a queue level's active edges)."""
             f_edges = (frontier[..., 0].long() * out_deg).sum(1)
-            # audit: allow(RX004) -- budget: one read a level (stats)
-            stats = mesh.host_read(torch.cat(
-                [frontier.sum(dtype=torch.int64).view(1), f_edges]))
-            return stats[0], sum(stats[1:]), max(1, max(stats[1:]))
+            return _reduced_stats(mesh, axis, frontier, f_edges)
 
     def dense_level(frontier, fwords, dist, level):
         with span(EXPAND):
@@ -430,8 +468,8 @@ def make_level_loop(part: Partition1D, s: int, e_total: int,
                 cand = expand_fn(frontier, fwords)
             else:
                 cand = fr.expand_dense_edges(
-                    frontier.reshape(p * shard, s), *edge_rows,
-                    p * n).reshape(p, n, s)
+                    frontier.reshape(local * shard, s), *edge_rows,
+                    local * n).reshape(local, n, s)
         with span(FOLD):
             if packed_wire:
                 # candidates stay packed through the exchange: pack once
@@ -460,7 +498,7 @@ def make_level_loop(part: Partition1D, s: int, e_total: int,
             # block (width: the most any shard has, read with the
             # statistics)
             dst, active, _ = _pack_active(active, dst_global, width)
-            hits = torch.zeros((), dtype=torch.int64, device=dev)
+            hits = torch.zeros((local,), dtype=torch.int64, device=dev)
             if sieve:
                 # replicate each shard's coarse visited summary and drop
                 # candidates whose whole bucket is already visited
@@ -468,7 +506,7 @@ def make_level_loop(part: Partition1D, s: int, e_total: int,
                 gsum = mesh.all_gather(own_sum, axis).flatten(1, 2)
                 drop = fr.sieve_lookup(gsum, dst, shard, sv_bits, sv_bucket,
                                        sv_words) & active
-                hits = drop.sum()
+                hits = drop.sum(1)
                 active = active & ~drop
             buckets, local_mask, _, overflow = fr.build_queue_buckets(
                 dst, active, part, me, cap, local_update=opts.local_update,
@@ -480,9 +518,9 @@ def make_level_loop(part: Partition1D, s: int, e_total: int,
                 overflow = overflow | enc_ovf.any(-1)
             # Exactness: if any shard's bucket (or compressed stream)
             # overflowed, the whole level runs densely instead
+            flags = mesh.psum(torch.stack([overflow.long(), hits], 1), axis)
             # audit: allow(RX004) -- budget: a queue level's second read
-            ovf, hits = mesh.host_read(torch.stack([overflow.any().long(),
-                                                    hits]))
+            ovf, hits = mesh.host_read(flags[0])
         if ovf:
             mesh.enter_level(level, "escalated")
             new, _, nwords = dense_level(frontier, None, dist, level)
@@ -503,14 +541,14 @@ def make_level_loop(part: Partition1D, s: int, e_total: int,
             nwords = fr.pack_bits(new) if fused else None
             return new, queue_bytes, nwords, False, hits
 
-    bottom_up_level = _bottom_up_level_fn(p, shard, s, mesh, axis, in_rows,
-                                          bottom_up_wire, bottom_up_bytes,
-                                          fused)
+    bottom_up_level = _bottom_up_level_fn(local, shard, s, mesh, axis,
+                                          in_rows, bottom_up_wire,
+                                          bottom_up_bytes, fused)
     return _level_runner(part, s, opts.mode, e_total, opts, mesh,
                          dense_level, queue_level, bottom_up_level,
                          frontier_stats, fused,
                          vwords if vwords is not None
-                         else valid_words(part, dev))
+                         else valid_words(part, mesh))
 
 
 def make_level_loop_2d(part2: Partition2D, s: int, e_total: int,
@@ -552,6 +590,7 @@ def make_level_loop_2d(part2: Partition2D, s: int, e_total: int,
     """
     r, c, b, p = part2.r, part2.c, part2.shard_size, part2.p
     n, fold_len, cap = part2.n, part2.fold_size, opts.queue_cap
+    local = len(mesh.local_shards)
     dev = mesh.device
     grid_axes = (row_axis, col_axis)
     # both compressed sparse phases ship ids from [0, b) (expand: local
@@ -573,7 +612,7 @@ def make_level_loop_2d(part2: Partition2D, s: int, e_total: int,
     bottom_up_bytes = np.float32(ex.bottomup_level_bytes(
         n, p, s, 1, wire=bottom_up_wire))
     packed_expand = expand_strategy.wire == "packed"
-    me_row = mesh.axis_index(row_axis)                          # (p,)
+    me_row = mesh.axis_index(row_axis)                      # (local,)
     me_col = mesh.axis_index(col_axis)
     frontier_stats = None
     if out_edges is not None:
@@ -581,18 +620,19 @@ def make_level_loop_2d(part2: Partition2D, s: int, e_total: int,
         rr_base = torch.arange(r, device=dev, dtype=torch.int32)[:, None] * b
 
         def frontier_stats(frontier):
-            """One host read: the frontier's pairs over every column and
-            each cell's active edges from column 0's frontier."""
+            """One host read: the frontier's pairs over every column, the
+            active edges from column 0's frontier over every grid cell,
+            and the most any cell holds.  Chunk (i, j')'s out-edges into
+            each grid column sum over grid row i's chunks (a psum over
+            ``col_axis``) to the counts of cells (i, :)."""
             per_chunk = (frontier[..., 0, None].long() * out_deg_col).sum(1)
-            cells = per_chunk.view(r, c, c).sum(1).view(-1)     # (i, j)
-            # audit: allow(RX004) -- budget: one read a level (stats)
-            stats = mesh.host_read(torch.cat(
-                [frontier.sum(dtype=torch.int64).view(1), cells]))
-            return stats[0], sum(stats[1:]), max(1, max(stats[1:]))
+            row = mesh.psum(per_chunk, col_axis)                # (local, c)
+            return _reduced_stats(mesh, grid_axes, frontier,
+                                  row.gather(1, me_col[:, None])[:, 0])
 
-    def expand_row_bytes(frow):                 # (p, c*b, S) -> (p*r*b, S)
-        return fr.expand_dense_edges(frow.reshape(p * c * b, s), *edge_rows,
-                                     p * fold_len)
+    def expand_row_bytes(frow):     # (local, c*b, S) -> (local*r*b, S)
+        return fr.expand_dense_edges(frow.reshape(local * c * b, s),
+                                     *edge_rows, local * fold_len)
 
     def dense_level(frontier, fwords, dist, level):
         with span(EXPAND):
@@ -606,14 +646,14 @@ def make_level_loop_2d(part2: Partition2D, s: int, e_total: int,
                 fw = expand_strategy.impl(payload, mesh, col_axis)
                 if fused:
                     cand = fr.expand_bottom_up_edges(fw, edge_rows,
-                                                     p * fold_len)
+                                                     local * fold_len)
                 else:
                     cand = expand_row_bytes(fr.unpack_bits(fw, b,
                                                            n_blocks=c))
             else:
                 cand = expand_row_bytes(expand_strategy.impl(frontier, mesh,
                                                              col_axis))
-            cand = cand.view(p, fold_len, s)
+            cand = cand.view(local, fold_len, s)
         with span(FOLD):
             if fold_strategy.wire == "packed":
                 cw = fold_strategy.impl(fr.pack_bits(cand, n_blocks=r), mesh,
@@ -649,20 +689,21 @@ def make_level_loop_2d(part2: Partition2D, s: int, e_total: int,
                 overflow = overflow | enc_ovf
                 all_pay = expand_sparse_strategy.impl(pay, mesh, col_axis)
                 all_ids = fr.decode_delta_varint(
-                    all_pay.view(p, c, g_byte_cap), cap, b).view(p, c * cap)
+                    all_pay.view(local, c, g_byte_cap), cap, b).view(
+                        local, c * cap)
             else:
                 all_ids = expand_sparse_strategy.impl(ids, mesh, col_axis)
-            frow = fr.unpack_row_frontier(all_ids, c, b)        # (p, c*b, 1)
+            frow = fr.unpack_row_frontier(all_ids, c, b)    # (., c*b, 1)
             full = (frow[..., 0].gather(1, src_idx) > 0) & out_valid
             # width bounds each cell's active edges from the true
             # frontier; a truncated compressed frontier can decode to
             # more, but only where its overflow escalates the level
             dst, active, counts = _pack_active(full, dst_fold, width)
-            over = (counts > width).any()
-            hits = torch.zeros((), dtype=torch.int64, device=dev)
+            over = counts > width
+            hits = torch.zeros((local,), dtype=torch.int64, device=dev)
             if sieve:
                 drop = sieve_drop(dst, active, dist)
-                hits = drop.sum()
+                hits = drop.sum(1)
                 active = active & ~drop
             buckets, local_mask, _, bucket_ovf = fr.build_queue_buckets_2d(
                 dst, active, part2, me_row, cap,
@@ -673,17 +714,20 @@ def make_level_loop_2d(part2: Partition2D, s: int, e_total: int,
                 bucket_ovf = bucket_ovf | fenc_ovf.any(-1)
             # Exactness: if any cell's frontier pack, bucket or compressed
             # stream overflowed, the whole level runs densely instead
+            flags = mesh.psum(torch.stack(
+                [(overflow | bucket_ovf).long(), hits, over.long()], 1),
+                grid_axes)
             # audit: allow(RX004) -- budget: a queue level's second read
-            ovf, hits, over = mesh.host_read(torch.stack(
-                [(overflow | bucket_ovf).any().long(), hits, over.long()]))
+            ovf, hits, over = mesh.host_read(flags[0])
             if over:
                 if not ovf:
                     raise RuntimeError("a queue level's active edges exceed "
                                        "the width its statistics bound")
                 if sieve:     # the hits of every active edge, as JAX counts
+                    all_hits = mesh.psum(
+                        sieve_drop(dst_fold, full, dist).sum(1), grid_axes)
                     # audit: allow(RX004) -- an escalated level's third read
-                    hits = mesh.host_read(sieve_drop(dst_fold, full,
-                                                     dist).sum())
+                    hits = mesh.host_read(all_hits[0])
         if ovf:
             mesh.enter_level(level, "escalated")
             new, bb, nwords = dense_level(frontier, fwords, dist, level)
@@ -692,7 +736,7 @@ def make_level_loop_2d(part2: Partition2D, s: int, e_total: int,
         with span(FOLD):
             if use_comp_fold:
                 recvp = fold_sparse_strategy.impl(fpay, mesh, row_axis)
-                rec = fr.decode_delta_varint(recvp, cap, b)     # (p, r, cap)
+                rec = fr.decode_delta_varint(recvp, cap, b)   # (., r, cap)
                 rec = torch.where(rec >= 0, rec + me_row[:, None, None] * b,
                                   -1)
             else:
@@ -703,14 +747,14 @@ def make_level_loop_2d(part2: Partition2D, s: int, e_total: int,
             nwords = fr.pack_bits(new) if fused else None
             return new, sparse_bytes, nwords, False, hits
 
-    bottom_up_level = _bottom_up_level_fn(p, b, s, mesh, grid_axes, in_rows,
-                                          bottom_up_wire, bottom_up_bytes,
-                                          fused)
+    bottom_up_level = _bottom_up_level_fn(local, b, s, mesh, grid_axes,
+                                          in_rows, bottom_up_wire,
+                                          bottom_up_bytes, fused)
     return _level_runner(part2, s, opts.mode, e_total, opts, mesh,
                          dense_level, queue_level, bottom_up_level,
                          frontier_stats, fused,
                          vwords if vwords is not None
-                         else valid_words(part2, dev))
+                         else valid_words(part2, mesh))
 
 
 def bfs(graph, sources, mesh: Optional[LocalMesh] = None, axis=None,

@@ -21,6 +21,12 @@ carrying on on the CPU.  ``partition="2d"`` (inferred from a
 ``ShardedGraph2D``) runs the 2-D edge partition over an ``r x c``
 ``LocalMesh`` (``LocalMesh.grid``).
 
+On a ``DistMesh`` (``core.dist_mesh``: one shard per rank of a
+``torch.distributed`` group) every rank plans the same graph, compiles
+only its own shard's blocks and ``(shard, S)`` buffers, and runs the same
+levels; ``BFSResult.dist_host`` is the global matrix, all-gathered once
+after the level loop and the same on every rank.
+
 The serving surface: ``BFSPlan.plan_key()`` (what the ``EngineCache``
 keys on), ``estimated_device_bytes()`` (what it charges), the bucket
 ladder helpers ``normalize_ladder`` / ``pick_bucket`` / ``plan_ladder``,
@@ -54,6 +60,13 @@ from repro_torch.serve.resilience import faults as _faults
 
 if TYPE_CHECKING:   # graphs.formats imports core.partition, which runs core
     from repro_torch.graphs.formats import ShardedGraph, ShardedGraph2D
+
+
+def _held(mesh) -> slice:
+    """The shards ``mesh`` holds here, as a slice of a graph's ``(p,
+    ...)`` host blocks."""
+    held = mesh.local_shards
+    return slice(held[0], held[-1] + 1)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -109,9 +122,11 @@ class BFSResult:
     """One traversal's outputs.
 
     ``dist`` is the padded global ``(n, S)`` int32 distance matrix on the
-    device.  It *is* the engine's reused buffer, so the engine's next run
-    overwrites it: read ``dist_host`` (or clone ``dist``) first.  Reading
-    ``dist_host`` of a result whose buffer was reused raises.
+    device (on a ``DistMesh``, this rank's ``(shard, S)`` rows).  It *is*
+    the engine's reused buffer, so the engine's next run overwrites it:
+    read ``dist_host`` (or clone ``dist``) first.  Reading ``dist_host`` of
+    a result whose buffer was reused raises.  On a ``DistMesh`` the run
+    gathers ``dist_host`` itself, so it is read already.
     """
 
     dist: torch.Tensor
@@ -189,13 +204,16 @@ class BFSPlan:
     def describe(self) -> dict:
         """Static plan metadata: shapes, resolved strategies and wires, the
         analytic per-level exchange bytes of each level kind (the JAX
-        plan's keys) and ``roofline``: each level kind's H100 roofline row
-        (``launch.roofline.roofline_row``, the collective priced as HBM
-        traffic and every term paid by each of the ``LocalMesh``'s shards
-        on its one card) over the JAX plan's byte and operation counts,
-        which equal JAX's exactly."""
+        plan's keys), ``mesh`` (the mesh's kind and transport) and
+        ``roofline``: each level kind's H100 roofline row
+        (``launch.roofline.roofline_row``) over the JAX plan's byte and
+        operation counts, which equal JAX's exactly.  On a ``LocalMesh``
+        the collective is priced as HBM traffic and every term paid by each
+        of its shards on the one card; on a ``DistMesh`` a card holds one
+        shard and the collective crosses NVLink."""
         part = self.graph.part
         s, cap = self.num_sources, self.opts.queue_cap
+        shards, link = len(self.mesh.local_shards), self.mesh.link
         meta = {
             "mode": self.opts.mode,
             "partition": self.partition,
@@ -211,6 +229,7 @@ class BFSPlan:
             "use_fused_tail": self.use_fused_tail,
             "use_kernel": self.opts.use_kernel,
             "sieve": self.sieve,
+            "mesh": self.mesh.describe(),
         }
 
         # sparse phases report their payload layout: "ids" or "compressed"
@@ -272,20 +291,20 @@ class BFSPlan:
                     hbm_bytes=(8 * e_p + 2 * e_p * s
                                + (3 * r * b + 10 * b) * s - elim_hbm),
                     flops=(e_p + r * b + 4 * b) * s - elim_flops,
-                    overlap=self.use_fused_tail, shards=self.mesh.p),
+                    overlap=self.use_fused_tail, shards=shards, link=link),
                 "queue": roofline_row(
                     meta["queue_level_bytes"],
                     hbm_bytes=(8 * e_p + e_p * s + 16 * (r + c) * cap
                                + 8 * b * s),
                     flops=(e_p + (r + c) * cap) * s,
-                    overlap=False, shards=self.mesh.p),
+                    overlap=False, shards=shards, link=link),
                 "bottom_up": roofline_row(
                     meta["bottom_up_level_bytes"],
                     # the in-edge blocks build at compile time; the forward
                     # e_cap is the same-order proxy describe() may use
                     hbm_bytes=8 * e_p + e_p * s + 8 * b * s,
                     flops=e_p * s,
-                    overlap=self.use_fused_tail, shards=self.mesh.p),
+                    overlap=self.use_fused_tail, shards=shards, link=link),
             }
             return meta
         sieve_bytes = ((part.p - 1) * fr.sieve_layout(part.shard_size)[2] * 4
@@ -320,18 +339,18 @@ class BFSPlan:
                 hbm_bytes=(8 * e_p + 2 * e_p * s
                            + (3 * part.n + 10 * shard) * s - elim_hbm),
                 flops=(e_p + part.n + 4 * shard) * s - elim_flops,
-                overlap=self.use_fused_tail, shards=self.mesh.p),
+                overlap=self.use_fused_tail, shards=shards, link=link),
             "queue": roofline_row(
                 meta["queue_level_bytes"],
                 hbm_bytes=(8 * e_p + e_p * s + 16 * part.p * cap
                            + 8 * shard * s),
                 flops=(e_p + part.p * cap) * s,
-                overlap=False, shards=self.mesh.p),
+                overlap=False, shards=shards, link=link),
             "bottom_up": roofline_row(
                 meta["bottom_up_level_bytes"],
                 hbm_bytes=8 * in_e + in_e * s + 8 * shard * s,
                 flops=in_e * s,
-                overlap=self.use_fused_tail, shards=self.mesh.p),
+                overlap=self.use_fused_tail, shards=shards, link=link),
         }
         return meta
 
@@ -344,10 +363,11 @@ class BFSPlan:
         both.  Strategies enter by resolved name, so ``"auto"`` and the
         strategy it resolved to key the same; the graph enters by content
         hash, so two block-identical graphs share engines.  The mesh
-        enters by axis names, shape and ``torch.device``: a CPU plan and
-        a card plan never share an engine.
+        enters by axis names, shape and ``torch.device`` (``mesh.key()``; a
+        ``DistMesh`` adds its backend and ranks): a CPU plan and a card
+        plan never share an engine, nor a stacked and a distributed one.
         """
-        mesh_key = (self.mesh.axis_names, self.mesh.shape, self.mesh.device)
+        mesh_key = self.mesh.key()
         o = self.opts
         opt_key = (o.mode, o.local_update, o.dedupe, o.queue_cap,
                    o.queue_threshold, o.bottom_up_threshold, o.use_kernel,
@@ -399,53 +419,63 @@ class BFSPlan:
         under 96 bytes a slot, and it may escalate to a dense level;
         besides, every level holds the previous and the new frontier and
         the packed generations (``4 n S``).
+
+        On a ``DistMesh`` every term counts this rank's shard: its edges,
+        slots and ``(shard, S)`` rows (the ``(n, S)`` candidates of a
+        shard's dense level stay ``n`` long), so the ranks' ``resident``
+        terms sum to the stacked engine's.
         """
         s = self.num_sources
         opts = self.opts
         mode = opts.mode
+        held = self.mesh.local_shards
+        local = len(held)
+        g = self.graph2d if self.partition == "2d" else self.graph
+        part = g.part
+        n = part.n
+        rows = local * part.shard_size
+
+        def count(per_shard, total):
+            # a stacked mesh holds every shard: the total needs no count
+            return total if local == part.p else int(per_shard()[held].sum())
+
+        edges = count(g.edge_counts, g.n_edges)
+        slots = local * g.e_cap
         if self.partition == "2d":
-            g = self.graph2d
-            part = g.part
-            n, p, b = part.n, part.p, part.shard_size
             r, c = part.r, part.c
-            slots = p * g.e_cap
-            slots_in = p * g.bottom_up_in_cap() if mode == "auto" else 0
+            slots_in = local * g.bottom_up_in_cap() if mode == "auto" else 0
             packed_rows = (self.use_fused_tail
                            and self.expand_strategy.wire == "packed")
-            resident = g.n_edges * (28 if packed_rows else 16)
+            resident = edges * (28 if packed_rows else 16)
             if mode != "dense":
-                resident += 13 * slots + 8 * p * b * c
-            dense_t = 5 * g.n_edges * s + 10 * (r + c) * n * s
+                resident += 13 * slots + 8 * rows * c
+            dense_t = 5 * edges * s + 10 * (r + c) * rows * s
         else:
-            g = self.graph
-            part = g.part
-            n, p = part.n, part.p
-            slots = p * g.e_cap
-            slots_in = p * g.in_e_cap if mode == "auto" else 0
+            slots_in = local * g.in_e_cap if mode == "auto" else 0
             if opts.use_kernel:
                 kmax, blk = g.bsr_shard_caps()
-                resident = (p * kmax * (blk * blk // 8 + blk // 8 + 8)
-                            + 4 * (p * (-(-n // blk)) + 1))
-                dense_t = 10 * p * n * s
+                resident = (local * kmax * (blk * blk // 8 + blk // 8 + 8)
+                            + 4 * (local * (-(-n // blk)) + 1))
+                dense_t = 10 * local * n * s
             else:
-                resident = 16 * g.n_edges
-                dense_t = g.n_edges * s + 10 * p * n * s
+                resident = 16 * edges
+                dense_t = edges * s + 10 * local * n * s
             if mode != "dense":
-                resident += 13 * slots + 8 * n
-        e_in = g.n_edges if mode == "auto" else 0
+                resident += 13 * slots + 8 * rows
+        e_in = count(g.in_edge_counts, g.n_edges) if mode == "auto" else 0
         resident += e_in * (28 if self.bottom_up_wire == "packed" else 24)
         # the validity words, and each shard's indices along the mesh
-        resident += 4 * fr.packed_words(part.shard_size) * p + 32 * p
+        resident += 4 * fr.packed_words(part.shard_size) * local + 32 * local
         levels = [dense_t]
         if mode != "dense":
-            levels.append(96 * slots + 10 * p * n + dense_t)
+            levels.append(96 * slots + 10 * local * n + dense_t)
         if mode == "auto":
-            levels.append(5 * e_in * s + p * n * s + 10 * n * s)
+            levels.append(5 * e_in * s + local * n * s + 10 * rows * s)
         build = 64 * max(slots, slots_in)
         if opts.use_kernel:
-            build += 64 * g.n_edges
-        return {"resident": int(resident), "work": 5 * n * s,
-                "transient": int(max(max(levels) + 4 * n * s, build))}
+            build += 64 * edges
+        return {"resident": int(resident), "work": 5 * rows * s,
+                "transient": int(max(max(levels) + 4 * rows * s, build))}
 
     def estimated_device_bytes(self) -> int:
         """Upper bound on the device memory a compiled engine of this plan
@@ -796,8 +826,10 @@ class BFSEngine:
                 self._run_levels = self._build_2d(cached)
             else:
                 self._run_levels = self._build_1d(cached)
-        self._dist = torch.empty((part.n, s), dtype=torch.int32, device=dev)
-        self._frontier = torch.empty((part.n, s), dtype=torch.uint8,
+        # the rows of the shards held here: all n on a LocalMesh
+        rows = len(plan_.mesh.local_shards) * part.shard_size
+        self._dist = torch.empty((rows, s), dtype=torch.int32, device=dev)
+        self._frontier = torch.empty((rows, s), dtype=torch.uint8,
                                      device=dev)
         self._trace_count = 1
         self.compile_traces = self._trace_count
@@ -822,12 +854,14 @@ class BFSEngine:
         part2 = g2.part
         dev = pl_.device
         b, c = part2.shard_size, part2.c
+        held = _held(pl_.mesh)
         uploads = {}
 
         def cells():
             if not uploads:
-                uploads["cells"] = (torch.as_tensor(g2.src_rowlocal).to(dev),
-                                    torch.as_tensor(g2.dst_fold).to(dev))
+                uploads["cells"] = (
+                    torch.as_tensor(g2.src_rowlocal[held]).to(dev),
+                    torch.as_tensor(g2.dst_fold[held]).to(dev))
             return uploads["cells"]
 
         packed_rows = pl_.use_fused_tail and pl_.expand_strategy.wire == "packed"
@@ -841,12 +875,12 @@ class BFSEngine:
                                    *cells(), c * b, part2.fold_size))
         out_edges = in_rows = None
         if opts.mode != "dense":
-            out_edges = cached("out_edges_2d",
-                               lambda: bfs.out_edge_state_2d(*cells(), part2))
+            out_edges = cached("out_edges_2d", lambda: bfs.out_edge_state_2d(
+                *cells(), part2, pl_.mesh, pl_.axis[1]))
         uploads.clear()
         if opts.mode == "auto":
             in_rows = self._bottom_up_rows(cached, "bottom_up_2d", g2, part2)
-        vwords = cached("valid_2d", lambda: bfs.valid_words(part2, dev))
+        vwords = cached("valid_2d", lambda: bfs.valid_words(part2, pl_.mesh))
         return make_level_loop_2d(
             part2, pl_.num_sources, g2.n_edges, pl_.mesh, pl_.axis[0],
             pl_.axis[1], opts, pl_.expand_strategy, pl_.fold_strategy,
@@ -862,10 +896,12 @@ class BFSEngine:
         packed = wire == "packed"
         w = fr.packed_words(part.shard_size)
         dev = self.plan.device
+        held = _held(self.plan.mesh)
         return cached(f"{group}:{wire}", lambda: fr.bottom_up_edge_index(
-            torch.as_tensor(graph.in_src_global).to(dev),
-            torch.as_tensor(graph.in_dst_local).to(dev), part.shard_size,
-            part.p * w if packed else part.n, w if packed else None))
+            torch.as_tensor(graph.in_src_global[held]).to(dev),
+            torch.as_tensor(graph.in_dst_local[held]).to(dev),
+            part.shard_size, part.p * w if packed else part.n,
+            w if packed else None))
 
     def _build_1d(self, cached):
         """Upload the 1-D blocks and build the 1-D level loop."""
@@ -874,12 +910,14 @@ class BFSEngine:
         part = graph.part
         dev = plan_.device
         s = plan_.num_sources
+        held = _held(plan_.mesh)
         uploads = {}
 
         def blocks():
             if not uploads:
-                uploads["out"] = (torch.as_tensor(graph.src_local).to(dev),
-                                  torch.as_tensor(graph.dst_global).to(dev))
+                uploads["out"] = (
+                    torch.as_tensor(graph.src_local[held]).to(dev),
+                    torch.as_tensor(graph.dst_global[held]).to(dev))
             return uploads["out"]
 
         expand_fn, expand_packed, edge_rows = None, False, None
@@ -898,7 +936,7 @@ class BFSEngine:
         uploads.clear()
         if opts.mode == "auto":
             in_rows = self._bottom_up_rows(cached, "bottom_up", graph, part)
-        vwords = cached("valid", lambda: bfs.valid_words(part, dev))
+        vwords = cached("valid", lambda: bfs.valid_words(part, plan_.mesh))
         return make_level_loop(
             part, s, graph.n_edges, plan_.mesh, plan_.axis,
             plan_.axes_sizes, opts, plan_.dense_strategy,
@@ -918,11 +956,12 @@ class BFSEngine:
         Each shard's 128x128-blocked *transposed* adjacency (rows = global
         candidate ids, cols = the shard's local sources) is uploaded once,
         at one bit an entry (``bsr_bit_shards``; no f32 tile is made).
-        The p shards' tile lists are laid out as one block-diagonal
-        block-CSR matrix — shard ``j``'s rows and columns offset by ``j``
-        times its padded row and column counts — so one launch expands
-        every shard, and emits each shard's candidates as the
-        per-owner-blocked words of the packed wire.  The frontier goes in
+        The tile lists of the shards held here (all p on a
+        ``LocalMesh``, a rank's own on a ``DistMesh``) are laid out as one
+        block-diagonal block-CSR matrix — the ``j``-th held shard's rows
+        and columns offset by ``j`` times its padded row and column counts
+        — so one launch expands every held shard, and emits each one's
+        candidates as the per-owner-blocked words of the packed wire.  The frontier goes in
         packed: as A1 re-packed it where the fused tail runs, else (the
         first level, an unfused plan) as ``pack_bits`` of the byte
         frontier; a bytes wire unpacks the candidate words.
@@ -936,20 +975,25 @@ class BFSEngine:
         graph = self.plan.graph
         part = graph.part
         p, shard, n = part.p, part.shard_size, part.n
+        held = self.plan.mesh.local_shards
+        local = len(held)
         dev = self.plan.device
         blk = DEFAULT_BLOCK
         row_pad, col_pad = -(-n // blk) * blk, -(-shard // blk) * blk
         nbr, nbc = row_pad // blk, col_pad // blk
 
         def build():
-            bits, cmask, brs, bcs, _, _ = graph.bsr_bit_shards(device=dev)
+            bits, cmask, brs, bcs, _, _ = graph.bsr_bit_shards(device=dev,
+                                                              shards=held)
             kmax = bits.shape[1]
-            offs = torch.arange(p, device=dev, dtype=torch.int32)[:, None]
+            offs = torch.arange(local, device=dev,
+                                dtype=torch.int32)[:, None]
             rows = (brs + offs * nbr).reshape(-1)
             cols = (bcs + offs * nbc).reshape(-1).contiguous()
-            return (bits.reshape(p * kmax, blk, blk // 32),
-                    cmask.reshape(p * kmax, blk // 32),
-                    block_row_ptr(rows, cols, p * nbr, p * nbc), rows, cols)
+            return (bits.reshape(local * kmax, blk, blk // 32),
+                    cmask.reshape(local * kmax, blk // 32),
+                    block_row_ptr(rows, cols, local * nbr, local * nbc),
+                    rows, cols)
 
         # the closure holds the arrays, not the engine: no cycle keeps a
         # dropped engine's tiles on the device
@@ -957,19 +1001,20 @@ class BFSEngine:
         packed = self.plan.dense_strategy.wire == "packed"
         w_in, w_out = fr.packed_words(shard), col_pad // 32
 
-        def expand_fn(frontier, words):                 # (p, shard, S)
+        def expand_fn(frontier, words):             # (local, shard, S)
             s = frontier.shape[-1]
             if words is None:
-                words = fr.pack_bits(frontier)          # (p, W, S)
+                words = fr.pack_bits(frontier)          # (local, W, S)
             if w_out > w_in:                            # zero block columns
                 words = torch.nn.functional.pad(words,
                                                 (0, 0, 0, w_out - w_in))
             cand = bsr_expand_bits(
-                *arrays, words.reshape(p * w_out, s), n_valid=n,
-                n_blocks=p, rows_per_group=row_pad).reshape(p, p * w_in, s)
+                *arrays, words.reshape(local * w_out, s), n_valid=n,
+                n_blocks=p, rows_per_group=row_pad).reshape(
+                    local, p * w_in, s)
             if packed:
                 return cand
-            return fr.unpack_bits(cand, shard, p)       # (p, n, S) uint8
+            return fr.unpack_bits(cand, shard, p)     # (local, n, S) uint8
 
         return expand_fn, packed
 
@@ -1005,17 +1050,28 @@ class BFSEngine:
         padded = np.full((pl_.num_sources,), -1, dtype=np.int32)
         padded[:n_req] = src_arr
         _faults.fire("engine.dispatch", _faults.plan_tag(pl_))
+        mesh = pl_.mesh
         with self._lock:
             self._generation += 1
             src_dev = torch.from_numpy(padded).to(pl_.device)
-            fr.init_dist_frontier(src_dev, part.n, part.n_logical,
-                                  out=(self._dist, self._frontier))
+            fr.init_dist_frontier(src_dev, self._dist.shape[0],
+                                  part.n_logical,
+                                  out=(self._dist, self._frontier),
+                                  row0=mesh.local_shards[0] * part.shard_size)
             stats = BFSRunStats(*self._run_levels(self._dist, self._frontier,
                                                   pl_.max_levels))
             res = BFSResult(
                 dist=self._dist, run_stats=stats,
                 n_logical=part.n_logical, n_sources=n_req,
                 _engine=self, _generation=self._generation)
+            if len(mesh.local_shards) < mesh.p:
+                # a rank holds its own rows: every rank gathers all of
+                # them once, after the level loop, in shard order
+                full = mesh.all_gather(self._dist[None],
+                                       tuple(mesh.axis_names))
+                res._dist_host = full.view(-1, self._dist.shape[1])[
+                    : part.n_logical, : n_req].to("cpu", copy=True).numpy()
+                del full
             self._last = weakref.ref(res)
         return res
 

@@ -10,8 +10,9 @@ same strategies a JAX plan does.
 
 The byte models of every kind are copied verbatim from the JAX package
 (pure Python), so plan-time resolution matches it.  Every strategy runs
-over a ``LocalMesh`` (``impl(x, mesh, axis)``, ``x`` stacked ``(p, ...)``
-over shards): the 1-D ``dense`` and ``queue`` kinds over the plan's axes,
+over a ``LocalMesh`` or a ``DistMesh`` (``impl(x, mesh, axis)``, ``x``
+stacked ``(local, ...)`` over the shards held here: all p, or a rank's
+one): the 1-D ``dense`` and ``queue`` kinds over the plan's axes,
 the 2-D kinds over one grid axis each — ``expand_row*`` over the columns
 axis (the ``c`` cells of a grid row), ``fold_col*`` over the rows axis
 (the ``r`` cells of a grid column).
@@ -322,8 +323,8 @@ def _queue_allgather_merge(buckets: torch.Tensor, mesh: LocalMesh,
                            axis) -> torch.Tensor:
     # [2]-style aggregate-everywhere: every shard receives every buffer
     # (p^2 cap ids on the wire) and picks out the rows addressed to it.
-    allb = mesh.all_gather(buckets, axis)          # (p, p_src, p_dst, cap)
-    return allb[torch.arange(mesh.p, device=allb.device), :,
+    allb = mesh.all_gather(buckets, axis)      # (local, p_src, p_dst, cap)
+    return allb[torch.arange(allb.shape[0], device=allb.device), :,
                 mesh.axis_index(axis)]
 
 

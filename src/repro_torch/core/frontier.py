@@ -58,13 +58,15 @@ INF = 2 ** 30  # unreached sentinel (shared with bfs/engine/ref)
 
 
 def init_dist_frontier(sources: torch.Tensor, n: int, n_logical: int,
-                       out=None):
+                       out=None, row0: int = 0):
     """Device-side source injection: scatter an ``(S,)`` id vector into
     ``(n, S)`` int32 distance / uint8 frontier arrays.
 
     Slots with ``sources[j] < 0`` (or >= n_logical) are *empty*: their
     column stays all-INF / all-zero.  ``out=(dist, frontier)`` reuses
     preallocated buffers (overwritten in place) instead of allocating.
+    ``row0`` makes the ``n`` rows global rows ``row0 .. row0 + n - 1`` (a
+    rank's own shard): a source outside them leaves its column empty here.
     """
     s = sources.shape[0]
     dev = sources.device
@@ -76,8 +78,8 @@ def init_dist_frontier(sources: torch.Tensor, n: int, n_logical: int,
     dist.fill_(INF)
     frontier.zero_()
     src = sources.to(torch.int64)
-    ok = (src >= 0) & (src < n_logical)
-    idx = src.clamp(0, n - 1)
+    ok = (src >= 0) & (src < n_logical) & (src >= row0) & (src < row0 + n)
+    idx = (src - row0).clamp(0, n - 1)
     cols = torch.arange(s, device=dev)
     # each column's (row, col) pair is distinct, so plain writes suffice
     dist[idx, cols] = torch.where(ok, 0, INF).to(torch.int32)
@@ -468,11 +470,6 @@ def apply_queue(recv: torch.Tensor, me, shard: int) -> torch.Tensor:
                        device=recv.device).scatter_reduce_(
         -1, _rows(lid), _rows(valid).to(torch.uint8), "amax")
     return mask[:, :shard].reshape(*lead, shard)
-
-
-def frontier_nonzero(frontier: torch.Tensor) -> torch.Tensor:
-    """() bool: some vertex of the frontier is set (one reduction)."""
-    return frontier.any()
 
 
 # ---------------------------------------------------------------------------

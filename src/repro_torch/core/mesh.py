@@ -20,8 +20,14 @@ rule), so the hierarchical exchange can hop one axis at a time.
 partition: shard ``k`` sits at grid cell ``(k // c, k % c)`` and owns
 vertex chunk ``k``.  Each collective runs inside a ``bfs.collective``
 profiler range (``core.spans``); the level loop's host reads go through
-``host_read``.  Collectives across real cards
-(``torch.distributed``) wait for a multi-card slice.
+``host_read``.
+
+The level loop reads across shards only through the mesh: ``psum`` and
+``pmax`` are its replicated control reductions (JAX's ``lax.psum`` of the
+termination flag, the level statistics and the overflow flag), and
+``local_shards`` names the shards held here (all ``p`` on a
+``LocalMesh``).  ``core.dist_mesh.DistMesh`` is the same interface over a
+``torch.distributed`` group, one shard per rank.
 """
 
 from __future__ import annotations
@@ -34,34 +40,19 @@ import torch
 from repro_torch.core.spans import COLLECTIVE, span
 
 
-@dataclasses.dataclass(frozen=True)
-class LocalMesh:
-    shape: tuple
-    axis_names: tuple
-    device: torch.device
+def check_shape(shape, axis_names) -> tuple:
+    """``(shape, axis_names)`` as int and name tuples, or a ValueError."""
+    if len(shape) != len(axis_names):
+        raise ValueError(f"mesh shape {shape} does not match axis names "
+                         f"{axis_names}")
+    if any(int(s) < 1 for s in shape):
+        raise ValueError(f"mesh sizes must be >= 1 ({shape})")
+    return tuple(int(s) for s in shape), tuple(axis_names)
 
-    def __post_init__(self):
-        if len(self.shape) != len(self.axis_names):
-            raise ValueError(f"mesh shape {self.shape} does not match axis "
-                             f"names {self.axis_names}")
-        if any(int(s) < 1 for s in self.shape):
-            raise ValueError(f"mesh sizes must be >= 1 ({self.shape})")
-        object.__setattr__(self, "shape", tuple(int(s) for s in self.shape))
-        object.__setattr__(self, "axis_names", tuple(self.axis_names))
-        object.__setattr__(self, "device", torch.device(self.device))
 
-    @classmethod
-    def flat(cls, p: int, device, name: str = "bfs_p") -> "LocalMesh":
-        """A one-axis mesh of ``p`` shards."""
-        return cls((p,), (name,), device)
-
-    @classmethod
-    def grid(cls, r: int, c: int, device,
-             names: tuple = ("rows", "cols")) -> "LocalMesh":
-        """An ``r x c`` mesh for the 2-D edge partition: the expand phase
-        gathers over ``names[1]`` (within a grid row), the fold phase
-        merges over ``names[0]`` (within a grid column)."""
-        return cls((r, c), names, device)
+class MeshAxes:
+    """The axis bookkeeping both meshes share (``shape`` and
+    ``axis_names`` are the subclass's)."""
 
     @property
     def p(self) -> int:
@@ -80,6 +71,50 @@ class LocalMesh:
     def axis_size(self, axis) -> int:
         return math.prod(self.shape[self.axis_names.index(a)]
                          for a in self.axes(axis))
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalMesh(MeshAxes):
+    shape: tuple
+    axis_names: tuple
+    device: torch.device
+
+    #: how a collective's bytes travel: permutes on the one card's HBM
+    link = "hbm"
+
+    def __post_init__(self):
+        shape, names = check_shape(self.shape, self.axis_names)
+        object.__setattr__(self, "shape", shape)
+        object.__setattr__(self, "axis_names", names)
+        object.__setattr__(self, "device", torch.device(self.device))
+
+    @classmethod
+    def flat(cls, p: int, device, name: str = "bfs_p") -> "LocalMesh":
+        """A one-axis mesh of ``p`` shards."""
+        return cls((p,), (name,), device)
+
+    @classmethod
+    def grid(cls, r: int, c: int, device,
+             names: tuple = ("rows", "cols")) -> "LocalMesh":
+        """An ``r x c`` mesh for the 2-D edge partition: the expand phase
+        gathers over ``names[1]`` (within a grid row), the fold phase
+        merges over ``names[0]`` (within a grid column)."""
+        return cls((r, c), names, device)
+
+    @property
+    def local_shards(self) -> range:
+        """The global indices of the shards held here: all ``p``, stacked
+        in order on the one device."""
+        return range(self.p)
+
+    def key(self) -> tuple:
+        """What ``BFSPlan.plan_key`` keys the mesh on."""
+        return (self.axis_names, self.shape, self.device)
+
+    def describe(self) -> dict:
+        return {"kind": "LocalMesh", "shape": self.shape,
+                "axis_names": self.axis_names, "device": str(self.device),
+                "transport": "stacked shards on one device"}
 
     # --- group layout: (p, ...) <-> (G participants, O groups, ...) -------
     def _perm(self, axis):
@@ -161,6 +196,21 @@ class LocalMesh:
             y = y.reshape(g, o, g, length // g, *y.shape[3:]).sum(
                 dim=0, dtype=x.dtype)                    # (O, G_dst, blk, ...)
             return self._from_groups(y.transpose(0, 1), axis)
+
+    def psum(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """Replicated sum over ``axis``: every member of a group receives
+        the sum of the group's arrays (JAX's ``lax.psum``)."""
+        with span(COLLECTIVE):
+            y = self._to_groups(x, axis)                 # (G, O, ...)
+            return self._from_groups(
+                y.sum(dim=0, keepdim=True, dtype=x.dtype).expand_as(y), axis)
+
+    def pmax(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """Replicated maximum over ``axis`` (JAX's ``lax.pmax``)."""
+        with span(COLLECTIVE):
+            y = self._to_groups(x, axis)
+            return self._from_groups(
+                y.amax(dim=0, keepdim=True).expand_as(y), axis)
 
 
 def default_grid(p: int) -> tuple:

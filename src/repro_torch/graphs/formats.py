@@ -77,6 +77,15 @@ def _content_fingerprint(meta: tuple, arrays: tuple) -> tuple:
     return meta + (h.hexdigest(),)
 
 
+def _cached_counts(graph, name: str, block: np.ndarray) -> np.ndarray:
+    """(p,) count of the valid (non-negative) slots of each row of
+    ``block``, cached on ``graph`` under ``name``."""
+    got = graph.__dict__.get(name)
+    if got is None:
+        got = graph.__dict__[name] = (block >= 0).sum(1)
+    return got
+
+
 def _pad_to(x: int, m: int) -> int:
     return -(-x // m) * m
 
@@ -165,6 +174,14 @@ class ShardedGraph:
             self.__dict__["_fingerprint"] = fp
         return fp
 
+    def edge_counts(self) -> np.ndarray:
+        """(p,) valid out-edges of each shard's block (cached)."""
+        return _cached_counts(self, "_edge_counts", self.dst_global)
+
+    def in_edge_counts(self) -> np.ndarray:
+        """(p,) valid in-edges of each shard's in-edge block (cached)."""
+        return _cached_counts(self, "_in_edge_counts", self.in_src_global)
+
     def bsr_shard_caps(self, block: int = 128):
         """``(kmax, block)`` of ``bsr_shards()`` without building tiles."""
         kmax, _ = self._bsr_index(block)[:2]
@@ -231,10 +248,13 @@ class ShardedGraph:
         return (blocks, torch.as_tensor(br).to(device),
                 torch.as_tensor(bc).to(device), row_pad, col_pad)
 
-    def bsr_bit_shards(self, device="cpu"):
+    def bsr_bit_shards(self, device="cpu", shards=None):
         """``bsr_shards``' tiles at one bit an entry, for the engine's
         boolean expansion (``kernels.bsr_spmm.kernel.bsr_expand_bits``),
         built on ``device`` with no f32 tile ever made.  The block is 128.
+        ``shards`` (a ``range`` of shard indices; default all ``p``)
+        builds only those shards' tiles, as a rank of a ``DistMesh`` holds
+        only its own; they keep every shard's common tile count.
 
         ``bits[j, k, c, q]`` holds column ``c`` of shard ``j``'s tile
         ``k``: bit ``b`` is row ``32 q + b`` (LSB-first, int32 carrying
@@ -250,19 +270,21 @@ class ShardedGraph:
 
         Returns ``(bits (p, K, 128, 4) i32, col_mask (p, K, 4) i32,
         block_rows (p, K) i32, block_cols (p, K) i32, n_rows_pad,
-        n_cols_pad)``.
+        n_cols_pad)`` (``len(shards)`` in place of ``p``).
         """
         block = 128
+        shards = range(self.p) if shards is None else shards
         kmax, br, bc, edge_tile, row_pad, col_pad = self._bsr_index(block)
-        bits = torch.zeros((self.p, kmax, block, block // 32),
+        bits = torch.zeros((len(shards), kmax, block, block // 32),
                            dtype=torch.int32, device=device)
-        col_mask = torch.zeros((self.p, kmax, block // 32), dtype=torch.int32,
-                               device=device)
+        col_mask = torch.zeros((len(shards), kmax, block // 32),
+                               dtype=torch.int32, device=device)
         # edge_tile is grouped by shard; one shard at a time keeps the
         # flat indices below 2**31 words and the temporaries small
         bounds = np.searchsorted(edge_tile[:, 0], np.arange(self.p + 1))
-        for j in range(self.p):
-            idx = torch.as_tensor(edge_tile[bounds[j]:bounds[j + 1], 1:]).to(
+        for j, shard in enumerate(shards):
+            idx = torch.as_tensor(
+                edge_tile[bounds[shard]:bounds[shard + 1], 1:]).to(
                 device)                            # (E_j, 3) tile, row, col
             tile_col = idx[:, 0] * block + idx[:, 2]
             # word (tile, col, row // 32) of bits takes 1 << (row % 32)
@@ -275,8 +297,9 @@ class ShardedGraph:
                 one = torch.ones_like(key, dtype=torch.int32)
                 out.view(-1).index_add_(0, word, one << (key & 31).to(
                     torch.int32))                  # 1 << 31 is the sign bit
-        return (bits, col_mask, torch.as_tensor(br).to(device),
-                torch.as_tensor(bc).to(device), row_pad, col_pad)
+        held = slice(shards[0], shards[-1] + 1)
+        return (bits, col_mask, torch.as_tensor(br[held]).to(device),
+                torch.as_tensor(bc[held]).to(device), row_pad, col_pad)
 
 
 def from_jax_arrays(graph) -> ShardedGraph:
@@ -443,6 +466,15 @@ class ShardedGraph2D:
     @property
     def in_e_cap(self) -> int:
         return self.in_src_global.shape[1]
+
+    def edge_counts(self) -> np.ndarray:
+        """(p,) valid edges of each cell's block (cached)."""
+        return _cached_counts(self, "_edge_counts", self.dst_fold)
+
+    def in_edge_counts(self) -> np.ndarray:
+        """(p,) valid in-edges of each bottom-up block (cached; builds
+        the bottom-up blocks)."""
+        return _cached_counts(self, "_in_edge_counts", self.in_src_global)
 
     def fingerprint(self) -> tuple:
         """Content identity (cached): a hash of the cell blocks."""

@@ -5,7 +5,10 @@ JAX package's launchers of the same names, with one ``main(argv=None) ->
 int`` each.  Every launcher but the client takes ``--device {cuda,cpu}``
 (default ``cuda``; without a card it raises unless ``--device cpu`` is
 given) and ``--devices N``, which sizes an in-process ``LocalMesh`` of N
-shards on that device.
+shards on that device.  ``bfs_run --dist`` instead runs one shard a
+process under ``torch.distributed.run`` on a ``DistMesh``
+(``init_distributed`` joins the group), the counterpart of JAX's
+``bfs_run --devices N`` over N devices.
 
 This package ``__init__`` stays import-light (stdlib only), so the client
 imports without torch.  JAX's ``host_devices`` and
@@ -15,6 +18,11 @@ they are not ported.
 """
 
 from __future__ import annotations
+
+#: what ``torch.distributed.run`` sets for every process it starts
+DIST_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+#: a ``--dist`` collective that waits longer raises (a diverged rank)
+PG_TIMEOUT_S = 50
 
 
 def parse_graph_spec(spec: str, default_n: int):
@@ -62,3 +70,45 @@ def resolve_cli_device(arg: str):
                          "none is available; pass --device cpu to run the "
                          "port on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def init_distributed(backend: str = "nccl", device: str = "cuda"):
+    """Join the ``torch.distributed`` group of a process started by
+    ``torch.distributed.run``: reads its environment (``DIST_ENV``),
+    initializes the default group on ``backend`` (``nccl`` or ``gloo``)
+    with a ``PG_TIMEOUT_S`` timeout on every collective, and picks the
+    process's device: ``cuda:LOCAL_RANK`` under ``device="cuda"``, else
+    the CPU.  Returns ``(rank, world_size, torch.device)``.  Without the
+    environment, a card of its own (for ``cuda``) or a CUDA device (for
+    ``nccl``) it raises: it never falls back to one process or to the
+    CPU.
+    """
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    missing = [k for k in DIST_ENV if k not in os.environ]
+    if missing:
+        raise SystemExit(f"--dist runs under torch.distributed.run, which "
+                         f"sets {', '.join(missing)}; start it as python -m "
+                         "torch.distributed.run --nproc-per-node N -m ...")
+    if backend not in ("nccl", "gloo"):
+        raise SystemExit(f"--backend expects nccl or gloo, got {backend!r}")
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    local = int(os.environ["LOCAL_RANK"])
+    dev = resolve_cli_device(device)
+    if dev.type == "cuda":
+        if local >= torch.cuda.device_count():
+            raise SystemExit(f"LOCAL_RANK {local} has no card of its own "
+                             f"({torch.cuda.device_count()} visible)")
+        dev = torch.device("cuda", local)
+        torch.cuda.set_device(dev)
+    elif backend == "nccl":
+        raise SystemExit("--backend nccl needs --device cuda; use "
+                         "--backend gloo on the CPU")
+    dist.init_process_group(
+        backend, init_method="env://", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    return rank, world, dev

@@ -1,16 +1,23 @@
-"""BFS launcher: run any BFS workload on a local ``LocalMesh`` — the port
-of ``repro.launch.bfs_run``.
+"""BFS launcher: run any BFS workload on a local ``LocalMesh``, or one
+shard a process on a ``DistMesh`` — the port of ``repro.launch.bfs_run``.
 
     PYTHONPATH=src python -m repro_torch.launch.bfs_run --workload rmat_1m \
         --devices 4 --mode dense --sources 64 --repeats 2
     PYTHONPATH=src python -m repro_torch.launch.bfs_run --device cpu \
         --graph erdos_renyi:100000 --graph star:50000 --repeats 2
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.bfs_run --dist --backend nccl \
+        --workload rmat_1m --mode dense --sources 64
 
 ``--devices N`` stacks N shards on the one device of ``--device`` (default
 ``cuda``; ``--device cpu`` runs on the CPU) as one 1-D shard row, or —
 with ``--partition 2d`` — as an ``r x c`` grid (``--grid 2x2``; defaults
 to the most-square factorization of N) running the two-phase
-edge-partitioned engine.
+edge-partitioned engine.  ``--dist`` runs under ``torch.distributed.run``
+instead: each of its N processes holds one shard (``--backend nccl``, a
+card a process, or ``gloo``, on the CPU or ranks sharing a card; the
+counterpart of JAX's ``--devices N`` over N devices), and rank 0 prints
+the lines the in-process run prints at the same p.
 
 The launcher drives the compile-once lifecycle: one ``plan().compile()``
 per (graph, options, mesh), then ``--repeats`` traversals from rotating
@@ -32,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import sys
 import time
 
@@ -39,10 +47,11 @@ import numpy as np
 
 from repro_torch.analysis import collective_audit, trace_model
 from repro_torch.configs.base import BFS_WORKLOADS
-from repro_torch.core import (FOLD_COL_STRATEGIES, BFSOptions, LocalMesh,
-                              default_grid, plan)
+from repro_torch.core import (FOLD_COL_STRATEGIES, BFSOptions, DistMesh,
+                              LocalMesh, default_grid, plan)
 from repro_torch.graphs import generate, shard_graph, shard_graph_2d
-from repro_torch.launch import parse_graph_spec, resolve_cli_device
+from repro_torch.launch import (init_distributed, parse_graph_spec,
+                                resolve_cli_device)
 from repro_torch.serve.engine_cache import default_engine_cache
 
 
@@ -108,8 +117,38 @@ def main(argv=None, *, on_run=None) -> int:
     ap.add_argument("--grid", default=None, metavar="RxC",
                     help="2-D grid shape, e.g. 2x2 (default: most-square "
                          "factorization of the shard count)")
+    ap.add_argument("--dist", action="store_true",
+                    help="one shard a process on a DistMesh, under python "
+                         "-m torch.distributed.run --nproc-per-node N -m "
+                         "repro_torch.launch.bfs_run --dist ...; rank 0 "
+                         "prints")
+    ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"],
+                    help="the --dist process group's backend: nccl (a "
+                         "card a rank) or gloo (the CPU, or ranks that "
+                         "share a card)")
     args = ap.parse_args(argv)
+    if not args.dist:
+        return _run(ap, args, resolve_cli_device(args.device),
+                    max(1, args.devices), on_run)
+    import torch.distributed as dist
 
+    rank, world, dev = init_distributed(args.backend, args.device)
+    try:
+        if args.devices and args.devices != world:
+            ap.error(f"--devices {args.devices} differs from the "
+                     f"{world} processes of --dist")
+        if rank == 0:
+            return _run(ap, args, dev, world, on_run, rank)
+        with open(os.devnull, "w") as sink, \
+                contextlib.redirect_stdout(sink):
+            return _run(ap, args, dev, world, on_run, rank)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(ap, args, dev, p: int, on_run, rank: int = 0) -> int:
+    """The launcher's body on ``p`` shards on ``dev``: a ``LocalMesh``, or
+    under ``--dist`` this rank's ``DistMesh``."""
     if args.workload and args.graph:
         ap.error("--graph and --workload are mutually exclusive; pass the "
                  "workload's graph as a --graph spec instead")
@@ -128,18 +167,17 @@ def main(argv=None, *, on_run=None) -> int:
     else:
         graphs = [("erdos_renyi", args.n, {})]
 
-    dev = resolve_cli_device(args.device)
-    p = max(1, args.devices)
     sieve = {"auto": "auto", "on": True, "off": False}[args.sieve]
     if args.partition == "2d":
         if args.grid:
             r, c = (int(x) for x in args.grid.lower().split("x"))
-            if args.devices and r * c != p:
+            if (args.devices or args.dist) and r * c != p:
                 ap.error(f"--grid {args.grid} needs {r * c} shards, "
                          f"not --devices {p}")
         else:
             r, c = default_grid(p)
-        mesh = LocalMesh.grid(r, c, dev)
+        mesh = (DistMesh.grid(r, c, dev) if args.dist
+                else LocalMesh.grid(r, c, dev))
         # --exchange names a *dense* (1-D) strategy; the 2-D phases use
         # expand/fold strategies.  Honor it when it is also a registered
         # fold strategy, otherwise say so instead of silently dropping it.
@@ -156,12 +194,14 @@ def main(argv=None, *, on_run=None) -> int:
         print(f"grid={r}x{c} (p={r*c}) mode={args.mode} "
               f"wire={args.wire_format} sieve={args.sieve}")
     else:
-        mesh = LocalMesh.flat(p, dev)
+        mesh = DistMesh.flat(dev) if args.dist else LocalMesh.flat(p, dev)
         opts = BFSOptions(mode=args.mode, dense_exchange=args.exchange,
                           wire_format=args.wire_format, sieve=sieve,
                           queue_cap=1 << 15)
         print(f"shards={p} mode={args.mode} wire={args.wire_format} "
               f"sieve={args.sieve}")
+    if args.dist:
+        print(f"dist: {p} ranks, {mesh.transport}, one shard a rank")
 
     cache = default_engine_cache()
     audit_failed = False
@@ -217,7 +257,10 @@ def main(argv=None, *, on_run=None) -> int:
             audit_failed |= not rep.ok()
 
         rng = np.random.default_rng(0)
-        profile_cm = (trace_model.capture(args.profile) if args.profile
+        # under --dist each rank traces into its own directory
+        trace_dir = (os.path.join(args.profile, f"rank{rank}")
+                     if args.profile and args.dist else args.profile)
+        profile_cm = (trace_model.capture(trace_dir) if args.profile
                       else contextlib.nullcontext())
         total_levels = 0
         with profile_cm:
@@ -245,7 +288,7 @@ def main(argv=None, *, on_run=None) -> int:
                       f"comm_bytes/chip={stats.comm_bytes:.2e} "
                       f"wall={run_s:.3f}s{sieve_str}")
         if args.profile:
-            timings = trace_model.parse_trace(args.profile,
+            timings = trace_model.parse_trace(trace_dir,
                                               n_levels=total_levels)
             print(trace_model.format_summary(timings))
         assert engine.trace_count == engine.compile_traces, \

@@ -19,19 +19,20 @@ PEAK_FLOPS_BF16 = 989e12      # FLOP/s, bf16 on the tensor cores
 PEAK_FLOPS_FP32 = 67e12       # FLOP/s, fp32 on the CUDA cores
 # NVLink 4 of the SXM part: 900 GB/s a card over its 18 links, both
 # directions together; a collective's received bytes cross one direction
-# (the price of shards on several cards, for the torch.distributed
-# backend to come; no plan prices it yet)
+# (the price of a DistMesh's shards, one a card)
 NVLINK_BW = 450e9             # B/s
 
 
 def roofline_row(wire_bytes, hbm_bytes, flops, overlap: bool,
-                 shards: int = 1) -> dict:
+                 shards: int = 1, link: str = "hbm") -> dict:
     """Price one level variant on the H100 roofline.
 
     Three analytic terms a level, as the JAX row has, from one shard's
-    counts: the collective's received bytes, priced as HBM traffic (a
-    ``LocalMesh`` collective is a permute or broadcast on the one card,
-    so each received byte is read once and written once); memory traffic
+    counts: the collective's received bytes, priced as HBM traffic on
+    ``link="hbm"`` (a ``LocalMesh`` collective is a permute or broadcast
+    on the one card, so each received byte is read once and written once)
+    or over NVLink on ``link="nvlink"`` (a ``DistMesh``, one shard a card,
+    ``shards=1``: each received byte crosses the link once); memory traffic
     over HBM; and the elementwise work (bit tests and compares, one op
     each) over the CUDA cores' fp32 rate: these are not matrix products,
     so the tensor cores' bf16 peak, which the JAX row uses, does not
@@ -41,7 +42,10 @@ def roofline_row(wire_bytes, hbm_bytes, flops, overlap: bool,
     the tail of level L — ``max(collective, compute)``; unfused plans
     serialize the two (``sum``).
     """
-    t_coll = shards * 2.0 * wire_bytes / HBM_BW
+    if link not in ("hbm", "nvlink"):
+        raise ValueError(f"unknown link {link!r}; expected hbm | nvlink")
+    t_coll = shards * (2.0 * wire_bytes / HBM_BW if link == "hbm"
+                       else wire_bytes / NVLINK_BW)
     t_comp = shards * (hbm_bytes / HBM_BW + flops / PEAK_FLOPS_FP32)
     t_level = max(t_coll, t_comp) if overlap else t_coll + t_comp
     return {
@@ -53,6 +57,6 @@ def roofline_row(wire_bytes, hbm_bytes, flops, overlap: bool,
         "t_level_s": t_level,
         "bottleneck": "collective" if t_coll >= t_comp else "compute",
         "model": "overlap(max)" if overlap else "serial(sum)",
-        "link": "hbm",
+        "link": link,
         "shards": shards,
     }

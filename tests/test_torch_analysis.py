@@ -76,12 +76,21 @@ def test_census_kinds_groups_and_level_membership():
     eng, _, _ = _engine(mode="auto")
     rec = ca.record(eng)
     assert set(rec.levels.values()) == {"dense", "queue", "bottom_up"}
-    assert rec.ops and all(op.in_loop and op.level in rec.levels
-                           and op.level_kind == rec.levels[op.level]
-                           for op in rec.ops)
-    assert {op.kind for op in rec.ops} == {"all-to-all", "all-gather"}
+    # the control plane: small all-reduces (the sources' statistics
+    # before the first level, then each level's flags), no role
+    control = [op for op in rec.ops if op.kind == "all-reduce"]
+    assert control and all(op.out_bytes <= ca.CONTROL_CUTOFF
+                           and op.dtype == "int64" and not op.hint
+                           for op in control)
+    assert {op.level_kind for op in control if not op.in_loop} == {
+        "sources"}
+    data = [op for op in rec.ops if op.kind != "all-reduce"]
+    assert data and all(op.in_loop and op.level in rec.levels
+                        and op.level_kind == rec.levels[op.level]
+                        for op in data)
+    assert {op.kind for op in data} == {"all-to-all", "all-gather"}
     assert {(op.group_size, op.n_groups) for op in rec.ops} == {(4, 1)}
-    by_hint = {op.hint: op for op in rec.ops}
+    by_hint = {op.hint: op for op in data}
     assert set(by_hint) == {"dense", "queue", "sieve", "bottom_up"}
     # the dense and queue collectives come from the plan's strategies,
     # the sieve's summary gather from the queue level itself
@@ -92,7 +101,7 @@ def test_census_kinds_groups_and_level_membership():
     assert by_hint["dense"].source.startswith("exchange.py:")
     for op in rec.ops:
         assert op.out_bytes == math.prod(op.out_shape) * {
-            "int32": 4, "uint8": 1}[op.dtype]
+            "int64": 8, "int32": 4, "uint8": 1}[op.dtype]
         assert op.recv_bytes == ca._recv_bytes(op.kind, op.out_bytes, 4)
     # every level reads the device, the sources' statistics once before
     assert {r.level for r in rec.reads} == {0} | set(rec.levels)
@@ -101,7 +110,7 @@ def test_census_kinds_groups_and_level_membership():
 
 def test_census_of_a_grid_names_its_phases_and_axes():
     eng, _, _ = _engine(partition="2d", mode="auto")
-    ops = ca.census(eng)
+    ops = [op for op in ca.census(eng) if op.kind != "all-reduce"]
     groups = {op.hint: op.group_size for op in ops}
     assert groups == {"expand": 2, "fold": 2, "expand_sparse": 2,
                       "fold_sparse": 2, "sieve": 4, "bottom_up": 4}
@@ -212,7 +221,8 @@ def test_audit_engine_clean_and_report_round_trips(p):
     assert {v["rule"] for v in d["violations"]} <= set(RULES)
     json.loads(rep.to_json())
     if p == 1:              # every collective of one shard is degenerate
-        assert {op["role"] for op in rep.info["census"]} == {"degenerate"}
+        assert {op["role"] for op in rep.info["census"]
+                if op["kind"] != "all-reduce"} == {"degenerate"}
     else:
         assert set(rep.info["ratios"]) == {"dense", "queue", "sieve",
                                            "bottom_up"}

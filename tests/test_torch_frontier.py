@@ -351,10 +351,6 @@ def test_apply_queue_bitwise_vs_jax(seed):
         np.testing.assert_array_equal(
             fr.apply_queue(torch.from_numpy(recv[me]), me, shard).numpy(),
             want)
-    assert bool(fr.frontier_nonzero(got)) == bool(
-        jfr.frontier_nonzero(jnp.asarray(got.numpy())))
-    assert not bool(fr.frontier_nonzero(torch.zeros((3, 2),
-                                                    dtype=torch.uint8)))
 
 
 # ---------------------------------------------------------------------------

@@ -62,3 +62,20 @@ def test_audit_modules_import_first_without_jax(module):
     out = subprocess.run([sys.executable, "-c", probe, module], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", ["repro_torch.core.dist_mesh",
+                                    "repro_torch.launch.bfs_run"])
+def test_dist_modules_import_first_without_jax(module):
+    """The ``torch.distributed`` mesh and the launcher that runs it under
+    ``torch.distributed.run`` import first, with neither jax nor the JAX
+    package loaded."""
+    probe = ("import importlib, sys; importlib.import_module(sys.argv[1]); "
+             "bad = sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+             "m.startswith('repro.')); assert not bad, bad; "
+             "assert 'torch.distributed' in sys.modules")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", probe, module], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -320,3 +320,48 @@ def test_bfs_run_audit_exits_1_under_a_lying_byte_model(monkeypatch):
     assert rc == 1, out
     assert "FAIL" in out and "HA003" in out and "ratio 100.000" in out
     assert "run[0]" in out
+
+
+DIST_CASES = {
+    "1d_auto": ["--graph", "erdos_renyi:2000", "--mode", "auto",
+                "--sources", "2", "--repeats", "2"],
+    "2d_grid": ["--graph", "rmat:2000", "--partition", "2d", "--grid",
+                "1x2", "--mode", "auto", "--sources", "1", "--repeats",
+                "2"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(DIST_CASES))
+def test_bfs_run_dist_prints_the_in_process_run_lines(case, tmp_path):
+    """``torch.distributed.run --nproc-per-node 2 ... bfs_run --dist
+    --backend gloo`` (a free port: ``--standalone``; a hard timeout)
+    prints, from rank 0 alone, the run lines of the in-process run at
+    ``--devices 2``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.bfs_run",
+         "--dist", "--device", "cpu", "--backend", "gloo",
+         *DIST_CASES[case]], env=env, cwd=tmp_path, capture_output=True,
+        text=True, timeout=240)
+    assert proc.returncode == 0, (proc.stdout + proc.stderr)[-4000:]
+    rc, want = _captured(bfs_run.main, [*DIST_CASES[case], "--device",
+                                        "cpu", "--devices", "2"])
+    assert rc == 0
+    got = _run_lines(proc.stdout)
+    assert got and got == _run_lines(want)
+    keep = ("shards=", "grid=", "graph=", "level variants")
+    assert _untimed(proc.stdout, keep) == _untimed(want, keep)
+    # the other rank printed nothing
+    assert proc.stdout.count("run[0]") == 1
+    assert ("dist: 2 ranks, gloo through the host, cpu tensors, one shard "
+            "a rank") in proc.stdout
+
+
+def test_bfs_run_dist_needs_torch_distributed_run(monkeypatch):
+    for key in tlaunch.DIST_ENV:
+        monkeypatch.delenv(key, raising=False)
+    rc, _ = _captured(bfs_run.main, ["--dist", "--device", "cpu",
+                                     "--backend", "gloo"])
+    assert "torch.distributed.run" in str(rc)
