@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (BFS on the 1-D and 2-D partitions in the
 dense, queue and auto modes, BFS serving over HTTP, LM prefill, DeepFM
-serving and the EmbeddingBag op) on one card.
+serving and the EmbeddingBag op, DeepFM training and LM decode serving)
+on one card.
 
     python3 chip_smoke.py            # full size, as the acceptance run
     python3 chip_smoke.py --profile  # also profile one run of each path
@@ -194,6 +195,42 @@ Phases (any failed check raises and the script exits non-zero):
    the window as a boolean ``attn_mask``, on the local layer's; for A5,
    beside ``F.embedding_bag`` with per-slot weights on (a)).
 
+15. path 10 — DeepFM training at full width (``train_batch``: 39 fields x
+   1,000,000 rows x 10 f32, MLP 403-400-400-400-1, batch 65,536; not cut),
+   allow_tf32 off: (a) ``launch.train.main(["--arch", "deepfm", "--shape",
+   "train_batch", "--steps", "20", "--ckpt-every", "10", ...])`` in
+   process: 20 clean steps with finite losses, no kernel launched (a row
+   gather and the plain AdamW), the step ms (median of steps 2-20),
+   examples/s, peak memory and each checkpoint's bytes and seconds; (b)
+   (a)'s step-20 checkpoint restored (timed) and one more step held to the
+   same step in f64 on the card: the loss, the grad norm and each leaf's
+   update (new - old) within ``TRAIN_TOL``, which the bias correction
+   dropped and TF32 products must fail; (c) ``Trainer`` with a fault at
+   step 12 and checkpoints every 10: one restart at step 10, (a)'s final
+   loss, the largest parameter difference from (a)'s state printed; (d)
+   ``make_compressed_train_step`` with ``topk`` (1/32) and ``bf16``, three
+   steps each: the losses, ``sent + new_ef == g + ef`` bitwise, the
+   table leaf's threshold by ``torch.topk`` and by ``torch.kthvalue``
+   (equal, each timed) and ``wire_bytes``.  Its checkpoints live in
+   ``build/chip_smoke_path10/`` and are removed at the end.
+16. path 11 — gemma3-12b decode, bf16, seeded weights: (a) at the prefill
+   phase's cut (12 layers, batch 2) through the ``decode_32k`` bundle: an
+   8,191-token prompt prefilled with A4 into a 32,768-deep cache, one
+   decode step at per-sequence pos 8,191 (past the 1,024-key local
+   window) held to the last-token logits of A4's prefill of the 8,192
+   tokens (``DECODE_TOL``), the same step at a scalar pos bitwise, four
+   greedy steps timed; then the same in f32 (the weights cast, the plain
+   prefill; ``DECODE_F32_TOL``); every local window one key off in the
+   decode step must fail both; A4 launched once a layer of each A4
+   prefill and never by decode.  (b) ``launch.serve.main(["--arch",
+   "gemma3_12b", "--requests", "8", "--slots", "4", "--max-len", "2048",
+   "--max-new-tokens", "64"])`` at full depth (48 layers): every request
+   finishes with 64 tokens, request 0 served alone gives the same tokens,
+   and each first token is the argmax of A4's prefill of the sequence the
+   server fed (the prompt, its last token again) wherever the top-2
+   margin exceeds twice the drift between that prefill and the decode
+   path (at least one row must); ms a decode step and tok/s printed.
+
 The last line is ``{"ok": true, "device": {...}}``; before it come one
 ``{"kernels": [...]}`` JSON line and the card's name and power limit.
 """
@@ -203,9 +240,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import multiprocessing
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -290,6 +329,8 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+T_START = 0.0            # main's start, for the script's total
+
 # the highest device memory of the phases before the last peak reset
 _EARLIER_PEAK = 0
 
@@ -338,8 +379,6 @@ def reset_counts(kernels) -> None:
 
 def library_sass(lib: Path) -> str:
     """The SASS of the built library (``cuobjdump -sass``)."""
-    import shutil
-
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     return subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
@@ -2859,11 +2898,473 @@ def bag_phase(rec: dict, kernels, dev) -> dict:
         "one_sector_rows": rest(t_sector), "l2_table": rest(t_l2)}
 
 
+# ---------------------------------------------------------------------------
+# path 10: DeepFM training through the train launcher
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAULT_STEP = 20, 10, 12
+TOPK_FRAC = 1 / 32
+# (b) one f32 step on the card against the same step in f64 on the card,
+# from (a)'s step-20 state: relative error of the loss and the grad norm,
+# relative L2 of each leaf's update (new - old; ``update_errs``).  On an
+# H100 the correct step reads at most 5.4e-4 (opt/v/mlp/0/w; the MLP's
+# gradients sum 65,536 examples of random labels, which cancel, so f32's
+# error grows about as sqrt(N)), the grad norm 1.6e-6; TF32 products read
+# 0.035 and the bias correction dropped 0.097.  2^-8 sits 7.2 times above
+# the worst correct reading and 8.8 times below TF32.
+TRAIN_TOL = 2.0 ** -8
+
+
+def _f64(tree):
+    from repro_torch import tree as tr
+
+    return tr.map_tree(lambda x: x.double() if x.is_floating_point() else x,
+                       tree)
+
+
+def update_errs(old, new32, new64) -> dict:
+    """Relative L2 of each float leaf's f32 update against the f64 one:
+    ``|new32 - round(new64)| / |new64 - old|``, where ``round`` stores the
+    f64 result in the leaf's dtype (``old`` is exact in f64).  The f32
+    rounding of the stored leaf, up to half an ulp of a parameter, is
+    large beside an update of ``lr`` (6.3e-5 at step 21) times O(1) and is
+    no error of the step; what stays is the step's arithmetic."""
+    from repro_torch import tree as tr
+
+    out = {}
+    for (path, o), n32, n64 in zip(tr.leaves_with_paths(old),
+                                   tr.leaves(new32), tr.leaves(new64)):
+        if not o.is_floating_point():
+            continue
+        ref = n64.to(o.dtype).double()
+        out[tr.key_of(path)] = float((n32.double() - ref).norm()
+                                     / (n64 - o.double()).norm()
+                                     .clamp_min(1e-300))
+    return out
+
+
+def hold_train_step(bundle, state, batch, state64, batch64, twin) -> dict:
+    """One f32 train step against its f64 ``twin`` (new state, metrics):
+    the loss and grad norm at relative error, each leaf's update at
+    relative L2; ``ok`` when every reading is within TRAIN_TOL."""
+    new, m = bundle.fn(state, batch)
+    new64, m64 = twin
+    r = {"loss": abs(float(m["loss"]) - float(m64["loss"]))
+         / abs(float(m64["loss"])),
+         "grad_norm": abs(float(m["grad_norm"]) - float(m64["grad_norm"]))
+         / abs(float(m64["grad_norm"])),
+         "updates": update_errs(state, new, new64)}
+    r["worst_update"] = max(r["updates"].values())
+    r["ok"] = max(r["loss"], r["grad_norm"], r["worst_update"]) <= TRAIN_TOL
+    return r
+
+
+def train_phase(kernels, dev, tmp: Path) -> dict:
+    """DeepFM ``train_batch`` at full width (module docstring, path 10):
+    (a) the launcher, (b) one step against its f64 twin with two planted
+    faults, (c) the fault replay, (d) the compressed steps."""
+    from repro_torch import tree as tr
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.steps import build_bundle
+    from repro_torch.models.recsys import deepfm
+    from repro_torch.optim import adamw
+    from repro_torch.train import compress as comp
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.trainer import (Trainer, TrainerConfig,
+                                           make_compressed_train_step)
+
+    spec = get_arch("deepfm")
+    cfg, shape = spec.config, get_shape(spec, "train_batch")
+    opt_cfg = adamw.AdamWConfig(total_steps=TRAIN_STEPS)
+    log(f"path 10: {cfg.name} train_batch ({spec.source}): {cfg.n_sparse} "
+        f"fields x {cfg.vocab_per_field} rows x {cfg.embed_dim} f32, "
+        f"{cfg.n_dense} dense, MLP {cfg.n_sparse * cfg.embed_dim + cfg.n_dense}"
+        f"-{'-'.join(map(str, cfg.mlp_dims))}-1, batch {shape.batch}, not "
+        f"cut; seed-{SEED} weights; AdamW {opt_cfg}; disk free "
+        f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB")
+    out = {}
+
+    # (a) the launcher: 20 steps, checkpoints at 10 and 20
+    reset_counts(kernels)
+    reset_peak()
+    seen = {}
+    argv = ["--arch", "deepfm", "--shape", "train_batch", "--steps",
+            str(TRAIN_STEPS), "--ckpt-every", str(TRAIN_CKPT_EVERY),
+            "--ckpt-dir", str(tmp / "a")]
+    _, _, wall = run_launcher("path 10 (a) launch.train", train_launcher.main,
+                              argv, on_trainer=lambda t: seen.update(t=t))
+    counts = {n: k.launches for n, k in kernels.items()}
+    check(not any(counts.values()),
+          f"path 10 (a): a kernel launched {counts}; DeepFM trains with a "
+          f"row gather and the plain AdamW")
+    tr_a = seen["t"]
+    check(len(tr_a.step_times) == TRAIN_STEPS
+          and not any("event" in m for m in tr_a.metrics_log),
+          f"path 10 (a): not {TRAIN_STEPS} clean steps: {tr_a.metrics_log}")
+    losses = [m["loss"] for m in tr_a.metrics_log if "loss" in m]
+    check(all(math.isfinite(l) for l in losses), f"path 10 (a): {losses}")
+    step_ms = float(np.median([dt for _, dt in tr_a.step_times[1:]])) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    saves = tr_a.mgr.saves
+    ck_dir = tmp / "a" / f"step_{TRAIN_STEPS}"
+    disk = sum(f.stat().st_size for f in ck_dir.iterdir())
+    out["a"] = {"step_ms_median_2_20": step_ms,
+                "step_ms_first": tr_a.step_times[0][1] * 1e3,
+                "examples_per_s": shape.batch / (step_ms / 1e3),
+                "peak_gib": peak, "losses": losses, "wall_s": wall,
+                "saves": saves, "ckpt_files_bytes": disk}
+    log(f"path 10 (a): step {step_ms} ms (median of steps 2-"
+        f"{TRAIN_STEPS}; step 1 {out['a']['step_ms_first']} ms) = "
+        f"{out['a']['examples_per_s']} examples/s; peak {peak:.3f} GiB; "
+        f"losses {losses}; checkpoints {saves} ({disk} bytes of files at "
+        f"step {TRAIN_STEPS}); no kernel launched")
+    del seen, tr_a
+
+    # (b) one step from (a)'s step-20 state against the f64 twin
+    bundle = build_bundle(spec, "train_batch", device=dev, opt_cfg=opt_cfg)
+    like = bundle.make_state(bundle.init_params(
+        torch.Generator(device=dev).manual_seed(SEED)))
+    mgr = CheckpointManager(str(tmp / "a"))
+    t0 = time.perf_counter()
+    state20, step = mgr.restore(like)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del like
+    check(step == TRAIN_STEPS, f"path 10 (b): restored step {step}")
+    batch = bundle.make_batch(SEED * 1_000_003 + TRAIN_STEPS)
+    batch64 = _f64(batch)
+    state64 = _f64(state20)
+    reset_peak()
+    twin = bundle.fn(state64, batch64)
+    r = hold_train_step(bundle, state20, batch, state64, batch64, twin)
+    peak_b = torch.cuda.max_memory_allocated() / 2**30
+    log(f"path 10 (b): restore of step {step} in {restore_s:.3f} s; the f32 "
+        f"step against the f64 step (peak {peak_b:.3f} GiB): {r}; limit "
+        f"{TRAIN_TOL}")
+    check(r["ok"], "path 10 (b): the f32 train step differs from its f64 "
+                   "twin")
+    planted = {}
+    real_bc = adamw.bias_correction
+    adamw.bias_correction = lambda beta, s: torch.ones_like(s)
+    try:
+        planted["no_bias_correction"] = hold_train_step(
+            bundle, state20, batch, state64, batch64, twin)
+    finally:
+        adamw.bias_correction = real_bc
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        planted["tf32_products"] = hold_train_step(
+            bundle, state20, batch, state64, batch64, twin)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for name, bad in planted.items():
+        log(f"path 10 (b) planted fault ({name}): worst update "
+            f"{bad['worst_update']}, loss {bad['loss']}, grad_norm "
+            f"{bad['grad_norm']}")
+        check(not bad["ok"], f"path 10 (b): the hold passes {name}")
+    out["b"] = {"restore_s": restore_s, "peak_gib": peak_b, "hold": r,
+                "planted": {k: v["worst_update"] for k, v in planted.items()}}
+    del state64, batch64, twin
+
+    # (c) the fault contract: a fault at step 12, checkpoints every 10
+    fired = {"n": 0}
+
+    def fault(s):
+        if s == TRAIN_FAULT_STEP and not fired["n"]:
+            fired["n"] += 1
+            raise RuntimeError("injected node failure")
+
+    tcfg = TrainerConfig(num_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+                         ckpt_dir=str(tmp / "c"), keep=1, log_every=1)
+    trainer = Trainer(bundle, tcfg, opt_cfg=opt_cfg, fault_hook=fault)
+    t0 = time.perf_counter()
+    final = trainer.run()
+    wall_c = time.perf_counter() - t0
+    events = [m for m in trainer.metrics_log if m.get("event") == "restart"]
+    check(len(events) == 1 and events[0]["restored_step"] == TRAIN_CKPT_EVERY,
+          f"path 10 (c): restarts {events}")
+    last = [m["loss"] for m in trainer.metrics_log if "loss" in m][-1]
+    want_last = out["a"]["losses"][-1]
+    check(math.isclose(last, want_last, rel_tol=1e-5),
+          f"path 10 (c): final loss {last}, the clean run's {want_last}")
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        tr.leaves(final["params"]), tr.leaves(state20["params"])))
+    out["c"] = {"restarts": events, "final_loss": last,
+                "clean_final_loss": want_last, "max_param_diff": diff,
+                "wall_s": wall_c, "saves": trainer.mgr.saves}
+    log(f"path 10 (c): one restart {events[0]}; final loss {last} (clean "
+        f"run {want_last}); largest parameter difference from the clean "
+        f"run {diff}; {wall_c:.1f} s; saves {trainer.mgr.saves}")
+    del final, state20, trainer
+    shutil.rmtree(tmp / "c")
+
+    # (d) the compressed steps, three each, from the seed-0 weights
+    loss_fn = lambda p, b: deepfm.loss_fn(cfg, p, b)      # noqa: E731
+    out["d"] = {}
+    for method in ("topk", "bf16"):
+        make_state, step_fn = make_compressed_train_step(
+            loss_fn, opt_cfg, method, TOPK_FRAC)
+        st = make_state(bundle.init_params(
+            torch.Generator(device=dev).manual_seed(SEED)))
+        ls = []
+        for i in range(3):
+            st, m = step_fn(st, bundle.make_batch(SEED * 1_000_003 + i))
+            ls.append(float(m["loss"]))
+        check(all(math.isfinite(l) for l in ls),
+              f"path 10 (d) {method}: losses {ls}")
+        out["d"][method] = {"losses": ls}
+        log(f"path 10 (d) {method}: losses {ls}")
+        if method == "topk":
+            grads, _ = torch.func.grad_and_value(loss_fn, has_aux=True)(
+                st["params"], bundle.make_batch(SEED * 1_000_003 + 3))
+            ef = st["ef"]
+            sent, new_ef = comp.compress_topk(grads, ef, TOPK_FRAC)
+            check(all(torch.equal(s + e, g.float() + f) for s, e, g, f in zip(
+                tr.leaves(sent), tr.leaves(new_ef), tr.leaves(grads),
+                tr.leaves(ef))), "path 10 (d): sent + new_ef != g + ef")
+            flat = (grads["table"].float() + ef["table"]).reshape(-1).abs()
+            n = flat.numel()
+            k = max(1, int(n * TOPK_FRAC))
+            thr = comp.topk_threshold(flat, k)
+            kth = torch.kthvalue(flat, n - k + 1).values
+            check(float(thr) == float(kth), f"path 10 (d): topk threshold "
+                                            f"{float(thr)}, kthvalue "
+                                            f"{float(kth)}")
+            topk_ms = timed_ms(lambda: comp.topk_threshold(flat, k), 3)
+            kth_ms = timed_ms(lambda: torch.kthvalue(flat, n - k + 1), 3)
+            sent_n = int((sent["table"] != 0).sum())
+            out["d"]["table_topk_ms"] = topk_ms
+            out["d"]["table_kthvalue_ms"] = kth_ms
+            out["d"]["wire_bytes"] = {mm: comp.wire_bytes(grads, mm,
+                                                          TOPK_FRAC)
+                                      for mm in ("none", "bf16", "topk")}
+            log(f"path 10 (d): the table leaf ({n} entries, k = {k}): "
+                f"the threshold by torch.topk {topk_ms} ms, by "
+                f"torch.kthvalue {kth_ms} ms (equal), {sent_n} entries sent; sent + new_ef == g + ef on "
+                f"every leaf; wire bytes {out['d']['wire_bytes']}")
+            del grads, ef, sent, new_ef, flat
+        del st
+    return out
+
+
+# ---------------------------------------------------------------------------
+# path 11: gemma3-12b decode and serving
+# ---------------------------------------------------------------------------
+
+DECODE_MAX_LEN, DECODE_GREEDY = 32_768, 4
+# (a) the decode step at per-sequence pos 8191 over a prefill's cache
+# against the same prefill of the whole prompt: relative L2 of the logits.
+# Over A4's cache against A4's prefill, an H100 reads 0.0180 (the prefill
+# phase's A4-vs-plain reads 0.0184): one position's bf16 arithmetic through
+# 12 layers, summed in another order, differs that much.  Every local
+# window one key off reads 0.0345 and 0.0423, so 0.025 (the geometric
+# middle) parts them by 1.4 either way.  The sharp gate is the same check
+# in f32 (the weights cast, the plain prefill): 6.0e-6 on an H100, the
+# faults 0.0283 and 0.0369; 2^-12 sits 40 times above the one and 116
+# times below the others.
+DECODE_TOL = 0.025
+DECODE_F32_TOL = 2.0 ** -12
+SERVE_ARGV = ["--arch", "gemma3_12b", "--requests", "8", "--slots", "4",
+              "--max-len", "2048", "--max-new-tokens", "64"]
+
+
+def decode_phase(kernels, dev) -> dict:
+    """gemma3-12b decode (module docstring, path 11): (a) at the prefill
+    phase's cut against the A4 prefill, with a planted window fault; (b)
+    the serve launcher at full depth."""
+    from repro_torch import tree as tr
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch.steps import build_bundle
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.batcher import Request, Server
+
+    spec = get_arch("gemma3_12b")
+    full = spec.config
+    cfg = dataclasses.replace(full, n_layers=PREFILL_LAYERS)
+    cut = dataclasses.replace(spec, config=cfg)
+    dshape = dataclasses.replace(get_shape(spec, "decode_32k"),
+                                 global_batch=PREFILL_BATCH)
+    pshape = dataclasses.replace(get_shape(spec, "prefill_32k"),
+                                 seq_len=PREFILL_SEQ,
+                                 global_batch=PREFILL_BATCH)
+    log(f"path 11 (a): {full.name} decode_32k, cut as the prefill phase: "
+        f"layers {full.n_layers} -> {cfg.n_layers}, batch "
+        f"{get_shape(spec, 'decode_32k').global_batch} -> "
+        f"{dshape.global_batch}; cache depth {dshape.seq_len} (not cut); "
+        f"prompt {PREFILL_SEQ - 1} tokens then one decode step at pos "
+        f"{PREFILL_SEQ - 1}")
+    bundle = build_bundle(cut, dshape, device=dev)
+    prefill = build_bundle(cut, pshape, device=dev)
+    params = bundle.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    tokens = prefill.make_batch(SEED)["tokens"]          # (2, 8192)
+    b, s = tokens.shape
+    reset_counts(kernels)
+    reset_peak()
+    want, full_cache = prefill.fn(params, {"tokens": tokens})
+    del full_cache
+    _, cache, _ = tf.prefill(cfg, params, tokens[:, :-1], DECODE_MAX_LEN)
+    torch.cuda.synchronize()
+    a4 = kernels["flash_attention"].launches
+    check(a4 == 2 * cfg.n_layers, f"path 11 (a): A4 launched {a4} times in "
+                                  f"two prefills of {cfg.n_layers} layers")
+    pos = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+    batch = {"cache": cache, "pos": pos, "last_token": tokens[:, -1]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = bundle.fn(params, batch)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    check(kernels["flash_attention"].launches == a4,
+          "path 11 (a): the decode step launched A4")
+    check(logits.shape == (b, cfg.vocab)
+          and bool(torch.isfinite(logits).all()), "path 11 (a): logits")
+    rel = rel_err(logits, want)
+    top = want.float().topk(2, dim=-1).values
+    agree = bool((logits.argmax(-1) == want.argmax(-1)).all())
+    log(f"path 11 (a): decode at pos {s - 1} against the A4 prefill of "
+        f"{s} tokens: rel L2 {rel} (limit {DECODE_TOL}; the prefill "
+        f"phase's A4-vs-plain limit {PREFILL_TOL}); argmax agree {agree}; "
+        f"top-2 margins {(top[:, 0] - top[:, 1]).tolist()}; first step "
+        f"{first_ms:.3f} ms")
+    check(rel <= DECODE_TOL, "path 11 (a): decode differs from the prefill")
+    scalar, cache = bundle.fn(params, {**batch, "pos": torch.tensor(
+        s - 1, dtype=torch.int32, device=dev)})
+    check(torch.equal(scalar, logits), "path 11 (a): the scalar position "
+                                       "differs from the per-sequence one")
+    # greedy decoding on from the decode step
+    tok, steps_ms, greedy = logits.argmax(-1), [], []
+    for i in range(DECODE_GREEDY):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nxt, cache = bundle.fn(params, {"cache": cache, "pos": pos + 1 + i,
+                                        "last_token": tok})
+        tok = nxt.argmax(-1)
+        greedy.append(tok.tolist())
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(nxt).all()), "path 11 (a): greedy logits")
+    log(f"path 11 (a): greedy tokens {greedy}; ms a decode step (12 "
+        f"layers, batch {b}, a {DECODE_MAX_LEN}-deep cache) {steps_ms}")
+    # planted: every local window one key off, in the decode step alone
+    # (it rewrites row s - 1 of the cache and reads no later row)
+    bad = {}
+    for delta in (-1, 1):
+        got, cache = tf.decode_step(shifted_windows(cfg, delta), params,
+                                    cache, pos, tokens[:, -1])
+        bad[delta] = rel_err(got, want)
+    log(f"path 11 (a) planted fault (local windows one key off): rel L2 "
+        f"{bad}")
+    check(min(bad.values()) > DECODE_TOL,
+          "path 11 (a): the check passes a window one key off")
+    launches_a = kernels["flash_attention"].launches
+    del cache, want, logits, scalar, nxt, batch
+    # the f32 route: the same weights in f32, the plain attention's
+    # prefill (f32 softmax, as the decode attention's; allow_tf32 is off),
+    # where no bf16 rounding hides a fault
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tf.Transformer.from_tree(tr.map_tree(
+        lambda t: t.detach().float(), params.tree()))
+    del params
+    want32, _, _ = tf.prefill(cfg32, params32, tokens, s, use_kernel=False)
+    _, cache, _ = tf.prefill(cfg32, params32, tokens[:, :-1], DECODE_MAX_LEN,
+                             use_kernel=False)
+    got32, cache = tf.decode_step(cfg32, params32, cache, pos, tokens[:, -1])
+    rel32 = rel_err(got32, want32)
+    bad32 = {}
+    for delta in (-1, 1):
+        got, cache = tf.decode_step(shifted_windows(cfg32, delta), params32,
+                                    cache, pos, tokens[:, -1])
+        bad32[delta] = rel_err(got, want32)
+    log(f"path 11 (a) in f32: decode against the plain prefill rel L2 "
+        f"{rel32} (limit {DECODE_F32_TOL}); local windows one key off "
+        f"{bad32}")
+    check(rel32 <= DECODE_F32_TOL,
+          "path 11 (a): the f32 decode differs from the f32 prefill")
+    check(min(bad32.values()) > DECODE_F32_TOL,
+          "path 11 (a): the f32 check passes a window one key off")
+    check(kernels["flash_attention"].launches == launches_a,
+          "path 11 (a): the f32 route launched A4")
+    peak_a = torch.cuda.max_memory_allocated() / 2**30
+    out = {"a": {"rel_l2": rel, "planted": bad, "f32_rel_l2": rel32,
+                 "f32_planted": bad32, "first_ms": first_ms,
+                 "step_ms": steps_ms, "peak_gib": peak_a,
+                 "a4_launches": launches_a}}
+    del params32, cache, want32, got32, got
+
+    # (b) the serve launcher at full depth
+    reset_counts(kernels)
+    reset_peak()
+    seen = {}
+    _, text, wall = run_launcher(
+        "path 11 (b) launch.serve", serve_launcher.main, SERVE_ARGV,
+        on_done=lambda srv, done, secs: seen.update(srv=srv, done=done,
+                                                    secs=secs))
+    counts = {n: k.launches for n, k in kernels.items()}
+    check(not any(counts.values()), f"path 11 (b): a kernel launched "
+                                    f"{counts}; the server decodes only")
+    srv, done = seen["srv"], sorted(seen["done"], key=lambda r: r.rid)
+    check(len(done) == 8 and all(len(r.out) == 64 for r in done),
+          f"path 11 (b): {[len(r.out) for r in done]} tokens")
+    n_steps = srv.decode_steps
+    ms_step = seen["secs"] * 1e3 / n_steps
+    peak_b = torch.cuda.max_memory_allocated() / 2**30
+    log(f"path 11 (b): {full.n_layers} layers; {srv.decode_steps} decode "
+        f"steps (batch {srv.n_slots}, a {srv.max_len}-deep cache) in "
+        f"{seen['secs']:.3f} s = {ms_step:.3f} ms a step; peak "
+        f"{peak_b:.3f} GiB")
+    # the first request served alone: the same tokens
+    params = srv.params
+    alone = Server(full, params, batch_slots=srv.n_slots,
+                   max_len=srv.max_len)
+    again = Request(rid=0, prompt=done[0].prompt,
+                    max_new_tokens=done[0].max_new_tokens)
+    alone.submit(again)
+    alone.run_until_drained()
+    check(again.out == done[0].out, "path 11 (b): request 0 alone gives "
+                                    "other tokens than in the batch")
+    del alone, srv, seen
+    # each first token against the A4 prefill of the sequence the server
+    # fed (the prompt, then its last token again: slot-local prefill)
+    seqs = torch.from_numpy(np.stack([np.concatenate(
+        [r.prompt, r.prompt[-1:]]) for r in done])).to(dev)
+    pre, _, _ = tf.prefill(full, params, seqs, seqs.shape[1])
+    n_a4 = kernels["flash_attention"].launches
+    check(n_a4 == full.n_layers, f"path 11 (b): A4 launched {n_a4} times in "
+                                 f"a {full.n_layers}-layer prefill")
+    # the same sequences streamed through decode: the drift a row
+    dcache = tf.init_cache(full, len(done), seqs.shape[1], device=dev)
+    for j in range(seqs.shape[1]):
+        dec, dcache = tf.decode_step(full, params, dcache, j, seqs[:, j])
+    del dcache
+    drift = (dec.float() - pre.float()).abs().amax(-1)
+    top = pre.float().topk(2, dim=-1)
+    margin = top.values[:, 0] - top.values[:, 1]
+    clear = margin > 2 * drift
+    first = torch.tensor([r.out[0] for r in done], device=dev)
+    ok = bool(((first == top.indices[:, 0]) | ~clear).all())
+    log(f"path 11 (b): first tokens {first.tolist()}, prefill argmax "
+        f"{top.indices[:, 0].tolist()}; top-2 margins {margin.tolist()}; "
+        f"drift (max |decode - prefill| a row) {drift.tolist()}; "
+        f"{int(clear.sum())} of {len(done)} rows with a margin above twice "
+        f"the drift, each equal")
+    check(ok and bool(clear.any()), "path 11 (b): a first token differs "
+          "from the prefill's argmax where the margin exceeds the drift, or "
+          "no margin does")
+    out["b"] = {"run_line": text.strip().splitlines()[-1],
+                "decode_steps": n_steps, "ms_per_step": ms_step,
+                "seconds": wall, "peak_gib": peak_b,
+                "clear_rows": int(clear.sum()), "a4_launches": n_a4}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile one more run of each path")
     args = ap.parse_args(argv)
+    global T_START
+    T_START = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -3050,7 +3551,6 @@ def main(argv=None) -> int:
     # --------------------------------------------------------------- path 7
     tmp7 = ROOT / "build" / "chip_smoke_path7"
     if tmp7.exists():
-        import shutil
         shutil.rmtree(tmp7)
     tmp7.mkdir(parents=True)
     path7 = launchers_phase(kernels, g1_p4, src1, dst1, dev, tmp7)
@@ -3062,7 +3562,6 @@ def main(argv=None) -> int:
     # --------------------------------------------------------------- path 8
     tmp8 = ROOT / "build" / "chip_smoke_path8"
     if tmp8.exists():
-        import shutil
         shutil.rmtree(tmp8)
     tmp8.mkdir(parents=True)
     path8 = audit_phase(kernels, g1_p4, src1, dst1, (src2, dst2, n2), host2,
@@ -3073,7 +3572,6 @@ def main(argv=None) -> int:
         "small_world_100k bitwise path 2: ok")
 
     # --------------------------------------------------------------- path 9
-    import shutil
     tmp9 = ROOT / "build" / "chip_smoke_path9"
     shutil.rmtree(tmp9, ignore_errors=True)
     tmp9.mkdir(parents=True)
@@ -3283,7 +3781,38 @@ def main(argv=None) -> int:
     rows.append(attention_rows(lay, dev, sass))
     rows.append(bag_row)
 
+    # -------------------------------------------------------------- path 10
+    tmp10 = ROOT / "build" / "chip_smoke_path10"
+    shutil.rmtree(tmp10, ignore_errors=True)
+    tmp10.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        path10 = train_phase(kernels, dev, tmp10)
+    finally:
+        shutil.rmtree(tmp10, ignore_errors=True)   # the checkpoints, GBs
+    log(f"path 10: DeepFM train_batch uncut through launch.train, 20 "
+        f"finite losses, one f32 step within {TRAIN_TOL} of its f64 twin "
+        f"(no bias correction and TF32 products fail it), the fault at step "
+        f"{TRAIN_FAULT_STEP} replayed from step {TRAIN_CKPT_EVERY} to the "
+        f"clean run's loss, topk and bf16 steps: ok "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"path 10 summary: {json.dumps(path10)}")
+
+    # -------------------------------------------------------------- path 11
+    t0 = time.perf_counter()
+    path11 = decode_phase(kernels, dev)
+    log(f"path 11: decode within {DECODE_TOL} of the A4 prefill (a window "
+        f"one key off fails it), gemma3-12b served at 48 layers, request 0 "
+        f"alone equal, first tokens the prefill's argmax where clear: ok "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"path 11 summary: {json.dumps(path11)}")
+    for row in rows:
+        if row["name"] == "flash_attention":
+            row["launches_path11"] = (path11["a"]["a4_launches"]
+                                      + path11["b"]["a4_launches"])
+
     log(f"peak device memory over the whole script {peak_gib():.2f} GiB")
+    log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,25 @@
 """Step builder: (architecture x shape) -> step function and inputs — the
-port of ``repro.launch.steps`` for the LM prefill step and the RecSys
-serve and retrieval steps.
+port of ``repro.launch.steps`` for the LM prefill and decode steps and the
+RecSys train, serve and retrieval steps.
 
-``build_bundle(spec, shape, reduced=..., device=...)`` gives
-``init_params(generator)``, ``make_batch(seed)`` (the JAX bundle's inputs,
-as tensors on the device) and ``fn(params, batch)``:
+``build_bundle(spec, shape, reduced=..., device=..., opt_cfg=...,
+microbatches=...)`` gives ``init_params(generator)``, ``make_state(params)``
+(train: ``{"params", "opt"}``), ``make_batch(seed)`` (the JAX bundle's
+inputs, as tensors on the device) and ``fn(state, batch)``:
 
   lm      prefill    -> (last-token logits, cache)
-  recsys  serve      -> (B,) sigmoid scores
+          decode     -> (logits, cache): one token against a ``seq_len``-deep
+                        cache (``make_batch``: a zero cache, ``pos =
+                        seq_len - 1``)
+  recsys  train      -> (new state, {"loss", "grad_norm", "lr"})
+          serve      -> (B,) sigmoid scores
           retrieval  -> (n_candidates,) scores
 
-Other families and steps are later slices and raise
-``NotImplementedError``.  The JAX bundle's ``input_specs`` (abstract
-inputs for the XLA dry-run) has no counterpart.
+The LM train step and the GNN family are later slices and raise
+``NotImplementedError``.  ``microbatches`` reaches only the LM train step,
+as in the JAX package (whose recsys train step is built without it).  The
+JAX bundle's ``input_specs`` (abstract inputs for the XLA dry-run) has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -20,23 +27,27 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
+from repro_torch import tree as tr
 from repro_torch.configs.base import ArchSpec, LMShape, RecsysShape, get_shape
 from repro_torch.data import synthetic as syn
 from repro_torch.models import transformer as tf
 from repro_torch.models.recsys import deepfm
+from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_state
 
 
 @dataclasses.dataclass
 class StepBundle:
     arch_id: str
     family: str
-    step_kind: str           # prefill | serve | retrieval
+    step_kind: str           # train | prefill | decode | serve | retrieval
     cfg: Any
     shape: Any
+    device: torch.device
     init_params: Callable    # torch.Generator -> params
-    make_state: Callable     # params -> state (the params, for serving)
+    make_state: Callable     # params -> state (train) or params (serve)
     fn: Callable             # (state, batch) -> outputs; the LM prefill
                              # also takes use_kernel=True
     make_batch: Callable     # (seed) -> batch of tensors on the device
@@ -52,10 +63,52 @@ def reduce_shape(shape, family: str):
     raise NotImplementedError(f"family {family!r}: later slice")
 
 
-def _lm_bundle(spec: ArchSpec, shape: LMShape, cfg,
-               device: torch.device) -> StepBundle:
-    if shape.step != "prefill":
-        raise NotImplementedError(f"LM step {shape.step!r}: later slice")
+def _train_wrap(loss_fn, opt_cfg: AdamWConfig, microbatches: int = 1):
+    """fwd + bwd + AdamW step ``(state, batch) -> (new_state, metrics)``;
+    with microbatches > 1 the batch is split on its leading axis and the
+    gradients accumulate in f32 as ``acc + g / microbatches`` (the loss as
+    ``l / microbatches``), in the JAX scan's order.
+
+    JAX's ``hints.constrain_grads`` (``repro/models/sharding_hints.py``)
+    is the identity unless a mesh is active; on one card it has nothing to
+    constrain, so it has no counterpart here."""
+    grad_fn = torch.func.grad_and_value(loss_fn, has_aux=True)
+
+    def step(state, batch):
+        params = state["params"]
+        if microbatches == 1:
+            grads, (loss, _) = grad_fn(params, batch)
+        else:
+            grads = tr.map_tree(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=tr.leaves(params)[0].device)
+            for i in range(microbatches):
+                micro = tr.map_tree(lambda x: x.reshape(
+                    microbatches, x.shape[0] // microbatches,
+                    *x.shape[1:])[i], batch)
+                g, (l, _) = grad_fn(params, micro)
+                grads = tr.map_tree(
+                    lambda a, x: a + x.to(torch.float32) / microbatches,
+                    grads, g)
+                loss = loss + l / microbatches
+        new_p, new_opt, m = apply_updates(opt_cfg, params, grads,
+                                          state["opt"])
+        return {"params": new_p, "opt": new_opt}, {"loss": loss, **m}
+    return step
+
+
+def _make_state(params):
+    return {"params": params, "opt": init_state(params)}
+
+
+def _lm_bundle(spec: ArchSpec, shape: LMShape, cfg, device: torch.device,
+               microbatches: int) -> StepBundle:
+    if shape.step == "train":      # will take microbatches, as JAX's does
+        raise NotImplementedError("LM train step: a later slice "
+                                  "(ROADMAP Queue A 13.3)")
+    if shape.step == "decode":
+        return _lm_decode_bundle(spec, shape, cfg, device)
 
     def fn(params, batch, use_kernel: bool = True):
         logits, cache, _ = tf.prefill(cfg, params, batch["tokens"],
@@ -69,21 +122,48 @@ def _lm_bundle(spec: ArchSpec, shape: LMShape, cfg,
         return {"tokens": torch.from_numpy(tokens).to(device)}
 
     return StepBundle(
-        spec.arch_id, "lm", "prefill", cfg, shape,
+        spec.arch_id, "lm", "prefill", cfg, shape, device,
+        init_params=lambda generator: tf.init_params(cfg, generator),
+        make_state=lambda p: p, fn=fn, make_batch=make_batch)
+
+
+def _lm_decode_bundle(spec: ArchSpec, shape: LMShape, cfg,
+                      device: torch.device) -> StepBundle:
+    """One new token against a ``seq_len``-deep KV cache."""
+    def fn(params, batch):
+        return tf.decode_step(cfg, params, batch["cache"], batch["pos"],
+                              batch["last_token"])
+
+    def make_batch(seed=0):
+        rng = np.random.default_rng(seed)
+        tok = rng.integers(0, cfg.vocab, (shape.global_batch,))
+        return {"cache": tf.init_cache(cfg, shape.global_batch,
+                                       shape.seq_len, device=device),
+                "pos": torch.tensor(shape.seq_len - 1, dtype=torch.int32,
+                                    device=device),
+                "last_token": torch.from_numpy(tok.astype("int32")).to(
+                    device)}
+
+    return StepBundle(
+        spec.arch_id, "lm", "decode", cfg, shape, device,
         init_params=lambda generator: tf.init_params(cfg, generator),
         make_state=lambda p: p, fn=fn, make_batch=make_batch)
 
 
 def _recsys_bundle(spec: ArchSpec, shape: RecsysShape, cfg,
-                   device: torch.device) -> StepBundle:
+                   device: torch.device, opt_cfg: AdamWConfig) -> StepBundle:
     if shape.step == "train":
-        raise NotImplementedError("recsys train step: a later slice "
-                                  "(ROADMAP Queue A 13)")
-    step = (deepfm.serve_step if shape.step == "serve"
-            else deepfm.retrieval_step)
+        fn = _train_wrap(lambda p, b: deepfm.loss_fn(cfg, p, b), opt_cfg)
+        make_state = _make_state
+    else:
+        step = (deepfm.serve_step if shape.step == "serve"
+                else deepfm.retrieval_step)
 
-    def fn(params, batch):
-        return step(cfg, params, batch)
+        def fn(params, batch):
+            return step(cfg, params, batch)
+
+        def make_state(params):
+            return params
 
     def make_batch(seed=0):
         arrays = syn.recsys_batch(cfg, shape.batch, step=shape.step,
@@ -91,13 +171,14 @@ def _recsys_bundle(spec: ArchSpec, shape: RecsysShape, cfg,
         return {k: torch.from_numpy(a).to(device) for k, a in arrays.items()}
 
     return StepBundle(
-        spec.arch_id, "recsys", shape.step, cfg, shape,
+        spec.arch_id, "recsys", shape.step, cfg, shape, device,
         init_params=lambda generator: deepfm.init_params(cfg, generator),
-        make_state=lambda p: p, fn=fn, make_batch=make_batch)
+        make_state=make_state, fn=fn, make_batch=make_batch)
 
 
 def build_bundle(spec: ArchSpec, shape_or_name, *, reduced: bool = False,
-                 device="cuda") -> StepBundle:
+                 device="cuda", opt_cfg: AdamWConfig = AdamWConfig(),
+                 microbatches: int = 1) -> StepBundle:
     """The step of one (architecture, shape) cell on ``device`` (the card
     unless the caller passes ``device="cpu"``)."""
     shape = (get_shape(spec, shape_or_name)
@@ -105,10 +186,11 @@ def build_bundle(spec: ArchSpec, shape_or_name, *, reduced: bool = False,
     cfg = spec.reduced if reduced else spec.config
     if reduced:
         shape = reduce_shape(shape, spec.family)
+        microbatches = min(microbatches, 2)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_bundle: no CUDA card; pass device='cpu' "
                            "to run the plain path on the CPU")
     if spec.family == "lm":
-        return _lm_bundle(spec, shape, cfg, device)
-    return _recsys_bundle(spec, shape, cfg, device)
+        return _lm_bundle(spec, shape, cfg, device, microbatches)
+    return _recsys_bundle(spec, shape, cfg, device, opt_cfg)

@@ -6,7 +6,10 @@ params)``: nested dicts and lists of arrays) and returns the port's
 ``Transformer``; ``to_numpy`` is its inverse.  ``deepfm_from_jax_params``
 and ``deepfm_to_numpy`` do the same for DeepFM's tree (``table``,
 ``lin_table``, ``lin_dense``, ``bias``, ``mlp[i]["w"/"b"]``), which the
-port keeps as a dict of tensors.  bf16 leaves cross as their 16-bit
+port keeps as a dict of tensors.  ``train_state_from_jax`` and
+``train_state_to_numpy`` carry a whole train state (``{"params", "opt":
+{"m", "v", "step"}}``, as ``launch.steps``' ``make_state`` builds it over
+a dict of tensors: DeepFM's).  bf16 leaves cross as their 16-bit
 patterns, so every direction is bitwise.  This module imports
 neither JAX nor the JAX package; ``to_numpy`` needs ``ml_dtypes`` (which
 JAX installs) only for a bf16 leaf.
@@ -18,14 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.transformer import Transformer
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(fn, v) for v in tree]
-    return fn(tree)
+from repro_torch.tree import map_tree
 
 
 def _leaf_to_torch(a, device) -> torch.Tensor:
@@ -48,14 +44,14 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
 def from_jax_params(tree, device) -> Transformer:
     """The port's weights from the JAX package's (as numpy), on
     ``device``."""
-    return Transformer.from_tree(_map(lambda a: _leaf_to_torch(a, device),
+    return Transformer.from_tree(map_tree(lambda a: _leaf_to_torch(a, device),
                                       tree))
 
 
 def to_numpy(params: Transformer) -> dict:
     """The JAX-layout numpy tree of ``params`` (``from_jax_params``'s
     inverse)."""
-    return _map(_leaf_to_numpy, params.tree())
+    return map_tree(_leaf_to_numpy, params.tree())
 
 
 DEEPFM_KEYS = ("table", "lin_table", "lin_dense", "bias", "mlp")
@@ -67,10 +63,26 @@ def deepfm_from_jax_params(tree, device) -> dict:
     if sorted(tree) != sorted(DEEPFM_KEYS):
         raise ValueError(f"a DeepFM tree has keys {DEEPFM_KEYS}, not "
                          f"{tuple(tree)}")
-    return _map(lambda a: _leaf_to_torch(a, device), tree)
+    return map_tree(lambda a: _leaf_to_torch(a, device), tree)
 
 
 def deepfm_to_numpy(params: dict) -> dict:
     """The numpy tree of DeepFM ``params`` (``deepfm_from_jax_params``'s
     inverse)."""
-    return _map(_leaf_to_numpy, params)
+    return map_tree(_leaf_to_numpy, params)
+
+
+def train_state_from_jax(tree, device) -> dict:
+    """The port's train state from the JAX package's (as numpy:
+    ``jax.tree.map(np.asarray, state)``), on ``device``."""
+    if sorted(tree) != ["opt", "params"] or sorted(tree["opt"]) != [
+            "m", "step", "v"]:
+        raise ValueError("a train state is {'params', 'opt': {'m', 'v', "
+                         "'step'}}")
+    return map_tree(lambda a: _leaf_to_torch(a, device), tree)
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """The numpy tree of a train state (``train_state_from_jax``'s
+    inverse)."""
+    return map_tree(_leaf_to_numpy, state)

@@ -1,12 +1,14 @@
 """DeepFM: sparse embedding tables + FM interaction + deep MLP — the port
-of ``repro.models.recsys.deepfm`` (serve and retrieval steps; the loss and
-the train step are a later slice).
+of ``repro.models.recsys.deepfm``: the loss (the train step's, built in
+``launch/steps.py``), the serve step and the retrieval step.
 
 All fields share one ``(n_sparse * vocab_per_field, embed_dim)`` table;
 field ``f``'s ids are offset by ``f * vocab_per_field``.  Single-valued
 fields are looked up with a row gather, as in the JAX package; the
 EmbeddingBag kernel (A5, ``kernels/embedding_bag``) is the op for
-multi-hot bags, which this model does not have.  Parameters are a dict of
+multi-hot bags, which this model does not have.  The row gather's
+gradient is dense: a ``(total_rows, D)`` tensor, zero on the rows the
+batch did not touch, as JAX's scatter-add transpose gives.  Parameters are a dict of
 tensors in the JAX package's layout (``models.convert`` carries them).
 The FM interaction in f32 only: a config with another ``interaction`` or
 ``dtype`` raises ``NotImplementedError``.
@@ -77,6 +79,18 @@ def forward(cfg: RecsysConfig, params, batch):
     mlp_in = torch.cat([emb.reshape(b, -1), batch["dense"]], dim=-1)
     deep = apply_mlp(params["mlp"], mlp_in)[:, 0]
     return lin + fm_term(emb) + deep
+
+
+def loss_fn(cfg: RecsysConfig, params, batch):
+    """Mean BCE-with-logits over the batch's ``label``, in the stable form
+    ``max(x, 0) - x y + log1p(exp(-|x|))``; returns (loss, {"loss":
+    loss}).  ``torch.maximum`` splits the gradient of a tie at 0 in half,
+    as ``jnp.maximum`` does."""
+    logits = forward(cfg, params, batch)
+    y = batch["label"].to(torch.float32)
+    loss = torch.mean(torch.maximum(logits, torch.zeros_like(logits))
+                      - logits * y + torch.log1p(torch.exp(-logits.abs())))
+    return loss, {"loss": loss}
 
 
 def serve_step(cfg: RecsysConfig, params, batch):

@@ -1,5 +1,5 @@
-"""LM-family transformer, prefill step — the port of the prefill path of
-``repro.models.transformer``.
+"""LM-family transformer, prefill and decode steps — the port of those
+paths of ``repro.models.transformer``.
 
 Parameters keep the JAX layout: per position of the repeating layer
 pattern (Gemma-3's 5 local + 1 global), every leaf is stacked over the
@@ -11,15 +11,20 @@ over the groups; here a Python loop walks them, in the same order.
 Each layer's attention runs kernel A4 (``kernels/flash_attention``) on the
 prompt's fresh ``q, k, v``: with ``q_offset = 0`` and ``kv_len = S``, the
 JAX prefill's ``chunked_attention`` over the ``max_len`` cache masks every
-key past the prompt, so it computes the same function.  ``k, v`` are
-written into the cache in place.
+key past the prompt, so it computes the same function.  ``decode_step``
+takes one token a sequence at ``pos``, a scalar (a slice update of every
+sequence's cache at ``pos``) or a (B,) tensor (each sequence's k, v row
+scattered at its own depth), and attends over the whole cache through
+``layers.core.chunked_attention``, as JAX's does.  Both steps write k, v
+into the cache in place and run under ``torch.no_grad``.
 
 ``repro.models.sharding_hints`` is not ported: on one card every
 ``constrain_*`` call is the identity, so the port does not call them.
 Dense MLP blocks with untied embeddings and no q/k/v bias only: a config
 with MoE blocks, ``qkv_bias`` or ``tie_embeddings`` raises
-``NotImplementedError`` (later slices, when a ported config needs one).  ``lm_loss``, ``forward`` and
-``decode_step`` are later slices too.
+``NotImplementedError`` (later slices, when a ported config needs one).
+``lm_loss``, ``trunk`` and ``forward`` (the LM train step) are a later
+slice too.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from torch import nn
 
 from repro_torch.configs.base import LayerSpec, TransformerConfig
 from repro_torch.kernels.flash_attention.ops import attention
-from repro_torch.layers.core import rms_norm, rope, swiglu
+from repro_torch.layers.core import chunked_attention, rms_norm, rope, swiglu
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -174,31 +179,67 @@ def init_params(cfg: TransformerConfig,
 
 def _attn_apply(cfg: TransformerConfig, spec: LayerSpec, p: dict,
                 h: torch.Tensor, positions: torch.Tensor, cache: dict,
-                use_kernel: bool) -> torch.Tensor:
-    """h: (B, S, D); cache: dict(k, v) of (B, Hkv, Smax, Dh) views, whose
-    first S positions are overwritten with this prompt's k, v."""
+                cache_pos, use_kernel: bool) -> torch.Tensor:
+    """h: (B, S, D); cache: dict(k, v) of (B, Hkv, Smax, Dh) views.
+
+    ``cache_pos=None`` (prefill): the prompt's k, v overwrite the first S
+    positions and A4 attends over them.  A (B,) ``cache_pos`` (decode,
+    S = 1): each sequence's row lands at its own depth.  A scalar: k, v
+    land at ``[cache_pos, cache_pos + S)`` (the start clamped to fit, as
+    ``lax.dynamic_update_slice`` does)."""
     q = torch.einsum("bsd,dhe->bhse", h, p["wq"])
     k = torch.einsum("bsd,dhe->bhse", h, p["wk"])
     v = torch.einsum("bsd,dhe->bhse", h, p["wv"])
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    s = h.shape[1]
-    cache["k"][:, :, :s] = k
-    cache["v"][:, :, :s] = v
-    o = attention(q, k, v, causal=True, window=spec.window,
-                  use_kernel=use_kernel)
+    b, s = h.shape[:2]
+    if cache_pos is None:
+        cache["k"][:, :, :s] = k
+        cache["v"][:, :, :s] = v
+        o = attention(q, k, v, causal=True, window=spec.window,
+                      use_kernel=use_kernel)
+    else:
+        if getattr(cache_pos, "ndim", 0) == 1:
+            bidx = torch.arange(b, device=h.device)
+            rows = cache_pos.long()
+            cache["k"][bidx, :, rows] = k[:, :, 0, :]
+            cache["v"][bidx, :, rows] = v[:, :, 0, :]
+            kv_len = cache_pos + 1
+        else:
+            smax = cache["k"].shape[2]
+            start = torch.clamp(torch.as_tensor(cache_pos, device=h.device),
+                                0, smax - s)
+            idx = start.long() + torch.arange(s, device=h.device)
+            cache["k"].index_copy_(2, idx, k)
+            cache["v"].index_copy_(2, idx, v)
+            kv_len = cache_pos + s
+        o = chunked_attention(q, cache["k"], cache["v"], causal=True,
+                              window=spec.window, chunk=cfg.attn_chunk,
+                              q_offset=cache_pos, kv_len=kv_len)
     return torch.einsum("bhse,hed->bsd", o, p["wo"])
 
 
 def _block_apply(cfg: TransformerConfig, spec: LayerSpec, p: dict,
                  h: torch.Tensor, positions: torch.Tensor, cache: dict,
-                 use_kernel: bool) -> torch.Tensor:
+                 cache_pos, use_kernel: bool) -> torch.Tensor:
     a = _attn_apply(cfg, spec, p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
-                    positions, cache, use_kernel)
+                    positions, cache, cache_pos, use_kernel)
     h = h + a
     x = rms_norm(h, p["ln2"], cfg.norm_eps)
     mlp = p["mlp"]
     return h + swiglu(x, mlp["w_gate"], mlp["w_up"], mlp["w_down"])
+
+
+def _groups(cfg: TransformerConfig, params: Transformer, cache: list, h,
+            positions, cache_pos, use_kernel: bool):
+    """Every layer over h, in the JAX scan's order: group by group, each
+    group the pattern's positions."""
+    for g in range(cfg.n_groups):
+        for t, spec in enumerate(cfg.pattern):
+            layer_cache = {"k": cache[t]["k"][g], "v": cache[t]["v"][g]}
+            h = _block_apply(cfg, spec, params.blocks[t].group(g), h,
+                             positions, layer_cache, cache_pos, use_kernel)
+    return rms_norm(h, params.final_norm, cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -217,7 +258,8 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
 @torch.no_grad()
 def prefill(cfg: TransformerConfig, params: Transformer, tokens: torch.Tensor,
             max_len: int, *, use_kernel: bool = True):
-    """Run the prompt, return (last-token logits, cache, length).
+    """Run the prompt into a fresh ``max_len``-deep cache; return
+    (last-token logits, cache, length).
 
     ``use_kernel=False`` runs the plain attention (``attention_ref``) in
     place of kernel A4, for comparison."""
@@ -229,11 +271,30 @@ def prefill(cfg: TransformerConfig, params: Transformer, tokens: torch.Tensor,
     h = params.embed[tokens.long()]
     positions = torch.arange(s, device=h.device)
     cache = init_cache(cfg, b, max_len, device=h.device)
-    for g in range(cfg.n_groups):
-        for t, spec in enumerate(cfg.pattern):
-            layer_cache = {"k": cache[t]["k"][g], "v": cache[t]["v"][g]}
-            h = _block_apply(cfg, spec, params.blocks[t].group(g), h,
-                             positions, layer_cache, use_kernel)
-    h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    h = _groups(cfg, params, cache, h, positions, None, use_kernel)
     logits = torch.matmul(h[:, -1], params.unembed.T)
     return logits, cache, s
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def decode_step(cfg: TransformerConfig, params: Transformer, cache: list,
+                pos, last_token: torch.Tensor):
+    """One serve step: append one token a sequence.
+
+    cache: ``init_cache``'s list, written in place; pos: the current
+    length, an int, a 0-d tensor or a (B,) tensor (per sequence);
+    last_token (B,).  Returns (logits (B, V), cache)."""
+    _check_supported(cfg)
+    h = params.embed[last_token.long()][:, None, :]          # (B, 1, D)
+    dev = h.device
+    if getattr(pos, "ndim", 0) == 1:
+        positions = pos[:, None] + torch.arange(1, device=dev)[None, :]
+    else:
+        positions = pos + torch.arange(1, device=dev)
+    h = _groups(cfg, params, cache, h, positions, pos, use_kernel=False)
+    logits = torch.matmul(h[:, 0], params.unembed.T)
+    return logits, cache

@@ -1,9 +1,11 @@
-"""BFS serving — the port of ``repro.serve``'s traversal stack.
+"""Serving — the port of ``repro.serve``: the traversal stack and the LM
+continuous-batching server.
 
   * ``engine_cache`` — ``EngineCache`` (an LRU of compiled engines keyed
     by ``BFSPlan.plan_key()``, priced by ``estimated_device_bytes()``)
     and ``GraphCatalog``.
-  * ``batcher`` — ``SlotPool``, the slot scheduler of the lanes.
+  * ``batcher`` — ``SlotPool``, the slot scheduler of the lanes, and
+    the LM ``Server`` (``Request``s over the decode step).
   * ``bfs_service`` — ``BFSService``: lanes of named graphs, each with
     a ladder of batch-size buckets, resolved through one cache.
   * ``frontend`` — the HTTP front end (``serve_http``).

@@ -638,6 +638,65 @@ def test_deepfm_steps_on_the_card_match_the_cpu(cuda):
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
+def test_deepfm_train_step_on_the_card_matches_the_cpu(cuda):
+    """One REDUCED DeepFM train step from the same state on the card and
+    on the CPU: loss, grad_norm and every leaf of the new state within f32
+    rounding (full f32 products: allow_tf32 off)."""
+    from repro_torch import tree as tr
+    from repro_torch.models.convert import (train_state_from_jax,
+                                            train_state_to_numpy)
+
+    spec = get_arch("deepfm")
+    on_card = build_bundle(spec, "train_batch", reduced=True)
+    on_cpu = build_bundle(spec, "train_batch", reduced=True, device="cpu")
+    state = on_card.make_state(on_card.init_params(
+        torch.Generator(device=cuda).manual_seed(0)))
+    host = train_state_from_jax(train_state_to_numpy(state), "cpu")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        new, m = on_card.fn(state, on_card.make_batch(0))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    new_h, m_h = on_cpu.fn(host, on_cpu.make_batch(0))
+    for k in ("loss", "grad_norm", "lr"):
+        torch.testing.assert_close(m[k].cpu(), m_h[k], rtol=1e-5, atol=0)
+    for a, b in zip(tr.leaves(new), tr.leaves(new_h)):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-7)
+
+
+def test_decode_step_on_the_card_matches_the_cpu(cuda):
+    """gemma3 REDUCED (f32; decode runs no kernel, so head_dim 16 runs on
+    the card): a CPU prefill's cache carried to the card, then one decode
+    step at per-sequence positions on each: logits and cache within f32
+    rounding."""
+    from repro_torch.models.convert import from_jax_params, to_numpy
+
+    cfg = get_arch("gemma3_12b").reduced
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 20),
+                           generator=torch.Generator().manual_seed(1))
+    _, cache, _ = tf.prefill(cfg, params, tokens, 40)
+    card_params = from_jax_params(to_numpy(params), cuda)
+    card_cache = [{n: c[n].to(cuda) for n in "kv"} for c in cache]
+    pos = torch.tensor([20, 13], dtype=torch.int32)
+    tok = torch.tensor([5, 7])
+    want, cache = tf.decode_step(cfg, params, cache, pos, tok)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got, card_cache = tf.decode_step(cfg, card_params, card_cache,
+                                         pos.to(cuda), tok.to(cuda))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    for c, h in zip(card_cache, cache):
+        for n in "kv":
+            torch.testing.assert_close(c[n].cpu(), h[n], rtol=1e-5,
+                                       atol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # the traversal service and its HTTP front end on the card
 # ---------------------------------------------------------------------------

@@ -191,12 +191,25 @@ def test_steps_match_jax(which, shape):
 
 
 def test_bundle_defaults_to_the_card_and_refuses_the_train_step():
+    """The bundle defaults to the card.  The train step, refused before
+    its slice was ported (the name is kept), now builds and steps on the
+    CPU: a finite loss, the step counted, every leaf of the state moved
+    (tests/test_torch_train.py holds it to the JAX package)."""
     spec = get_arch("deepfm")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_bundle(spec, "serve_p99", reduced=True)
-    with pytest.raises(NotImplementedError, match="Queue A 13"):
-        build_bundle(spec, "train_batch", reduced=True, device="cpu")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_bundle(spec, "train_batch", reduced=True)
+    bundle = build_bundle(spec, "train_batch", reduced=True, device="cpu")
+    assert bundle.step_kind == "train"
+    state = bundle.make_state(bundle.init_params(
+        torch.Generator().manual_seed(0)))
+    new, metrics = bundle.fn(state, bundle.make_batch(0))
+    assert np.isfinite(float(metrics["loss"]))
+    assert int(new["opt"]["step"]) == 1
+    assert all(not torch.equal(a, b) for a, b in zip(
+        jax.tree.leaves(new["params"]), jax.tree.leaves(state["params"])))
 
 
 def test_field_offsets_shift_each_field_by_its_vocab():

@@ -34,7 +34,8 @@ def test_every_package_is_listed():
             "repro_torch.kernels.bsr_spmm", "repro_torch.serve",
             "repro_torch.serve.frontend",
             "repro_torch.serve.resilience", "repro_torch.analysis",
-            "repro_torch.launch"} <= set(PACKAGES)
+            "repro_torch.launch", "repro_torch.optim",
+            "repro_torch.train"} <= set(PACKAGES)
 
 
 @pytest.mark.parametrize("package", PACKAGES)
@@ -75,6 +76,29 @@ def test_dist_modules_import_first_without_jax(module):
              "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
              "m.startswith('repro.')); assert not bad, bad; "
              "assert 'torch.distributed' in sys.modules")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", probe, module], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", ["repro_torch.tree",
+                                    "repro_torch.optim.adamw",
+                                    "repro_torch.train.compress",
+                                    "repro_torch.train.checkpoint",
+                                    "repro_torch.train.trainer",
+                                    "repro_torch.data.pipeline",
+                                    "repro_torch.serve.batcher",
+                                    "repro_torch.launch.train",
+                                    "repro_torch.launch.serve"])
+def test_train_and_decode_modules_import_first_without_jax(module):
+    """The train substrate, the LM server and their launchers import
+    first, with neither jax nor the JAX package loaded (nor ``ml_dtypes``:
+    the checkpoint reads bf16 through ``torch.int16``)."""
+    probe = ("import importlib, sys; importlib.import_module(sys.argv[1]); "
+             "bad = sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith(('jax.', 'jaxlib', 'ml_dtypes')) or m == 'repro' "
+             "or m.startswith('repro.')); assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", probe, module], env=env,
                          capture_output=True, text=True, timeout=120)

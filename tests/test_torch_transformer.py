@@ -171,8 +171,12 @@ def test_build_bundle_prefill_runs_end_to_end_on_the_cpu():
 
 
 def test_unported_archs_and_steps_raise():
+    """An unported arch and the LM train step raise (decode, refused
+    before its slice, builds: tests/test_torch_decode.py)."""
     with pytest.raises(KeyError, match="gemma3_12b"):
         get_arch("dbrx_132b")
-    with pytest.raises(NotImplementedError, match="decode"):
-        build_bundle(get_arch("gemma3_12b"), "decode_32k", reduced=True,
+    with pytest.raises(NotImplementedError, match="LM train"):
+        build_bundle(get_arch("gemma3_12b"), "train_4k", reduced=True,
                      device="cpu")
+    assert build_bundle(get_arch("gemma3_12b"), "decode_32k", reduced=True,
+                        device="cpu").step_kind == "decode"
