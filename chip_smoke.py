@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (BFS on the 1-D and 2-D partitions in the
 dense, queue and auto modes, BFS serving over HTTP, LM prefill, DeepFM
-serving and the EmbeddingBag op, DeepFM training and LM decode serving)
-on one card.
+serving and the EmbeddingBag op, DeepFM training, LM decode serving and
+LM training) on one card.
 
     python3 chip_smoke.py            # full size, as the acceptance run
     python3 chip_smoke.py --profile  # also profile one run of each path
@@ -230,6 +230,30 @@ Phases (any failed check raises and the script exits non-zero):
    server fed (the prompt, its last token again) wherever the top-2
    margin exceeds twice the drift between that prefill and the decode
    path (at least one row must); ms a decode step and tok/s printed.
+
+17. path 12 — gemma3-12b ``train_4k`` at full width (d 3840, 16 / 8 heads
+   of 256, d_ff 15,360, vocab 262,144, bf16, untied, windows 1,024 and 0,
+   remat ``block``), cut to 6 layers (one pattern group) and batch 4, seq
+   4,096 not cut; the host memory and free disk checked against the 33.6
+   GB train state first.  (a) ``Trainer`` over the cut bundle, 5 steps on
+   one fixed batch, ``AdamWConfig(warmup_steps=1, total_steps=5)``: the
+   first loss within 0.1 of ln V + 1/2, the loss falling at every step,
+   every leaf finite, A4 never launched; step ms (median of steps 2-5),
+   tokens/s, peak; the step-5 checkpoint (keep 1, under
+   ``build/chip_smoke_path12/``, removed after) restored to the host and
+   held to the state bitwise, its bytes and seconds.  (e) the trained
+   params served: ``Transformer.from_tree`` over the state's tensors, a
+   prefill of the batch with A4 (6 launches) and 4 greedy decode steps,
+   logits finite.  (b) ``flash_train`` at B 1, Hq 16, Hkv 8, S 4,096, Dh
+   256, chunk 1,024, windows 1,024 and 0, f32: out, dq, dk, dv within
+   ``FLASH_TOL`` of autograd through the plain masked softmax, which a
+   window one key off and the causal mask dropped must fail; both timed.
+   (c) the bf16 step's loss and gradients at batch 1 against the same
+   step in f32 (``STEP_TOL``), which the labels one position on and a
+   local layer given the global window must fail.  (d) remat ``none``,
+   ``block`` and ``dots`` at batch 2: the same gradients bitwise, each
+   policy's peak; microbatches 2 against 1 on one batch of 4 through the
+   bundle (``MICRO_LOSS_TOL``, ``MICRO_NORM_TOL``).
 
 The last line is ``{"ok": true, "device": {...}}``; before it come one
 ``{"kernels": [...]}`` JSON line and the card's name and power limit.
@@ -3358,6 +3382,367 @@ def decode_phase(kernels, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# path 12: gemma3-12b training at full width
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_LAYERS, LM_TRAIN_BATCH, LM_TRAIN_STEPS = 6, 4, 5
+LM_SERVE_STEPS = 4
+# (b) the flash-train Function against autograd through the plain masked
+# softmax, f32, TF32 off: relative L2 of out, dq, dk and dv.  On an H100
+# the correct route reads at most 5.4e-7 (out, window 0), a window one key
+# off at least 0.0182 (out) and the causal mask dropped 0.88; 2^-13 sits
+# 226 times above the one and 149 times below the other.
+FLASH_TOL = 2.0 ** -13
+# (c) the bf16 step against the same step in f32 (the weights upcast),
+# batch 1: relative error of the loss, relative L2 of each gradient leaf.
+# On an H100 the correct step reads 2.2e-5 on the loss and at most 0.0259
+# on a leaf (blocks/3/attn/wk); the labels one position on read 1.40 and
+# a local layer given the global window 1.06 (on other layers' leaves).
+# 2^-3 sits 4.8 times above the one and 8.5 times below the other.
+STEP_TOL = 2.0 ** -3
+# (d) microbatches 2 against 1 on one batch of 4: the loss (f32 sums in
+# another order; an H100 reads 7.3e-8) and the grad norm (two bf16
+# gradients summed in f32 against one bf16 gradient: 1.4e-5).
+MICRO_LOSS_TOL, MICRO_NORM_TOL = 2.0 ** -16, 2.0 ** -12
+
+
+def lm_state_bytes(cfg) -> int:
+    """Bytes of a train state: the parameters, f32 m and v, the step."""
+    itemsize = {"bfloat16": 2, "float32": 4}[cfg.dtype]
+    return cfg.param_count() * (itemsize + 8) + 4
+
+
+def host_bytes_available() -> int:
+    """MemAvailable of /proc/meminfo, in bytes."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def plain_attention(q, k, v, causal: bool, window: int):
+    """Softmax over the masked (Sq, Skv) scores in f32: the reference the
+    flash-train route is held to, differentiated by autograd."""
+    b, hq, s, dh = q.shape
+    hkv = k.shape[1]
+    qg = q.reshape(b, hkv, hq // hkv, s, dh)
+    sc = torch.einsum("bhgqd,bhkd->bhgqk", qg, k) * dh ** -0.5
+    i = torch.arange(s, device=q.device)
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= i[:, None] >= i[None, :]
+    if window > 0:
+        mask &= (i[:, None] - i[None, :]) < window
+    p = sc.masked_fill(~mask, float("-inf")).softmax(-1)
+    return torch.einsum("bhgqk,bhkd->bhgqd", p, v).reshape(b, hq, s, dh)
+
+
+def attn_with_grads(fn, q, k, v, do):
+    """(out, dq, dk, dv) of ``fn(q, k, v)`` against the cotangent do."""
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    out = fn(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    return (out.detach(), *grads)
+
+
+def attn_errs(got, want) -> dict:
+    return {n: rel_err(a, b) for n, a, b in zip(("out", "dq", "dk", "dv"),
+                                                 got, want)}
+
+
+def leaf_errs(got: list, want: list, paths: list) -> dict:
+    """Relative L2 error of each gradient leaf, by its key."""
+    return {key: rel_err(a, b) for key, a, b in zip(paths, got, want)}
+
+
+def lm_train_phase(kernels, dev, tmp: Path, profile: bool) -> dict:
+    """gemma3-12b ``train_4k`` at full width, 6 layers, batch 4 (module
+    docstring, path 12): (a) the Trainer, its checkpoint restored
+    bitwise; (e) the trained state served; (b) the flash-train attention
+    held to the plain softmax; (c) the bf16 step held to f32; (d) remat
+    and microbatches."""
+    from repro_torch import tree as tr
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.launch import steps
+    from repro_torch.layers.core import flash_train
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    spec = get_arch("gemma3_12b")
+    full, full_shape = spec.config, get_shape(spec, "train_4k")
+    cfg = dataclasses.replace(full, n_layers=LM_TRAIN_LAYERS)
+    cut = dataclasses.replace(spec, config=cfg)
+    shape = dataclasses.replace(full_shape, global_batch=LM_TRAIN_BATCH)
+    opt_cfg = AdamWConfig(warmup_steps=1, total_steps=LM_TRAIN_STEPS)
+    state_bytes = lm_state_bytes(cfg)
+    host = host_bytes_available()
+    disk = shutil.disk_usage(tmp).free
+    log(f"path 12: {full.name} train_4k ({spec.source}): d {cfg.d_model}, "
+        f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}, untied, windows "
+        f"{sorted({sp.window for sp in cfg.pattern})}, remat {cfg.remat}, "
+        f"attn_chunk {cfg.attn_chunk}, loss chunk 512; cut: layers "
+        f"{full.n_layers} -> {cfg.n_layers} (one pattern group), batch "
+        f"{full_shape.global_batch} -> {shape.global_batch}; seq "
+        f"{shape.seq_len} (not cut); {cfg.param_count()} parameters, a "
+        f"{state_bytes}-byte train state; host memory available {host} "
+        f"bytes, disk free {disk} bytes; device memory held before the "
+        f"path {torch.cuda.memory_allocated()} bytes")
+    check(host > 1.2 * state_bytes,
+          f"path 12: {host} bytes of host memory cannot hold a checkpoint "
+          f"snapshot of {state_bytes} bytes")
+    check(disk > 1.1 * state_bytes,
+          f"path 12: {disk} bytes of free disk cannot hold a checkpoint of "
+          f"{state_bytes} bytes")
+    out = {}
+
+    # (a) the Trainer, 5 steps on one fixed batch, a checkpoint at the last
+    bundle = steps.build_bundle(cut, shape, device=dev, opt_cfg=opt_cfg)
+    fixed = bundle.make_batch(SEED)
+    bundle = dataclasses.replace(bundle, make_batch=lambda seed=0: fixed)
+    tcfg = TrainerConfig(num_steps=LM_TRAIN_STEPS, ckpt_every=LM_TRAIN_STEPS,
+                         keep=1, log_every=1, ckpt_dir=str(tmp / "a"),
+                         seed=SEED)
+    trainer = Trainer(bundle, tcfg, opt_cfg=opt_cfg)
+    reset_counts(kernels)
+    reset_peak()
+    t0 = time.perf_counter()
+    state = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = {n: k.launches for n, k in kernels.items()}
+    check(not any(counts.values()), f"path 12 (a): a kernel launched "
+          f"{counts}; the train step's attention is flash_train, not A4")
+    losses = [m["loss"] for m in trainer.metrics_log if "loss" in m]
+    check(len(trainer.step_times) == LM_TRAIN_STEPS
+          and len(losses) == LM_TRAIN_STEPS, f"path 12 (a): not "
+          f"{LM_TRAIN_STEPS} clean steps: {trainer.metrics_log}")
+    want0 = math.log(cfg.vocab) + 0.5
+    check(abs(losses[0] - want0) <= 0.1, f"path 12 (a): first loss "
+          f"{losses[0]}, not within 0.1 of ln V + 1/2 = {want0}")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"path 12 (a): the loss does not fall at every step: {losses}")
+    check(all(bool(torch.isfinite(t).all()) for t in tr.leaves(state)
+              if t.is_floating_point()), "path 12 (a): a non-finite leaf")
+    step_ms = float(np.median([dt for _, dt in trainer.step_times[1:]])) * 1e3
+    tokens = shape.global_batch * shape.seq_len
+    save = trainer.mgr.saves[-1]
+    log(f"path 12 (a): losses {losses}; step {step_ms} ms (median of steps "
+        f"2-{LM_TRAIN_STEPS}; step 1 {trainer.step_times[0][1] * 1e3} ms) = "
+        f"{tokens / (step_ms / 1e3)} tokens/s; peak {peak:.3f} GiB; the "
+        f"trainer's wall {wall:.1f} s; A4 launched 0 times; save {save}")
+    # the checkpoint, restored to the host and held to the state bitwise
+    like = tr.map_tree(lambda t: torch.empty(t.shape, dtype=t.dtype), state)
+    t0 = time.perf_counter()
+    restored, step = CheckpointManager(str(tmp / "a")).restore(like)
+    restore_s = time.perf_counter() - t0
+    check(step == LM_TRAIN_STEPS, f"path 12 (a): restored step {step}")
+    same = all(torch.equal(r.to(dev), s) for r, s in zip(
+        tr.leaves(restored), tr.leaves(state)))
+    check(same, "path 12 (a): the restored checkpoint differs from the "
+                "state")
+    restored_bytes = sum(nbytes(t) for t in tr.leaves(restored))
+    log(f"path 12 (a): step {step} restored to the host in {restore_s:.3f} "
+        f"s ({restored_bytes} bytes), every leaf bitwise the state's")
+    del like, restored
+    shutil.rmtree(tmp / "a")
+    if profile:                  # one more step: the state moves on to 6
+        profile_run("path 12 (a) train step",
+                    lambda: bundle.fn(state, fixed))
+    out["a"] = {"losses": losses, "step_ms_median_2_5": step_ms,
+                "step_ms_first": trainer.step_times[0][1] * 1e3,
+                "tokens_per_s": tokens / (step_ms / 1e3), "peak_gib": peak,
+                "wall_s": wall, "save": save, "restore_s": restore_s,
+                "restore_bytes": restored_bytes}
+    params = state["params"]
+    del state, trainer, bundle
+
+    # (e) the trained state serves: A4's prefill, then greedy decode steps
+    model = tf.Transformer.from_tree(params)
+    prompt = fixed["tokens"][:, :shape.seq_len]
+    reset_counts(kernels)
+    reset_peak()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache, pos = tf.prefill(cfg, model, prompt,
+                                    shape.seq_len + LM_SERVE_STEPS)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    finite = bool(torch.isfinite(logits).all())
+    tok, greedy = logits.argmax(-1), []
+    for i in range(LM_SERVE_STEPS):
+        logits, cache = tf.decode_step(cfg, model, cache, pos + i, tok)
+        tok = logits.argmax(-1)
+        greedy.append(tok.tolist())
+        finite = finite and bool(torch.isfinite(logits).all())
+    a4 = kernels["flash_attention"].launches
+    log(f"path 12 (e): the trained params served: A4 prefill of "
+        f"{tuple(prompt.shape)} tokens {prefill_ms:.3f} ms, A4 launched "
+        f"{a4} times, {LM_SERVE_STEPS} greedy tokens {greedy}, logits "
+        f"finite {finite}")
+    check(finite, "path 12 (e): non-finite logits")
+    check(a4 == cfg.n_layers, f"path 12 (e): A4 launched {a4} times in a "
+                              f"{cfg.n_layers}-layer prefill")
+    out["e"] = {"a4_launches": a4, "prefill_ms": prefill_ms,
+                "greedy": greedy}
+    del model, params, cache, logits, fixed, prompt
+
+    # (b) the flash-train attention at full head dims against the plain
+    # masked softmax, f32, with planted faults
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    s, dh = shape.seq_len, cfg.head_dim
+    q = torch.randn((1, cfg.n_heads, s, dh), generator=gen, device=dev)
+    k = torch.randn((1, cfg.n_kv_heads, s, dh), generator=gen, device=dev)
+    v = torch.randn((1, cfg.n_kv_heads, s, dh), generator=gen, device=dev)
+    do = torch.randn(q.shape, generator=gen, device=dev)
+    reset_peak()
+    out["b"] = {}
+    for window in sorted({sp.window for sp in cfg.pattern}, reverse=True):
+        ref = attn_with_grads(lambda a, b_, c: plain_attention(
+            a, b_, c, True, window), q, k, v, do)
+        got = attn_with_grads(lambda a, b_, c: flash_train(
+            a, b_, c, True, window, cfg.attn_chunk), q, k, v, do)
+        errs = attn_errs(got, ref)
+        faults = {"causal mask dropped": (False, window)}
+        if window > 0:
+            faults.update({f"window {window + d}": (True, window + d)
+                           for d in (-1, 1)})
+        bad = {}
+        for name, (causal, w) in faults.items():
+            bad[name] = attn_errs(attn_with_grads(
+                lambda a, b_, c: flash_train(a, b_, c, causal, w,
+                                             cfg.attn_chunk),
+                q, k, v, do), ref)
+        flash_ms = timed_ms(lambda: attn_with_grads(
+            lambda a, b_, c: flash_train(a, b_, c, True, window,
+                                         cfg.attn_chunk), q, k, v, do), 3)
+        plain_ms = timed_ms(lambda: attn_with_grads(
+            lambda a, b_, c: plain_attention(a, b_, c, True, window),
+            q, k, v, do), 3)
+        log(f"path 12 (b) window {window}: flash_train against the plain "
+            f"softmax, rel L2 {errs} (limit {FLASH_TOL}); planted faults "
+            f"{bad}; forward + backward {flash_ms} ms, the plain softmax "
+            f"{plain_ms} ms (B 1, Hq {cfg.n_heads}, Hkv {cfg.n_kv_heads}, "
+            f"S {s}, Dh {dh}, chunk {cfg.attn_chunk}, f32)")
+        check(max(errs.values()) <= FLASH_TOL,
+              f"path 12 (b): flash_train differs at window {window}")
+        for name, e in bad.items():
+            check(max(e.values()) > FLASH_TOL,
+                  f"path 12 (b): the hold passes {name}")
+        out["b"][window] = {"rel_l2": errs, "planted": {
+            n: max(e.values()) for n, e in bad.items()},
+            "flash_ms": flash_ms, "plain_ms": plain_ms}
+        del ref, got
+    out["b"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del q, k, v, do
+
+    # (c) the bf16 step against the same step in f32, batch 1, no
+    # optimizer state; planted faults in the bf16 step
+    tree = tf.init_tree(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    paths = [tr.key_of(p) for p, _ in tr.leaves_with_paths(tree)]
+    tokens1 = steps.build_bundle(cut, dataclasses.replace(
+        shape, global_batch=1), device=dev).make_batch(SEED + 1)["tokens"]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    reset_peak()
+    g32, (l32, _) = steps.autograd_grads(lambda p, t: tf.lm_loss(
+        cfg32, p, t))(tr.map_tree(lambda t: t.float(), tree), tokens1)
+
+    def bf16_step(cfg_):
+        g, (loss, _) = steps.autograd_grads(lambda p, t: tf.lm_loss(
+            cfg_, p, t))(tree, tokens1)
+        errs = leaf_errs(g, g32, paths)
+        return {"loss": abs(float(loss) - float(l32)) / abs(float(l32)),
+                "worst_leaf": max(errs.values()),
+                "worst_key": max(errs, key=errs.get), "leaves": errs}
+
+    r = bf16_step(cfg)
+    peak_c = torch.cuda.max_memory_allocated() / 2**30
+    bad = {}
+    real_nll = tf._chunk_nll         # planted: each label one position on
+    tf._chunk_nll = lambda h, lab, head: real_nll(h, torch.roll(lab, 1, 1),
+                                                  head)
+    try:
+        bad["labels shifted by one"] = bf16_step(cfg)
+    finally:
+        tf._chunk_nll = real_nll
+    bad["local layer 0 given the global window"] = bf16_step(
+        dataclasses.replace(cfg, pattern=(dataclasses.replace(
+            cfg.pattern[0], window=0),) + cfg.pattern[1:]))
+    log(f"path 12 (c): the bf16 step against f32 (batch 1): loss {float(l32)}"
+        f" (f32), rel err {r['loss']}, worst gradient leaf {r['worst_key']} "
+        f"{r['worst_leaf']} (limit {STEP_TOL}); every leaf {r['leaves']}; "
+        f"peak {peak_c:.3f} GiB")
+    for name, b in bad.items():
+        log(f"path 12 (c) planted fault ({name}): loss {b['loss']}, worst "
+            f"leaf {b['worst_key']} {b['worst_leaf']}")
+    check(max(r["loss"], r["worst_leaf"]) <= STEP_TOL,
+          "path 12 (c): the bf16 step differs from the f32 step")
+    for name, b in bad.items():
+        check(max(b["loss"], b["worst_leaf"]) > STEP_TOL,
+              f"path 12 (c): the hold passes {name}")
+    out["c"] = {"loss_rel": r["loss"], "worst_leaf": r["worst_leaf"],
+                "worst_key": r["worst_key"], "peak_gib": peak_c,
+                "planted": {n: b["worst_leaf"] for n, b in bad.items()}}
+    del g32
+
+    # (d) remat none / block / dots at batch 2: the same gradients, each
+    # policy's peak; then microbatches 2 against 1 at batch 4
+    tokens2 = steps.build_bundle(cut, dataclasses.replace(
+        shape, global_batch=2), device=dev).make_batch(SEED + 2)["tokens"]
+    out["d"] = {"remat": {}}
+    base = None
+    for remat in ("none", "block", "dots"):
+        cfg_r = dataclasses.replace(cfg, remat=remat)
+        reset_peak()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        g, (loss, _) = steps.autograd_grads(lambda p, t: tf.lm_loss(
+            cfg_r, p, t))(tree, tokens2)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak_r = torch.cuda.max_memory_allocated()
+        row = {"peak_gib": peak_r / 2**30,
+               "peak_over_held_gib": (peak_r - held) / 2**30,
+               "loss": float(loss), "ms": ms}
+        if base is None:
+            base = (g, loss)
+        else:
+            row["bitwise"] = torch.equal(loss, base[1]) and all(
+                torch.equal(a, b) for a, b in zip(g, base[0]))
+            check(row["bitwise"], f"path 12 (d): remat {remat} gradients "
+                                  f"differ from none's")
+        out["d"]["remat"][remat] = row
+        log(f"path 12 (d) remat {remat} (batch 2): {row}")
+        del g
+    del base, tree
+    mb = {}
+    for n_micro in (1, 2):
+        b = steps.build_bundle(cut, shape, device=dev, opt_cfg=opt_cfg,
+                               microbatches=n_micro)
+        st = b.make_state(b.init_params(
+            torch.Generator(device=dev).manual_seed(SEED)))
+        reset_peak()
+        st, m = b.fn(st, b.make_batch(SEED))
+        mb[n_micro] = {"loss": float(m["loss"]),
+                       "grad_norm": float(m["grad_norm"]),
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del st, b
+    rel_loss = abs(mb[2]["loss"] - mb[1]["loss"]) / mb[1]["loss"]
+    rel_gn = abs(mb[2]["grad_norm"] - mb[1]["grad_norm"]) / mb[1]["grad_norm"]
+    log(f"path 12 (d) microbatches (batch {shape.global_batch}): {mb}; loss "
+        f"rel {rel_loss} (limit {MICRO_LOSS_TOL}), grad norm rel {rel_gn} "
+        f"(limit {MICRO_NORM_TOL})")
+    check(rel_loss <= MICRO_LOSS_TOL and rel_gn <= MICRO_NORM_TOL,
+          "path 12 (d): microbatches 2 differ from 1")
+    out["d"]["microbatches"] = {**mb, "loss_rel": rel_loss,
+                                "grad_norm_rel": rel_gn}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3806,10 +4191,29 @@ def main(argv=None) -> int:
         f"alone equal, first tokens the prefill's argmax where clear: ok "
         f"({time.perf_counter() - t0:.1f} s)")
     log(f"path 11 summary: {json.dumps(path11)}")
+
+    # -------------------------------------------------------------- path 12
+    tmp12 = ROOT / "build" / "chip_smoke_path12"
+    shutil.rmtree(tmp12, ignore_errors=True)
+    tmp12.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        path12 = lm_train_phase(kernels, dev, tmp12, args.profile)
+    finally:
+        shutil.rmtree(tmp12, ignore_errors=True)   # the checkpoint, 34 GB
+    log(f"path 12: gemma3-12b train_4k at full width (6 layers, batch 4) "
+        f"through the Trainer, the loss falling from ln V + 1/2, A4 never "
+        f"launched, the checkpoint restored bitwise, flash_train within "
+        f"{FLASH_TOL} of the plain softmax, the bf16 step within {STEP_TOL} "
+        f"of f32 (each planted fault fails them), remat and microbatches "
+        f"agree, the trained state served with A4: ok "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"path 12 summary: {json.dumps(path12)}")
     for row in rows:
         if row["name"] == "flash_attention":
             row["launches_path11"] = (path11["a"]["a4_launches"]
                                       + path11["b"]["a4_launches"])
+            row["launches_path12"] = path12["e"]["a4_launches"]
 
     log(f"peak device memory over the whole script {peak_gib():.2f} GiB")
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")

@@ -1,13 +1,14 @@
 """Step builder: (architecture x shape) -> step function and inputs — the
-port of ``repro.launch.steps`` for the LM prefill and decode steps and the
-RecSys train, serve and retrieval steps.
+port of ``repro.launch.steps`` for the LM train, prefill and decode steps
+and the RecSys train, serve and retrieval steps.
 
 ``build_bundle(spec, shape, reduced=..., device=..., opt_cfg=...,
 microbatches=...)`` gives ``init_params(generator)``, ``make_state(params)``
 (train: ``{"params", "opt"}``), ``make_batch(seed)`` (the JAX bundle's
 inputs, as tensors on the device) and ``fn(state, batch)``:
 
-  lm      prefill    -> (last-token logits, cache)
+  lm      train      -> (new state, {"loss", "grad_norm", "lr"})
+          prefill    -> (last-token logits, cache)
           decode     -> (logits, cache): one token against a ``seq_len``-deep
                         cache (``make_batch``: a zero cache, ``pos =
                         seq_len - 1``)
@@ -15,11 +16,10 @@ inputs, as tensors on the device) and ``fn(state, batch)``:
           serve      -> (B,) sigmoid scores
           retrieval  -> (n_candidates,) scores
 
-The LM train step and the GNN family are later slices and raise
-``NotImplementedError``.  ``microbatches`` reaches only the LM train step,
-as in the JAX package (whose recsys train step is built without it).  The
-JAX bundle's ``input_specs`` (abstract inputs for the XLA dry-run) has no
-counterpart.
+The GNN family is a later slice and raises ``NotImplementedError``.
+``microbatches`` reaches only the LM train step, as in the JAX package
+(whose recsys train step is built without it).  The JAX bundle's
+``input_specs`` (abstract inputs for the XLA dry-run) has no counterpart.
 """
 
 from __future__ import annotations
@@ -35,7 +35,8 @@ from repro_torch.configs.base import ArchSpec, LMShape, RecsysShape, get_shape
 from repro_torch.data import synthetic as syn
 from repro_torch.models import transformer as tf
 from repro_torch.models.recsys import deepfm
-from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_state
+from repro_torch.optim.adamw import (AdamWConfig, apply_updates,
+                                     apply_updates_, init_state)
 
 
 @dataclasses.dataclass
@@ -63,37 +64,68 @@ def reduce_shape(shape, family: str):
     raise NotImplementedError(f"family {family!r}: later slice")
 
 
-def _train_wrap(loss_fn, opt_cfg: AdamWConfig, microbatches: int = 1):
+def autograd_grads(loss_fn):
+    """``torch.func.grad_and_value(loss_fn, has_aux=True)`` by
+    ``torch.autograd``, over detached leaves that require grad; returns
+    (gradients in leaf order as a list, (loss, aux)), all detached."""
+    def grad_fn(params, batch):
+        leaves = [p.detach().requires_grad_() for p in tr.leaves(params)]
+        loss, aux = loss_fn(tr.unflatten(params, leaves), batch)
+        grads = list(torch.autograd.grad(loss, leaves))
+        return grads, (loss.detach(), tr.map_tree(torch.Tensor.detach, aux))
+    return grad_fn
+
+
+def _train_wrap(loss_fn, opt_cfg: AdamWConfig, microbatches: int = 1, *,
+                in_place: bool = False):
     """fwd + bwd + AdamW step ``(state, batch) -> (new_state, metrics)``;
     with microbatches > 1 the batch is split on its leading axis and the
     gradients accumulate in f32 as ``acc + g / microbatches`` (the loss as
     ``l / microbatches``), in the JAX scan's order.
 
+    ``in_place`` is the LM step's route.  Its remat and loss chunks run
+    under ``torch.utils.checkpoint``, whose saved-tensor hooks
+    ``torch.func`` cannot differentiate through, so its gradients come
+    from ``torch.autograd`` (``autograd_grads``); and its update writes
+    the state's own buffers (``apply_updates_``), so the state is updated
+    in place.  Otherwise gradients come from ``torch.func`` and the update
+    is functional (DeepFM's step, whose old state stays as it was).
+
     JAX's ``hints.constrain_grads`` (``repro/models/sharding_hints.py``)
     is the identity unless a mesh is active; on one card it has nothing to
     constrain, so it has no counterpart here."""
-    grad_fn = torch.func.grad_and_value(loss_fn, has_aux=True)
+    if in_place:
+        grad_fn = autograd_grads(loss_fn)
+    else:
+        func_grad = torch.func.grad_and_value(loss_fn, has_aux=True)
+
+        def grad_fn(params, batch):
+            grads, loss_aux = func_grad(params, batch)
+            return tr.leaves(grads), loss_aux
 
     def step(state, batch):
         params = state["params"]
         if microbatches == 1:
             grads, (loss, _) = grad_fn(params, batch)
         else:
-            grads = tr.map_tree(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=tr.leaves(params)[0].device)
+            grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for p in tr.leaves(params)]
+            loss = torch.zeros((), dtype=torch.float32, device=grads[0].device)
             for i in range(microbatches):
                 micro = tr.map_tree(lambda x: x.reshape(
                     microbatches, x.shape[0] // microbatches,
                     *x.shape[1:])[i], batch)
                 g, (l, _) = grad_fn(params, micro)
-                grads = tr.map_tree(
-                    lambda a, x: a + x.to(torch.float32) / microbatches,
-                    grads, g)
+                for j, a in enumerate(grads):
+                    a.add_(g[j].to(torch.float32) / microbatches)
+                    g[j] = None
                 loss = loss + l / microbatches
-        new_p, new_opt, m = apply_updates(opt_cfg, params, grads,
-                                          state["opt"])
+        if in_place:
+            new_p, new_opt, m = apply_updates_(opt_cfg, params, grads,
+                                               state["opt"])
+        else:
+            new_p, new_opt, m = apply_updates(
+                opt_cfg, params, tr.unflatten(params, grads), state["opt"])
         return {"params": new_p, "opt": new_opt}, {"loss": loss, **m}
     return step
 
@@ -103,10 +135,10 @@ def _make_state(params):
 
 
 def _lm_bundle(spec: ArchSpec, shape: LMShape, cfg, device: torch.device,
-               microbatches: int) -> StepBundle:
-    if shape.step == "train":      # will take microbatches, as JAX's does
-        raise NotImplementedError("LM train step: a later slice "
-                                  "(ROADMAP Queue A 13.3)")
+               opt_cfg: AdamWConfig, microbatches: int) -> StepBundle:
+    if shape.step == "train":
+        return _lm_train_bundle(spec, shape, cfg, device, opt_cfg,
+                                microbatches)
     if shape.step == "decode":
         return _lm_decode_bundle(spec, shape, cfg, device)
 
@@ -125,6 +157,30 @@ def _lm_bundle(spec: ArchSpec, shape: LMShape, cfg, device: torch.device,
         spec.arch_id, "lm", "prefill", cfg, shape, device,
         init_params=lambda generator: tf.init_params(cfg, generator),
         make_state=lambda p: p, fn=fn, make_batch=make_batch)
+
+
+def _lm_train_bundle(spec: ArchSpec, shape: LMShape, cfg,
+                     device: torch.device, opt_cfg: AdamWConfig,
+                     microbatches: int) -> StepBundle:
+    """fwd + bwd + AdamW over ``global_batch`` sequences of ``seq_len``
+    tokens (``make_batch``: (B, seq_len + 1) tokens), on the JAX-layout
+    dict of ``tf.init_tree``, updated in place.  It runs the config's
+    remat (``block`` in every ported config, as in JAX) and takes its
+    gradients by ``torch.autograd``, because ``torch.func`` cannot
+    differentiate through the checkpoint that remat and the loss chunks
+    run under."""
+    fn = _train_wrap(lambda p, b: tf.lm_loss(cfg, p, b["tokens"]), opt_cfg,
+                     microbatches, in_place=True)
+
+    def make_batch(seed=0):
+        tokens = syn.lm_train_batch(cfg, shape.global_batch, shape.seq_len,
+                                    seed)["tokens"]
+        return {"tokens": torch.from_numpy(tokens).to(device)}
+
+    return StepBundle(
+        spec.arch_id, "lm", "train", cfg, shape, device,
+        init_params=lambda generator: tf.init_tree(cfg, generator),
+        make_state=_make_state, fn=fn, make_batch=make_batch)
 
 
 def _lm_decode_bundle(spec: ArchSpec, shape: LMShape, cfg,
@@ -192,5 +248,5 @@ def build_bundle(spec: ArchSpec, shape_or_name, *, reduced: bool = False,
         raise RuntimeError("build_bundle: no CUDA card; pass device='cpu' "
                            "to run the plain path on the CPU")
     if spec.family == "lm":
-        return _lm_bundle(spec, shape, cfg, device, microbatches)
+        return _lm_bundle(spec, shape, cfg, device, opt_cfg, microbatches)
     return _recsys_bundle(spec, shape, cfg, device, opt_cfg)

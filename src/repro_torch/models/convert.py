@@ -9,7 +9,7 @@ and ``deepfm_to_numpy`` do the same for DeepFM's tree (``table``,
 port keeps as a dict of tensors.  ``train_state_from_jax`` and
 ``train_state_to_numpy`` carry a whole train state (``{"params", "opt":
 {"m", "v", "step"}}``, as ``launch.steps``' ``make_state`` builds it over
-a dict of tensors: DeepFM's).  bf16 leaves cross as their 16-bit
+a dict of tensors: DeepFM's, or an LM's JAX-layout tree).  bf16 leaves cross as their 16-bit
 patterns, so every direction is bitwise.  This module imports
 neither JAX nor the JAX package; ``to_numpy`` needs ``ml_dtypes`` (which
 JAX installs) only for a bf16 leaf.

@@ -1,5 +1,5 @@
-"""LM-family transformer, prefill and decode steps — the port of those
-paths of ``repro.models.transformer``.
+"""LM-family transformer: the train, prefill and decode steps — the port
+of ``repro.models.transformer``.
 
 Parameters keep the JAX layout: per position of the repeating layer
 pattern (Gemma-3's 5 local + 1 global), every leaf is stacked over the
@@ -23,18 +23,28 @@ into the cache in place and run under ``torch.no_grad``.
 Dense MLP blocks with untied embeddings and no q/k/v bias only: a config
 with MoE blocks, ``qkv_bias`` or ``tie_embeddings`` raises
 ``NotImplementedError`` (later slices, when a ported config needs one).
-``lm_loss``, ``trunk`` and ``forward`` (the LM train step) are a later
-slice too.
+
+The train functions (``trunk``, ``forward``, ``lm_loss``) take the
+JAX-layout dict of ``init_tree`` / ``Transformer.tree()``, so a train
+state is ``{"params": tree, "opt": ...}`` as JAX's is and
+``Transformer.from_tree(state["params"])`` serves the trained weights.
+Their attention is ``chunked_attention``'s train route (``flash_train``),
+not A4, as in the JAX package; ``cfg.remat`` picks what each block keeps
+for the backward, and ``lm_loss`` recomputes each loss chunk's logits in
+the backward, so the (B, S, V) f32 logits never exist at once.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import LayerSpec, TransformerConfig
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.layers.core import chunked_attention, rms_norm, rope, swiglu
+from repro_torch.tree import map_tree
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -138,12 +148,11 @@ class Transformer(nn.Module):
 # init
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: TransformerConfig,
-                generator: torch.Generator) -> Transformer:
-    """Random weights on ``generator``'s device, as the JAX package draws
-    them (normal * fan_in ** -0.5 in f32, then cast; norms zero).  The
-    draws differ from ``jax.random``'s: tests carry weights across with
-    ``models.convert.from_jax_params``."""
+def init_tree(cfg: TransformerConfig, generator: torch.Generator) -> dict:
+    """Random weights on ``generator``'s device as a JAX-layout dict, drawn
+    as the JAX package draws them (normal * fan_in ** -0.5 in f32, then
+    cast; norms zero).  The draws differ from ``jax.random``'s: tests
+    carry weights across with ``models.convert``."""
     _check_supported(cfg)
     dt, dev = _dtype(cfg), generator.device
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -170,7 +179,13 @@ def init_params(cfg: TransformerConfig,
     tree["embed"] = dense((cfg.vocab, d), d)
     tree["final_norm"] = zeros(d)
     tree["unembed"] = dense((cfg.vocab, d), d)
-    return Transformer.from_tree(tree)
+    return tree
+
+
+def init_params(cfg: TransformerConfig,
+                generator: torch.Generator) -> Transformer:
+    """``init_tree``'s weights as a ``Transformer``."""
+    return Transformer.from_tree(init_tree(cfg, generator))
 
 
 # ---------------------------------------------------------------------------
@@ -240,6 +255,118 @@ def _groups(cfg: TransformerConfig, params: Transformer, cache: list, h,
             h = _block_apply(cfg, spec, params.blocks[t].group(g), h,
                              positions, layer_cache, cache_pos, use_kernel)
     return rms_norm(h, params.final_norm, cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+def _train_attn(cfg: TransformerConfig, spec: LayerSpec, p: dict,
+                x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Attention of a train call, no cache.  The weight products are 2-D
+    ``matmul``s (``aten.mm``), the attention's products batched
+    (``bmm``), so the ``dots`` policy can tell them apart."""
+    b, s, d = x.shape
+    x2 = x.reshape(b * s, d)
+
+    def heads(w):                          # (D, H, Dh) -> (B, H, S, Dh)
+        y = torch.matmul(x2, w.reshape(d, -1))
+        return y.reshape(b, s, w.shape[1], w.shape[2]).transpose(1, 2)
+
+    q = rope(heads(p["wq"]), positions, cfg.rope_theta)
+    k = rope(heads(p["wk"]), positions, cfg.rope_theta)
+    o = chunked_attention(q, k, heads(p["wv"]), causal=True,
+                          window=spec.window, chunk=cfg.attn_chunk)
+    o = o.transpose(1, 2).reshape(b * s, -1)
+    return torch.matmul(o, p["wo"].reshape(-1, d)).reshape(b, s, d)
+
+
+def _train_body(cfg: TransformerConfig, spec: LayerSpec, p: dict,
+                h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    a = _train_attn(cfg, spec, p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
+                    positions)
+    h = h + a
+    x = rms_norm(h, p["ln2"], cfg.norm_eps)
+    mlp = p["mlp"]
+    y = swiglu(x.reshape(-1, x.shape[-1]), mlp["w_gate"], mlp["w_up"],
+               mlp["w_down"])
+    return h + y.reshape(h.shape)
+
+
+def _keep_weight_products(ctx, op, *args, **kwargs):
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _train_block(cfg: TransformerConfig, spec: LayerSpec, p: dict,
+                 h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """One block of the train step under ``cfg.remat``, as JAX's
+    ``jax.checkpoint`` policies: ``none`` keeps every activation for the
+    backward; ``dots`` keeps the weight products (JAX's
+    ``dots_with_no_batch_dims_saveable``) and recomputes the rest, the
+    attention's batched products too; any other value (``block``, the
+    default) keeps only the block's inputs and recomputes the block."""
+    if cfg.remat == "none":
+        return _train_body(cfg, spec, p, h, positions)
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            _keep_weight_products)
+    return checkpoint(_train_body, cfg, spec, p, h, positions,
+                      use_reentrant=False, **kw)
+
+
+def trunk(cfg: TransformerConfig, params: dict, tokens: torch.Tensor):
+    """tokens (B, S) -> final hidden states (B, S, D) and ``{"lb_loss"}``
+    (0: dense blocks have no balance loss), every layer in the JAX scan's
+    order."""
+    _check_supported(cfg)
+    h = params["embed"][tokens.long()]
+    positions = torch.arange(tokens.shape[1], device=h.device)
+    for g in range(cfg.n_groups):
+        for t, spec in enumerate(cfg.pattern):
+            p = map_tree(lambda w: w[g], params["blocks"][t])
+            h = _train_block(cfg, spec, p, h, positions)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    lb = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, {"lb_loss": lb / max(cfg.n_layers, 1)}
+
+
+def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor):
+    """tokens (B, S) -> logits (B, S, V) and the trunk's aux; no cache."""
+    h, aux = trunk(cfg, params, tokens)
+    return torch.matmul(h, params["unembed"].T), aux
+
+
+def _chunk_nll(h_c: torch.Tensor, labels_c: torch.Tensor,
+               head: torch.Tensor) -> torch.Tensor:
+    logits = torch.matmul(h_c, head.T).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels_c[..., None].long())[..., 0]
+    return (lse - ll).sum()
+
+
+def lm_loss(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
+            lb_coef: float = 0.01, loss_chunk: int = 512):
+    """tokens (B, S + 1): next-token cross entropy plus ``lb_coef`` times
+    the balance loss; returns (loss, {"ce", "lb_loss"}).  The head and the
+    cross entropy run in chunks of ``loss_chunk`` positions, each chunk's
+    summed in f32 and recomputed in the backward, so at most one chunk's
+    (B, chunk, V) f32 logits exist at a time."""
+    h, aux = trunk(cfg, params, tokens[:, :-1])
+    labels = tokens[:, 1:]
+    b, s, _ = h.shape
+    ck = min(loss_chunk, s)
+    if s % ck:
+        raise ValueError(f"loss chunk {ck} does not divide {s} positions")
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, s, ck):
+        total = total + checkpoint(_chunk_nll, h[:, i:i + ck],
+                                   labels[:, i:i + ck], params["unembed"],
+                                   use_reentrant=False)
+    ce = total / (b * s)
+    return ce + lb_coef * aux["lb_loss"], {"ce": ce, **aux}
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,13 @@ parameters' dtype, the schedule (its ``cos`` too), the bias corrections
 float dtype set the arithmetic's dtype instead (an f64 twin of a step
 computes in f64); ``init_state`` always makes them f32.
 
-The update is functional, as JAX's: it returns new tensors and leaves its
-inputs as they were.  Every leaf is updated each step, a zero gradient
-too: weight decay moves every row of an embedding table.
+``apply_updates`` is functional, as JAX's: it returns new tensors and
+leaves its inputs as they were.  ``apply_updates_`` computes the same
+update in the state's own buffers and frees each gradient once used (the
+LM train step's: at gemma3-12b's width the functional update's old and
+new state and temporaries do not fit one card).  Every leaf is updated
+each step, a zero gradient too: weight decay moves every row of an
+embedding table.
 """
 
 from __future__ import annotations
@@ -79,6 +83,20 @@ def bias_correction(beta: float, step: torch.Tensor) -> torch.Tensor:
     return 1 - torch.pow(beta, step)
 
 
+def _scalars(cfg: AdamWConfig, grads, state, acc: torch.dtype) -> dict:
+    """The step's scalars: the new step, the grad norm and clip scale,
+    the learning rate and the bias corrections."""
+    step = state["step"] + 1
+    gnorm = global_norm(grads)
+    lr = schedule(cfg, step)
+    step_f = step.to(torch.float32).to(acc)
+    return {"step": step, "gnorm": gnorm, "lr": lr,
+            "scale": torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                                 max=1.0).to(acc),
+            "b1c": bias_correction(cfg.b1, step_f),
+            "b2c": bias_correction(cfg.b2, step_f), "lr_acc": lr.to(acc)}
+
+
 def apply_updates(cfg: AdamWConfig, params, grads, state):
     """Returns (new_params, new_state, metrics)."""
     flat_p = tr.leaves(params)
@@ -86,15 +104,9 @@ def apply_updates(cfg: AdamWConfig, params, grads, state):
     flat_m = tr.leaves(state["m"])
     flat_v = tr.leaves(state["v"])
     acc = flat_m[0].dtype
-    step = state["step"] + 1
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
-                        max=1.0).to(acc)
-    lr = schedule(cfg, step)
-    step_f = step.to(torch.float32).to(acc)
-    b1c = bias_correction(cfg.b1, step_f)
-    b2c = bias_correction(cfg.b2, step_f)
-    lr_acc = lr.to(acc)
+    sc = _scalars(cfg, grads, state, acc)
+    step, gnorm, lr, scale = sc["step"], sc["gnorm"], sc["lr"], sc["scale"]
+    b1c, b2c, lr_acc = sc["b1c"], sc["b2c"], sc["lr_acc"]
 
     def upd(p, g, m, v):
         g = g.to(acc) * scale
@@ -113,3 +125,39 @@ def apply_updates(cfg: AdamWConfig, params, grads, state):
     new_v = tr.unflatten(params, [o[2] for o in out])
     metrics = {"grad_norm": gnorm, "lr": lr}
     return new_p, {"m": new_m, "v": new_v, "step": step}, metrics
+
+
+@torch.no_grad()
+def apply_updates_(cfg: AdamWConfig, params, grads: list, state):
+    """``apply_updates`` in the state's own buffers: the same leaves, the
+    same formula and order of operations, so on the CPU the result is
+    bitwise ``apply_updates``'.  Each op rounds once and none passes
+    ``alpha=`` (a CUDA ``add`` with ``alpha`` may fuse ``alpha * b + a``
+    into one FMA), so on the card it is bitwise too.
+
+    ``grads``: the gradients in leaf order, a list this function owns:
+    each entry is set to None once used, which frees it when the caller
+    keeps no other reference.  Writes each leaf of ``params``, ``m`` and
+    ``v`` in place and returns (params, {"m", "v", "step"}, metrics), the
+    step a new tensor."""
+    flat_p = tr.leaves(params)
+    flat_m = tr.leaves(state["m"])
+    flat_v = tr.leaves(state["v"])
+    acc = flat_m[0].dtype
+    sc = _scalars(cfg, grads, state, acc)
+    for i, (p, m, v) in enumerate(zip(flat_p, flat_m, flat_v, strict=True)):
+        g = grads[i].to(acc) * sc["scale"]
+        grads[i] = None
+        m.mul_(cfg.b1).add_(g * (1 - cfg.b1))
+        v.mul_(cfg.b2).add_(g.square_().mul_(1 - cfg.b2))
+        del g
+        den = (v / sc["b2c"]).sqrt_().add_(cfg.eps)
+        delta = (m / sc["b1c"]).div_(den)
+        del den
+        delta.add_(p.to(acc, copy=True).mul_(cfg.weight_decay))
+        delta.mul_(sc["lr_acc"])
+        p.copy_(p.to(acc, copy=True).sub_(delta))
+        del delta
+    metrics = {"grad_norm": sc["gnorm"], "lr": sc["lr"]}
+    return params, {"m": state["m"], "v": state["v"],
+                    "step": sc["step"]}, metrics

@@ -3,7 +3,8 @@ of ``repro.train.checkpoint``, writing the same files.
 
 Layout:  ``<dir>/step_<n>/manifest.json`` + ``leaf_%05d.npy`` a leaf.
 The manifest lists each leaf's key (its path parts joined by ``/``, such
-as ``params/mlp/0/w``, in ``jax.tree``'s leaf order), file, shape and
+as DeepFM's ``params/mlp/0/w`` or an LM's ``params/blocks/0/attn/wq``,
+in ``jax.tree``'s leaf order), file, shape and
 dtype; a bf16 leaf is stored as its ``uint16`` bit pattern and tagged
 ``"bfloat16"``.  So either package restores the other's checkpoints.
 Writes go to ``step_<n>.tmp`` and are renamed into place, so a failure

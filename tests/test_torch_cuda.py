@@ -666,6 +666,37 @@ def test_deepfm_train_step_on_the_card_matches_the_cpu(cuda):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-7)
 
 
+def test_lm_train_step_on_the_card_matches_the_cpu(cuda):
+    """Two REDUCED gemma3 train steps (f32; the train route runs no
+    kernel, so head_dim 16 runs on the card) from the same state on the
+    card and on the CPU: the metrics, and every leaf of the state within
+    1e-5 relative L2 (full f32 products: allow_tf32 off)."""
+    from repro_torch import tree as tr
+
+    spec = get_arch("gemma3_12b")
+    on_card = build_bundle(spec, "train_4k", reduced=True, microbatches=2)
+    on_cpu = build_bundle(spec, "train_4k", reduced=True, device="cpu",
+                          microbatches=2)
+    host = on_cpu.make_state(on_cpu.init_params(
+        torch.Generator().manual_seed(0)))
+    state = tr.map_tree(lambda t: t.to(cuda, copy=True), host)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for i in range(2):
+            state, m = on_card.fn(state, on_card.make_batch(i))
+            host, m_h = on_cpu.fn(host, on_cpu.make_batch(i))
+            for k in ("loss", "grad_norm", "lr"):
+                torch.testing.assert_close(m[k].cpu(), m_h[k], rtol=1e-5,
+                                           atol=0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, b in zip(tr.leaves(state), tr.leaves(host)):
+        assert a.device.type == "cuda"
+        err = float((a.cpu().double() - b.double()).norm())
+        assert err <= 1e-5 * float(b.double().norm())
+
+
 def test_decode_step_on_the_card_matches_the_cpu(cuda):
     """gemma3 REDUCED (f32; decode runs no kernel, so head_dim 16 runs on
     the card): a CPU prefill's cache carried to the card, then one decode

@@ -90,9 +90,13 @@ def test_dist_modules_import_first_without_jax(module):
                                     "repro_torch.data.pipeline",
                                     "repro_torch.serve.batcher",
                                     "repro_torch.launch.train",
-                                    "repro_torch.launch.serve"])
+                                    "repro_torch.launch.serve",
+                                    "repro_torch.layers.core",
+                                    "repro_torch.models.transformer",
+                                    "repro_torch.launch.steps"])
 def test_train_and_decode_modules_import_first_without_jax(module):
-    """The train substrate, the LM server and their launchers import
+    """The train substrate, the LM model with its train step, the LM
+    server and their launchers import
     first, with neither jax nor the JAX package loaded (nor ``ml_dtypes``:
     the checkpoint reads bf16 through ``torch.int16``)."""
     probe = ("import importlib, sys; importlib.import_module(sys.argv[1]); "

@@ -15,10 +15,10 @@ from repro.configs.base import get_arch as j_get_arch
 from repro.layers import core as j_core
 from repro.launch.steps import build_bundle as j_build_bundle
 from repro.models import transformer as j_tf
-from repro_torch.configs import get_arch
+from repro_torch.configs import get_arch, get_shape
 from repro_torch.configs.base import LayerSpec, MoEConfig, TransformerConfig
 from repro_torch.kernels.flash_attention.kernel import flash_attention
-from repro_torch.launch.steps import build_bundle
+from repro_torch.launch.steps import build_bundle, reduce_shape
 from repro_torch.layers import core
 from repro_torch.models import transformer as tf
 from repro_torch.models.convert import from_jax_params, to_numpy
@@ -171,12 +171,14 @@ def test_build_bundle_prefill_runs_end_to_end_on_the_cpu():
 
 
 def test_unported_archs_and_steps_raise():
-    """An unported arch and the LM train step raise (decode, refused
-    before its slice, builds: tests/test_torch_decode.py)."""
+    """An unported arch and the GNN family's shapes raise (the LM decode
+    and train steps, refused before their slices, build:
+    tests/test_torch_decode.py, test_torch_lm_train.py)."""
     with pytest.raises(KeyError, match="gemma3_12b"):
         get_arch("dbrx_132b")
-    with pytest.raises(NotImplementedError, match="LM train"):
-        build_bundle(get_arch("gemma3_12b"), "train_4k", reduced=True,
-                     device="cpu")
+    with pytest.raises(NotImplementedError, match="gnn"):
+        reduce_shape(get_shape(get_arch("gemma3_12b"), "train_4k"), "gnn")
+    assert build_bundle(get_arch("gemma3_12b"), "train_4k", reduced=True,
+                        device="cpu").step_kind == "train"
     assert build_bundle(get_arch("gemma3_12b"), "decode_32k", reduced=True,
                         device="cpu").step_kind == "decode"
