@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (BFS on the 1-D and 2-D partitions in the
 dense, queue and auto modes, BFS serving over HTTP, LM prefill, DeepFM
-serving and the EmbeddingBag op, DeepFM training, LM decode serving and
-LM training) on one card.
+serving and the EmbeddingBag op, DeepFM training, LM decode serving, LM
+training and GNN training) on one card.
 
     python3 chip_smoke.py            # full size, as the acceptance run
     python3 chip_smoke.py --profile  # also profile one run of each path
@@ -255,8 +255,37 @@ Phases (any failed check raises and the script exits non-zero):
    policy's peak; microbatches 2 against 1 on one batch of 4 through the
    bundle (``MICRO_LOSS_TOL``, ``MICRO_NORM_TOL``).
 
+18. path 13 — the GNN family at full width, f32, allow_tf32 off, seeded
+   weights, the bundles' own synthetic batches; no kernel launches (JAX's
+   GNN routes are gathers, segment sums and matrix products, no Pallas
+   kernel): (a) ``gcn_cora`` on ``ogb_products``, not cut (2,449,152
+   padded nodes x 100, 61,859,200 edge slots), through
+   ``launch.train.main(["--arch", "gcn_cora", "--shape", "ogb_products",
+   "--steps", "3", ...])``: clean steps, the device step ms apart from
+   ``make_batch``'s host seconds, peak, real edges beside slots; the
+   step-3 checkpoint restored and one step's loss and every gradient leaf
+   held to the same step in f64 on the card (``GNN_TOL``), which every
+   valid edge's dst one node on must fail.  (b) ``gatedgcn`` on
+   ``minibatch_lg``'s sampled dims (169,984 x 602 nodes, 168,960 edges),
+   5 ``Trainer`` steps, the same hold and fault; then ``NeighborSampler``
+   over path 1's ``rmat_1m`` CSR through ``graph_minibatch_stream`` (1,024
+   seeds, fanout (15, 10)): the bundle's shapes, every sampled edge a
+   graph edge, the stream bitwise the sampler, host ms a batch.  (c)
+   ``schnet`` on ``molecule`` (128 graphs, 3,840 nodes, 8,192 slots), 5
+   steps, the hold and fault, every value finite.  (d) ``graphcast`` (d
+   512, 16 layers, 227 vars) on ``ogb_products`` cut by ``GRAPHCAST_CUT``
+   (``erdos_renyi`` at its degree): the global loss against
+   owner-exchange on a 4-shard ``LocalMesh`` with the same weights, every
+   edge routed once, the loss and the ``enc_h`` / ``dec`` gradients
+   within JAX's limits (``OWNER_*_TOL``), one shard's ``serve_ids``
+   rolled by a row failing them; each route's forward + backward ms and
+   peak, and the exchange's bytes a layer beside the global route's two
+   table gathers.  Its checkpoints live in ``build/chip_smoke_path13/``.
+
 The last line is ``{"ok": true, "device": {...}}``; before it come one
-``{"kernels": [...]}`` JSON line and the card's name and power limit.
+``{"kernels": [...]}`` JSON line (every kernel's row, with its launches
+in each path that runs it; path 13 adds no row and launches none) and
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -3743,6 +3772,487 @@ def lm_train_phase(kernels, dev, tmp: Path, profile: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# path 13: the GNN family trained at full width
+# ---------------------------------------------------------------------------
+
+GNN_STEPS, GNN_LAUNCH_STEPS, SAMPLER_BATCHES = 5, 3, 2
+# (d): ogb_products' nodes divided by GRAPHCAST_CUT (a power of two: the
+# least whose global step peaks under 60 GiB), at its degree (61,859,140
+# directed edges over 2,449,029 nodes), over GRAPHCAST_SHARDS shards
+GRAPHCAST_CUT, GRAPHCAST_DEGREE, GRAPHCAST_SHARDS = 64, 25.26, 4
+# (a)-(c): one f32 step on the card against the same step in f64 on the
+# card (weights and batch cast): relative error of the loss, relative L2
+# of each gradient leaf, by arch.  On an H100 (700 W; three runs; the
+# atomic adds of index_add round in another order each run) gcn_cora
+# reads 4.3e-7 to 3.6e-6 (layers/0/0/w) and its dst fault 0.23;
+# gatedgcn, 16 layers of gates and norms, 2.5e-4 to 3.0e-4
+# (layers/0/A/0/w: f32's cancellation; the CPU's f32 against f64 reads
+# 1.2e-3 on a 4-layer cut) and its fault 0.44; schnet 1.6e-6 to 2.1e-6
+# (out/1/b) and its fault 0.90.  2^-12 sits 67 times above gcn_cora's
+# worst reading and 940 below its fault; 2^-9 6.4 times above
+# gatedgcn's and 225 below; 2^-15 15 times above schnet's and 30,000
+# below.
+GNN_TOL = {"gcn_cora": 2.0 ** -12, "gatedgcn": 2.0 ** -9,
+           "schnet": 2.0 ** -15}
+# (d): JAX's own limits for owner-exchange GraphCast against the global
+# model (tests/helpers/owner_gnn.py): the loss, and the enc_h and dec
+# gradients element by element
+OWNER_LOSS_TOL = {"rtol": 2e-5, "atol": 2e-5}
+OWNER_GRAD_TOL = {"rtol": 5e-4, "atol": 5e-5}
+
+
+def gnn_grads(cfg, params, batch):
+    """(gradients in leaf order, loss) of the GNN family's loss, by the
+    bundle's route (``autograd_grads``)."""
+    from repro_torch.launch.steps import autograd_grads
+    from repro_torch.models.gnn import models as gm
+
+    grads, (loss, _) = autograd_grads(
+        lambda p, b: gm.loss_fn(cfg, p, b))(params, batch)
+    return grads, loss
+
+
+def dst_one_on(batch: dict) -> dict:
+    """The planted fault: every valid edge's destination one node on."""
+    dst = batch["edge_dst"]
+    n = batch["node_feats"].shape[0]
+    return {**batch, "edge_dst": torch.where(dst >= 0, (dst + 1) % n, dst)}
+
+
+def grad_errs(paths, grads, loss, want, want_loss) -> dict:
+    """Relative error of the loss and relative L2 of each gradient leaf
+    against ``want`` (an all-zero leaf, which the loss does not reach, by
+    its absolute L2)."""
+    leaves = {}
+    for key, g, w in zip(paths, grads, want):
+        ref = w.norm()
+        diff = (g.to(w.dtype) - w).norm()
+        leaves[key] = float(diff / ref if ref > 0 else diff)
+    worst = max(leaves, key=leaves.get)
+    return {"loss": abs(float(loss) - float(want_loss)) / abs(float(want_loss)),
+            "worst_leaf": leaves[worst], "worst_key": worst}
+
+
+def hold_gnn(label: str, cfg, params, batch, arch_id: str) -> dict:
+    """The f32 loss and gradients against the same step in f64 on the
+    card, within GNN_TOL[arch_id], every value finite; the planted fault
+    (dst one node on) against the same twin must fail the limit."""
+    from repro_torch import tree as tr
+
+    tol = GNN_TOL[arch_id]
+    paths = [tr.key_of(p) for p, _ in tr.leaves_with_paths(params)]
+    reset_peak()
+    t0 = time.perf_counter()
+    want, want_loss = gnn_grads(cfg, _f64(params), _f64(batch))
+    torch.cuda.synchronize()
+    f64_s = time.perf_counter() - t0
+    peak64 = torch.cuda.max_memory_allocated() / 2**30
+    grads, loss = gnn_grads(cfg, params, batch)
+    finite = math.isfinite(float(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in grads)
+    ok = grad_errs(paths, grads, loss, want, want_loss)
+    del grads
+    bad = grad_errs(paths, *gnn_grads(cfg, params, dst_one_on(batch)),
+                    want, want_loss)
+    log(f"{label}: f32 against f64 on the card: loss {ok['loss']}, worst "
+        f"leaf {ok['worst_leaf']} ({ok['worst_key']}); planted fault (dst "
+        f"one node on): loss {bad['loss']}, worst leaf {bad['worst_leaf']} "
+        f"({bad['worst_key']}); limit {tol}; f64 step {f64_s:.3f} s, "
+        f"peak {peak64:.3f} GiB")
+    check(finite, f"{label}: a non-finite loss or gradient")
+    check(max(ok["loss"], ok["worst_leaf"]) <= tol,
+          f"{label}: the f32 step differs from its f64 twin")
+    check(max(bad["loss"], bad["worst_leaf"]) > tol,
+          f"{label}: the hold passes the dst fault")
+    return {"f32_vs_f64": ok, "dst_fault": bad, "f64_s": f64_s,
+            "peak64_gib": peak64, "loss": float(loss)}
+
+
+def gnn_trainer(bundle, tmp: Path, steps: int):
+    """``Trainer`` over ``bundle``: ``steps`` clean steps, a metric line a
+    step; returns (trainer, final state)."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    trainer = Trainer(bundle, TrainerConfig(
+        num_steps=steps, ckpt_every=steps, log_every=1, ckpt_dir=str(tmp)),
+        opt_cfg=AdamWConfig(total_steps=steps))
+    state = trainer.run()
+    check(len(trainer.step_times) == steps
+          and not any("event" in m for m in trainer.metrics_log),
+          f"{bundle.arch_id}: not {steps} clean steps: {trainer.metrics_log}")
+    return trainer, state
+
+
+def step_report(trainer) -> dict:
+    times = [dt * 1e3 for _, dt in trainer.step_times]
+    losses = [m["loss"] for m in trainer.metrics_log if "loss" in m]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    return {"step_ms_median": float(np.median(times[1:])),
+            "step_ms_first": times[0], "losses": losses,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def sampler_phase(bundle, graph) -> dict:
+    """(b)'s neighbour sampler over ``rmat_1m``'s CSR through
+    ``graph_minibatch_stream``: the bundle's shapes, every sampled edge a
+    graph edge (a parent with no neighbours samples itself), the stream's
+    batches bitwise the sampler's own, host ms a batch."""
+    from repro_torch.data.pipeline import graph_minibatch_stream
+    from repro_torch.data.synthetic import _gnn_dims
+    from repro_torch.graphs import csr_from_coo
+    from repro_torch.graphs.sampler import NeighborSampler
+
+    src, dst, n = graph
+    shape = bundle.shape
+    t0 = time.perf_counter()
+    indptr, indices = csr_from_coo(src, dst, n)
+    csr_s = time.perf_counter() - t0
+    sampler = NeighborSampler(indptr, indices)
+    n_pad, e_pad = _gnn_dims(bundle.cfg, shape, 128)
+    st = graph_minibatch_stream(sampler, shape.batch_nodes, shape.fanout,
+                                n_pad=n_pad, e_pad=e_pad,
+                                d_feat=shape.d_feat, seed=SEED)
+    try:
+        got = [next(st) for _ in range(SAMPLER_BATCHES)]
+    finally:
+        st.close()
+    want = bundle.make_batch(SEED)
+    keys = np.sort(np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+                   * n + indices)
+    deg = np.diff(indptr)
+    host_ms = []
+    for step, (k, b) in enumerate(got):
+        check(k == step, f"path 13 (b): the stream gave step {k}")
+        t0 = time.perf_counter()
+        seeds = np.random.default_rng(SEED * 7_777_777 + step).integers(
+            0, n, size=shape.batch_nodes)
+        again = sampler.sample(seeds, shape.fanout, seed=SEED * 13 + step,
+                               n_pad=n_pad, e_pad=e_pad, d_feat=shape.d_feat)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        check(all(np.array_equal(again[x], b[x]) for x in b),
+              "path 13 (b): the stream's batch differs from the sampler's")
+        for x in ("node_feats", "edge_src", "edge_dst", "valid_nodes"):
+            check(b[x].shape == tuple(want[x].shape),
+                  f"path 13 (b): sampled {x} {b[x].shape}, the bundle's "
+                  f"{tuple(want[x].shape)}")
+        m = b["edge_dst"] >= 0
+        gids = b["global_ids"]
+        child, parent = gids[b["edge_src"][m]], gids[b["edge_dst"][m]]
+        key = parent * n + child
+        pos = np.minimum(np.searchsorted(keys, key), keys.size - 1)
+        real = (keys[pos] == key) | ((child == parent) & (deg[parent] == 0))
+        check(bool(real.all()), f"path 13 (b): {int((~real).sum())} sampled "
+                                f"edges are not graph edges")
+    edges = int((got[0][1]["edge_dst"] >= 0).sum())
+    out = {"csr_s": csr_s, "host_ms": host_ms, "n_pad": n_pad,
+           "e_pad": e_pad, "edges": edges,
+           "self_loops": int(sum(int((b["edge_src"] == b["edge_dst"]).sum())
+                                 for _, b in got))}
+    log(f"path 13 (b) sampler: rmat_1m CSR in {csr_s:.3f} s; "
+        f"{SAMPLER_BATCHES} batches of {shape.batch_nodes} seeds, fanout "
+        f"{shape.fanout}: ({n_pad}, {shape.d_feat}) nodes, {edges} edges in "
+        f"{e_pad} slots, each edge a graph edge, the stream bitwise the "
+        f"sampler; host ms a batch {host_ms}")
+    return out
+
+
+def routed_pairs(routing) -> np.ndarray:
+    """The (src, dst) keys of every edge the routing tables carry, as
+    ``src * n + dst`` over the padded ids."""
+    part, r_cap = routing["part"], routing["r_cap"]
+    ss, out = part.shard_size, []
+    for j in range(part.p):
+        k = np.flatnonzero(routing["dst_local"][j] >= 0)
+        o, slot = np.divmod(routing["src_slot"][j, k].astype(np.int64), r_cap)
+        s = o * ss + routing["serve_ids"][o, j, slot]
+        out.append(s * part.n + j * ss + routing["dst_local"][j, k])
+    return np.sort(np.concatenate(out))
+
+
+def owner_hold(label, grads, loss, want, want_loss, paths) -> dict:
+    """JAX's owner_gnn.py hold: the loss, and every enc_h and dec leaf
+    element by element; the worst relative L2 of every leaf printed."""
+    ok = bool(np.isclose(float(loss), float(want_loss), **OWNER_LOSS_TOL))
+    held = [k for k in paths if k.startswith(("enc_h/", "dec/"))]
+    for key, g, w in zip(paths, grads, want):
+        if key in held:
+            ok &= bool(torch.allclose(g, w, **OWNER_GRAD_TOL))
+    errs = grad_errs(paths, grads, loss, want, want_loss)
+    errs["held"] = ok
+    return errs
+
+
+def graphcast_phase(dev, profile: bool) -> dict:
+    """(d): GraphCast at full width on ogb_products cut by GRAPHCAST_CUT:
+    the global loss against owner-exchange on a GRAPHCAST_SHARDS-shard
+    ``LocalMesh``, one set of weights, both timed; a planted fault."""
+    from repro_torch import tree as tr
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.core.mesh import LocalMesh
+    from repro_torch.graphs import erdos_renyi
+    from repro_torch.launch.steps import autograd_grads
+    from repro_torch.models.gnn import dist_graphcast as dg
+
+    spec = get_arch("graphcast")
+    cfg, shape = spec.config, get_shape(spec, "ogb_products")
+    n, p = shape.n_nodes // GRAPHCAST_CUT, GRAPHCAST_SHARDS
+    torch.cuda.synchronize()
+    held_before = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    src, dst = erdos_renyi(n, avg_degree=GRAPHCAST_DEGREE, seed=SEED)
+    e = src.size
+    rng = np.random.default_rng(SEED)
+    feats = rng.standard_normal((n, shape.d_feat)).astype(np.float32)
+    targets = rng.standard_normal((n, cfg.d_out)).astype(np.float32)
+    e_pad = -(-e // 128) * 128
+    es = np.zeros(e_pad, np.int32)
+    ed = np.full(e_pad, -1, np.int32)
+    es[:e], ed[:e] = src, dst
+    gen_s = time.perf_counter() - t0
+    log(f"path 13 (d): {cfg.name} ({spec.source}): d {cfg.d_hidden}, "
+        f"{cfg.n_layers} layers, {cfg.n_vars} vars, f32, seeded weights; "
+        f"ogb_products cut by {GRAPHCAST_CUT}: {n} nodes (of "
+        f"{shape.n_nodes}), erdos_renyi at degree {GRAPHCAST_DEGREE}: {e} "
+        f"directed edges in {e_pad} slots, d_feat {shape.d_feat}, edge "
+        f"features ones (as owner_gnn.py); built in {gen_s:.1f} s")
+    params = dg.init_params(cfg, shape.d_feat,
+                            torch.Generator(device=dev).manual_seed(SEED))
+    paths = [tr.key_of(q) for q, _ in tr.leaves_with_paths(params)]
+    glob = {"node_feats": torch.from_numpy(feats).to(dev),
+            "edge_src": torch.from_numpy(es).to(dev),
+            "edge_dst": torch.from_numpy(ed).to(dev),
+            "edge_feats": torch.ones((e_pad, 4), device=dev),
+            "valid_nodes": torch.ones(n, dtype=torch.bool, device=dev),
+            "targets": torch.from_numpy(targets).to(dev)}
+    out = {"n": n, "edges": e, "shards": p}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, (time.perf_counter() - t0) * 1e3
+
+    reset_peak()
+    (want, want_loss), ms = timed(lambda: gnn_grads(cfg, params, glob))
+    out["global"] = {"fwd_bwd_ms": ms, "loss": float(want_loss),
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30
+                     - held_before}
+    log(f"path 13 (d) global loss_fn: loss {float(want_loss)}; forward + "
+        f"backward {ms:.3f} ms; peak "
+        f"{out['global']['peak_gib']:.3f} GiB above the {held_before:.3f} "
+        f"GiB the script held before")
+    check(out["global"]["peak_gib"] < 60, "path 13 (d): the global step "
+          "peaks over 60 GiB; cut the graph further")
+    if profile:
+        profile_run("path 13 (d) global", lambda: gnn_grads(cfg, params,
+                                                            glob))
+    del glob
+
+    t0 = time.perf_counter()
+    routing = dg.build_routing(src, dst, n, p)
+    routing_s = time.perf_counter() - t0
+    part = routing["part"]
+    check(np.array_equal(routed_pairs(routing),
+                         np.sort(src.astype(np.int64) * part.n + dst)),
+          "path 13 (d): the routing does not carry every edge once")
+    batch = {"node_feats": torch.from_numpy(part.pad_vertex_array(feats)),
+             "edge_feats": torch.ones((p * routing["e_cap"], 4)),
+             "serve_ids": torch.from_numpy(routing["serve_ids"]),
+             "src_slot": torch.from_numpy(routing["src_slot"]),
+             "dst_local": torch.from_numpy(routing["dst_local"]),
+             "valid_nodes": torch.from_numpy(np.arange(part.n) < n),
+             "targets": torch.from_numpy(part.pad_vertex_array(targets))}
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    mesh = LocalMesh.flat(p, dev, "p")
+    owner = autograd_grads(dg.make_loss_fn(cfg, mesh, "p"))
+    reset_peak()
+    (grads, (loss, _)), ms = timed(lambda: owner(params, batch))
+    peak = torch.cuda.max_memory_allocated() / 2**30 - held_before
+    if profile:
+        profile_run("path 13 (d) owner-exchange",
+                    lambda: owner(params, batch))
+    ok = owner_hold("path 13 (d)", grads, loss, want, want_loss, paths)
+    del grads
+    bad_batch = dict(batch)
+    bad_batch["serve_ids"] = batch["serve_ids"].clone()
+    bad_batch["serve_ids"][1] = torch.roll(batch["serve_ids"][1], 1, dims=1)
+    bad_grads, (bad_loss, _) = owner(params, bad_batch)
+    bad = owner_hold("path 13 (d)", bad_grads, bad_loss, want, want_loss,
+                     paths)
+    del bad_grads, bad_batch
+    wire = dg.exchange_bytes(routing, cfg.d_hidden)
+    out["owner"] = {"fwd_bwd_ms": ms, "loss": float(loss),
+                    "peak_gib": peak, "routing_s": routing_s,
+                    "r_cap": routing["r_cap"], "e_cap": routing["e_cap"],
+                    "bytes_a_layer": wire, "hold": ok, "fault": bad}
+    log(f"path 13 (d) owner-exchange on a {p}-shard LocalMesh: routing "
+        f"{routing_s:.3f} s (r_cap {routing['r_cap']}, e_cap "
+        f"{routing['e_cap']}), every edge routed once; loss {float(loss)}; "
+        f"forward + backward {ms:.3f} ms; peak {peak:.3f} GiB "
+        f"(the same base); against the global model: {ok}; one shard's "
+        f"serve_ids rolled by a row: {bad}; bytes a shard a layer "
+        f"{wire['exchange']} (the "
+        f"exchange) against {wire['global_gathers']} (the global route's "
+        f"two table gathers)")
+    check(ok["held"], "path 13 (d): owner-exchange GraphCast differs from "
+                      "the global model")
+    check(not bad["held"], "path 13 (d): the hold passes rolled serve_ids")
+    return out
+
+
+def gcn_products_phase(dev, tmp: Path, profile: bool) -> dict:
+    """(a): gcn_cora on ogb_products, not cut, through launch.train; the
+    step-3 state's step held to f64; the scatter's time split between
+    the real edges and the padding slots."""
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.steps import build_bundle
+    from repro_torch.models.gnn import common as C
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    spec = get_arch("gcn_cora")
+    shape = get_shape(spec, "ogb_products")
+    log(f"path 13 (a): {spec.config.name} ({spec.source}): "
+        f"{spec.config.n_layers} layers, d {spec.config.d_hidden}, "
+        f"{spec.config.d_out} classes, f32, seeded weights; ogb_products "
+        f"({shape.n_nodes} nodes, {shape.n_edges} edges, d_feat "
+        f"{shape.d_feat}), not cut")
+    reset_peak()
+    seen = {}
+    argv = ["--arch", "gcn_cora", "--shape", "ogb_products", "--steps",
+            str(GNN_LAUNCH_STEPS), "--ckpt-every", str(GNN_LAUNCH_STEPS),
+            "--ckpt-dir", str(tmp / "a")]
+    _, _, wall = run_launcher("path 13 (a) launch.train",
+                              train_launcher.main, argv,
+                              on_trainer=lambda t: seen.update(t=t))
+    t = seen.pop("t")
+    check(len(t.step_times) == GNN_LAUNCH_STEPS
+          and not any("event" in m for m in t.metrics_log),
+          f"path 13 (a): not {GNN_LAUNCH_STEPS} clean steps: "
+          f"{t.metrics_log}")
+    out = step_report(t) | {"wall_s": wall}
+    bundle = build_bundle(spec, shape, device=dev)
+    like = bundle.make_state(bundle.init_params(
+        torch.Generator(device=dev).manual_seed(SEED)))
+    state, step = CheckpointManager(str(tmp / "a")).restore(like)
+    check(step == GNN_LAUNCH_STEPS, f"path 13 (a): restored step {step}")
+    t0 = time.perf_counter()
+    batch = bundle.make_batch(SEED * 1_000_003 + step)
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    dst = batch["edge_dst"]
+    n, real = batch["node_feats"].shape[0], int((dst >= 0).sum())
+    out |= {"make_batch_s": make_s, "edges_real": real,
+            "edge_slots": dst.numel(), "nodes": n}
+    log(f"path 13 (a): step {out['step_ms_median']:.3f} ms (median of "
+        f"steps 2-{GNN_LAUNCH_STEPS}; step 1 {out['step_ms_first']:.3f}), "
+        f"make_batch {make_s:.3f} s on the host a step (launcher wall "
+        f"{wall:.1f} s), peak {out['peak_gib']:.3f} GiB, loss "
+        f"{out['losses']}; {n} nodes, {real} real directed edges in "
+        f"{dst.numel()} slots")
+    out["hold"] = hold_gnn("path 13 (a)", bundle.cfg, state["params"], batch,
+                           "gcn_cora")
+    if profile:
+        profile_run("path 13 (a) step", lambda: bundle.fn(state, batch))
+    # the scatter of layer 0's (E, 16) messages: every slot, then the real
+    # edges alone (gnn_batch puts them first) and the padding alone, which
+    # all adds into the one spare row n
+    check(bool((dst[:real] >= 0).all()), "path 13 (a): padding not last")
+    idx = torch.where(dst >= 0, dst, n)
+    msg = torch.randn((dst.numel(), spec.config.d_hidden), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(SEED))
+    split = {part: timed_ms(lambda: C.segment_sum(msg[sl], idx[sl], n + 1), 3)
+             for part, sl in (("all", slice(None)),
+                              ("real", slice(0, real)),
+                              ("padding", slice(real, None)))}
+    split["bound_all"] = bound(nbytes(msg, idx) + (n + 1) * msg.shape[1] * 4)[0]
+    out["scatter_ms"] = split
+    log(f"path 13 (a): one (E, {msg.shape[1]}) scatter-add (index_add) over "
+        f"all {dst.numel()} slots {split['all']:.3f} ms, the {real} real "
+        f"edges {split['real']:.3f} ms, the {dst.numel() - real} padding "
+        f"slots into one row {split['padding']:.3f} ms; byte bound of all "
+        f"{split['bound_all']:.3f} ms")
+    return out
+
+
+def gatedgcn_phase(dev, tmp: Path, graph, profile: bool) -> dict:
+    """(b): gatedgcn on minibatch_lg's sampled dims through the Trainer,
+    the hold, then the neighbour sampler."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import _gnn_dims
+    from repro_torch.launch.steps import build_bundle
+
+    spec = get_arch("gatedgcn")
+    bundle = build_bundle(spec, "minibatch_lg", device=dev)
+    log(f"path 13 (b): {bundle.cfg.name} ({spec.source}): "
+        f"{bundle.cfg.n_layers} layers, d {bundle.cfg.d_hidden}; "
+        f"minibatch_lg's sampled dims (nodes, edges) "
+        f"{_gnn_dims(bundle.cfg, bundle.shape, 128)}, d_feat "
+        f"{bundle.shape.d_feat}, not cut")
+    reset_peak()
+    trainer, state = gnn_trainer(bundle, tmp / "b", GNN_STEPS)
+    out = step_report(trainer)
+    log(f"path 13 (b): step {out['step_ms_median']:.3f} ms (median of "
+        f"steps 2-{GNN_STEPS}; step 1 {out['step_ms_first']:.3f}), peak "
+        f"{out['peak_gib']:.3f} GiB, losses {out['losses']}")
+    batch = bundle.make_batch(SEED * 1_000_003 + GNN_STEPS)
+    out["hold"] = hold_gnn("path 13 (b)", bundle.cfg, state["params"], batch,
+                           "gatedgcn")
+    if profile:
+        profile_run("path 13 (b) step", lambda: bundle.fn(state, batch))
+    out["sampler"] = sampler_phase(bundle, graph)
+    return out
+
+
+def schnet_phase(dev, tmp: Path, profile: bool) -> dict:
+    """(c): schnet on molecule through the Trainer, the hold, every value
+    finite."""
+    from repro_torch import tree as tr
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_bundle
+
+    spec = get_arch("schnet")
+    bundle = build_bundle(spec, "molecule", device=dev)
+    batch = bundle.make_batch(SEED * 1_000_003 + GNN_STEPS)
+    log(f"path 13 (c): {bundle.cfg.name} ({spec.source}): "
+        f"{bundle.cfg.n_layers} interactions, d {bundle.cfg.d_hidden}, rbf "
+        f"{bundle.cfg.rbf}; molecule: {bundle.shape.batch_graphs} graphs, "
+        f"{tuple(batch['node_feats'].shape)} nodes, "
+        f"{batch['edge_dst'].numel()} edge slots "
+        f"({int((batch['edge_dst'] < 0).sum())} padding), not cut")
+    reset_peak()
+    trainer, state = gnn_trainer(bundle, tmp / "c", GNN_STEPS)
+    out = step_report(trainer)
+    log(f"path 13 (c): step {out['step_ms_median']:.3f} ms (median of "
+        f"steps 2-{GNN_STEPS}; step 1 {out['step_ms_first']:.3f}), peak "
+        f"{out['peak_gib']:.3f} GiB, losses {out['losses']}")
+    check(all(bool(torch.isfinite(x).all()) for x in tr.leaves(state)),
+          "path 13 (c): a non-finite leaf in the trained state")
+    out["hold"] = hold_gnn("path 13 (c)", bundle.cfg, state["params"], batch,
+                           "schnet")
+    if profile:
+        profile_run("path 13 (c) step", lambda: bundle.fn(state, batch))
+    return out
+
+
+def gnn_phase(kernels, dev, tmp: Path, graph, profile: bool) -> dict:
+    """The GNN family at full width (module docstring, path 13); no
+    kernel may launch."""
+    reset_counts(kernels)
+    out = {"a": gcn_products_phase(dev, tmp, profile),
+           "b": gatedgcn_phase(dev, tmp, graph, profile),
+           "c": schnet_phase(dev, tmp, profile),
+           "d": graphcast_phase(dev, profile)}
+    counts = {name: k.launches for name, k in kernels.items()}
+    check(not any(counts.values()),
+          f"path 13: a kernel launched {counts}; the GNN family runs on "
+          f"gathers, index_add and matrix products")
+    out["launches"] = counts
+    return out
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4209,11 +4719,31 @@ def main(argv=None) -> int:
         f"agree, the trained state served with A4: ok "
         f"({time.perf_counter() - t0:.1f} s)")
     log(f"path 12 summary: {json.dumps(path12)}")
+    # -------------------------------------------------------------- path 13
+    tmp13 = ROOT / "build" / "chip_smoke_path13"
+    shutil.rmtree(tmp13, ignore_errors=True)
+    tmp13.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        path13 = gnn_phase(kernels, dev, tmp13, (src1, dst1, n1),
+                           args.profile)
+    finally:
+        shutil.rmtree(tmp13, ignore_errors=True)
+    log(f"path 13: gcn_cora on ogb_products uncut through launch.train, "
+        f"gatedgcn on minibatch_lg and schnet on molecule through the "
+        f"Trainer, each f32 step within {GNN_TOL} of its f64 twin (the dst "
+        f"fault fails it), the sampler's edges real and its shapes the "
+        f"bundle's, graphcast owner-exchange within JAX's limits of the "
+        f"global model (rolled serve_ids fail them), no kernel launched: ok "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"path 13 summary: {json.dumps(path13)}")
+    # path 13 adds no kernel: each row carries its launches there (0)
     for row in rows:
         if row["name"] == "flash_attention":
             row["launches_path11"] = (path11["a"]["a4_launches"]
                                       + path11["b"]["a4_launches"])
             row["launches_path12"] = path12["e"]["a4_launches"]
+        row["launches_path13"] = path13["launches"][row["name"]]
 
     log(f"peak device memory over the whole script {peak_gib():.2f} GiB")
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")

@@ -1,10 +1,13 @@
-from repro_torch.configs.base import (BFS_WORKLOADS, LM_SHAPES, RECSYS_SHAPES,
-                                      ArchSpec, BFSWorkload, LayerSpec,
-                                      LMShape, MoEConfig, RecsysConfig,
-                                      RecsysShape, TransformerConfig,
-                                      bfs_workload, get_arch, get_shape)
+from repro_torch.configs.base import (ARCH_IDS, BFS_WORKLOADS, GNN_SHAPES,
+                                      LM_SHAPES, RECSYS_SHAPES, ArchSpec,
+                                      BFSWorkload, GNNConfig, GNNShape,
+                                      LayerSpec, LMShape, MoEConfig,
+                                      RecsysConfig, RecsysShape,
+                                      TransformerConfig, bfs_workload,
+                                      get_arch, get_shape)
 
-__all__ = ["BFS_WORKLOADS", "LM_SHAPES", "RECSYS_SHAPES", "ArchSpec",
-           "BFSWorkload", "LayerSpec", "LMShape", "MoEConfig", "RecsysConfig",
+__all__ = ["ARCH_IDS", "BFS_WORKLOADS", "GNN_SHAPES", "LM_SHAPES",
+           "RECSYS_SHAPES", "ArchSpec", "BFSWorkload", "GNNConfig",
+           "GNNShape", "LayerSpec", "LMShape", "MoEConfig", "RecsysConfig",
            "RecsysShape", "TransformerConfig", "bfs_workload", "get_arch",
            "get_shape"]

@@ -1,6 +1,6 @@
 """Configurations — the port's copy of the parts of ``repro.configs.base``
 that its slices run: the BFS workloads (the paper's own experiments, §4,
-plus the Graph500 Kronecker graph) and the LM and RecSys families'
+plus the Graph500 Kronecker graph) and the LM, GNN and RecSys families'
 dataclasses and shape cells.  ``get_arch`` knows only the architectures
 the port has ported; the JAX package's registry has more."""
 
@@ -99,6 +99,51 @@ LM_SHAPES = (
 
 
 # ---------------------------------------------------------------------------
+# GNN family
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    kind: str                      # gcn | gatedgcn | schnet | graphcast
+    n_layers: int
+    d_hidden: int
+    aggregator: str = "sum"        # sum | mean | gated
+    d_out: int = 1
+    # family extras
+    rbf: int = 0                   # schnet radial basis size
+    cutoff: float = 0.0            # schnet distance cutoff
+    n_vars: int = 0                # graphcast output variables
+    mesh_refinement: int = 0       # graphcast native icosahedral refinement
+    norm: str = "none"             # gcn-cora: sym normalization
+    dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNShape:
+    name: str
+    mode: str                      # full | sampled | batched
+    n_nodes: int
+    n_edges: int
+    d_feat: int
+    batch_nodes: int = 0           # sampled mode: seed nodes per step
+    fanout: tuple = ()             # sampled mode: per-hop fanout
+    batch_graphs: int = 0          # batched mode: graphs per batch
+
+
+GNN_SHAPES = (
+    GNNShape("full_graph_sm", "full", 2_708, 10_556, 1_433),
+    # Reddit-scale sampled training; d_feat=602 (Reddit's feature width —
+    # the cell spec gives counts only).  The step input is the sampled
+    # subgraph: 1024 seeds, fanout 15 then 10.
+    GNNShape("minibatch_lg", "sampled", 232_965, 114_615_892, 602,
+             batch_nodes=1_024, fanout=(15, 10)),
+    GNNShape("ogb_products", "full", 2_449_029, 61_859_140, 100),
+    GNNShape("molecule", "batched", 30, 64, 32, batch_graphs=128),
+)
+
+
+# ---------------------------------------------------------------------------
 # RecSys family
 # ---------------------------------------------------------------------------
 
@@ -173,23 +218,25 @@ def bfs_workload(name: str) -> BFSWorkload:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                    # lm | recsys
+    family: str                    # lm | gnn | recsys
     config: Any
     reduced: Any
     source: str                    # provenance note of the configuration
 
     @property
     def shapes(self) -> Sequence:
-        return {"lm": LM_SHAPES, "recsys": RECSYS_SHAPES}[self.family]
+        return {"lm": LM_SHAPES, "gnn": GNN_SHAPES,
+                "recsys": RECSYS_SHAPES}[self.family]
 
 
-ARCH_IDS = ("gemma3_12b", "deepfm")
+ARCH_IDS = ("gemma3_12b", "gcn_cora", "gatedgcn", "schnet", "graphcast",
+            "deepfm")
 
 
 def get_arch(arch_id: str) -> ArchSpec:
-    """The port's spec of ``arch_id`` (``gemma3_12b`` or ``gemma3-12b``,
-    ``deepfm``); ``KeyError`` naming the supported architectures for any
-    other."""
+    """The port's spec of ``arch_id`` (one of ``ARCH_IDS``, ``-`` or
+    ``_`` alike: ``gemma3-12b``); ``KeyError`` naming the supported
+    architectures for any other."""
     arch_id = arch_id.replace("-", "_")
     if arch_id not in ARCH_IDS:
         raise KeyError(f"the port supports {list(ARCH_IDS)}, not {arch_id!r}")

@@ -28,6 +28,26 @@ mesh order, while the tuple's own linearization is major-first in the
 order given (JAX's rule, as ``LocalMesh``): where the two differ, the
 blocks are permuted before and after the collective.
 
+A loss over the shards (owner-exchange GraphCast,
+``models.gnn.dist_graphcast``) is differentiated through the mesh, as
+JAX differentiates through ``shard_map``; the collectives of
+``torch.distributed`` are not differentiable, so where the input needs a
+gradient:
+
+  * ``all_to_all`` runs as an autograd function whose backward is the
+    all-to-all of the cotangent (the tiled all-to-all is a permutation
+    that is its own transpose);
+  * ``psum`` passes the cotangent through unchanged: every rank
+    differentiates its own replica of the sum, so each rank's summand
+    gets the replica's cotangent once, not p times;
+  * ``replicate`` (parameters every rank reads, JAX's ``P()`` in-spec)
+    is the identity forward and one ``all_reduce`` (sum) of all the
+    leaves' gradients backward, so each gradient sums every rank's
+    contribution exactly once.
+
+The BFS engine never asks for a gradient, so its collectives take the
+plain route.
+
 Backends: ``nccl`` (one rank a card, device tensors) and ``gloo`` (CPU
 tensors, or CUDA tensors of ranks that share a card: NCCL refuses two
 ranks on one GPU; ``gloo`` carries CUDA tensors through the host itself,
@@ -73,6 +93,60 @@ def _call(op: str, out: torch.Tensor, inp: torch.Tensor, group) -> None:
         out.copy_(inp)
         dist.all_reduce(out, op=(dist.ReduceOp.SUM if op == "psum"
                                  else dist.ReduceOp.MAX), group=group)
+
+
+def _wants_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _AllToAll(torch.autograd.Function):
+    """``mesh.all_to_all`` with the all-to-all of the cotangent as its
+    backward."""
+
+    @staticmethod
+    def forward(ctx, mesh, x, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return mesh._all_to_all(x, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, ctx.mesh._all_to_all(grad.contiguous(), ctx.axis), None
+
+
+class _ReplicaSum(torch.autograd.Function):
+    """``mesh.psum`` whose backward passes this rank's cotangent to this
+    rank's summand."""
+
+    @staticmethod
+    def forward(ctx, mesh, x, axis):
+        return mesh._all_reduce("psum", x, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, grad, None
+
+
+class _Replicate(torch.autograd.Function):
+    """Identity on every leaf; backward, one all-reduce (sum) of all the
+    leaves' gradients over the whole group."""
+
+    @staticmethod
+    def forward(ctx, mesh, *leaves):
+        if len({t.dtype for t in leaves}) > 1:
+            raise TypeError("replicate: leaves of one dtype only")
+        ctx.mesh = mesh
+        return tuple(t.view_as(t) for t in leaves)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # grads are materialized: a leaf the loss missed arrives as zeros
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=ctx.mesh.group)
+        out, at = [], 0
+        for g in grads:
+            out.append(flat[at:at + g.numel()].view_as(g))
+            at += g.numel()
+        return (None, *out)
 
 
 class DistMesh(MeshAxes):
@@ -249,10 +323,24 @@ class DistMesh(MeshAxes):
                 [self._member_index(self.rank, dims)], device=self.device)
         return got
 
+    def replicate(self, leaves: list) -> list:
+        """Parameters that every rank reads (JAX's ``P()`` in-spec): the
+        leaves, whose gradients are summed over the group once, in one
+        all-reduce (the module docstring)."""
+        if not any(_wants_grad(t) for t in leaves):
+            return list(leaves)
+        return list(_Replicate.apply(self, *leaves))
+
     def all_to_all(self, x: torch.Tensor, axis) -> torch.Tensor:
         """Tiled all-to-all over dim 1 of the ``(1, G*blk, ...)`` array:
         block ``k`` goes to group member ``k``; block ``i`` of the result
-        came from member ``i``."""
+        came from member ``i``.  Differentiable where ``x`` needs a
+        gradient."""
+        if _wants_grad(x):
+            return _AllToAll.apply(self, x, axis)
+        return self._all_to_all(x, axis)
+
+    def _all_to_all(self, x: torch.Tensor, axis) -> torch.Tensor:
         group, g, order, inv = self._layout(axis)
         with span(COLLECTIVE):
             if g == 1:
@@ -308,7 +396,11 @@ class DistMesh(MeshAxes):
             return out
 
     def psum(self, x: torch.Tensor, axis) -> torch.Tensor:
-        """Replicated sum over ``axis`` (``all_reduce`` with ``SUM``)."""
+        """Replicated sum over ``axis`` (``all_reduce`` with ``SUM``);
+        where ``x`` needs a gradient, its backward is the identity (the
+        module docstring)."""
+        if _wants_grad(x):
+            return _ReplicaSum.apply(self, x, axis)
         return self._all_reduce("psum", x, axis)
 
     def pmax(self, x: torch.Tensor, axis) -> torch.Tensor:

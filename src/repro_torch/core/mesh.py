@@ -28,6 +28,13 @@ termination flag, the level statistics and the overflow flag), and
 ``local_shards`` names the shards held here (all ``p`` on a
 ``LocalMesh``).  ``core.dist_mesh.DistMesh`` is the same interface over a
 ``torch.distributed`` group, one shard per rank.
+
+A loss over the shards (owner-exchange GraphCast,
+``models.gnn.dist_graphcast``) is differentiated through the mesh:
+here ``all_to_all`` and ``psum`` are reshapes, permutes and sums, which
+autograd differentiates itself, and ``replicate`` (parameters every
+shard reads) is the identity, since the shards share the one tensor and
+autograd sums their contributions.
 """
 
 from __future__ import annotations
@@ -156,6 +163,11 @@ class LocalMesh(MeshAxes):
         (the loop is done).  Nothing here; a recording mesh
         (``analysis.collective_audit``) files each collective and host
         read under it."""
+
+    def replicate(self, leaves: list) -> list:
+        """Parameters that every shard reads (JAX's ``P()`` in-spec): the
+        leaves themselves; their gradient sums every shard's use."""
+        return list(leaves)
 
     # --- collectives on stacked (p, ...) arrays ----------------------------
     def axis_index(self, axis) -> torch.Tensor:

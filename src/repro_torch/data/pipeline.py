@@ -5,8 +5,7 @@ Batches are a pure function of (seed, step) — the restart-replay contract
 (the trainer restores step k, the pipeline regenerates batch k
 bitwise).  A background thread keeps ``prefetch`` batches ahead of the
 consumer, the host-side overlap with device compute.  Batches are numpy
-arrays, as ``data.synthetic`` draws them.  ``graph_minibatch_stream``
-waits for the neighbour sampler (ROADMAP Queue A 13.4).
+arrays, as ``data.synthetic`` and ``graphs.sampler`` draw them.
 """
 
 from __future__ import annotations
@@ -14,6 +13,8 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Callable, Iterator
+
+import numpy as np
 
 from repro_torch.data import synthetic as syn
 
@@ -76,3 +77,20 @@ def recsys_stream(cfg, batch: int, *, seed: int = 0, start_step: int = 0,
         lambda step: syn.recsys_batch(cfg, batch, step="train",
                                       seed=seed * 1_000_003 + step),
         start_step=start_step, prefetch=prefetch)
+
+
+def graph_minibatch_stream(sampler, batch_nodes: int, fanouts, *,
+                           n_pad: int, e_pad: int, d_feat: int,
+                           seed: int = 0, start_step: int = 0,
+                           prefetch: int = 2):
+    """Sampled-subgraph batches via ``graphs.sampler.NeighborSampler``:
+    step k draws ``batch_nodes`` seeds from ``seed * 7_777_777 + k`` and
+    samples with ``seed * 13 + k``, as the JAX stream does."""
+    def make(step):
+        rng = np.random.default_rng(seed * 7_777_777 + step)
+        seeds = rng.integers(0, sampler.n, size=batch_nodes)
+        return sampler.sample(seeds, fanouts, seed=seed * 13 + step,
+                              n_pad=n_pad, e_pad=e_pad, d_feat=d_feat)
+
+    return PrefetchingIterator(make, start_step=start_step,
+                               prefetch=prefetch)

@@ -557,6 +557,11 @@ def from_jax_arrays_2d(graph) -> ShardedGraph2D:
         n_edges=int(graph.n_edges))
 
 
+def shard_node_array(x: np.ndarray, part: Partition1D, fill=0.0) -> np.ndarray:
+    """Pad a (n_logical, ...) vertex array to (part.n, ...) for sharding."""
+    return part.pad_vertex_array(np.asarray(x), fill=fill)
+
+
 def csr_from_coo(src: np.ndarray, dst: np.ndarray, n: int):
     """Host-side CSR (indptr, indices) sorted by src."""
     order = np.argsort(src, kind="stable")

@@ -1,6 +1,5 @@
 """Step builder: (architecture x shape) -> step function and inputs — the
-port of ``repro.launch.steps`` for the LM train, prefill and decode steps
-and the RecSys train, serve and retrieval steps.
+port of ``repro.launch.steps``.
 
 ``build_bundle(spec, shape, reduced=..., device=..., opt_cfg=...,
 microbatches=...)`` gives ``init_params(generator)``, ``make_state(params)``
@@ -12,14 +11,17 @@ inputs, as tensors on the device) and ``fn(state, batch)``:
           decode     -> (logits, cache): one token against a ``seq_len``-deep
                         cache (``make_batch``: a zero cache, ``pos =
                         seq_len - 1``)
+  gnn     train      -> (new state, {"loss", "grad_norm", "lr"}), every
+                        shape mode (``make_batch``: ``gnn_batch`` padded
+                        to 128, 64 when reduced, as JAX's bundle pads)
   recsys  train      -> (new state, {"loss", "grad_norm", "lr"})
           serve      -> (B,) sigmoid scores
           retrieval  -> (n_candidates,) scores
 
-The GNN family is a later slice and raises ``NotImplementedError``.
 ``microbatches`` reaches only the LM train step, as in the JAX package
-(whose recsys train step is built without it).  The JAX bundle's
-``input_specs`` (abstract inputs for the XLA dry-run) has no counterpart.
+(whose GNN and recsys train steps are built without it).  The JAX
+bundle's ``input_specs`` (abstract inputs for the XLA dry-run) has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -31,9 +33,11 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tr
-from repro_torch.configs.base import ArchSpec, LMShape, RecsysShape, get_shape
+from repro_torch.configs.base import (ArchSpec, GNNShape, LMShape,
+                                      RecsysShape, get_shape)
 from repro_torch.data import synthetic as syn
 from repro_torch.models import transformer as tf
+from repro_torch.models.gnn import models as gnn
 from repro_torch.models.recsys import deepfm
 from repro_torch.optim.adamw import (AdamWConfig, apply_updates,
                                      apply_updates_, init_state)
@@ -58,43 +62,59 @@ def reduce_shape(shape, family: str):
     """Tiny same-structure shape for CPU smoke tests."""
     if family == "lm":
         return LMShape(shape.name, shape.step, seq_len=32, global_batch=2)
+    if family == "gnn":
+        kw = dict(name=shape.name, mode=shape.mode)
+        if shape.mode == "sampled":
+            return GNNShape(**kw, n_nodes=64, n_edges=256, d_feat=12,
+                            batch_nodes=8, fanout=(3, 2))
+        if shape.mode == "batched":
+            return GNNShape(**kw, n_nodes=10, n_edges=24, d_feat=12,
+                            batch_graphs=4)
+        return GNNShape(**kw, n_nodes=200, n_edges=800, d_feat=12)
     if family == "recsys":
         return RecsysShape(shape.name, shape.step, batch=64,
                            n_candidates=256 if shape.step == "retrieval" else 0)
-    raise NotImplementedError(f"family {family!r}: later slice")
+    raise ValueError(family)
 
 
 def autograd_grads(loss_fn):
     """``torch.func.grad_and_value(loss_fn, has_aux=True)`` by
     ``torch.autograd``, over detached leaves that require grad; returns
-    (gradients in leaf order as a list, (loss, aux)), all detached."""
+    (gradients in leaf order as a list, (loss, aux)), all detached.  A
+    leaf the loss does not reach gets zeros, as from ``jax.grad`` (the
+    last GatedGCN layer's edge norm)."""
     def grad_fn(params, batch):
         leaves = [p.detach().requires_grad_() for p in tr.leaves(params)]
         loss, aux = loss_fn(tr.unflatten(params, leaves), batch)
-        grads = list(torch.autograd.grad(loss, leaves))
+        grads = list(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                         materialize_grads=True))
         return grads, (loss.detach(), tr.map_tree(torch.Tensor.detach, aux))
     return grad_fn
 
 
 def _train_wrap(loss_fn, opt_cfg: AdamWConfig, microbatches: int = 1, *,
-                in_place: bool = False):
+                autograd: bool = False, in_place: bool = False):
     """fwd + bwd + AdamW step ``(state, batch) -> (new_state, metrics)``;
     with microbatches > 1 the batch is split on its leading axis and the
     gradients accumulate in f32 as ``acc + g / microbatches`` (the loss as
     ``l / microbatches``), in the JAX scan's order.
 
-    ``in_place`` is the LM step's route.  Its remat and loss chunks run
-    under ``torch.utils.checkpoint``, whose saved-tensor hooks
-    ``torch.func`` cannot differentiate through, so its gradients come
-    from ``torch.autograd`` (``autograd_grads``); and its update writes
-    the state's own buffers (``apply_updates_``), so the state is updated
-    in place.  Otherwise gradients come from ``torch.func`` and the update
-    is functional (DeepFM's step, whose old state stays as it was).
+    Two choices, each off by default (DeepFM's step):
+
+    * ``autograd``: gradients from ``torch.autograd`` (``autograd_grads``)
+      instead of ``torch.func``, for a loss that runs under
+      ``torch.utils.checkpoint``, whose saved-tensor hooks ``torch.func``
+      cannot differentiate through (the LM step's remat and loss chunks,
+      the GNN layers);
+    * ``in_place``: the update writes the state's own buffers
+      (``apply_updates_``), for a state too large to hold twice (the LM
+      step).  Otherwise the update is functional and the old state stays
+      as it was.
 
     JAX's ``hints.constrain_grads`` (``repro/models/sharding_hints.py``)
     is the identity unless a mesh is active; on one card it has nothing to
     constrain, so it has no counterpart here."""
-    if in_place:
+    if autograd:
         grad_fn = autograd_grads(loss_fn)
     else:
         func_grad = torch.func.grad_and_value(loss_fn, has_aux=True)
@@ -170,7 +190,7 @@ def _lm_train_bundle(spec: ArchSpec, shape: LMShape, cfg,
     differentiate through the checkpoint that remat and the loss chunks
     run under."""
     fn = _train_wrap(lambda p, b: tf.lm_loss(cfg, p, b["tokens"]), opt_cfg,
-                     microbatches, in_place=True)
+                     microbatches, autograd=True, in_place=True)
 
     def make_batch(seed=0):
         tokens = syn.lm_train_batch(cfg, shape.global_batch, shape.seq_len,
@@ -206,6 +226,30 @@ def _lm_decode_bundle(spec: ArchSpec, shape: LMShape, cfg,
         make_state=lambda p: p, fn=fn, make_batch=make_batch)
 
 
+def _to_device(arrays: dict, device: torch.device) -> dict:
+    return {k: torch.from_numpy(a).to(device) for k, a in arrays.items()}
+
+
+def _gnn_bundle(spec: ArchSpec, shape: GNNShape, cfg, device: torch.device,
+                opt_cfg: AdamWConfig, pad: int) -> StepBundle:
+    """fwd + bwd + AdamW over one ``gnn_batch`` (a graph padded to
+    ``pad``, as the JAX bundle draws it).  The layers run under
+    ``torch.utils.checkpoint``, so the gradients come from
+    ``torch.autograd``; the update is functional (the state is small)."""
+    fn = _train_wrap(lambda p, b: gnn.loss_fn(cfg, p, b), opt_cfg,
+                     autograd=True)
+
+    def make_batch(seed=0):
+        return _to_device(syn.gnn_batch(cfg, shape, seed=seed, pad=pad),
+                          device)
+
+    return StepBundle(
+        spec.arch_id, "gnn", "train", cfg, shape, device,
+        init_params=lambda generator: gnn.init_params(cfg, shape.d_feat,
+                                                      generator),
+        make_state=_make_state, fn=fn, make_batch=make_batch)
+
+
 def _recsys_bundle(spec: ArchSpec, shape: RecsysShape, cfg,
                    device: torch.device, opt_cfg: AdamWConfig) -> StepBundle:
     if shape.step == "train":
@@ -222,9 +266,9 @@ def _recsys_bundle(spec: ArchSpec, shape: RecsysShape, cfg,
             return params
 
     def make_batch(seed=0):
-        arrays = syn.recsys_batch(cfg, shape.batch, step=shape.step,
-                                  n_candidates=shape.n_candidates, seed=seed)
-        return {k: torch.from_numpy(a).to(device) for k, a in arrays.items()}
+        return _to_device(syn.recsys_batch(
+            cfg, shape.batch, step=shape.step,
+            n_candidates=shape.n_candidates, seed=seed), device)
 
     return StepBundle(
         spec.arch_id, "recsys", shape.step, cfg, shape, device,
@@ -237,6 +281,8 @@ def build_bundle(spec: ArchSpec, shape_or_name, *, reduced: bool = False,
                  microbatches: int = 1) -> StepBundle:
     """The step of one (architecture, shape) cell on ``device`` (the card
     unless the caller passes ``device="cpu"``)."""
+    if spec.family not in ("lm", "gnn", "recsys"):
+        raise ValueError(f"build_bundle: unknown family {spec.family!r}")
     shape = (get_shape(spec, shape_or_name)
              if isinstance(shape_or_name, str) else shape_or_name)
     cfg = spec.reduced if reduced else spec.config
@@ -249,4 +295,9 @@ def build_bundle(spec: ArchSpec, shape_or_name, *, reduced: bool = False,
                            "to run the plain path on the CPU")
     if spec.family == "lm":
         return _lm_bundle(spec, shape, cfg, device, opt_cfg, microbatches)
+    if spec.family == "gnn":
+        # JAX's make_batch pads to min(pad, 128) with pad 512, or 64
+        # reduced
+        return _gnn_bundle(spec, shape, cfg, device, opt_cfg,
+                           64 if reduced else 128)
     return _recsys_bundle(spec, shape, cfg, device, opt_cfg)

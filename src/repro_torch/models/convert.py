@@ -9,7 +9,10 @@ and ``deepfm_to_numpy`` do the same for DeepFM's tree (``table``,
 port keeps as a dict of tensors.  ``train_state_from_jax`` and
 ``train_state_to_numpy`` carry a whole train state (``{"params", "opt":
 {"m", "v", "step"}}``, as ``launch.steps``' ``make_state`` builds it over
-a dict of tensors: DeepFM's, or an LM's JAX-layout tree).  bf16 leaves cross as their 16-bit
+a dict of tensors: DeepFM's, or an LM's JAX-layout tree).
+``gnn_from_jax_params`` and ``gnn_to_numpy`` carry the tree of a GNN
+(``repro.models.gnn.models.init_params``, any of the four kinds), which
+the port keeps in the same layout of dicts and lists.  bf16 leaves cross as their 16-bit
 patterns, so every direction is bitwise.  This module imports
 neither JAX nor the JAX package; ``to_numpy`` needs ``ml_dtypes`` (which
 JAX installs) only for a bf16 leaf.
@@ -68,6 +71,27 @@ def deepfm_from_jax_params(tree, device) -> dict:
 
 def deepfm_to_numpy(params: dict) -> dict:
     """The numpy tree of DeepFM ``params`` (``deepfm_from_jax_params``'s
+    inverse)."""
+    return map_tree(_leaf_to_numpy, params)
+
+
+#: the top-level keys of each GNN kind's tree
+GNN_KEYS = {"gcn": ("layers",), "gatedgcn": ("in_e", "in_h", "layers", "out"),
+            "schnet": ("embed", "inter", "out"),
+            "graphcast": ("dec", "enc_e", "enc_h", "layers")}
+
+
+def gnn_from_jax_params(tree, device) -> dict:
+    """The port's GNN weights from the JAX package's (as numpy), on
+    ``device``."""
+    if tuple(sorted(tree)) not in GNN_KEYS.values():
+        raise ValueError(f"a GNN tree has the keys of one of {GNN_KEYS}, "
+                         f"not {tuple(tree)}")
+    return map_tree(lambda a: _leaf_to_torch(a, device), tree)
+
+
+def gnn_to_numpy(params: dict) -> dict:
+    """The numpy tree of GNN ``params`` (``gnn_from_jax_params``'s
     inverse)."""
     return map_tree(_leaf_to_numpy, params)
 

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels, engine, LM prefill and DeepFM steps on the
-card, against their plain torch versions and the serial oracle, and the
-traversal service with its HTTP front end.  Imports only the port (no JAX), so
+"""The port's CUDA kernels, engine, LM prefill, DeepFM and GNN steps on
+the card, against their plain torch versions and the serial oracle, and
+the traversal service with its HTTP front end.  Imports only the port (no JAX), so
 the machine with the card runs it as it is:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -695,6 +695,40 @@ def test_lm_train_step_on_the_card_matches_the_cpu(cuda):
         assert a.device.type == "cuda"
         err = float((a.cpu().double() - b.double()).norm())
         assert err <= 1e-5 * float(b.double().norm())
+
+
+@pytest.mark.parametrize("arch_id,shape_name", [
+    ("gcn_cora", "ogb_products"), ("gatedgcn", "minibatch_lg"),
+    ("schnet", "molecule"), ("graphcast", "full_graph_sm")])
+def test_gnn_train_step_on_the_card_matches_the_cpu(cuda, arch_id,
+                                                    shape_name):
+    """Two REDUCED GNN train steps from the same state on the card and on
+    the CPU (no kernel runs: gathers, index_add, f32 products with TF32
+    off): the metrics, and every leaf of the state within 1e-5 relative
+    L2."""
+    from repro_torch import tree as tr
+
+    spec = get_arch(arch_id)
+    on_card = build_bundle(spec, shape_name, reduced=True)
+    on_cpu = build_bundle(spec, shape_name, reduced=True, device="cpu")
+    host = on_cpu.make_state(on_cpu.init_params(
+        torch.Generator().manual_seed(0)))
+    state = tr.map_tree(lambda t: t.to(cuda, copy=True), host)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for i in range(2):
+            state, m = on_card.fn(state, on_card.make_batch(i))
+            host, m_h = on_cpu.fn(host, on_cpu.make_batch(i))
+            for k in ("loss", "grad_norm", "lr"):
+                torch.testing.assert_close(m[k].cpu(), m_h[k], rtol=1e-5,
+                                           atol=0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, b in zip(tr.leaves(state), tr.leaves(host)):
+        assert a.device.type == "cuda"
+        err = float((a.cpu().double() - b.double()).norm())
+        assert err <= 1e-5 * max(float(b.double().norm()), 1e-30)
 
 
 def test_decode_step_on_the_card_matches_the_cpu(cuda):

@@ -107,3 +107,27 @@ def test_train_and_decode_modules_import_first_without_jax(module):
     out = subprocess.run([sys.executable, "-c", probe, module], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", ["repro_torch.models.gnn.common",
+                                    "repro_torch.models.gnn.models",
+                                    "repro_torch.models.gnn.dist_graphcast",
+                                    "repro_torch.models.convert",
+                                    "repro_torch.graphs.sampler",
+                                    "repro_torch.data.synthetic",
+                                    "repro_torch.configs.gcn_cora",
+                                    "repro_torch.configs.gatedgcn",
+                                    "repro_torch.configs.schnet",
+                                    "repro_torch.configs.graphcast"])
+def test_gnn_modules_import_first_without_jax(module):
+    """The GNN family (its configs, models, owner-exchange GraphCast, the
+    neighbour sampler and the batch builder) imports first, with neither
+    jax nor the JAX package loaded."""
+    probe = ("import importlib, sys; importlib.import_module(sys.argv[1]); "
+             "bad = sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+             "m.startswith('repro.')); assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", probe, module], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -171,13 +171,20 @@ def test_build_bundle_prefill_runs_end_to_end_on_the_cpu():
 
 
 def test_unported_archs_and_steps_raise():
-    """An unported arch and the GNN family's shapes raise (the LM decode
-    and train steps, refused before their slices, build:
-    tests/test_torch_decode.py, test_torch_lm_train.py)."""
+    """An unported arch and an unknown family raise (the LM decode and
+    train steps and the GNN family, refused before their slices, build:
+    tests/test_torch_decode.py, test_torch_lm_train.py,
+    test_torch_gnn.py)."""
     with pytest.raises(KeyError, match="gemma3_12b"):
         get_arch("dbrx_132b")
-    with pytest.raises(NotImplementedError, match="gnn"):
-        reduce_shape(get_shape(get_arch("gemma3_12b"), "train_4k"), "gnn")
+    with pytest.raises(ValueError, match="moe"):
+        reduce_shape(get_shape(get_arch("gemma3_12b"), "train_4k"), "moe")
+    gnn_shape = get_shape(get_arch("gcn_cora"), "full_graph_sm")
+    assert reduce_shape(gnn_shape, "gnn").n_nodes == 200
+    with pytest.raises(ValueError, match="moe"):
+        build_bundle(dataclasses.replace(get_arch("gemma3_12b"),
+                                         family="moe"), "train_4k",
+                     reduced=True, device="cpu")
     assert build_bundle(get_arch("gemma3_12b"), "train_4k", reduced=True,
                         device="cpu").step_kind == "train"
     assert build_bundle(get_arch("gemma3_12b"), "decode_32k", reduced=True,
