@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (BFS on the 1-D and 2-D partitions in the
 dense, queue and auto modes, BFS serving over HTTP, LM prefill, DeepFM
 serving and the EmbeddingBag op, DeepFM training, LM decode serving, LM
-training and GNN training) on one card.
+training, GNN training, and the Mixture-of-Experts and other LM configs)
+on one card.
 
     python3 chip_smoke.py            # full size, as the acceptance run
     python3 chip_smoke.py --profile  # also profile one run of each path
@@ -282,15 +283,49 @@ Phases (any failed check raises and the script exits non-zero):
    peak, and the exchange's bytes a layer beside the global route's two
    table gathers.  Its checkpoints live in ``build/chip_smoke_path13/``.
 
+19. path 14 — Mixture-of-Experts and the four LM configs of its slice at
+   full width, bf16, seeded weights, TF32 off: (a) ``dbrx_132b`` (16
+   experts top-4) cut to 4 layers and (b) ``llama4_maverick_400b_a17b``
+   (128 experts top-1 and a shared expert; one dense, one MoE layer) cut
+   to 2, each through the ``prefill_32k`` and ``decode_32k`` bundles at
+   batch 2: an 8,192-token A4 prefill (A4 once a layer) with each MoE
+   layer's dropped count printed; each MoE layer's bf16 output on its
+   recorded input held to its f32 twin (``MOE_TOL``; routing identical,
+   ``dropped`` equal, ``lb_loss`` within ``LB_TOL``), which the dispatch
+   one slot off from the combine and unnormalised gates must fail; the
+   decode step at pos 8,191 held to the last-token logits of an A4
+   prefill of 8,192 tokens (``DECODE_TOL``) on a second pair of prefills
+   under a capacity factor where no layer drops (E / k for dbrx; for
+   llama4, whose one MoE layer's input does not depend on capacity, the
+   least covering its busiest expert), row by row where every MoE layer
+   routes the last token alike; greedy decode steps timed; then (b)'s
+   MoE layer through ``moe_apply_sharded`` on a (data 1, model 4)
+   ``LocalMesh`` against the local route (``SHARDED_TOL``, ``lb_loss``
+   and ``dropped`` equal), both timed.  (c) ``launch.serve.main`` on
+   ``yi_34b`` at 60 layers (not cut; ``YI_SERVE_ARGV``): every request
+   finishes, request 0 alone gives the same tokens, ms a decode step,
+   tok/s and peak printed.  (d) ``qwen1_5_110b`` cut to 4 layers with
+   its q/k/v biases drawn nonzero (JAX's are zero): the A4 prefill held
+   to the plain one (``PREFILL_TOL``), which ``bk`` dropped must fail,
+   and the decode step to the A4 prefill.  (e) ``dbrx_132b``
+   ``train_4k`` cut to 1 layer and batch 1 (seq 4,096) through the
+   ``Trainer`` (3 steps, one batch, no checkpoint), free device memory
+   checked against the 53.9 GB of parameters, gradients and moments
+   first: losses finite and falling, every leaf finite, ``lb_loss`` and
+   ``dropped`` a step, step ms, tokens/s and peak; A4 never.  First,
+   the bytes of drawing yi's and llama4's largest leaf whole in f32
+   against ``layers.core.scaled_normal``'s slices.
+
 The last line is ``{"ok": true, "device": {...}}``; before it come one
 ``{"kernels": [...]}`` JSON line (every kernel's row, with its launches
-in each path that runs it; path 13 adds no row and launches none) and
-the card's name and power limit.
+in each path that runs it; paths 13 and 14 add no row, and path 14
+launches A4 alone) and the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -1413,8 +1448,6 @@ class _Tee:
 def run_launcher(label: str, main, argv, **kw):
     """``main(argv)`` with its standard output printed and kept; returns
     (exit code, output, wall seconds)."""
-    import contextlib
-
     log(f"{label}: {' '.join(argv)}")
     tee = _Tee(sys.stdout)
     t0 = time.perf_counter()
@@ -4253,6 +4286,693 @@ def gnn_phase(kernels, dev, tmp: Path, graph, profile: bool) -> dict:
     out["launches"] = counts
     return out
 
+
+# ---------------------------------------------------------------------------
+# path 14: Mixture-of-Experts and the four LM configs at full width
+# ---------------------------------------------------------------------------
+
+# (a), (b): layers of the MoE configs' prefill and decode (dbrx: 4 MoE
+# layers; llama4: one dense and one MoE layer), batch PREFILL_BATCH, the
+# prompt PREFILL_SEQ tokens, the cache DECODE_MAX_LEN deep
+MOE_LAYERS = {"dbrx_132b": 4, "llama4_maverick_400b_a17b": 2}
+# (d): qwen1.5-110b's layers
+QWEN_LAYERS = 4
+# (a), (b): an MoE layer's bf16 output against its f32 twin (the same
+# routing, the experts in f32, cast expert by expert): relative L2.  The
+# bf16 layer rounds x, h, u, silu(h) * u, the expert outputs and the
+# combine to bf16 (8 bits each, RMS 2^-9 relative a rounding).  On an
+# H100 the correct layer reads 0.0043 (llama4) to 0.0053 (dbrx); a token
+# given another slot's output (the dispatch one slot off from the
+# combine) reads 0.89 to 1.35 and gates that do not sum to 1 0.38 to
+# 0.62.  2^-5 sits 5.9 times above the one and 12 times below the other.
+MOE_TOL = 2.0 ** -5
+# (a), (b): lb_loss of the bf16 layer against its f32 twin, relative:
+# both read the same f32 probabilities, so they should agree to rounding
+LB_TOL = 1e-6
+# (b): moe_apply_sharded on LocalMesh (1, 4) against the local route,
+# relative L2.  At top-1 each token's routed output has one term: the
+# local route keeps it in bf16, the sharded one adds it to f32 zeros and
+# psums three zero partials before the cast, so both are bitwise equal
+# (as on an H100 at llama4's MoE layer); 2^-8 (one bf16 rounding) bounds
+# another summation order
+SHARDED_TOL = 2.0 ** -8
+# (c): yi-34b served at full depth
+YI_SERVE_ARGV = ["--arch", "yi_34b", "--requests", "8", "--slots", "4",
+                 "--max-len", "1024", "--max-new-tokens", "32"]
+# (e): dbrx-132b train_4k, one layer, batch 1, seq 4,096, with path 12's
+# one-step warmup at learning rate MOE_TRAIN_LR.  Adam's first step moves
+# each weight by about the learning rate, coherently over d = 6,144
+# coordinates of the head and the embedding: on an H100 the one-layer
+# cut's loss fell from 12.01 to 7.77 (lr 3e-4) or 6.05 (1e-4) in one step
+# and rose in the next, an overshoot.  A rate far below bf16's half-ulp of
+# these weights (about 3e-5 at |w| = 0.0128) moves few of them at all
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = 1, 1, 3
+MOE_TRAIN_LR = 5e-5
+
+
+class _NoCheckpoints:
+    """A checkpoint manager that keeps nothing: (e) times the train step
+    of a 54 GB state, whose save path 12 already covers at 34 GB."""
+
+    def save(self, step, state) -> None:
+        pass
+
+    def wait(self) -> None:
+        pass
+
+    def restore(self, like):
+        return None, None
+
+
+@contextlib.contextmanager
+def recording_moe(sink: list):
+    """A context in which every ``moe.moe_apply`` call (the transformer's
+    MoE blocks) appends ``{"params", "x", "lb_loss", "dropped"}`` to
+    ``sink`` (device tensors: no host read)."""
+    from repro_torch.models import moe
+
+    real = moe.moe_apply
+
+    def record(params, x, cfg, *a, **kw):
+        out, aux = real(params, x, cfg, *a, **kw)
+        sink.append({"params": params, "x": x.detach(),
+                     "lb_loss": aux["lb_loss"].detach(),
+                     "dropped": aux["dropped"].detach()})
+        return out, aux
+
+    moe.moe_apply = record
+    try:
+        yield sink
+    finally:
+        moe.moe_apply = real
+
+
+def moe_f32_twin(p: dict, x: torch.Tensor, cfg):
+    """The local MoE route in f32 on the same inputs: x and the shared
+    expert cast whole, the experts' weights cast 8 experts at a time (a
+    whole llama4 MoE layer in f32 is 64 GB); the router is f32 already."""
+    from repro_torch.models import moe
+
+    real = moe._experts
+
+    def experts_f32(w, expert_in):
+        out = torch.empty_like(expert_in)
+        for e0 in range(0, expert_in.shape[0], 8):
+            chunk = {n: w[n][e0:e0 + 8].float()
+                     for n in ("w_gate", "w_up", "w_down")}
+            out[e0:e0 + 8] = real(chunk, expert_in[e0:e0 + 8])
+        return out
+
+    p32 = dict(p)
+    if "shared" in p:
+        p32["shared"] = {n: w.float() for n, w in p["shared"].items()}
+    moe._experts = experts_f32
+    try:
+        return moe._moe_apply_local(p32, x.float(), cfg)
+    finally:
+        moe._experts = real
+
+
+def planted_moe(p: dict, x: torch.Tensor, cfg, want) -> dict:
+    """The bf16 layer with a planted fault, read against ``want`` (the f32
+    twin): the dispatch one slot on from the combine (each token gets the
+    output of the assignment before it in its expert's bucket), and the
+    top-k gates left unnormalised."""
+    from repro_torch.models import moe
+
+    real_dispatch = moe._dispatch
+
+    def dispatch_off(x_, slot, stok, n_slots):
+        return real_dispatch(x_, torch.where(slot < n_slots, slot + 1,
+                                             slot).clamp_max(n_slots),
+                             stok, n_slots)
+
+    def route_unnormalised(router, x_, k):
+        probs = torch.softmax(torch.matmul(x_.float().to(router.dtype),
+                                           router), dim=-1)
+        vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        return probs, vals[:, :k], idx[:, :k]
+
+    out = {}
+    for name, attr, fake in (("dispatch one slot off", "_dispatch",
+                              dispatch_off),
+                             ("gates unnormalised", "_route",
+                              route_unnormalised)):
+        real = getattr(moe, attr)
+        setattr(moe, attr, fake)
+        try:
+            bad, _ = moe._moe_apply_local(p, x, cfg)
+        finally:
+            setattr(moe, attr, real)
+        out[name] = rel_err(bad, want)
+    return out
+
+
+def hold_moe_layer(label: str, p: dict, x: torch.Tensor, cfg) -> dict:
+    """One MoE layer's bf16 local route against its f32 twin on the same
+    input: the routing (experts and gates) identical, ``dropped`` equal,
+    ``lb_loss`` within LB_TOL, the output within MOE_TOL, each planted
+    fault past it; and the layer's time."""
+    from repro_torch.models import moe
+
+    out, aux = moe._moe_apply_local(p, x, cfg)
+    want, aux32 = moe_f32_twin(p, x, cfg)
+    _, gate, expert = moe._route(p["router"], x, cfg.top_k)
+    _, gate32, expert32 = moe._route(p["router"], x.float(), cfg.top_k)
+    routing = torch.equal(expert, expert32) and torch.equal(gate, gate32)
+    dropped, dropped32 = int(aux["dropped"]), int(aux32["dropped"])
+    lb, lb32 = float(aux["lb_loss"]), float(aux32["lb_loss"])
+    err = rel_err(out, want)
+    bad = planted_moe(p, x, cfg, want)
+    ms = timed_ms(lambda: moe._moe_apply_local(p, x, cfg), 3)
+    t = x.shape[0]
+    c = moe.capacity(t, cfg)
+    flops = 2.0 * cfg.n_experts * c * x.shape[1] * cfg.d_ff * 3 + 2.0 * t * (
+        x.shape[1] * cfg.n_experts
+        + 3 * x.shape[1] * cfg.d_ff * cfg.shared_experts)
+    log(f"{label}: {t} tokens, capacity {c}, dropped {dropped} (f32 twin "
+        f"{dropped32}), routing identical {routing}, lb_loss {lb} (f32 "
+        f"{lb32}), bf16 against f32 rel L2 {err} (limit {MOE_TOL}); "
+        f"planted {bad}; {ms} ms a call ({flops / ms / 1e9:.1f} TFLOP/s of "
+        f"router, expert slots and shared products)")
+    check(routing, f"{label}: the bf16 layer routes otherwise than f32")
+    check(dropped == dropped32, f"{label}: dropped {dropped} != {dropped32}")
+    check(abs(lb - lb32) <= LB_TOL * abs(lb32),
+          f"{label}: lb_loss {lb} against {lb32}")
+    check(err <= MOE_TOL, f"{label}: bf16 differs from f32 by {err}")
+    for name, e in bad.items():
+        check(e > MOE_TOL, f"{label}: the hold passes {name} ({e})")
+    return {"tokens": t, "capacity": c, "dropped": dropped,
+            "lb_loss": lb, "rel_l2": err, "planted": bad, "ms": ms,
+            "tflops": flops / ms / 1e9}
+
+
+def nodrop_capacity_factor(cfg, rec: list, tokens: int) -> float:
+    """A capacity factor under which no MoE layer of the prefill drops:
+    E / k (capacity = every token) where several MoE layers follow each
+    other (a later layer's input moves with an earlier one's drops);
+    where one MoE layer is the model's only one, its input does not
+    depend on the capacity, so the least factor whose capacity at
+    ``tokens`` covers its busiest expert (plus one slot of 8)."""
+    from repro_torch.models import moe
+
+    m = cfg.moe
+    if len(rec) > 1:
+        return m.n_experts / m.top_k
+    _, _, expert = moe._route(rec[0]["params"]["router"], rec[0]["x"],
+                              m.top_k)
+    busiest = int(torch.bincount(expert.reshape(-1),
+                                 minlength=m.n_experts).max())
+    return (busiest + 8) * m.n_experts / (tokens * m.top_k)
+
+
+def moe_lm_phase(kernels, dev, arch: str, sharded: bool) -> dict:
+    """(a) / (b): an MoE config at full width, cut in depth and batch,
+    through the prefill_32k and decode_32k bundles: the A4 prefill with
+    each MoE layer's dropped count, each MoE layer held to its f32 twin
+    with two planted faults, and the decode step held to the prefill's
+    last-token logits where no MoE layer drops; with ``sharded``, the
+    first MoE layer's prefill input through ``moe_apply_sharded``."""
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.launch.steps import build_bundle
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tf
+
+    label = "path 14 (a)" if arch == "dbrx_132b" else "path 14 (b)"
+    spec = get_arch(arch)
+    full = spec.config
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS[arch])
+    cut = dataclasses.replace(spec, config=cfg)
+    pshape = dataclasses.replace(get_shape(spec, "prefill_32k"),
+                                 seq_len=PREFILL_SEQ,
+                                 global_batch=PREFILL_BATCH)
+    dshape = dataclasses.replace(get_shape(spec, "decode_32k"),
+                                 global_batch=PREFILL_BATCH)
+    m = cfg.moe
+    log(f"{label}: {full.name} ({spec.source}): d {cfg.d_model}, "
+        f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim}, "
+        f"{m.n_experts} experts top-{m.top_k} of width {m.d_ff}, "
+        f"shared {m.shared_experts}, capacity factor {m.capacity_factor}, "
+        f"pattern {[sp.moe for sp in cfg.pattern]} (moe), vocab "
+        f"{cfg.vocab}, {cfg.dtype}, random weights (seed {SEED}); cut: "
+        f"layers {full.n_layers} -> {cfg.n_layers}, batch "
+        f"{get_shape(spec, 'prefill_32k').global_batch} (prefill) / "
+        f"{get_shape(spec, 'decode_32k').global_batch} (decode) -> "
+        f"{PREFILL_BATCH}, prompt {get_shape(spec, 'prefill_32k').seq_len} "
+        f"-> {PREFILL_SEQ} tokens; cache depth {dshape.seq_len} (not cut); "
+        f"{cfg.param_count()} parameters")
+    prefill = build_bundle(cut, pshape, device=dev)
+    decode = build_bundle(cut, dshape, device=dev)
+    reset_peak()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = prefill.init_params(torch.Generator(device=dev).manual_seed(
+        SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    tokens = prefill.make_batch(SEED)["tokens"]
+    b, s = tokens.shape
+    log(f"{label}: weights {held} bytes drawn in {init_s:.3f} s, peak "
+        f"{init_peak} bytes while drawing (the f32 transient "
+        f"{init_peak - held} bytes); tokens {tuple(tokens.shape)}")
+
+    # the A4 prefill, each MoE layer's input and dropped count recorded
+    reset_counts(kernels)
+    rec = []
+    with recording_moe(rec):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill.fn(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+    a4 = kernels["flash_attention"]
+    check(a4.launches == cfg.n_layers and a4.launches_bf16 == cfg.n_layers
+          and a4.launches_f32 == 0,
+          f"{label}: A4 launched {a4.launches} times ({a4.launches_bf16} "
+          f"bf16) in a {cfg.n_layers}-layer prefill")
+    check(logits.shape == (b, cfg.vocab) and bool(
+        torch.isfinite(logits).all()), f"{label}: prefill logits")
+    del cache
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits2, cache = prefill.fn(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    del cache, logits2
+    check(a4.launches == 2 * cfg.n_layers, f"{label}: A4 launched "
+                                           f"{a4.launches} times in two "
+                                           f"prefills")
+    dropped = [int(r["dropped"]) for r in rec]
+    lbs = [float(r["lb_loss"]) for r in rec]
+    log(f"{label}: A4 prefill {first_ms:.3f} ms (first), {prefill_ms:.3f} "
+        f"ms (second) = {b * s / (prefill_ms / 1e3):.1f} prompt tokens/s; "
+        f"dropped assignments by MoE layer {dropped} of {b * s * m.top_k} "
+        f"each; lb_loss by MoE layer {lbs}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    # each MoE layer against its f32 twin, with two planted faults
+    holds = [hold_moe_layer(f"{label} MoE layer {i}", r["params"], r["x"],
+                            m) for i, r in enumerate(rec)]
+
+    # the decode step against the prefill's last-token logits, on a
+    # second pair of prefills under a capacity factor where nothing drops
+    # (capacity is computed on B * S tokens in the prefill and on B in
+    # decode, and a prompt one token shorter moves other tokens' ranks).
+    # A row is held where every MoE layer routes its last token to the
+    # same experts in both (bf16 drift may flip a near-tie; printed)
+    cf = nodrop_capacity_factor(cfg, rec, b * (s - 1))
+    cfg_nd = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=cf))
+    rec_ref, rec_nd, rec_dec = [], [], []
+    with recording_moe(rec_ref):
+        want, cache, _ = tf.prefill(cfg_nd, params, tokens, s)
+    del cache
+    with recording_moe(rec_nd):
+        _, cache, _ = tf.prefill(cfg_nd, params, tokens[:, :-1],
+                                 DECODE_MAX_LEN)
+    nd_dropped = [int(r["dropped"]) for r in rec_ref + rec_nd]
+    check(not any(nd_dropped), f"{label}: the no-drop prefills dropped "
+                               f"{nd_dropped} under capacity factor {cf}")
+    check(a4.launches == 4 * cfg.n_layers,
+          f"{label}: A4 launched {a4.launches} times in four prefills of "
+          f"{cfg.n_layers} layers")
+    pos = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+    with recording_moe(rec_dec):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, cache = decode.fn(params, {"cache": cache, "pos": pos,
+                                        "last_token": tokens[:, -1]})
+        torch.cuda.synchronize()
+        decode_first_ms = (time.perf_counter() - t0) * 1e3
+    check(a4.launches == 4 * cfg.n_layers, f"{label}: decode launched A4")
+    last = torch.arange(1, b + 1, device=dev) * s - 1
+    same = torch.ones(b, dtype=torch.bool, device=dev)
+    for r, d in zip(rec_ref, rec_dec):
+        _, _, e_ref = moe_lib._route(r["params"]["router"], r["x"][last],
+                                     m.top_k)
+        _, _, e_dec = moe_lib._route(d["params"]["router"], d["x"], m.top_k)
+        same &= (e_ref.sort(-1).values == e_dec.sort(-1).values).all(-1)
+    del rec_ref, rec_nd, rec_dec
+    rows = [i for i in range(b) if bool(same[i])]
+    rel = [rel_err(got[i], want[i]) for i in range(b)]
+    log(f"{label}: capacity factor {cf} (no drops in either prefill); "
+        f"decode at pos {s - 1} against the A4 prefill of {s} tokens: rel "
+        f"L2 by row {rel} (limit {DECODE_TOL}), rows routed alike in every "
+        f"MoE layer {rows}; argmax agree "
+        f"{(got.argmax(-1) == want.argmax(-1)).tolist()}; first step "
+        f"{decode_first_ms:.3f} ms")
+    check(rows and all(rel[i] <= DECODE_TOL for i in rows),
+          f"{label}: decode differs from the prefill")
+    tok, steps_ms = got.argmax(-1), []
+    for i in range(DECODE_GREEDY):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nxt, cache = decode.fn(params, {"cache": cache, "pos": pos + 1 + i,
+                                        "last_token": tok})
+        tok = nxt.argmax(-1)
+        torch.cuda.synchronize()
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(nxt).all()), f"{label}: greedy logits")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{label}: ms a decode step ({cfg.n_layers} layers, batch {b}, a "
+        f"{DECODE_MAX_LEN}-deep cache) {steps_ms}; peak {peak:.3f} GiB")
+    out = {"init_s": init_s, "init_peak_bytes": init_peak,
+           "weights_bytes": held, "prefill_ms": prefill_ms,
+           "prefill_first_ms": first_ms, "dropped": dropped, "lb_loss": lbs,
+           "holds": holds, "nodrop_capacity_factor": cf,
+           "decode_rel_l2": rel, "decode_ms": steps_ms,
+           "peak_gib": peak, "a4_launches": a4.launches}
+    del cache, want, got, nxt
+    if sharded:
+        out["sharded"] = sharded_phase(rec[0]["params"], rec[0]["x"], m, dev)
+    return out
+
+
+def sharded_phase(p: dict, x: torch.Tensor, cfg, dev) -> dict:
+    """(b): ``moe_apply_sharded`` on a (data 1, model 4) ``LocalMesh``
+    against the local route on the MoE layer's prefill input."""
+    from repro_torch.core.mesh import LocalMesh
+    from repro_torch.models import moe
+
+    mesh = LocalMesh((1, 4), ("data", "model"), dev)
+    got, aux = moe.moe_apply_sharded(p, x, cfg, mesh, ("data",), "model")
+    want, loc = moe._moe_apply_local(p, x, cfg)
+    err = rel_err(got, want)
+    same_lb = torch.equal(aux["lb_loss"], loc["lb_loss"])
+    dropped, dropped_loc = int(aux["dropped"]), int(loc["dropped"])
+    sharded_ms = timed_ms(lambda: moe.moe_apply_sharded(
+        p, x, cfg, mesh, ("data",), "model"), 3)
+    local_ms = timed_ms(lambda: moe._moe_apply_local(p, x, cfg), 3)
+    log(f"path 14 (b) sharded: LocalMesh (data 1, model 4), "
+        f"{cfg.n_experts // 4} experts a shard, {x.shape[0]} tokens: rel "
+        f"L2 against the local route {err} (limit {SHARDED_TOL}), bitwise "
+        f"{torch.equal(got, want)}; lb_loss equal {same_lb}; dropped "
+        f"{dropped} (local {dropped_loc}); {sharded_ms} ms against the "
+        f"local route's {local_ms} ms")
+    check(err <= SHARDED_TOL, "path 14 (b): the sharded route differs")
+    check(same_lb and dropped == dropped_loc,
+          "path 14 (b): the sharded route's lb_loss or dropped differs")
+    return {"rel_l2": err, "bitwise": torch.equal(got, want),
+            "dropped": dropped, "sharded_ms": sharded_ms,
+            "local_ms": local_ms}
+
+
+def draw_transients(dev) -> dict:
+    """The device bytes of drawing one bf16 leaf, alone on the card: the
+    whole leaf in f32 then cast (the init before it drew in slices) against
+    ``scaled_normal``'s slices, for yi-34b's stacked ``w_gate`` and
+    llama4's stacked expert ``w_gate``."""
+    from repro_torch.layers.core import scaled_normal
+
+    out = {}
+    for name, shape in (("yi_34b w_gate", (60, 7168, 20480)),
+                        ("llama4 moe w_gate", (1, 128, 5120, 8192))):
+        row = {}
+        for how in ("whole f32 draw", "scaled_normal"):
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            reset_peak()
+            base = torch.cuda.memory_allocated()
+            if how == "scaled_normal":
+                w = scaled_normal(shape, shape[-2] ** -0.5, torch.bfloat16,
+                                  gen)
+            else:
+                w = torch.randn(shape, generator=gen, device=dev).mul_(
+                    shape[-2] ** -0.5).to(torch.bfloat16)
+            torch.cuda.synchronize()
+            row[how] = torch.cuda.max_memory_allocated() - base
+            del w
+        row["leaf_bytes"] = math.prod(shape) * 2
+        out[name] = row
+    log(f"path 14: peak bytes of drawing one bf16 leaf {out}")
+    return out
+
+
+def yi_phase(kernels, dev) -> dict:
+    """(c): yi-34b at full depth through ``launch.serve``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.serve.batcher import Request, Server
+
+    full = get_arch("yi_34b").config
+    log(f"path 14 (c): {full.name}: {full.n_layers} layers (not cut), d "
+        f"{full.d_model}, {full.n_heads} / {full.n_kv_heads} heads of "
+        f"{full.head_dim}, d_ff {full.d_ff}, vocab {full.vocab}, "
+        f"{full.param_count()} parameters ({full.param_count() * 2} bytes "
+        f"bf16)")
+    reset_counts(kernels)
+    reset_peak()
+    seen = {}
+    _, text, wall = run_launcher(
+        "path 14 (c) launch.serve", serve_launcher.main, YI_SERVE_ARGV,
+        on_done=lambda srv, done, secs: seen.update(srv=srv, done=done,
+                                                    secs=secs))
+    counts = {n: k.launches for n, k in kernels.items()}
+    check(not any(counts.values()), f"path 14 (c): a kernel launched "
+                                    f"{counts}; the server decodes only")
+    srv, done = seen["srv"], sorted(seen["done"], key=lambda r: r.rid)
+    check(len(done) == 8 and all(len(r.out) == 32 for r in done),
+          f"path 14 (c): {[len(r.out) for r in done]} tokens")
+    ms_step = seen["secs"] * 1e3 / srv.decode_steps
+    toks = sum(len(r.out) for r in done)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    alone = Server(full, srv.params, batch_slots=srv.n_slots,
+                   max_len=srv.max_len)
+    again = Request(rid=0, prompt=done[0].prompt,
+                    max_new_tokens=done[0].max_new_tokens)
+    alone.submit(again)
+    alone.run_until_drained()
+    check(again.out == done[0].out, "path 14 (c): request 0 alone gives "
+                                    "other tokens than in the batch")
+    log(f"path 14 (c): {srv.decode_steps} decode steps (batch "
+        f"{srv.n_slots}, a {srv.max_len}-deep cache) in {seen['secs']:.3f} "
+        f"s = {ms_step:.3f} ms a step, {toks / seen['secs']:.1f} tok/s; "
+        f"peak {peak:.3f} GiB; request 0 alone: the same tokens")
+    out = {"run_line": text.strip().splitlines()[-1],
+           "decode_steps": srv.decode_steps, "ms_per_step": ms_step,
+           "tok_per_s": toks / seen["secs"], "seconds": wall,
+           "peak_gib": peak}
+    del alone, srv, seen
+    return out
+
+
+def qwen_phase(kernels, dev) -> dict:
+    """(d): qwen1.5-110b at full width, 4 layers, with seeded nonzero
+    q/k/v biases: the A4 prefill against the plain prefill, the bias of
+    k dropped failing that hold, and the decode step."""
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.launch.steps import build_bundle
+
+    spec = get_arch("qwen1_5_110b")
+    full = spec.config
+    cfg = dataclasses.replace(full, n_layers=QWEN_LAYERS)
+    cut = dataclasses.replace(spec, config=cfg)
+    pshape = dataclasses.replace(get_shape(spec, "prefill_32k"),
+                                 seq_len=PREFILL_SEQ,
+                                 global_batch=PREFILL_BATCH)
+    dshape = dataclasses.replace(get_shape(spec, "decode_32k"),
+                                 global_batch=PREFILL_BATCH)
+    log(f"path 14 (d): {full.name} ({spec.source}): d {cfg.d_model}, "
+        f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, qkv_bias {cfg.qkv_bias}; cut: "
+        f"layers {full.n_layers} -> {cfg.n_layers}, batch -> "
+        f"{PREFILL_BATCH}, prompt -> {PREFILL_SEQ}; {cfg.param_count()} "
+        f"parameters")
+    prefill = build_bundle(cut, pshape, device=dev)
+    decode = build_bundle(cut, dshape, device=dev)
+    reset_peak()
+    params = prefill.init_params(torch.Generator(device=dev).manual_seed(
+        SEED))
+    # JAX initialises the biases to zero, under which a port that ignored
+    # them would pass: draw them N(0, 1), seeded
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    for blk in params.blocks:
+        for n in ("bq", "bk", "bv"):
+            w = getattr(blk.attn, n)
+            w.copy_(torch.randn(w.shape, generator=gen, device=dev))
+            check(bool((w != 0).all()), f"path 14 (d): a zero {n}")
+    tokens = prefill.make_batch(SEED)["tokens"]
+    b, s = tokens.shape
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill.fn(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    a4 = kernels["flash_attention"]
+    check(a4.launches == cfg.n_layers, f"path 14 (d): A4 launched "
+                                       f"{a4.launches} times")
+    plain, plain_cache = prefill.fn(params, {"tokens": tokens},
+                                    use_kernel=False)
+
+    def hold(lg, cc) -> float:
+        errs = [rel_err(lg, plain)] + [
+            rel_err(c[n][g], pc[n][g]) for c, pc in zip(cc, plain_cache)
+            for n in "kv" for g in range(cfg.n_groups)]
+        return max(errs)
+
+    err = hold(logits, cache)
+    # planted: the bias of k dropped in every layer
+    saved = [blk.attn.bk.clone() for blk in params.blocks]
+    for blk in params.blocks:
+        blk.attn.bk.zero_()
+    bad_logits, bad_cache = prefill.fn(params, {"tokens": tokens})
+    bad = hold(bad_logits, bad_cache)
+    for blk, w in zip(params.blocks, saved):
+        blk.attn.bk.copy_(w)
+    del bad_cache, saved, cache, plain_cache
+    log(f"path 14 (d): A4 prefill {prefill_ms:.3f} ms; against the plain "
+        f"prefill the worst of the logits and each layer's k, v cache rel "
+        f"L2 {err} (limit {PREFILL_TOL}); bk dropped {bad}")
+    check(err <= PREFILL_TOL, "path 14 (d): the A4 prefill differs from "
+                              "the plain prefill")
+    check(bad > PREFILL_TOL, "path 14 (d): the hold passes the bias of k "
+                             "dropped")
+    from repro_torch.models import transformer as tf
+
+    _, cache, _ = tf.prefill(cfg, params, tokens[:, :-1], DECODE_MAX_LEN)
+    pos = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, cache = decode.fn(params, {"cache": cache, "pos": pos,
+                                    "last_token": tokens[:, -1]})
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    rel = rel_err(got, logits)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"path 14 (d): decode at pos {s - 1} against the A4 prefill: rel L2 "
+        f"{rel} (limit {DECODE_TOL}); {decode_ms:.3f} ms; A4 launches "
+        f"{a4.launches}; peak {peak:.3f} GiB")
+    check(rel <= DECODE_TOL, "path 14 (d): decode differs from the prefill")
+    check(a4.launches == 3 * cfg.n_layers,
+          f"path 14 (d): A4 launched {a4.launches} times")
+    return {"prefill_ms": prefill_ms, "rel_l2": err, "bk_dropped": bad,
+            "decode_rel_l2": rel, "decode_ms": decode_ms, "peak_gib": peak,
+            "a4_launches": a4.launches}
+
+
+def moe_train_phase(kernels, dev, tmp: Path) -> dict:
+    """(e): dbrx-132b train_4k at full width, one layer, batch 1 x 4,096,
+    3 Trainer steps on one fixed batch."""
+    from repro_torch import tree as tr
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.launch import steps
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    spec = get_arch("dbrx_132b")
+    full, full_shape = spec.config, get_shape(spec, "train_4k")
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    cut = dataclasses.replace(spec, config=cfg)
+    shape = dataclasses.replace(full_shape, global_batch=MOE_TRAIN_BATCH)
+    # bf16 parameters and gradients, f32 moments
+    state_bytes = cfg.param_count() * (2 + 2 + 8)
+    free, total = torch.cuda.mem_get_info()
+    log(f"path 14 (e): {full.name} train_4k: cut layers {full.n_layers} -> "
+        f"{cfg.n_layers}, batch {full_shape.global_batch} -> "
+        f"{shape.global_batch}, seq {shape.seq_len} (not cut), lr "
+        f"{MOE_TRAIN_LR}, warmup 1, remat {cfg.remat}; "
+        f"{cfg.param_count()} parameters, {state_bytes} bytes of parameters, "
+        f"gradients and moments; device memory free {free} of {total}")
+    check(free > 1.1 * state_bytes, f"path 14 (e): {free} bytes free "
+                                    f"cannot hold {state_bytes}")
+    opt_cfg = AdamWConfig(lr=MOE_TRAIN_LR, warmup_steps=1,
+                          total_steps=MOE_TRAIN_STEPS)
+    bundle = steps.build_bundle(cut, shape, device=dev, opt_cfg=opt_cfg)
+    fixed = bundle.make_batch(SEED)
+    bundle = dataclasses.replace(bundle, make_batch=lambda seed=0: fixed)
+    trainer = Trainer(bundle, TrainerConfig(
+        num_steps=MOE_TRAIN_STEPS, ckpt_every=MOE_TRAIN_STEPS, log_every=1,
+        ckpt_dir=str(tmp), seed=SEED), opt_cfg=opt_cfg)
+    trainer.mgr = _NoCheckpoints()
+    reset_counts(kernels)
+    reset_peak()
+    rec = []
+    with recording_moe(rec):
+        t0 = time.perf_counter()
+        state = trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = {n: k.launches for n, k in kernels.items()}
+    check(not any(counts.values()), f"path 14 (e): a kernel launched "
+                                    f"{counts}")
+    losses = [m["loss"] for m in trainer.metrics_log if "loss" in m]
+    check(len(losses) == MOE_TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"path 14 (e): not {MOE_TRAIN_STEPS} finite losses: "
+          f"{trainer.metrics_log}")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"path 14 (e): the loss does not fall at every step: {losses}")
+    check(all(bool(torch.isfinite(t).all()) for t in tr.leaves(state)
+              if t.is_floating_point()), "path 14 (e): a non-finite leaf")
+    # the MoE calls of a step: its forward's first; the block's recompute
+    # in the backward (remat "block") stops inside the layer once it has
+    # what the backward needs, so it records only where it runs through
+    per_step = len(rec) // MOE_TRAIN_STEPS
+    check(per_step in (cfg.n_layers, 2 * cfg.n_layers)
+          and len(rec) % MOE_TRAIN_STEPS == 0,
+          f"path 14 (e): {len(rec)} MoE calls in {MOE_TRAIN_STEPS} steps")
+    lb = [float(r["lb_loss"]) for r in rec[::per_step]]
+    dropped = [int(r["dropped"]) for r in rec[::per_step]]
+    step_ms = float(np.median([dt for _, dt in trainer.step_times[1:]])) * 1e3
+    tokens = shape.global_batch * shape.seq_len
+    log(f"path 14 (e): losses {losses}; lb_loss by step {lb}; dropped by "
+        f"step {dropped} of {tokens * cfg.moe.top_k}; step {step_ms} ms "
+        f"(median of steps 2-{MOE_TRAIN_STEPS}; step 1 "
+        f"{trainer.step_times[0][1] * 1e3} ms) = {tokens / (step_ms / 1e3)} "
+        f"tokens/s; peak {peak:.3f} GiB; wall {wall:.1f} s; A4 launched 0 "
+        f"times")
+    out = {"losses": losses, "lb_loss": lb, "dropped": dropped,
+           "step_ms_median": step_ms,
+           "step_ms_first": trainer.step_times[0][1] * 1e3,
+           "tokens_per_s": tokens / (step_ms / 1e3), "peak_gib": peak,
+           "state_bytes": state_bytes}
+    del state, trainer, bundle, rec, fixed
+    return out
+
+
+def moe_phase(kernels, dev, tmp: Path) -> dict:
+    """Path 14 (module docstring): (a) dbrx and (b) llama4 prefill, decode
+    and MoE holds, (b)'s sharded route; (c) yi-34b served at full depth;
+    (d) qwen1.5-110b with its biases; (e) dbrx's train step."""
+    import gc
+
+    launches = dict.fromkeys(kernels, 0)
+
+    def free():
+        # each part resets the counts before it runs: add up its launches
+        for n, k in kernels.items():
+            launches[n] += k.launches
+        reset_counts(kernels)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    reset_counts(kernels)
+    free()
+    log(f"path 14: device memory held from earlier paths "
+        f"{torch.cuda.memory_allocated()} bytes")
+    out = {"draw": draw_transients(dev)}
+    free()
+    out["a"] = moe_lm_phase(kernels, dev, "dbrx_132b", sharded=False)
+    free()
+    out["b"] = moe_lm_phase(kernels, dev, "llama4_maverick_400b_a17b",
+                            sharded=True)
+    free()
+    out["c"] = yi_phase(kernels, dev)
+    free()
+    out["d"] = qwen_phase(kernels, dev)
+    free()
+    out["e"] = moe_train_phase(kernels, dev, tmp)
+    free()
+    want = dict.fromkeys(kernels, 0) | {"flash_attention": (
+        out["a"]["a4_launches"] + out["b"]["a4_launches"]
+        + out["d"]["a4_launches"])}
+    check(launches == want, f"path 14: launches {launches}, not {want}")
+    out["launches"] = launches
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4737,13 +5457,33 @@ def main(argv=None) -> int:
         f"global model (rolled serve_ids fail them), no kernel launched: ok "
         f"({time.perf_counter() - t0:.1f} s)")
     log(f"path 13 summary: {json.dumps(path13)}")
-    # path 13 adds no kernel: each row carries its launches there (0)
+    # -------------------------------------------------------------- path 14
+    tmp14 = ROOT / "build" / "chip_smoke_path14"
+    shutil.rmtree(tmp14, ignore_errors=True)
+    tmp14.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        path14 = moe_phase(kernels, dev, tmp14)
+    finally:
+        shutil.rmtree(tmp14, ignore_errors=True)
+    log(f"path 14: dbrx-132b (4 layers) and llama4-maverick (2 layers) at "
+        f"full width, each MoE layer within {MOE_TOL} of its f32 twin (the "
+        f"dispatch one slot off and unnormalised gates fail it), decode "
+        f"within {DECODE_TOL} of the no-drop A4 prefill, llama4's sharded "
+        f"route on LocalMesh (1, 4) within {SHARDED_TOL} of the local one; "
+        f"yi-34b served at 60 layers; qwen1.5-110b's A4 prefill with "
+        f"nonzero biases within {PREFILL_TOL} of the plain one (bk dropped "
+        f"fails it); dbrx train_4k falling through the Trainer: ok "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"path 14 summary: {json.dumps(path14)}")
+    # paths 13 and 14 add no kernel: each row carries its launches there
     for row in rows:
         if row["name"] == "flash_attention":
             row["launches_path11"] = (path11["a"]["a4_launches"]
                                       + path11["b"]["a4_launches"])
             row["launches_path12"] = path12["e"]["a4_launches"]
         row["launches_path13"] = path13["launches"][row["name"]]
+        row["launches_path14"] = path14["launches"][row["name"]]
 
     log(f"peak device memory over the whole script {peak_gib():.2f} GiB")
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")

@@ -1,8 +1,12 @@
-"""Configurations — the port's copy of the parts of ``repro.configs.base``
-that its slices run: the BFS workloads (the paper's own experiments, §4,
-plus the Graph500 Kronecker graph) and the LM, GNN and RecSys families'
-dataclasses and shape cells.  ``get_arch`` knows only the architectures
-the port has ported; the JAX package's registry has more."""
+"""Configurations — the port's copy of ``repro.configs.base``: the BFS
+workloads (the paper's own experiments, §4, plus the Graph500 Kronecker
+graph) and the LM, GNN and RecSys families' dataclasses and shape cells.
+
+Every architecture is a module ``repro_torch/configs/<id>.py`` exposing
+``CONFIG`` (the exact published configuration), ``REDUCED`` (a tiny
+same-family config for CPU tests), ``FAMILY`` and ``SOURCE``, each the JAX
+package's field for field.  ``registry()`` maps arch id -> ``ArchSpec``;
+``all_cells()`` yields the 40 (arch, shape) cells."""
 
 from __future__ import annotations
 
@@ -79,6 +83,18 @@ class TransformerConfig:
                 total += m.shared_experts * 3 * d * m.d_ff
             else:
                 total += dense_ffn
+        return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k + shared experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        d = self.d_model
+        m = self.moe
+        total = self.param_count()
+        for i in range(self.n_layers):
+            if self.pattern[i % len(self.pattern)].moe:
+                total -= (m.n_experts - m.top_k) * 3 * d * m.d_ff
         return total
 
 
@@ -212,7 +228,7 @@ def bfs_workload(name: str) -> BFSWorkload:
 
 
 # ---------------------------------------------------------------------------
-# Registry (the architectures the port supports)
+# Registry
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -229,20 +245,35 @@ class ArchSpec:
                 "recsys": RECSYS_SHAPES}[self.family]
 
 
-ARCH_IDS = ("gemma3_12b", "gcn_cora", "gatedgcn", "schnet", "graphcast",
-            "deepfm")
+ARCH_IDS = (
+    "dbrx_132b", "llama4_maverick_400b_a17b", "gemma3_12b", "yi_34b",
+    "qwen1_5_110b",
+    "graphcast", "gatedgcn", "schnet", "gcn_cora",
+    "deepfm",
+)
 
 
-def get_arch(arch_id: str) -> ArchSpec:
-    """The port's spec of ``arch_id`` (one of ``ARCH_IDS``, ``-`` or
-    ``_`` alike: ``gemma3-12b``); ``KeyError`` naming the supported
-    architectures for any other."""
-    arch_id = arch_id.replace("-", "_")
-    if arch_id not in ARCH_IDS:
-        raise KeyError(f"the port supports {list(ARCH_IDS)}, not {arch_id!r}")
+def _spec(arch_id: str) -> ArchSpec:
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
     return ArchSpec(arch_id=arch_id, family=mod.FAMILY, config=mod.CONFIG,
                     reduced=mod.REDUCED, source=mod.SOURCE)
+
+
+def registry() -> dict:
+    """``{arch_id: ArchSpec}`` of every architecture, in ``ARCH_IDS``'
+    order."""
+    return {arch_id: _spec(arch_id) for arch_id in ARCH_IDS}
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    """The spec of ``arch_id`` (one of ``ARCH_IDS``, ``-`` or ``_``
+    alike: ``gemma3-12b``); ``KeyError`` naming the architectures for any
+    other."""
+    arch_id = arch_id.replace("-", "_")
+    if arch_id not in ARCH_IDS:
+        raise KeyError(f"unknown architecture {arch_id!r}; have "
+                       f"{list(ARCH_IDS)}")
+    return _spec(arch_id)
 
 
 def get_shape(spec: ArchSpec, shape_name: str):
@@ -251,3 +282,12 @@ def get_shape(spec: ArchSpec, shape_name: str):
             return sh
     raise KeyError(f"{spec.arch_id} has no shape {shape_name!r}; "
                    f"have {[s.name for s in spec.shapes]}")
+
+
+def all_cells():
+    """All 40 (ArchSpec, shape) cells, arch by arch in ``ARCH_IDS``'
+    order."""
+    for arch_id in ARCH_IDS:
+        spec = get_arch(arch_id)
+        for sh in spec.shapes:
+            yield spec, sh

@@ -3,6 +3,8 @@ of ``repro.launch.serve``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_12b \
         --reduced --requests 8 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_34b \
+        --max-len 1024 --max-new-tokens 32    # on a card, all 60 layers
 
 Draws the weights from a seeded generator on the device (``--device
 cuda``, the default, needs a card: there is no CPU fallback), submits

@@ -6,6 +6,8 @@
         --shape train_4k --steps 5 --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch gatedgcn \
         --shape minibatch_lg --steps 5 --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx_132b \
+        --shape train_4k --steps 5 --reduced --device cpu
 
 Builds the cell's train bundle (``launch.steps.build_bundle``) on the
 device (``--device cuda``, the default, needs a card: there is no CPU

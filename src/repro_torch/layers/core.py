@@ -1,7 +1,9 @@
 """Shared layers of the LM steps — the port of ``repro.layers.core``:
 ``rms_norm`` (Gemma's ``1 + weight``), ``layer_norm``, ``rope`` with
 shared or per-sequence positions, ``swiglu``, ``cross_entropy`` and the
-attention of the decode and train steps.
+attention of the decode and train steps; and ``scaled_normal``, the
+weight draw of the LM inits (the JAX package's ``normal * scale`` in
+f32, cast), in bounded slices.
 
 The prefill step's attention is not here: it calls kernel A4 through
 ``repro_torch.kernels.flash_attention.ops.attention``.  ``chunked_attention``
@@ -15,6 +17,8 @@ are jnp: no Pallas kernel lies on the train route.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -49,6 +53,31 @@ def swiglu(x, w_gate, w_up, w_down):
     g = torch.matmul(x, w_gate)
     u = torch.matmul(x, w_up)
     return torch.matmul(F.silu(g) * u, w_down)
+
+
+#: the most elements ``scaled_normal`` draws in f32 at once (256 MiB)
+DRAW_ELEMS = 1 << 26
+
+
+def scaled_normal(shape, scale: float, dtype: torch.dtype,
+                  generator: torch.Generator) -> torch.Tensor:
+    """``randn(shape) * scale`` in f32 on ``generator``'s device, cast to
+    ``dtype``.  A leaf of more than ``DRAW_ELEMS`` elements is drawn in
+    slices over its leading dims into the ``dtype`` leaf, so the f32
+    transient stays under 256 MiB whatever the leaf (a whole yi-34b
+    ``w_gate`` in f32 is 35.2 GB); a smaller leaf is one draw, as
+    ``randn(shape)`` draws it."""
+    dev = generator.device
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    n = next(i for i in range(len(shape) + 1)
+             if math.prod(shape[i:]) <= DRAW_ELEMS)
+    rows = out.view(-1, *shape[n:])
+    step = max(1, DRAW_ELEMS // math.prod(shape[n:]))
+    for i in range(0, rows.shape[0], step):
+        w = torch.randn(rows[i:i + step].shape, generator=generator,
+                        device=dev)
+        rows[i:i + step] = w.mul_(scale)
+    return out
 
 
 def _attn_mask(q_pos, k_pos, valid_len, causal: bool, window: int):

@@ -2,14 +2,17 @@
 
 ``from_jax_params`` takes the numpy tree of
 ``repro.models.transformer.init_params`` (``jax.tree.map(np.asarray,
-params)``: nested dicts and lists of arrays) and returns the port's
-``Transformer``; ``to_numpy`` is its inverse.  ``deepfm_from_jax_params``
+params)``: nested dicts and lists of arrays; MoE blocks with their nested
+``shared`` expert, q/k/v biases, and no ``unembed`` when the embeddings
+are tied) and returns the port's ``Transformer``; ``to_numpy`` is its
+inverse.  ``deepfm_from_jax_params``
 and ``deepfm_to_numpy`` do the same for DeepFM's tree (``table``,
 ``lin_table``, ``lin_dense``, ``bias``, ``mlp[i]["w"/"b"]``), which the
 port keeps as a dict of tensors.  ``train_state_from_jax`` and
 ``train_state_to_numpy`` carry a whole train state (``{"params", "opt":
 {"m", "v", "step"}}``, as ``launch.steps``' ``make_state`` builds it over
-a dict of tensors: DeepFM's, or an LM's JAX-layout tree).
+a dict of tensors: DeepFM's, or an LM's JAX-layout tree, MoE blocks
+included), each leaf under its JAX path.
 ``gnn_from_jax_params`` and ``gnn_to_numpy`` carry the tree of a GNN
 (``repro.models.gnn.models.init_params``, any of the four kinds), which
 the port keeps in the same layout of dicts and lists.  bf16 leaves cross as their 16-bit

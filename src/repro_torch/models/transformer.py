@@ -19,10 +19,14 @@ scattered at its own depth), and attends over the whole cache through
 into the cache in place and run under ``torch.no_grad``.
 
 ``repro.models.sharding_hints`` is not ported: on one card every
-``constrain_*`` call is the identity, so the port does not call them.
-Dense MLP blocks with untied embeddings and no q/k/v bias only: a config
-with MoE blocks, ``qkv_bias`` or ``tie_embeddings`` raises
-``NotImplementedError`` (later slices, when a ported config needs one).
+``constrain_*`` call is the identity, so the port does not call them.  A
+block's feed-forward is a dense SwiGLU (``mlp``) or, at a pattern position
+with ``moe=True`` in a config with ``moe``, a Mixture-of-Experts layer
+(``moe``, ``models.moe``'s local route, as JAX's with hints unset), whose
+balance loss ``trunk`` averages over every layer.  ``qkv_bias`` adds
+``bq`` / ``bk`` / ``bv`` to q, k and v before ``rope`` in all three
+attentions; ``tie_embeddings`` drops ``unembed``, and the head (``_head``)
+is then ``embed``.
 
 The train functions (``trunk``, ``forward``, ``lm_loss``) take the
 JAX-layout dict of ``init_tree`` / ``Transformer.tree()``, so a train
@@ -43,7 +47,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import LayerSpec, TransformerConfig
 from repro_torch.kernels.flash_attention.ops import attention
-from repro_torch.layers.core import chunked_attention, rms_norm, rope, swiglu
+from repro_torch.layers.core import (chunked_attention, rms_norm, rope,
+                                     scaled_normal, swiglu)
+from repro_torch.models import moe as moe_lib
 from repro_torch.tree import map_tree
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -53,95 +59,102 @@ def _dtype(cfg: TransformerConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def _moe_unsupported() -> NotImplementedError:
-    return NotImplementedError("MoE: later slice")
-
-
-def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None and any(s.moe for s in cfg.pattern):
-        raise _moe_unsupported()
-    if cfg.qkv_bias:
-        raise NotImplementedError("qkv_bias: later slice")
-    if cfg.tie_embeddings:
-        raise NotImplementedError("tie_embeddings: later slice")
-
-
 class _Leaves(nn.Module):
-    """A flat set of named weight leaves (frozen parameters)."""
+    """A set of named weight leaves (frozen parameters); a dict value is
+    a nested set (``moe.shared``)."""
 
-    def __init__(self, **leaves: torch.Tensor):
+    def __init__(self, **leaves):
         super().__init__()
         for name, t in leaves.items():
-            setattr(self, name, nn.Parameter(t, requires_grad=False))
+            if isinstance(t, dict):
+                setattr(self, name, _Leaves(**t))
+            else:
+                setattr(self, name, nn.Parameter(t, requires_grad=False))
 
     def tree(self) -> dict:
-        return dict(self.named_parameters())
+        return {name: getattr(self, name).tree()
+                if isinstance(getattr(self, name), _Leaves)
+                else getattr(self, name)
+                for name in (*self._parameters, *self._modules)}
 
 
 class Attention(_Leaves):
-    """wq (G, D, Hq, Dh), wk and wv (G, D, Hkv, Dh), wo (G, Hq, Dh, D)."""
+    """wq (G, D, Hq, Dh), wk and wv (G, D, Hkv, Dh), wo (G, Hq, Dh, D);
+    under ``qkv_bias`` also bq (G, Hq, Dh), bk and bv (G, Hkv, Dh)."""
 
 
 class MLP(_Leaves):
     """w_gate and w_up (G, D, F), w_down (G, F, D)."""
 
 
-class Block(nn.Module):
-    """One position of the layer pattern, stacked over the groups."""
+class MoE(_Leaves):
+    """router (G, D, E) f32, w_gate and w_up (G, E, D, F), w_down
+    (G, E, F, D); with shared experts also ``shared`` (an ``MLP``'s
+    leaves at width ``F * shared_experts``)."""
 
-    def __init__(self, attn: Attention, mlp: MLP, ln1: torch.Tensor,
+
+class Block(nn.Module):
+    """One position of the layer pattern, stacked over the groups; its
+    feed-forward is ``mlp`` or ``moe``."""
+
+    def __init__(self, attn: Attention, ffn: _Leaves, ln1: torch.Tensor,
                  ln2: torch.Tensor):
         super().__init__()
-        self.attn, self.mlp = attn, mlp
+        self.attn = attn
+        self.ffn_name = "moe" if isinstance(ffn, MoE) else "mlp"
+        setattr(self, self.ffn_name, ffn)
         self.ln1 = nn.Parameter(ln1, requires_grad=False)
         self.ln2 = nn.Parameter(ln2, requires_grad=False)
 
     def tree(self) -> dict:
         return {"attn": self.attn.tree(), "ln1": self.ln1, "ln2": self.ln2,
-                "mlp": self.mlp.tree()}
+                self.ffn_name: getattr(self, self.ffn_name).tree()}
 
     def group(self, g: int) -> dict:
         """The weights of group ``g`` as a JAX-style dict of views."""
-        t = self.tree()
-        return {"attn": {n: w[g] for n, w in t["attn"].items()},
-                "ln1": self.ln1[g], "ln2": self.ln2[g],
-                "mlp": {n: w[g] for n, w in t["mlp"].items()}}
+        return map_tree(lambda w: w[g], self.tree())
 
 
 class Transformer(nn.Module):
     """All weights of one LM: ``embed`` (V, D), ``blocks`` (one per
-    pattern position), ``final_norm`` (D,) and ``unembed`` (V, D)."""
+    pattern position), ``final_norm`` (D,) and, untied, ``unembed``
+    (V, D)."""
 
     def __init__(self, embed: torch.Tensor, blocks: list[Block],
-                 final_norm: torch.Tensor, unembed: torch.Tensor):
+                 final_norm: torch.Tensor, unembed: torch.Tensor | None):
         super().__init__()
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
-        self.unembed = nn.Parameter(unembed, requires_grad=False)
+        self.unembed = (None if unembed is None
+                        else nn.Parameter(unembed, requires_grad=False))
 
     @classmethod
     def from_tree(cls, tree: dict) -> "Transformer":
         """Build from a JAX-layout dict of tensors (``init_params``'s)."""
-        if "unembed" not in tree:
-            raise NotImplementedError("tie_embeddings: later slice")
-        blocks = []
-        for b in tree["blocks"]:
-            if "moe" in b:
-                raise _moe_unsupported()
-            if "bq" in b["attn"]:
-                raise NotImplementedError("qkv_bias: later slice")
-            blocks.append(Block(Attention(**b["attn"]), MLP(**b["mlp"]),
-                                b["ln1"], b["ln2"]))
+        blocks = [Block(Attention(**b["attn"]),
+                        MoE(**b["moe"]) if "moe" in b else MLP(**b["mlp"]),
+                        b["ln1"], b["ln2"]) for b in tree["blocks"]]
         return cls(tree["embed"], blocks, tree["final_norm"],
-                   tree["unembed"])
+                   tree.get("unembed"))
 
     def tree(self) -> dict:
         """The JAX-layout dict of the weights (the inverse of
         ``from_tree``)."""
-        return {"embed": self.embed,
-                "blocks": [b.tree() for b in self.blocks],
-                "final_norm": self.final_norm, "unembed": self.unembed}
+        out = {"embed": self.embed,
+               "blocks": [b.tree() for b in self.blocks],
+               "final_norm": self.final_norm}
+        if self.unembed is not None:
+            out["unembed"] = self.unembed
+        return out
+
+
+def _head(params) -> torch.Tensor:
+    """The output head, (V, D): ``unembed``, or ``embed`` when tied; of a
+    JAX-layout dict or a ``Transformer``."""
+    if isinstance(params, Transformer):
+        return params.embed if params.unembed is None else params.unembed
+    return params.get("unembed", params["embed"])
 
 
 # ---------------------------------------------------------------------------
@@ -151,34 +164,42 @@ class Transformer(nn.Module):
 def init_tree(cfg: TransformerConfig, generator: torch.Generator) -> dict:
     """Random weights on ``generator``'s device as a JAX-layout dict, drawn
     as the JAX package draws them (normal * fan_in ** -0.5 in f32, then
-    cast; norms zero).  The draws differ from ``jax.random``'s: tests
-    carry weights across with ``models.convert``."""
-    _check_supported(cfg)
+    cast, by ``scaled_normal``'s bounded slices; norms and q/k/v biases
+    zero; an MoE block's leaves from ``moe.init_moe_params`` stacked over
+    the groups).  The draws differ from ``jax.random``'s: tests carry
+    weights across with ``models.convert``."""
     dt, dev = _dtype(cfg), generator.device
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = cfg.n_groups
 
     def dense(shape, fan_in):
-        w = torch.randn(shape, generator=generator, device=dev)
-        return w.mul_(fan_in ** -0.5).to(dt)
+        return scaled_normal(shape, fan_in ** -0.5, dt, generator)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dt, device=dev)
 
     tree = {"blocks": []}
-    for _ in cfg.pattern:
+    for spec in cfg.pattern:
         attn = {"wq": dense((g, d, hq, dh), d),
                 "wk": dense((g, d, hkv, dh), d),
                 "wv": dense((g, d, hkv, dh), d),
                 "wo": dense((g, hq, dh, d), hq * dh)}
-        tree["blocks"].append({
-            "attn": attn, "ln1": zeros(g, d), "ln2": zeros(g, d),
-            "mlp": {"w_gate": dense((g, d, cfg.d_ff), d),
-                    "w_up": dense((g, d, cfg.d_ff), d),
-                    "w_down": dense((g, cfg.d_ff, d), cfg.d_ff)}})
+        if cfg.qkv_bias:
+            attn.update(bq=zeros(g, hq, dh), bk=zeros(g, hkv, dh),
+                        bv=zeros(g, hkv, dh))
+        block = {"attn": attn, "ln1": zeros(g, d), "ln2": zeros(g, d)}
+        if spec.moe and cfg.moe is not None:
+            block["moe"] = moe_lib.init_moe_params(generator, d, cfg.moe, dt,
+                                                   lead=(g,))
+        else:
+            block["mlp"] = {"w_gate": dense((g, d, cfg.d_ff), d),
+                            "w_up": dense((g, d, cfg.d_ff), d),
+                            "w_down": dense((g, cfg.d_ff, d), cfg.d_ff)}
+        tree["blocks"].append(block)
     tree["embed"] = dense((cfg.vocab, d), d)
     tree["final_norm"] = zeros(d)
-    tree["unembed"] = dense((cfg.vocab, d), d)
+    if not cfg.tie_embeddings:
+        tree["unembed"] = dense((cfg.vocab, d), d)
     return tree
 
 
@@ -205,6 +226,10 @@ def _attn_apply(cfg: TransformerConfig, spec: LayerSpec, p: dict,
     q = torch.einsum("bsd,dhe->bhse", h, p["wq"])
     k = torch.einsum("bsd,dhe->bhse", h, p["wk"])
     v = torch.einsum("bsd,dhe->bhse", h, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"][None, :, None, :]
+        k = k + p["bk"][None, :, None, :]
+        v = v + p["bv"][None, :, None, :]
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     b, s = h.shape[:2]
@@ -234,15 +259,28 @@ def _attn_apply(cfg: TransformerConfig, spec: LayerSpec, p: dict,
     return torch.einsum("bhse,hed->bsd", o, p["wo"])
 
 
+def _ffn(cfg: TransformerConfig, p: dict, x: torch.Tensor):
+    """The block's feed-forward on x (B, S, D) -> (y (B, S, D), its
+    balance loss, or None for a dense block).  An MoE block routes the
+    B * S tokens as one batch (JAX's ``x.reshape(b * s, d)``)."""
+    b, s, d = x.shape
+    x2 = x.reshape(b * s, d)
+    if "moe" in p:
+        y, aux = moe_lib.moe_apply(p["moe"], x2, cfg.moe)
+        return y.reshape(b, s, d), aux["lb_loss"]
+    mlp = p["mlp"]
+    return swiglu(x2, mlp["w_gate"], mlp["w_up"],
+                  mlp["w_down"]).reshape(b, s, d), None
+
+
 def _block_apply(cfg: TransformerConfig, spec: LayerSpec, p: dict,
                  h: torch.Tensor, positions: torch.Tensor, cache: dict,
                  cache_pos, use_kernel: bool) -> torch.Tensor:
     a = _attn_apply(cfg, spec, p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
                     positions, cache, cache_pos, use_kernel)
     h = h + a
-    x = rms_norm(h, p["ln2"], cfg.norm_eps)
-    mlp = p["mlp"]
-    return h + swiglu(x, mlp["w_gate"], mlp["w_up"], mlp["w_down"])
+    y, _ = _ffn(cfg, p, rms_norm(h, p["ln2"], cfg.norm_eps))
+    return h + y
 
 
 def _groups(cfg: TransformerConfig, params: Transformer, cache: list, h,
@@ -269,28 +307,29 @@ def _train_attn(cfg: TransformerConfig, spec: LayerSpec, p: dict,
     b, s, d = x.shape
     x2 = x.reshape(b * s, d)
 
-    def heads(w):                          # (D, H, Dh) -> (B, H, S, Dh)
+    def heads(w, bias):                    # (D, H, Dh) -> (B, H, S, Dh)
         y = torch.matmul(x2, w.reshape(d, -1))
-        return y.reshape(b, s, w.shape[1], w.shape[2]).transpose(1, 2)
+        y = y.reshape(b, s, w.shape[1], w.shape[2]).transpose(1, 2)
+        return y if bias is None else y + bias[None, :, None, :]
 
-    q = rope(heads(p["wq"]), positions, cfg.rope_theta)
-    k = rope(heads(p["wk"]), positions, cfg.rope_theta)
-    o = chunked_attention(q, k, heads(p["wv"]), causal=True,
+    q = rope(heads(p["wq"], p.get("bq")), positions, cfg.rope_theta)
+    k = rope(heads(p["wk"], p.get("bk")), positions, cfg.rope_theta)
+    o = chunked_attention(q, k, heads(p["wv"], p.get("bv")), causal=True,
                           window=spec.window, chunk=cfg.attn_chunk)
     o = o.transpose(1, 2).reshape(b * s, -1)
     return torch.matmul(o, p["wo"].reshape(-1, d)).reshape(b, s, d)
 
 
 def _train_body(cfg: TransformerConfig, spec: LayerSpec, p: dict,
-                h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+                h: torch.Tensor, positions: torch.Tensor):
+    """(the block's output, its balance loss: 0 for a dense block)."""
     a = _train_attn(cfg, spec, p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
                     positions)
     h = h + a
-    x = rms_norm(h, p["ln2"], cfg.norm_eps)
-    mlp = p["mlp"]
-    y = swiglu(x.reshape(-1, x.shape[-1]), mlp["w_gate"], mlp["w_up"],
-               mlp["w_down"])
-    return h + y.reshape(h.shape)
+    y, lb = _ffn(cfg, p, rms_norm(h, p["ln2"], cfg.norm_eps))
+    if lb is None:
+        lb = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + y, lb
 
 
 def _keep_weight_products(ctx, op, *args, **kwargs):
@@ -300,13 +339,15 @@ def _keep_weight_products(ctx, op, *args, **kwargs):
 
 
 def _train_block(cfg: TransformerConfig, spec: LayerSpec, p: dict,
-                 h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+                 h: torch.Tensor, positions: torch.Tensor):
     """One block of the train step under ``cfg.remat``, as JAX's
     ``jax.checkpoint`` policies: ``none`` keeps every activation for the
-    backward; ``dots`` keeps the weight products (JAX's
-    ``dots_with_no_batch_dims_saveable``) and recomputes the rest, the
-    attention's batched products too; any other value (``block``, the
-    default) keeps only the block's inputs and recomputes the block."""
+    backward; ``dots`` keeps the 2-D weight products (JAX's
+    ``dots_with_no_batch_dims_saveable``: the projections, the dense
+    SwiGLU, an MoE block's router and shared expert) and recomputes the
+    rest, the attention's and the experts' batched products too; any other
+    value (``block``, the default) keeps only the block's inputs and
+    recomputes the block.  Returns (output, balance loss)."""
     if cfg.remat == "none":
         return _train_body(cfg, spec, p, h, positions)
     kw = {}
@@ -318,25 +359,26 @@ def _train_block(cfg: TransformerConfig, spec: LayerSpec, p: dict,
 
 
 def trunk(cfg: TransformerConfig, params: dict, tokens: torch.Tensor):
-    """tokens (B, S) -> final hidden states (B, S, D) and ``{"lb_loss"}``
-    (0: dense blocks have no balance loss), every layer in the JAX scan's
+    """tokens (B, S) -> final hidden states (B, S, D) and ``{"lb_loss"}``,
+    the MoE blocks' balance losses summed over every layer and divided by
+    ``n_layers`` (dense layers count 0), every layer in the JAX scan's
     order."""
-    _check_supported(cfg)
     h = params["embed"][tokens.long()]
     positions = torch.arange(tokens.shape[1], device=h.device)
+    lb = torch.zeros((), dtype=torch.float32, device=h.device)
     for g in range(cfg.n_groups):
         for t, spec in enumerate(cfg.pattern):
             p = map_tree(lambda w: w[g], params["blocks"][t])
-            h = _train_block(cfg, spec, p, h, positions)
+            h, lb_t = _train_block(cfg, spec, p, h, positions)
+            lb = lb + lb_t
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    lb = torch.zeros((), dtype=torch.float32, device=h.device)
     return h, {"lb_loss": lb / max(cfg.n_layers, 1)}
 
 
 def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor):
     """tokens (B, S) -> logits (B, S, V) and the trunk's aux; no cache."""
     h, aux = trunk(cfg, params, tokens)
-    return torch.matmul(h, params["unembed"].T), aux
+    return torch.matmul(h, _head(params).T), aux
 
 
 def _chunk_nll(h_c: torch.Tensor, labels_c: torch.Tensor,
@@ -363,7 +405,7 @@ def lm_loss(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, s, ck):
         total = total + checkpoint(_chunk_nll, h[:, i:i + ck],
-                                   labels[:, i:i + ck], params["unembed"],
+                                   labels[:, i:i + ck], _head(params),
                                    use_reentrant=False)
     ce = total / (b * s)
     return ce + lb_coef * aux["lb_loss"], {"ce": ce, **aux}
@@ -390,7 +432,6 @@ def prefill(cfg: TransformerConfig, params: Transformer, tokens: torch.Tensor,
 
     ``use_kernel=False`` runs the plain attention (``attention_ref``) in
     place of kernel A4, for comparison."""
-    _check_supported(cfg)
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"a {s}-token prompt does not fit a {max_len}-token "
@@ -399,7 +440,7 @@ def prefill(cfg: TransformerConfig, params: Transformer, tokens: torch.Tensor,
     positions = torch.arange(s, device=h.device)
     cache = init_cache(cfg, b, max_len, device=h.device)
     h = _groups(cfg, params, cache, h, positions, None, use_kernel)
-    logits = torch.matmul(h[:, -1], params.unembed.T)
+    logits = torch.matmul(h[:, -1], _head(params).T)
     return logits, cache, s
 
 
@@ -415,7 +456,6 @@ def decode_step(cfg: TransformerConfig, params: Transformer, cache: list,
     cache: ``init_cache``'s list, written in place; pos: the current
     length, an int, a 0-d tensor or a (B,) tensor (per sequence);
     last_token (B,).  Returns (logits (B, V), cache)."""
-    _check_supported(cfg)
     h = params.embed[last_token.long()][:, None, :]          # (B, 1, D)
     dev = h.device
     if getattr(pos, "ndim", 0) == 1:
@@ -423,5 +463,5 @@ def decode_step(cfg: TransformerConfig, params: Transformer, cache: list,
     else:
         positions = pos + torch.arange(1, device=dev)
     h = _groups(cfg, params, cache, h, positions, pos, use_kernel=False)
-    logits = torch.matmul(h[:, 0], params.unembed.T)
+    logits = torch.matmul(h[:, 0], _head(params).T)
     return logits, cache

@@ -1,7 +1,7 @@
-"""The port's CUDA kernels, engine, LM prefill, DeepFM and GNN steps on
-the card, against their plain torch versions and the serial oracle, and
-the traversal service with its HTTP front end.  Imports only the port (no JAX), so
-the machine with the card runs it as it is:
+"""The port's CUDA kernels, engine, LM prefill, the MoE layer, DeepFM and
+GNN steps on the card, against their plain torch versions and the serial
+oracle, and the traversal service with its HTTP front end.  Imports only
+the port (no JAX), so the machine with the card runs it as it is:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -695,6 +695,53 @@ def test_lm_train_step_on_the_card_matches_the_cpu(cuda):
         assert a.device.type == "cuda"
         err = float((a.cpu().double() - b.double()).norm())
         assert err <= 1e-5 * float(b.double().norm())
+
+
+@pytest.mark.parametrize("mesh_shape", [None, (1, 4), (2, 2)])
+def test_moe_layer_on_the_card_matches_the_cpu(cuda, mesh_shape):
+    """The MoE layer (16 experts top-4, a shared expert, capacity lowered
+    so that it drops) on the card and on the CPU from the same f32
+    weights and tokens, locally or on a ``LocalMesh`` of ``mesh_shape``:
+    the same experts picked and dropped, ``lb_loss`` and the output
+    within f32 rounding (allow_tf32 off).  The tokens' k-th and (k+1)-th
+    probabilities are 1e-5 apart or more, a hundred times the f32
+    rounding of the router's logits, so no near-tie can route otherwise on
+    the card."""
+    from repro_torch import tree as tr
+    from repro_torch.configs import MoEConfig
+    from repro_torch.core.mesh import LocalMesh
+    from repro_torch.models import moe
+
+    cfg = MoEConfig(n_experts=16, top_k=4, d_ff=48, capacity_factor=0.7,
+                    shared_experts=1)
+    host = moe.init_moe_params(torch.Generator().manual_seed(0), 32, cfg,
+                               torch.float32)
+    x = torch.randn((256, 32), generator=torch.Generator().manual_seed(1))
+    probs = torch.softmax(x.double() @ host["router"].double(), -1)
+    top = probs.sort(-1, descending=True).values
+    assert float((top[:, 3] - top[:, 4]).min()) > 1e-5
+    card = tr.map_tree(lambda t: t.to(cuda), host)
+
+    def run(params, xs, dev):
+        if mesh_shape is None:
+            return moe.moe_apply(params, xs, cfg)
+        mesh = LocalMesh(mesh_shape, ("data", "model"), dev)
+        return moe.moe_apply(params, xs, cfg, mesh)
+
+    want, aux_h = run(host, x, "cpu")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got, aux = run(card, x.to(cuda), cuda)
+        _, _, e_card = moe._route(card["router"], x.to(cuda), cfg.top_k)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    _, _, e_host = moe._route(host["router"], x, cfg.top_k)
+    assert torch.equal(e_card.cpu(), e_host)
+    assert int(aux["dropped"]) == int(aux_h["dropped"]) > 0
+    torch.testing.assert_close(aux["lb_loss"].cpu(), aux_h["lb_loss"],
+                               rtol=1e-5, atol=0)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("arch_id,shape_name", [

@@ -130,7 +130,7 @@ def test_gnn_shapes_and_reduced_shapes_are_jax_s():
     for shape in GNN_SHAPES:
         assert dataclasses.asdict(steps.reduce_shape(shape, "gnn")) == \
             dataclasses.asdict(j_steps.reduce_shape(shape, "gnn"))
-    assert base.ARCH_IDS[:1] == ("gemma3_12b",) and "deepfm" in base.ARCH_IDS
+    assert base.ARCH_IDS == j_base.ARCH_IDS
 
 
 # --------------------------------------------------------------- index ops

@@ -131,3 +131,23 @@ def test_gnn_modules_import_first_without_jax(module):
     out = subprocess.run([sys.executable, "-c", probe, module], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", ["repro_torch.models.moe",
+                                    "repro_torch.configs.dbrx_132b",
+                                    "repro_torch.configs."
+                                    "llama4_maverick_400b_a17b",
+                                    "repro_torch.configs.yi_34b",
+                                    "repro_torch.configs.qwen1_5_110b"])
+def test_moe_and_lm_config_modules_import_first_without_jax(module):
+    """The MoE layer and the four LM configs of its slice import first,
+    with neither jax nor the JAX package loaded (the configs keep their
+    own copy of ``MoEConfig``)."""
+    probe = ("import importlib, sys; importlib.import_module(sys.argv[1]); "
+             "bad = sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+             "m.startswith('repro.')); assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", probe, module], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -259,23 +259,34 @@ class _OpCount(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def test_remat_policies_recompute_what_jax_recomputes(cell):
-    """The backward's products: ``block`` recomputes the blocks' weight
-    products (``mm``) and the attention's (``bmm``); ``dots`` keeps the
-    weight products, as ``dots_with_no_batch_dims_saveable``, and
-    recomputes only the attention's; ``none`` recomputes neither."""
+def _backward_products(cfg, tree, tokens) -> dict:
+    """(``mm``, ``bmm``) calls of the backward of ``lm_loss`` under each
+    remat policy."""
     counts = {}
     for remat in ("none", "block", "dots"):
-        cfg = dataclasses.replace(cell["cfg"], remat=remat)
-        leaves = [p.detach().requires_grad_()
-                  for p in tr.leaves(_params(cell))]
-        loss, _ = tf.lm_loss(cfg, tr.unflatten(cell["host"], leaves),
-                             _t(cell["tokens"]), loss_chunk=CHUNK)
+        cfg_r = dataclasses.replace(cfg, remat=remat)
+        leaves = [p.detach().requires_grad_() for p in tr.leaves(tree)]
+        loss, _ = tf.lm_loss(cfg_r, tr.unflatten(tree, leaves), tokens,
+                             loss_chunk=CHUNK)
         mode = _OpCount()
         with mode:
             torch.autograd.grad(loss, leaves)
         counts[remat] = (mode.counts[torch.ops.aten.mm.default],
                          mode.counts[torch.ops.aten.bmm.default])
+    return counts
+
+
+def test_remat_policies_recompute_what_jax_recomputes(cell):
+    """The backward's products: ``block`` recomputes the blocks' weight
+    products (``mm``) and the attention's (``bmm``); ``dots`` keeps the
+    weight products, as ``dots_with_no_batch_dims_saveable``, and
+    recomputes only the attention's; ``none`` recomputes neither.  On an
+    MoE config (llama4's REDUCED: a dense block, then an MoE block with a
+    shared expert) ``dots`` also keeps the router's and the shared
+    expert's products (2-D) and recomputes the experts' (batched over the
+    experts, as JAX's einsum, which that policy does not save)."""
+    counts = _backward_products(cell["cfg"], _params(cell),
+                                _t(cell["tokens"]))
     layers, chunks = cell["cfg"].n_layers, SEQ // CHUNK
     mm, bmm = counts["none"]
     # the forward of each attention is 2 products a KV chunk; each block
@@ -283,6 +294,20 @@ def test_remat_policies_recompute_what_jax_recomputes(cell):
     # not saved for anything)
     assert counts["block"] == (mm + 6 * layers, bmm + 2 * chunks * layers)
     assert counts["dots"] == (mm, bmm + 2 * chunks * layers)
+
+    cfg = dataclasses.replace(get_arch("llama4_maverick_400b_a17b").reduced,
+                              attn_chunk=CHUNK)
+    assert [sp.moe for sp in cfg.pattern] == [False, True]
+    counts = _backward_products(
+        cfg, tf.init_tree(cfg, torch.Generator().manual_seed(0)),
+        _t(cell["tokens"]))
+    mm, bmm = counts["none"]
+    # the MoE block recomputes all 8 of its 2-D products (q, k, v, o, the
+    # router, the shared expert's three: the balance loss comes after
+    # them) and the experts' 3 batched ones
+    attn = 2 * chunks * cfg.n_layers
+    assert counts["block"] == (mm + 6 + 8, bmm + attn + 3)
+    assert counts["dots"] == (mm, bmm + attn + 3)
 
 
 # ----------------------------------------------------------- train step

@@ -16,7 +16,6 @@ from repro.layers import core as j_core
 from repro.launch.steps import build_bundle as j_build_bundle
 from repro.models import transformer as j_tf
 from repro_torch.configs import get_arch, get_shape
-from repro_torch.configs.base import LayerSpec, MoEConfig, TransformerConfig
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.launch.steps import build_bundle, reduce_shape
 from repro_torch.layers import core
@@ -25,16 +24,6 @@ from repro_torch.models.convert import from_jax_params, to_numpy
 
 torch.set_num_threads(1)
 
-# dbrx_132b's REDUCED config (repro/configs/dbrx_132b.py), copied: the port
-# supports no MoE config yet
-DBRX_REDUCED = TransformerConfig(
-    name="dbrx-reduced",
-    n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
-    d_ff=96, vocab=256,
-    pattern=(LayerSpec(moe=True),),
-    moe=MoEConfig(n_experts=4, top_k=2, d_ff=96),
-    dtype="float32",
-)
 TOL = {"atol": 1e-5, "rtol": 1e-5}     # f32 on both sides, another order
 _j_init = jax.jit(j_tf.init_params, static_argnums=0)
 
@@ -131,33 +120,6 @@ def test_prefill_use_kernel_false_is_the_same_on_the_cpu():
         tf.prefill(cfg, params, tokens, 16)
 
 
-def test_moe_config_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tf.init_params(DBRX_REDUCED, torch.Generator().manual_seed(0))
-    tree = jax.tree.map(np.asarray, _j_init(j_get_arch("dbrx_132b").reduced,
-                                            jax.random.PRNGKey(0)))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        from_jax_params(tree, "cpu")
-
-
-@pytest.mark.parametrize("knob", ["qkv_bias", "tie_embeddings"])
-def test_unported_knobs_raise_not_implemented(knob):
-    """No ported config sets them: init, prefill and the JAX carry-over
-    refuse them rather than run an untested path."""
-    cfg = dataclasses.replace(get_arch("gemma3_12b").reduced, **{knob: True})
-    with pytest.raises(NotImplementedError, match=knob):
-        tf.init_params(cfg, torch.Generator().manual_seed(0))
-    params = tf.init_params(get_arch("gemma3_12b").reduced,
-                            torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match=knob):
-        tf.prefill(cfg, params, torch.zeros((1, 4), dtype=torch.long), 4)
-    j_cfg = dataclasses.replace(j_get_arch("gemma3_12b").reduced,
-                                **{knob: True})
-    tree = jax.tree.map(np.asarray, _j_init(j_cfg, jax.random.PRNGKey(0)))
-    with pytest.raises(NotImplementedError, match=knob):
-        from_jax_params(tree, "cpu")
-
-
 def test_build_bundle_prefill_runs_end_to_end_on_the_cpu():
     b = build_bundle(get_arch("gemma3-12b"), "prefill_32k", reduced=True,
                      device="cpu")
@@ -171,12 +133,12 @@ def test_build_bundle_prefill_runs_end_to_end_on_the_cpu():
 
 
 def test_unported_archs_and_steps_raise():
-    """An unported arch and an unknown family raise (the LM decode and
-    train steps and the GNN family, refused before their slices, build:
-    tests/test_torch_decode.py, test_torch_lm_train.py,
-    test_torch_gnn.py)."""
+    """An unknown arch and an unknown family raise (the LM decode and
+    train steps, the GNN family and the MoE configs, refused before their
+    slices, build: tests/test_torch_decode.py, test_torch_lm_train.py,
+    test_torch_gnn.py, test_torch_lm_archs.py)."""
     with pytest.raises(KeyError, match="gemma3_12b"):
-        get_arch("dbrx_132b")
+        get_arch("mixtral_8x7b")
     with pytest.raises(ValueError, match="moe"):
         reduce_shape(get_shape(get_arch("gemma3_12b"), "train_4k"), "moe")
     gnn_shape = get_shape(get_arch("gcn_cora"), "full_graph_sm")
