@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port (BFS on the 1-D and 2-D partitions in the
 dense, queue and auto modes, BFS serving over HTTP, LM prefill, DeepFM
 serving and the EmbeddingBag op, DeepFM training, LM decode serving, LM
-training, GNN training, and the Mixture-of-Experts and other LM configs)
-on one card.
+training, GNN training, the Mixture-of-Experts and other LM configs, and
+elastic resharding with the dry run) on one card.
 
     python3 chip_smoke.py            # full size, as the acceptance run
     python3 chip_smoke.py --profile  # also profile one run of each path
@@ -316,10 +316,39 @@ Phases (any failed check raises and the script exits non-zero):
    the bytes of drawing yi's and llama4's largest leaf whole in f32
    against ``layers.core.scaled_normal``'s slices.
 
+20. path 15 — elastic resharding, the sharding plan and the dry run:
+   (a) path 1's p = 4 ``rmat_1m`` graph through
+   ``train.elastic.repartition_graph`` to p = 2 and p = 1, each run twice
+   in ``mode="dense"`` with ``wire_format="packed"`` (A1 at every shard
+   count): distances bitwise path 1's, A1 exactly once a level and no
+   other kernel, path 1's p = 4 distances through
+   ``repartition_vertex_array`` equal to the p = 2 engine's, each
+   repartition's host seconds beside the run's ms a level; (b)
+   ``small_world_100k`` under ``use_kernel=True`` at p = 4, repartitioned
+   to 2, then to 1: distances bitwise path 2's, ``bsr_expand_bits`` once
+   a level; (c) DeepFM ``train_batch`` uncut (the 5.2 GB state of path
+   10), deterministic scatters: 3 steps, ``reshard_state`` onto a (data
+   1, model 4) ``LocalMesh`` under ``state_specs(recsys_param_specs)``
+   (on the card: every leaf a new, equal tensor), a CPU copy resharded
+   back onto the card (through the host), 3 more steps: losses and the
+   final state bitwise 6 uninterrupted steps, each reshard's bytes and
+   seconds; ``P("model", None)`` on a 7-way model axis must raise; (d)
+   ``launch.dryrun.lower_cell`` on a 1-chip meta mesh for path 12's
+   gemma3 cut (6 layers, batch 4) and DeepFM ``train_batch``: its
+   ``arg_bytes`` equal to the real state's and batch's bytes on the card
+   and within ``DRY_MEM_TOL`` of the bytes the allocator was asked for
+   (``memory_allocated``, which counts 2 MiB segments, within 1 MiB a
+   leaf of them), its trace's dot FLOPs equal to ``FlopCounterMode``'s count of one real
+   step on the card (no kernel launched), the measured temporaries,
+   ``t_compute_s`` against a timed step and ``useful_flops_ratio``
+   printed; then both cells' 16 x 16 and 2 x 16 x 16 rows (meta, no card
+   memory).
+
 The last line is ``{"ok": true, "device": {...}}``; before it come one
 ``{"kernels": [...]}`` JSON line (every kernel's row, with its launches
-in each path that runs it; paths 13 and 14 add no row, and path 14
-launches A4 alone) and the card's name and power limit.
+in each path that runs it; paths 13 to 15 add no row, path 14 launches
+A4 alone and path 15 A1 and ``bsr_expand_bits``) and the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -4973,6 +5002,332 @@ def moe_phase(kernels, dev, tmp: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# path 15: elastic resharding, the sharding plan and the dry run
+# ---------------------------------------------------------------------------
+
+# (c) steps before the reshards and after them
+ELASTIC_STEPS = 3
+# (c) the planted fault: 39,000,000 table rows do not divide over 7
+ELASTIC_BAD_MODEL = 7
+# (d) the dry run's arg_bytes against the bytes the allocator was asked
+# for by the real state and batch (``requested_bytes``; its
+# ``memory_allocated`` also counts each large block's rounding to the
+# 2 MiB segment that holds it, up to 1 MiB a leaf)
+DRY_MEM_TOL = 1e-3
+
+
+def elastic_bfs_phase(kernels, g4, roots, want, pad4, card) -> dict:
+    """(a): path 1's p = 4 ``rmat_1m`` graph repartitioned to p = 2 and
+    p = 1, each traversed in ``mode="dense"`` with the packed wire."""
+    from repro_torch.core import BFSOptions, plan
+    from repro_torch.train.elastic import (repartition_graph,
+                                           repartition_vertex_array)
+
+    out = {}
+    for new_p in (2, 1):
+        t0 = time.perf_counter()
+        g = repartition_graph(g4, new_p)
+        host_s = time.perf_counter() - t0
+        check(g.p == new_p and g.n_edges == g4.n_edges,
+              f"path 15 (a): p = {new_p} holds {g.n_edges} edges, not "
+              f"{g4.n_edges}")
+        eng = plan(g, BFSOptions(mode="dense", wire_format="packed"),
+                   num_sources=S).compile()
+        host, run_ms, res, counts = drive(kernels, eng, roots, runs=2)
+        levels = res.run_stats.levels
+        check(np.array_equal(host, want),
+              f"path 15 (a) p = {new_p}: distances differ from path 1's")
+        check(counts["fold_update"] == 2 * levels
+              and sum(counts.values()) == counts["fold_update"],
+              f"path 15 (a) p = {new_p}: launches {counts} in 2 runs of "
+              f"{levels} levels")
+        row = {"repartition_host_s": host_s, "levels": levels,
+               "run_ms": run_ms[0], "ms_a_level": run_ms[0] / levels,
+               "a1_launches": counts["fold_update"], "e_cap": g.e_cap}
+        if new_p == 2:
+            t0 = time.perf_counter()
+            moved = repartition_vertex_array(pad4, g4.part, g.part)
+            row["vertex_array_host_s"] = time.perf_counter() - t0
+            check(np.array_equal(moved, res.dist.cpu().numpy()),
+                  "path 15 (a): path 1's p = 4 distances repartitioned "
+                  "differ from the p = 2 engine's")
+        out[f"p{new_p}"] = row
+        log(f"path 15 (a) p = {new_p}: repartition_graph {host_s:.3f} s on "
+            f"the host (e_cap {g.e_cap}); run {run_ms[0]} ms, "
+            f"{row['ms_a_level']} ms a level over {levels} levels; A1 "
+            f"{counts['fold_update']} launches in 2 runs; distances bitwise "
+            f"path 1's [{card}]")
+        del eng, res
+    return out
+
+
+def elastic_bits_phase(kernels, src, dst, n, roots, want, card) -> dict:
+    """(b): ``small_world_100k`` with ``use_kernel=True`` at p = 4, then
+    repartitioned to 2, then to 1."""
+    from repro_torch.core import BFSOptions, plan
+    from repro_torch.graphs import shard_graph
+    from repro_torch.train.elastic import repartition_graph
+
+    out, g = {}, shard_graph(src, dst, n, 4)
+    for p in (4, 2, 1):
+        host_s = 0.0
+        if p != 4:
+            t0 = time.perf_counter()
+            g = repartition_graph(g, p)
+            host_s = time.perf_counter() - t0
+        eng = plan(g, BFSOptions(use_kernel=True, wire_format="packed"),
+                   num_sources=S).compile()
+        host, run_ms, res, counts = drive(kernels, eng, roots, runs=2)
+        levels = res.run_stats.levels
+        check(np.array_equal(host, want),
+              f"path 15 (b) p = {p}: distances differ from path 2's")
+        check(counts["bsr_expand_bits"] == 2 * levels
+              and counts["bsr_spmm"] == counts["bitpack_words"] == 0,
+              f"path 15 (b) p = {p}: launches {counts} in 2 runs of "
+              f"{levels} levels")
+        out[f"p{p}"] = {"repartition_host_s": host_s, "run_ms": run_ms[0],
+                        "levels": levels, "launches": counts}
+        log(f"path 15 (b) p = {p}: repartition {host_s:.3f} s; run "
+            f"{run_ms[0]} ms over {levels} levels; bsr_expand_bits "
+            f"{counts['bsr_expand_bits']}, A1 {counts['fold_update']} "
+            f"launches in 2 runs; distances bitwise path 2's [{card}]")
+        del eng, res
+    return out
+
+
+def elastic_train_phase(kernels, dev, card) -> dict:
+    """(c): DeepFM ``train_batch`` uncut: 3 steps, ``reshard_state`` onto
+    a (data 1, model 4) mesh on the card, then from a CPU copy back onto
+    the card, 3 more steps; bitwise 6 steps without a reshard."""
+    from repro_torch import tree as tr
+    from repro_torch.configs import get_arch
+    from repro_torch.core.mesh import LocalMesh
+    from repro_torch.launch.shardings import (P, recsys_param_specs,
+                                              state_specs)
+    from repro_torch.launch.steps import build_bundle
+    from repro_torch.train.elastic import reshard_state
+
+    spec = get_arch("deepfm")
+    cfg = spec.config
+    bundle = build_bundle(spec, "train_batch", device=dev)
+    params = bundle.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    batch = bundle.make_batch(SEED)
+    state0 = bundle.make_state(params)
+
+    def run(state, steps):
+        losses = []
+        for _ in range(steps):
+            state, m = bundle.fn(state, batch)
+            losses.append(m["loss"].item())
+        return state, losses
+
+    def placed(mesh):
+        return state_specs(recsys_param_specs(cfg, mesh), params, mesh)
+
+    # the embedding gradient's scatter-add is deterministic only so
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    reset_counts(kernels)
+    try:
+        want, want_l = run(state0, 2 * ELASTIC_STEPS)
+        state, l1 = run(state0, ELASTIC_STEPS)
+        mesh4 = LocalMesh((1, 4), ("data", "model"), dev)
+        nb = nbytes(*tr.leaves(state))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moved = reshard_state(state, mesh4, placed(mesh4))
+        torch.cuda.synchronize()
+        d2d_s = time.perf_counter() - t0
+        check(all(a.data_ptr() != b.data_ptr() and torch.equal(a, b)
+                  for a, b in zip(tr.leaves(moved), tr.leaves(state))),
+              "path 15 (c): a leaf resharded on the card is not a new, "
+              "equal tensor")
+        del state
+        host = tr.map_tree(lambda x: x.cpu(), moved)
+        del moved
+        mesh1 = LocalMesh((1, 1), ("data", "model"), dev)
+        t0 = time.perf_counter()
+        back = reshard_state(host, mesh1, placed(mesh1))
+        torch.cuda.synchronize()
+        h2d_s = time.perf_counter() - t0
+        check(all(x.device == dev for x in tr.leaves(back)),
+              "path 15 (c): a leaf resharded from the host is not on the "
+              "card")
+        del host
+        got, l2 = run(back, ELASTIC_STEPS)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    counts = {n: k.launches for n, k in kernels.items()}
+    check(not any(counts.values()), f"path 15 (c): launches {counts}")
+    check(l1 + l2 == want_l, f"path 15 (c): losses {l1} + {l2}, not the "
+                             f"uninterrupted {want_l}")
+    check(all(torch.equal(a, b) for a, b in zip(tr.leaves(got),
+                                                  tr.leaves(want))),
+          "path 15 (c): the final state differs from 6 uninterrupted "
+          "steps")
+    bad = LocalMesh((1, ELASTIC_BAD_MODEL), ("data", "model"), dev)
+    try:
+        reshard_state({"table": want["params"]["table"]}, bad,
+                      {"table": P("model", None)})
+        raised = False
+    except ValueError as e:
+        raised, why = True, str(e)
+    check(raised, f"path 15 (c): P('model', None) on a "
+                  f"{ELASTIC_BAD_MODEL}-way model axis was placed")
+    log(f"path 15 (c): losses {l1} | {l2} == {want_l}; reshard on the card "
+        f"{nb} bytes in {d2d_s:.4f} s ({nb / d2d_s / 1e9:.1f} GB/s), from "
+        f"the host {nb} bytes in {h2d_s:.4f} s ({nb / h2d_s / 1e9:.1f} "
+        f"GB/s); final state bitwise; planted fault raised: {why} [{card}]")
+    out = {"losses": want_l, "state_bytes": nb, "device_to_device_s": d2d_s,
+           "host_to_device_s": h2d_s}
+    del want, got, back, state0, params
+    return out
+
+
+def dry_card_cell(kernels, dev, label: str, arch: str, spec, shape,
+                  card) -> dict:
+    """(d) for one cell: ``dryrun.lower_cell`` on a 1-chip meta mesh
+    against the real state, batch and step on the card."""
+    from repro_torch import tree as tr
+    from repro_torch.core.mesh import LocalMesh
+    from repro_torch.launch import dryrun, step_stats
+    from repro_torch.launch.mesh import META
+    from repro_torch.launch.steps import build_bundle
+
+    one = LocalMesh((1, 1), ("data", "model"), META)
+    t0 = time.perf_counter()
+    _, row = dryrun.lower_cell(arch, shape, multi_pod=False, spec=spec,
+                               mesh=one)
+    trace_s = time.perf_counter() - t0
+    def requested() -> int:
+        return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+    torch.cuda.synchronize()
+    before, before_req = torch.cuda.memory_allocated(), requested()
+    bundle = build_bundle(spec, shape, device=dev)
+    state = bundle.make_state(bundle.init_params(
+        torch.Generator(device=dev).manual_seed(SEED)))
+    batch = bundle.make_batch(SEED)
+    torch.cuda.synchronize()
+    added = torch.cuda.memory_allocated() - before
+    added_req = requested() - before_req
+    nb = nbytes(*tr.leaves(state), *tr.leaves(batch))
+    n_leaves = len(tr.leaves(state)) + len(tr.leaves(batch))
+    check(row["arg_bytes"] == nb, f"path 15 (d) {label}: arg_bytes "
+                                  f"{row['arg_bytes']}, the card's {nb}")
+    check(abs(added_req - nb) <= DRY_MEM_TOL * nb,
+          f"path 15 (d) {label}: the allocator was asked for {added_req} "
+          f"bytes, arg_bytes {nb}")
+    check(nb <= added <= nb + n_leaves * 2**20,
+          f"path 15 (d) {label}: memory_allocated rose {added} for "
+          f"{nb} bytes in {n_leaves} leaves")
+    reset_counts(kernels)
+    trace = step_stats.trace_step(bundle.fn, (state, batch))
+    torch.cuda.synchronize()
+    counts = {n: k.launches for n, k in kernels.items()}
+    check(not any(counts.values()), f"path 15 (d) {label}: launches "
+                                    f"{counts}")
+    check(trace.dot_flops == row["trace_flops"],
+          f"path 15 (d) {label}: the card's step {trace.dot_flops} FLOPs, "
+          f"the dry run's {row['trace_flops']}")
+    state = trace.out[0]
+    del trace
+    reset_peak()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state, _ = bundle.fn(state, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    temps = torch.cuda.max_memory_allocated() - held
+    out = {"arg_bytes": nb, "memory_allocated_rise": added,
+           "requested_bytes_rise": added_req, "leaves": n_leaves,
+           "dot_flops": row["trace_flops"], "trace_s": trace_s,
+           "t_compute_s": row["t_compute_s"], "step_s": step_s,
+           "temporaries_bytes": temps, "bytes_per_device":
+           row["bytes_per_device"],
+           "useful_flops_ratio": row["useful_flops_ratio"]}
+    log(f"path 15 (d) {label}: arg_bytes {nb} == the card's state and "
+        f"batch ({n_leaves} leaves); the allocator was asked for "
+        f"{added_req} bytes ({added_req / nb - 1:+.6%}), memory_allocated "
+        f"rose {added} ({added / nb - 1:+.6%}); dot FLOPs "
+        f"{row['trace_flops']} == the card step's; temporaries "
+        f"(max_memory_allocated less what the step held) {temps} bytes, "
+        f"which the dry run's bytes_per_device ({row['bytes_per_device']}) "
+        f"leaves out; t_compute_s {row['t_compute_s']} against a measured "
+        f"step of {step_s} s; useful_flops_ratio "
+        f"{row['useful_flops_ratio']}; meta trace {trace_s:.1f} s [{card}]")
+    del state, batch, bundle
+    return out
+
+
+def dry_card_phase(kernels, dev, card) -> dict:
+    """(d): the dry run held to the card on path 12's gemma3 cut and on
+    DeepFM ``train_batch``, then both cells' production rows."""
+    import gc
+
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.launch import dryrun
+
+    g = get_arch("gemma3_12b")
+    cut = dataclasses.replace(g, config=dataclasses.replace(
+        g.config, n_layers=LM_TRAIN_LAYERS))
+    cut_shape = dataclasses.replace(get_shape(g, "train_4k"),
+                                    global_batch=LM_TRAIN_BATCH)
+    out = {"gemma3": dry_card_cell(
+        kernels, dev, f"gemma3_12b train_4k ({LM_TRAIN_LAYERS} layers, "
+        f"batch {LM_TRAIN_BATCH})", "gemma3_12b", cut, cut_shape, card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    d = get_arch("deepfm")
+    out["deepfm"] = dry_card_cell(kernels, dev, "deepfm train_batch",
+                                  "deepfm", d, "train_batch", card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = []
+    for arch, shape in (("gemma3_12b", "train_4k"),
+                        ("deepfm", "train_batch")):
+        for mp in (False, True):
+            _, row = dryrun.lower_cell(arch, shape, multi_pod=mp)
+            rows.append(row)
+            log(f"path 15 (d) dry run {arch} {shape} {row['mesh']}: "
+                f"{json.dumps(row)}")
+    out["production_rows"] = rows
+    return out
+
+
+def elastic_phase(kernels, dev, g4, roots1, want1, pad4, sw, roots2, want2,
+                  card) -> dict:
+    """Path 15 (module docstring): (a), (b) elastic BFS, (c) an elastic
+    train state, (d) the dry run against the card.  Each part resets the
+    launch counts before each run it makes and reads them after; (c) and
+    (d) launch none."""
+    import gc
+
+    out, times = {}, {}
+    for key, fn in (
+            ("a", lambda: elastic_bfs_phase(kernels, g4, roots1, want1,
+                                            pad4, card)),
+            ("b", lambda: elastic_bits_phase(kernels, *sw, roots2, want2,
+                                             card)),
+            ("c", lambda: elastic_train_phase(kernels, dev, card)),
+            ("d", lambda: dry_card_phase(kernels, dev, card))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        times[key] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = dict.fromkeys(kernels, 0)
+    launches["fold_update"] = sum(r["a1_launches"] for r in out["a"].values())
+    for r in out["b"].values():
+        for n, c in r["launches"].items():
+            launches[n] += c
+    check(launches["fold_update"] > 0 and launches["bsr_expand_bits"] > 0,
+          f"path 15: launches {launches}")
+    out["launches"], out["seconds"] = launches, times
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5091,6 +5446,7 @@ def main(argv=None) -> int:
         path1[label] = (host, counts, d, res.run_stats)
         if p == 4:
             g1_p4 = g
+            pad4 = res.dist.cpu().numpy()      # path 15 (a) repartitions it
         del eng, res
     check(np.array_equal(path1["p4_default"][0], path1["p1_packed"][0]),
           "path 1: p=4 and p=1 distances differ")
@@ -5194,7 +5550,6 @@ def main(argv=None) -> int:
                         path1, path5_a, (src2, dst2, n2), host2, roots2,
                         card, tmp9)
     shutil.rmtree(tmp9)            # the graphs' files, gigabytes of them
-    del g1_p4
     log("path 9: DistMesh, nccl at world size 1 bitwise path 1 p=1; gloo, "
         "4 ranks on the card: dense, auto S = 1, the 2 x 2 grid and "
         "use_kernel bitwise paths 1, 4, 5 (a) and 2, A1 and "
@@ -5476,7 +5831,22 @@ def main(argv=None) -> int:
         f"fails it); dbrx train_4k falling through the Trainer: ok "
         f"({time.perf_counter() - t0:.1f} s)")
     log(f"path 14 summary: {json.dumps(path14)}")
-    # paths 13 and 14 add no kernel: each row carries its launches there
+    # -------------------------------------------------------------- path 15
+    t0 = time.perf_counter()
+    path15 = elastic_phase(kernels, dev, g1_p4, roots1,
+                           path1["p4_default"][0], pad4, (src2, dst2, n2),
+                           roots2, host2, card)
+    del g1_p4, pad4
+    log(f"path 15: rmat_1m repartitioned 4 -> 2 and 4 -> 1 and "
+        f"small_world_100k 4 -> 2 -> 1 under use_kernel, distances bitwise "
+        f"paths 1 and 2, A1 and bsr_expand_bits once a level; DeepFM "
+        f"train_batch resharded on the card and from the host, losses and "
+        f"state bitwise 6 uninterrupted steps, the 7-way spec refused; the "
+        f"dry run's arg_bytes and dot FLOPs equal to the card's on path "
+        f"12's gemma3 cut and DeepFM: ok "
+        f"({time.perf_counter() - t0:.1f} s; parts {path15['seconds']})")
+    log(f"path 15 summary: {json.dumps(path15)}")
+    # paths 13 to 15 add no kernel: each row carries its launches there
     for row in rows:
         if row["name"] == "flash_attention":
             row["launches_path11"] = (path11["a"]["a4_launches"]
@@ -5484,6 +5854,7 @@ def main(argv=None) -> int:
             row["launches_path12"] = path12["e"]["a4_launches"]
         row["launches_path13"] = path13["launches"][row["name"]]
         row["launches_path14"] = path14["launches"][row["name"]]
+        row["launches_path15"] = path15["launches"][row["name"]]
 
     log(f"peak device memory over the whole script {peak_gib():.2f} GiB")
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")

@@ -30,14 +30,15 @@ from repro_torch.core.exchange import (DENSE_STRATEGIES,
                                        register_exchange, select_exchange,
                                        unregister_exchange)
 from repro_torch.core.mesh import LocalMesh, default_grid
-from repro_torch.core.partition import Partition1D, Partition2D
+from repro_torch.core.partition import (Partition, Partition1D, Partition2D,
+                                        repartition)
 
 __all__ = [
     "BFSOptions", "BFSStats", "INF", "validate_sources",
     "BFSEngine", "BFSPlan", "BFSResult", "BFSRunStats", "plan",
     "plan_ladder", "normalize_ladder", "pick_bucket", "resolve_device",
-    "LocalMesh", "DistMesh", "default_grid", "Partition1D",
-    "Partition2D",
+    "LocalMesh", "DistMesh", "default_grid", "Partition", "Partition1D",
+    "Partition2D", "repartition",
     "exchange_dense", "exchange_queue", "expand_row", "fold_col",
     "ExchangeStrategy", "register_exchange",
     "unregister_exchange", "get_exchange", "select_exchange",

@@ -472,6 +472,12 @@ def apply_queue(recv: torch.Tensor, me, shard: int) -> torch.Tensor:
     return mask[:, :shard].reshape(*lead, shard)
 
 
+def frontier_nonzero(frontier: torch.Tensor) -> torch.Tensor:
+    """0-d bool: does any frontier entry hold a vertex (a tensor, not a
+    host read)."""
+    return frontier.max() > 0
+
+
 # ---------------------------------------------------------------------------
 # Packed-bitset wire format (dense phases)
 # ---------------------------------------------------------------------------

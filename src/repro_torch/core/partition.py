@@ -8,14 +8,54 @@ a shard's slice of any vertex-indexed array is a plain static slice.
 
 The id maps are arithmetic only, so they work unchanged on python ints,
 numpy arrays and torch tensors.  ``Partition2D`` keeps ``Partition1D``'s
-vertex chunks and assigns each edge to a cell of an ``r x c`` grid.
+vertex chunks and assigns each edge to a cell of an ``r x c`` grid.  Both
+satisfy the structural ``Partition`` protocol; ``repartition`` rescales a
+1-D partition to a new shard count (the elastic runtime's,
+``train/elastic.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Protocol, runtime_checkable
 
 import numpy as np
+
+
+@runtime_checkable
+class Partition(Protocol):
+    """Structural protocol every partition scheme satisfies.
+
+    ``isinstance(x, Partition)`` works at runtime (data members are checked
+    for presence only).  All id maps must accept python ints, numpy arrays
+    and torch tensors, and must map every padded id in ``[0, n)`` —
+    including the padding ids ``[n_logical, n)`` at the last shard
+    boundary — to a valid shard without raising.
+    """
+
+    n_logical: int
+
+    @property
+    def kind(self) -> str: ...              # "1d" | "2d"
+
+    @property
+    def p(self) -> int: ...                 # number of shards
+
+    @property
+    def shard_size(self) -> int: ...        # padded ids per shard
+
+    @property
+    def n(self) -> int: ...                 # padded global size
+
+    def owner(self, v): ...
+
+    def local_id(self, v): ...
+
+    def global_id(self, shard, local): ...
+
+    def shard_slice(self, shard) -> slice: ...
+
+    def pad_vertex_array(self, x, fill=0): ...
 
 
 class _BlockVertexMixin:
@@ -178,3 +218,14 @@ class Partition2D(_BlockVertexMixin):
     def flat(self) -> Partition1D:
         """The equivalent 1-D vertex partition (identical owner map)."""
         return Partition1D(self.n_logical, self.p)
+
+
+def repartition(part: Partition1D, new_p: int) -> Partition1D:
+    """Elastic rescale: same logical vertex set, new shard count.
+
+    Used by the elastic runtime when the number of healthy devices changes
+    (``train/elastic.py``); every owner map is a pure function of
+    ``(n_logical, p)``, so no state beyond the distance and feature arrays
+    needs to move.
+    """
+    return Partition1D(part.n_logical, new_p)

@@ -1,16 +1,32 @@
-"""Synthetic batches — the port's copy of ``lm_train_batch``,
-``gnn_batch`` (with ``_gnn_dims``, its padded sizes) and ``recsys_batch``
-from ``repro.data.synthetic``.  They draw from numpy's generator (the
-graphs through the port's ``erdos_renyi``), so a seed gives the JAX
-package's arrays bitwise."""
+"""Synthetic batches — the port of ``repro.data.synthetic``.
+
+Every batch function comes in two flavours with the same tree structure:
+``*_batch`` (``lm_train_batch``, ``gnn_batch`` with ``_gnn_dims``, its
+padded sizes, and ``recsys_batch``) draws concrete numpy arrays from
+numpy's generator (the graphs through the port's ``erdos_renyi``), so a
+seed gives the JAX package's arrays bitwise; ``*_specs`` (``lm_train_specs``,
+``lm_prefill_specs``, ``lm_decode_specs``, ``gnn_specs``,
+``recsys_specs``) gives the abstract inputs of the dry run: tensors on
+``torch.device("meta")`` with JAX's shapes and dtypes, which allocate
+nothing (JAX's ``ShapeDtypeStruct``s).
+"""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from repro_torch.configs.base import (GNNConfig, GNNShape, RecsysConfig,
+from repro_torch.configs.base import (GNNConfig, GNNShape, LMShape,
+                                      RecsysConfig, RecsysShape,
                                       TransformerConfig)
 from repro_torch.graphs.generators import erdos_renyi
+
+META = torch.device("meta")
+
+
+def _sds(shape, dtype) -> torch.Tensor:
+    """An abstract input: shape and dtype on the meta device."""
+    return torch.empty(shape, dtype=dtype, device=META)
 
 
 def _pad_to(x: int, m: int) -> int:
@@ -21,6 +37,25 @@ def lm_train_batch(cfg: TransformerConfig, batch: int, seq: int, seed=0):
     rng = np.random.default_rng(seed)
     return {"tokens": rng.integers(0, cfg.vocab, (batch, seq + 1),
                                    dtype=np.int32)}
+
+
+def lm_train_specs(cfg: TransformerConfig, shape: LMShape):
+    return {"tokens": _sds((shape.global_batch, shape.seq_len + 1),
+                           torch.int32)}
+
+
+def lm_prefill_specs(cfg: TransformerConfig, shape: LMShape):
+    return {"tokens": _sds((shape.global_batch, shape.seq_len), torch.int32)}
+
+
+def lm_decode_specs(cfg: TransformerConfig, shape: LMShape):
+    from repro_torch.models.transformer import init_cache
+    return {
+        "cache": init_cache(cfg, shape.global_batch, shape.seq_len,
+                            device=META),
+        "pos": _sds((), torch.int32),
+        "last_token": _sds((shape.global_batch,), torch.int32),
+    }
 
 
 # ------------------------------------------------------------------ GNN
@@ -79,7 +114,42 @@ def gnn_batch(cfg: GNNConfig, shape: GNNShape, seed=0, pad: int = 128):
     return batch
 
 
+def gnn_specs(cfg: GNNConfig, shape: GNNShape, pad: int = 512):
+    n, e = _gnn_dims(cfg, shape, pad)
+    batch = {
+        "node_feats": _sds((n, shape.d_feat), torch.float32),
+        "edge_src": _sds((e,), torch.int32),
+        "edge_dst": _sds((e,), torch.int32),
+        "valid_nodes": _sds((n,), torch.bool),
+    }
+    if cfg.kind == "schnet":
+        batch["pos"] = _sds((n, 3), torch.float32)
+    if cfg.kind in ("gatedgcn", "graphcast"):
+        batch["edge_feats"] = _sds((e, 4 if cfg.kind == "graphcast" else 1),
+                                   torch.float32)
+    if cfg.kind == "gcn":
+        batch["labels"] = _sds((n,), torch.int32)
+    elif shape.mode == "batched":
+        batch["graph_id"] = _sds((n,), torch.int32)
+        batch["graph_targets"] = _sds((shape.batch_graphs, cfg.d_out),
+                                      torch.float32)
+    else:
+        batch["targets"] = _sds((n, cfg.d_out), torch.float32)
+    return batch
+
+
 # --------------------------------------------------------------- recsys
+def recsys_specs(cfg: RecsysConfig, shape: RecsysShape):
+    if shape.step == "retrieval":
+        return {"sparse": _sds((1, cfg.n_sparse), torch.int32),
+                "cand_ids": _sds((shape.n_candidates,), torch.int32)}
+    batch = {"sparse": _sds((shape.batch, cfg.n_sparse), torch.int32),
+             "dense": _sds((shape.batch, cfg.n_dense), torch.float32)}
+    if shape.step == "train":
+        batch["label"] = _sds((shape.batch,), torch.int32)
+    return batch
+
+
 def recsys_batch(cfg: RecsysConfig, batch_size: int, step: str = "train",
                  n_candidates: int = 0, seed=0):
     rng = np.random.default_rng(seed)

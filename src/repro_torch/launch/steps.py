@@ -19,9 +19,11 @@ inputs, as tensors on the device) and ``fn(state, batch)``:
           retrieval  -> (n_candidates,) scores
 
 ``microbatches`` reaches only the LM train step, as in the JAX package
-(whose GNN and recsys train steps are built without it).  The JAX
-bundle's ``input_specs`` (abstract inputs for the XLA dry-run) has no
-counterpart.
+(whose GNN and recsys train steps are built without it).
+``input_specs()`` gives the step's abstract inputs (``data.synthetic``'s
+``*_specs``: meta tensors with JAX's shapes and dtypes, a GNN graph padded
+to ``pad``, 512 unless given, 64 when reduced) for the dry run
+(``launch/dryrun.py``), which runs ``fn`` on ``device="meta"``.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from repro_torch.configs.base import (ArchSpec, GNNShape, LMShape,
                                       RecsysShape, get_shape)
 from repro_torch.data import synthetic as syn
 from repro_torch.models import transformer as tf
+from repro_torch.models import sharding_hints as hints
 from repro_torch.models.gnn import models as gnn
 from repro_torch.models.recsys import deepfm
 from repro_torch.optim.adamw import (AdamWConfig, apply_updates,
@@ -56,6 +59,7 @@ class StepBundle:
     fn: Callable             # (state, batch) -> outputs; the LM prefill
                              # also takes use_kernel=True
     make_batch: Callable     # (seed) -> batch of tensors on the device
+    input_specs: Callable    # () -> batch of meta tensors (the dry run)
 
 
 def reduce_shape(shape, family: str):
@@ -111,9 +115,8 @@ def _train_wrap(loss_fn, opt_cfg: AdamWConfig, microbatches: int = 1, *,
       step).  Otherwise the update is functional and the old state stays
       as it was.
 
-    JAX's ``hints.constrain_grads`` (``repro/models/sharding_hints.py``)
-    is the identity unless a mesh is active; on one card it has nothing to
-    constrain, so it has no counterpart here."""
+    The gradients pass ``sharding_hints.constrain_grads`` where JAX's do
+    (the identity; under hints it records the storage specs)."""
     if autograd:
         grad_fn = autograd_grads(loss_fn)
     else:
@@ -127,6 +130,7 @@ def _train_wrap(loss_fn, opt_cfg: AdamWConfig, microbatches: int = 1, *,
         params = state["params"]
         if microbatches == 1:
             grads, (loss, _) = grad_fn(params, batch)
+            grads = hints.constrain_grads(grads)
         else:
             grads = [torch.zeros(p.shape, dtype=torch.float32,
                                  device=p.device) for p in tr.leaves(params)]
@@ -140,6 +144,7 @@ def _train_wrap(loss_fn, opt_cfg: AdamWConfig, microbatches: int = 1, *,
                     a.add_(g[j].to(torch.float32) / microbatches)
                     g[j] = None
                 loss = loss + l / microbatches
+            grads = hints.constrain_grads(grads)
         if in_place:
             new_p, new_opt, m = apply_updates_(opt_cfg, params, grads,
                                                state["opt"])
@@ -176,7 +181,8 @@ def _lm_bundle(spec: ArchSpec, shape: LMShape, cfg, device: torch.device,
     return StepBundle(
         spec.arch_id, "lm", "prefill", cfg, shape, device,
         init_params=lambda generator: tf.init_params(cfg, generator),
-        make_state=lambda p: p, fn=fn, make_batch=make_batch)
+        make_state=lambda p: p, fn=fn, make_batch=make_batch,
+        input_specs=lambda: syn.lm_prefill_specs(cfg, shape))
 
 
 def _lm_train_bundle(spec: ArchSpec, shape: LMShape, cfg,
@@ -200,7 +206,8 @@ def _lm_train_bundle(spec: ArchSpec, shape: LMShape, cfg,
     return StepBundle(
         spec.arch_id, "lm", "train", cfg, shape, device,
         init_params=lambda generator: tf.init_tree(cfg, generator),
-        make_state=_make_state, fn=fn, make_batch=make_batch)
+        make_state=_make_state, fn=fn, make_batch=make_batch,
+        input_specs=lambda: syn.lm_train_specs(cfg, shape))
 
 
 def _lm_decode_bundle(spec: ArchSpec, shape: LMShape, cfg,
@@ -223,7 +230,8 @@ def _lm_decode_bundle(spec: ArchSpec, shape: LMShape, cfg,
     return StepBundle(
         spec.arch_id, "lm", "decode", cfg, shape, device,
         init_params=lambda generator: tf.init_params(cfg, generator),
-        make_state=lambda p: p, fn=fn, make_batch=make_batch)
+        make_state=lambda p: p, fn=fn, make_batch=make_batch,
+        input_specs=lambda: syn.lm_decode_specs(cfg, shape))
 
 
 def _to_device(arrays: dict, device: torch.device) -> dict:
@@ -231,7 +239,7 @@ def _to_device(arrays: dict, device: torch.device) -> dict:
 
 
 def _gnn_bundle(spec: ArchSpec, shape: GNNShape, cfg, device: torch.device,
-                opt_cfg: AdamWConfig, pad: int) -> StepBundle:
+                opt_cfg: AdamWConfig, pad: int, spec_pad: int) -> StepBundle:
     """fwd + bwd + AdamW over one ``gnn_batch`` (a graph padded to
     ``pad``, as the JAX bundle draws it).  The layers run under
     ``torch.utils.checkpoint``, so the gradients come from
@@ -247,7 +255,8 @@ def _gnn_bundle(spec: ArchSpec, shape: GNNShape, cfg, device: torch.device,
         spec.arch_id, "gnn", "train", cfg, shape, device,
         init_params=lambda generator: gnn.init_params(cfg, shape.d_feat,
                                                       generator),
-        make_state=_make_state, fn=fn, make_batch=make_batch)
+        make_state=_make_state, fn=fn, make_batch=make_batch,
+        input_specs=lambda: syn.gnn_specs(cfg, shape, pad=spec_pad))
 
 
 def _recsys_bundle(spec: ArchSpec, shape: RecsysShape, cfg,
@@ -273,14 +282,16 @@ def _recsys_bundle(spec: ArchSpec, shape: RecsysShape, cfg,
     return StepBundle(
         spec.arch_id, "recsys", shape.step, cfg, shape, device,
         init_params=lambda generator: deepfm.init_params(cfg, generator),
-        make_state=make_state, fn=fn, make_batch=make_batch)
+        make_state=make_state, fn=fn, make_batch=make_batch,
+        input_specs=lambda: syn.recsys_specs(cfg, shape))
 
 
 def build_bundle(spec: ArchSpec, shape_or_name, *, reduced: bool = False,
                  device="cuda", opt_cfg: AdamWConfig = AdamWConfig(),
-                 microbatches: int = 1) -> StepBundle:
+                 microbatches: int = 1, pad: int = 512) -> StepBundle:
     """The step of one (architecture, shape) cell on ``device`` (the card
-    unless the caller passes ``device="cpu"``)."""
+    unless the caller passes ``device="cpu"``, or ``"meta"`` for the dry
+    run).  ``pad`` sizes only a GNN's ``input_specs``, as in JAX's."""
     if spec.family not in ("lm", "gnn", "recsys"):
         raise ValueError(f"build_bundle: unknown family {spec.family!r}")
     shape = (get_shape(spec, shape_or_name)
@@ -289,6 +300,7 @@ def build_bundle(spec: ArchSpec, shape_or_name, *, reduced: bool = False,
     if reduced:
         shape = reduce_shape(shape, spec.family)
         microbatches = min(microbatches, 2)
+        pad = min(pad, 64)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_bundle: no CUDA card; pass device='cpu' "
@@ -299,5 +311,5 @@ def build_bundle(spec: ArchSpec, shape_or_name, *, reduced: bool = False,
         # JAX's make_batch pads to min(pad, 128) with pad 512, or 64
         # reduced
         return _gnn_bundle(spec, shape, cfg, device, opt_cfg,
-                           64 if reduced else 128)
+                           64 if reduced else 128, pad)
     return _recsys_bundle(spec, shape, cfg, device, opt_cfg)

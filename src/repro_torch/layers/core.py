@@ -69,6 +69,8 @@ def scaled_normal(shape, scale: float, dtype: torch.dtype,
     ``randn(shape)`` draws it."""
     dev = generator.device
     out = torch.empty(shape, dtype=dtype, device=dev)
+    if dev.type == "meta":               # the dry run: nothing is drawn
+        return out
     n = next(i for i in range(len(shape) + 1)
              if math.prod(shape[i:]) <= DRAW_ELEMS)
     rows = out.view(-1, *shape[n:])

@@ -24,8 +24,8 @@ The loss runs on a mesh of the BFS engine's interface: a ``LocalMesh``
 (p shards stacked on one device) or a ``DistMesh`` (a shard a rank).  It
 is differentiable on both (``core.mesh``, ``core.dist_mesh``): the
 gradients equal the global model's, as JAX's through ``shard_map``.
-JAX's ``routing_specs`` / ``routing_batch_specs`` (dry-run specs) have no
-counterpart yet.
+``routing_specs`` / ``routing_batch_specs`` give the dry run's abstract
+batch (meta tensors) and its row specs (``launch/dryrun.lower_owner_gnn``).
 """
 
 from __future__ import annotations
@@ -103,6 +103,41 @@ def build_routing(src: np.ndarray, dst: np.ndarray, n: int, p: int,
         dst_loc[j, :k] = dst_local_of[sel]
     return {"serve_ids": serve, "src_slot": src_slot, "dst_local": dst_loc,
             "r_cap": r_cap, "e_cap": e_cap, "part": part}
+
+
+def routing_specs(n: int, p: int, d_feat: int, cfg: GNNConfig,
+                  r_cap: int, e_cap: int) -> dict:
+    """Abstract batch for the dry run: tensors on the meta device with
+    JAX's shapes and dtypes."""
+    def sds(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    n_pad = Partition1D(n, p).n
+    return {
+        "node_feats": sds((n_pad, d_feat), torch.float32),
+        "edge_feats": sds((p * e_cap, 4), torch.float32),
+        "serve_ids": sds((p, p, r_cap), torch.int32),
+        "src_slot": sds((p, e_cap), torch.int32),
+        "dst_local": sds((p, e_cap), torch.int32),
+        "valid_nodes": sds((n_pad,), torch.bool),
+        "targets": sds((n_pad, cfg.d_out), torch.float32),
+    }
+
+
+def routing_batch_specs(p_axes) -> dict:
+    """Partition specs: everything row-sharded over the flattened mesh."""
+    from repro_torch.launch.shardings import P
+
+    flat = p_axes
+    return {
+        "node_feats": P(flat, None),
+        "edge_feats": P(flat, None),
+        "serve_ids": P(flat, None, None),
+        "src_slot": P(flat, None),
+        "dst_local": P(flat, None),
+        "valid_nodes": P(flat),
+        "targets": P(flat, None),
+    }
 
 
 def exchange_bytes(routing: dict, d: int, itemsize: int = 4) -> dict:

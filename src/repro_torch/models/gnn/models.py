@@ -16,9 +16,9 @@ Every layer runs under ``torch.utils.checkpoint`` where JAX's runs under
 ``jax.checkpoint``: full-graph backward otherwise keeps every (E, D) edge
 tensor of every layer.  So the train step takes its gradients by
 ``torch.autograd`` (``launch.steps``), which can differentiate through
-the checkpoint where ``torch.func`` cannot.  JAX's
-``hints.constrain_rows`` is the identity unless a sharding mesh is
-active, so it has no counterpart here.
+the checkpoint where ``torch.func`` cannot.  Each layer calls
+``sharding_hints.constrain_rows`` where JAX's does: the identity, which
+under hints records the row spec JAX would pin.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import GNNConfig
+from repro_torch.models import sharding_hints as hints
 from repro_torch.models.gnn import common as C
 
 
@@ -43,6 +44,8 @@ def _ckpt(fn):
 def _split(generator: torch.Generator, n: int) -> list:
     """``n`` generators on ``generator``'s device, seeded from it in turn
     (the port's ``jax.random.split``)."""
+    if generator.device.type == "meta":   # the dry run: nothing is drawn
+        return [generator] * n
     seeds = torch.randint(0, 2**62, (n,), generator=generator,
                           device=generator.device).tolist()
     return [torch.Generator(device=generator.device).manual_seed(s)
@@ -72,6 +75,7 @@ def gcn_forward(cfg: GNNConfig, params, batch):
                        device=src.device)
 
     def layer_fn(layer, h, last):
+        h = hints.constrain_rows(h)
         h = C.apply_mlp([layer[0]], h)           # XW
         msg = C.gather_src(h, src) * w[:, None]
         h = C.aggregate(msg, dst, n, op="sum")
@@ -118,6 +122,7 @@ def gatedgcn_forward(cfg: GNNConfig, params, batch):
     e = C.apply_mlp(params["in_e"], ef)
 
     def layer_fn(layer, h, e):
+        h, e = hints.constrain_rows(h), hints.constrain_rows(e)
         hi = C.gather_src(h, src)
         hj = h.index_select(0, dst.clamp_min(0))
         e_new = (C.apply_mlp([layer["A"][0]], e) +
@@ -178,7 +183,9 @@ def schnet_forward(cfg: GNNConfig, params, batch):
     cut = 0.5 * (torch.cos(math.pi * (d_ij / cfg.cutoff).clamp(0, 1)) + 1.0)
 
     def layer_fn(blk, h):
-        w = C.apply_mlp(blk["filter"], rbf, act=_ssp, final_act=True)
+        h = hints.constrain_rows(h)
+        w = C.apply_mlp(blk["filter"], hints.constrain_rows(rbf), act=_ssp,
+                        final_act=True)
         w = w * cut[:, None]
         msg = C.apply_mlp(blk["w_in"], C.gather_src(h, src)) * w
         agg = C.aggregate(msg, dst, n, "sum")
@@ -222,6 +229,7 @@ def graphcast_forward(cfg: GNNConfig, params, batch):
 
     def layer_fn(layer, h, e):
         # interaction-network block (GraphCast processor, sum aggregation)
+        h, e = hints.constrain_rows(h), hints.constrain_rows(e)
         e_in = torch.cat([e, C.gather_src(h, src),
                           h.index_select(0, dst.clamp_min(0))], dim=-1)
         e = e + C.apply_layer_norm(layer["ln_e"],

@@ -18,7 +18,7 @@ Top-k breaks ties toward the lower expert index, as ``lax.top_k`` does
 Two routes:
 
 * ``_moe_apply_local`` — one shard: JAX's route with sharding hints unset,
-  the one the transformer calls.  Its combine is a segment sum in
+  the one the transformer calls then.  Its combine is a segment sum in
   ``x.dtype``: each token's contributions added in the sorted order, as
   the JAX package's ``segment_sum`` adds them on the CPU.
 * ``moe_apply_sharded`` — expert parallel on a mesh of the BFS engine's
@@ -29,6 +29,8 @@ Two routes:
   ``psum`` (there is no token all-to-all).  Capacity is computed per data
   shard and ``lb_loss`` is the mean of the data shards' losses, so at
   dp > 1 the route differs from the local one, by JAX's own design.
+  ``moe_apply`` takes it on an explicit ``mesh=``, or on the hinted mesh
+  while ``models.sharding_hints`` are set (as JAX's does).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.layers.core import scaled_normal, swiglu
+from repro_torch.models import sharding_hints as hints
 
 
 def init_moe_params(generator: torch.Generator, d_model: int,
@@ -73,8 +76,12 @@ def capacity(tokens: int, cfg: MoEConfig) -> int:
 def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig, mesh=None,
               dp_axes=("data",), model_axis: str = "model"):
     """x: (T, D) -> (out (T, D), {"lb_loss", "dropped"}): the sharded route
-    on ``mesh`` when one is given, else the local one.  (JAX picks by its
-    sharding hints, which the port has not ported.)"""
+    on ``mesh`` when one is given, else on the hinted mesh and axes while
+    sharding hints are set (``models.sharding_hints``, JAX's rule), else
+    the local route."""
+    if mesh is None and hints.enabled():
+        st = hints._STATE
+        mesh, dp_axes, model_axis = st["mesh"], st["dp"], st["model"]
     if mesh is None:
         return _moe_apply_local(params, x, cfg)
     return moe_apply_sharded(params, x, cfg, mesh, dp_axes, model_axis)
@@ -97,7 +104,12 @@ def _balance_loss(probs: torch.Tensor, expert: torch.Tensor) -> torch.Tensor:
     """Switch-style balance loss: E * sum(frac * mean prob), ``frac`` the
     share of tokens whose first choice is each expert."""
     t, e = probs.shape
-    frac = torch.bincount(expert[:, 0], minlength=e).float() / t
+    # a scatter of ones, not bincount: the same counts, with a shape known
+    # without reading the data (the dry run's meta tensors)
+    first = expert[:, 0]
+    counts = torch.zeros(e, dtype=torch.int64, device=first.device)
+    counts.scatter_add_(0, first, torch.ones_like(first))
+    frac = counts.float() / t
     return e * (frac * probs.mean(0)).sum()
 
 

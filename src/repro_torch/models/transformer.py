@@ -18,11 +18,14 @@ scattered at its own depth), and attends over the whole cache through
 ``layers.core.chunked_attention``, as JAX's does.  Both steps write k, v
 into the cache in place and run under ``torch.no_grad``.
 
-``repro.models.sharding_hints`` is not ported: on one card every
-``constrain_*`` call is the identity, so the port does not call them.  A
-block's feed-forward is a dense SwiGLU (``mlp``) or, at a pattern position
+The ``models.sharding_hints`` constraints are called where JAX calls them
+(``constrain_tokens_3d`` around every block and its two residual adds,
+``constrain_vocab_table`` and ``constrain_logits_3d`` in the loss): each
+returns its input unchanged and, under hints, records the spec JAX would
+pin; under hints an MoE block takes ``moe_apply_sharded`` on the hinted
+mesh.  A block's feed-forward is a dense SwiGLU (``mlp``) or, at a pattern position
 with ``moe=True`` in a config with ``moe``, a Mixture-of-Experts layer
-(``moe``, ``models.moe``'s local route, as JAX's with hints unset), whose
+(``moe``, ``models.moe``'s local route with hints unset), whose
 balance loss ``trunk`` averages over every layer.  ``qkv_bias`` adds
 ``bq`` / ``bk`` / ``bv`` to q, k and v before ``rope`` in all three
 attentions; ``tie_embeddings`` drops ``unembed``, and the head (``_head``)
@@ -50,6 +53,7 @@ from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.layers.core import (chunked_attention, rms_norm, rope,
                                      scaled_normal, swiglu)
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import sharding_hints as hints
 from repro_torch.tree import map_tree
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -278,9 +282,9 @@ def _block_apply(cfg: TransformerConfig, spec: LayerSpec, p: dict,
                  cache_pos, use_kernel: bool) -> torch.Tensor:
     a = _attn_apply(cfg, spec, p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
                     positions, cache, cache_pos, use_kernel)
-    h = h + a
+    h = h + hints.constrain_tokens_3d(a)
     y, _ = _ffn(cfg, p, rms_norm(h, p["ln2"], cfg.norm_eps))
-    return h + y
+    return h + hints.constrain_tokens_3d(y)
 
 
 def _groups(cfg: TransformerConfig, params: Transformer, cache: list, h,
@@ -323,13 +327,15 @@ def _train_attn(cfg: TransformerConfig, spec: LayerSpec, p: dict,
 def _train_body(cfg: TransformerConfig, spec: LayerSpec, p: dict,
                 h: torch.Tensor, positions: torch.Tensor):
     """(the block's output, its balance loss: 0 for a dense block)."""
+    h = hints.constrain_tokens_3d(h)
     a = _train_attn(cfg, spec, p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
                     positions)
-    h = h + a
+    h = h + hints.constrain_tokens_3d(a)
     y, lb = _ffn(cfg, p, rms_norm(h, p["ln2"], cfg.norm_eps))
     if lb is None:
         lb = torch.zeros((), dtype=torch.float32, device=h.device)
-    return h + y, lb
+    out = h + hints.constrain_tokens_3d(y)
+    return hints.constrain_tokens_3d(out), lb
 
 
 def _keep_weight_products(ctx, op, *args, **kwargs):
@@ -383,7 +389,7 @@ def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor):
 
 def _chunk_nll(h_c: torch.Tensor, labels_c: torch.Tensor,
                head: torch.Tensor) -> torch.Tensor:
-    logits = torch.matmul(h_c, head.T).float()
+    logits = hints.constrain_logits_3d(torch.matmul(h_c, head.T)).float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels_c[..., None].long())[..., 0]
     return (lse - ll).sum()
@@ -402,10 +408,11 @@ def lm_loss(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     ck = min(loss_chunk, s)
     if s % ck:
         raise ValueError(f"loss chunk {ck} does not divide {s} positions")
+    head = hints.constrain_vocab_table(_head(params))
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, s, ck):
         total = total + checkpoint(_chunk_nll, h[:, i:i + ck],
-                                   labels[:, i:i + ck], _head(params),
+                                   labels[:, i:i + ck], head,
                                    use_reentrant=False)
     ce = total / (b * s)
     return ce + lb_coef * aux["lb_loss"], {"ce": ce, **aux}

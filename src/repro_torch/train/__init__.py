@@ -1,3 +1,4 @@
 """The training substrate of the port — ``repro.train``'s checkpoint
-manager, gradient compression and trainer.  ``elastic`` (resharding across
-a changed device count) is not ported yet (ROADMAP Queue A 13.6)."""
+manager, gradient compression, trainer and elastic resharding
+(``elastic``: a train state re-placed on a new mesh, a sharded graph and
+its vertex arrays on a new shard count)."""

@@ -666,6 +666,47 @@ def test_deepfm_train_step_on_the_card_matches_the_cpu(cuda):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-7)
 
 
+def test_reshard_state_between_train_steps_is_bitwise(cuda):
+    """REDUCED DeepFM on the card: 2 steps, ``reshard_state`` onto a
+    (data 1, model 4) mesh on the card (device to device), then from a
+    CPU copy back onto the card (through the host), then 2 more steps:
+    losses and the final state bitwise those of 4 steps without a
+    reshard, and every resharded leaf a new tensor."""
+    from repro_torch import tree as tr
+    from repro_torch.core.mesh import LocalMesh
+    from repro_torch.launch.shardings import recsys_param_specs, state_specs
+    from repro_torch.train.elastic import reshard_state
+
+    bundle = build_bundle(get_arch("deepfm"), "train_batch", reduced=True)
+    params = bundle.init_params(torch.Generator(device=cuda).manual_seed(0))
+    batch = bundle.make_batch(0)
+    mesh = LocalMesh((1, 4), ("data", "model"), cuda)
+    specs = state_specs(recsys_param_specs(bundle.cfg, mesh), params, mesh)
+
+    def run(state, steps):
+        losses = []
+        for _ in range(steps):
+            state, m = bundle.fn(state, batch)
+            losses.append(m["loss"].item())
+        return state, losses
+
+    want, want_l = run(bundle.make_state(params), 4)
+    state, l1 = run(bundle.make_state(params), 2)
+    moved = reshard_state(state, mesh, specs)
+    for a, b in zip(tr.leaves(moved), tr.leaves(state)):
+        assert a.device == cuda and a.data_ptr() != b.data_ptr()
+        assert torch.equal(a, b)
+    host = tr.map_tree(lambda x: x.cpu(), moved)
+    one = LocalMesh((1, 1), ("data", "model"), cuda)
+    back = reshard_state(host, one, state_specs(
+        recsys_param_specs(bundle.cfg, one), params, one))
+    assert all(x.device == cuda for x in tr.leaves(back))
+    got, l2 = run(back, 2)
+    assert l1 + l2 == want_l
+    for a, b in zip(tr.leaves(got), tr.leaves(want)):
+        assert torch.equal(a, b)
+
+
 def test_lm_train_step_on_the_card_matches_the_cpu(cuda):
     """Two REDUCED gemma3 train steps (f32; the train route runs no
     kernel, so head_dim 16 runs on the card) from the same state on the

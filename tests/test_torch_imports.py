@@ -151,3 +151,24 @@ def test_moe_and_lm_config_modules_import_first_without_jax(module):
     out = subprocess.run([sys.executable, "-c", probe, module], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", ["repro_torch.train.elastic",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.launch.shardings",
+                                    "repro_torch.launch.flops_est",
+                                    "repro_torch.launch.step_stats",
+                                    "repro_torch.launch.dryrun",
+                                    "repro_torch.models.sharding_hints"])
+def test_elastic_and_plan_modules_import_first_without_jax(module):
+    """Elastic resharding, the sharding plan, the FLOP estimates, the
+    step statistics, the dry run and the sharding hints import first,
+    with neither jax nor the JAX package loaded."""
+    probe = ("import importlib, sys; importlib.import_module(sys.argv[1]); "
+             "bad = sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+             "m.startswith('repro.')); assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", probe, module], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
