@@ -18,6 +18,8 @@ Phases (any failed check raises and the script exits non-zero):
    and the card's name and power limit; counts the
    ``HGMMA`` and ``UTMALDG`` instructions in the SASS of the bf16 A4
    kernel (``cuobjdump -sass``) and fails if either is 0; prints the
+   register report of A2's ``bsr_spmm_kernel``, failing on a spill, and
+   its ``HGMMA`` and ``UTMALDG`` counts, failing on a 0; the
    register report of A5's ``bag_gather_kernel`` (each dtype and
    granule), failing on a spill, and counts its ``LDGSTS`` (``cp.async``)
    and ``UBLKCP`` (bulk copy) instructions, failing if it has no
@@ -194,7 +196,15 @@ Phases (any failed check raises and the script exits non-zero):
    beside ``torch.sparse_bsr_tensor @ x``; for A4, beside
    ``F.scaled_dot_product_attention`` on the global layer's shape and, with
    the window as a boolean ``attn_mask``, on the local layer's; for A5,
-   beside ``F.embedding_bag`` with per-slot weights on (a)).
+   beside ``F.embedding_bag`` with per-slot weights on (a)).  A2 (split
+   TF32 on ``wgmma``) is also run twice on the same operands (equal y),
+   and one pass of TF32 (the plain bmm under ``allow_tf32``) must fail its
+   f32 hold; its bound is the bytes' or three TF32 products', the f32-FMA
+   and TF32 times beside it.  A3 is timed alone, 50 launches in a CUDA
+   graph, beside its wrapper.  A4's f32 route is driven through
+   ``ops.attention`` at the global and local layer's shapes in f32, held
+   to the plain version and timed beside its bounds, the plain version and
+   SDPA in f32 (the backend it took and its error printed).
 
 15. path 10 — DeepFM training at full width (``train_batch``: 39 fields x
    1,000,000 rows x 10 f32, MLP 403-400-400-400-1, batch 65,536; not cut),
@@ -376,6 +386,7 @@ S = 64
 MEM_BW = 3.35e12          # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
 F32_FLOPS = 67e12         # H100 SXM f32 FLOP/s outside the tensor cores
 BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core FLOP/s
+TF32_FLOPS = 495e12       # H100 SXM dense TF32 tensor-core FLOP/s
 # the prefill phase: gemma3-12b's prefill_32k cell, cut in depth and size
 PREFILL_LAYERS, PREFILL_BATCH, PREFILL_SEQ = 12, 2, 8192
 # A4 against its plain version, bf16: the largest relative L2 error of one
@@ -2627,6 +2638,102 @@ def attention_rows(lay: dict, dev, sass: dict) -> dict:
         "local_tflops": local["tflops"],
         "local_bound_share": local["bound_share"],
         "library_local_ms": library_local_ms, "sass": sass}
+
+
+def sdpa_backend(q, k, v, **kw) -> str:
+    """The backend ``F.scaled_dot_product_attention`` dispatches to for
+    these operands (torch's own choice, ``torch._fused_sdp_choice``)."""
+    from torch.nn.attention import SDPBackend
+
+    choice = int(torch._fused_sdp_choice(q, k, v, **kw))
+    names = {int(b): name for name, b in SDPBackend.__members__.items()}
+    return names.get(choice, f"backend {choice}")
+
+
+def attention_f32_row(lay: dict, kernels, dev) -> dict:
+    """A4's f32 route (``attn_flash_fwd_f32``, the CUDA cores) at the
+    prefill's global and local layer shapes in f32, driven once each
+    through ``ops.attention`` (its launches), held to the plain version and
+    timed beside its bounds (bytes; f32 FMA; three TF32 products, the
+    least the tensor cores could take at f32 accuracy), the plain version
+    and SDPA in f32, whose backend and error are read beside it."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                         attention_ref)
+
+    cfg, b, s = lay["cfg"], lay["batch"], lay["seq"]
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    w_loc = cfg.pattern[0].window
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    q = torch.randn((b, hq, s, dh), generator=gen, device=dev)
+    k = torch.randn((b, hkv, s, dh), generator=gen, device=dev)
+    v = torch.randn((b, hkv, s, dh), generator=gen, device=dev)
+    reset_counts(kernels)
+    for window in (0, w_loc):
+        attn_ops.attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    launches = flash_attention.launches_f32
+    check(launches == 2 and flash_attention.launches_bf16 == 0,
+          f"A4 f32: {launches} f32 and {flash_attention.launches_bf16} "
+          f"bf16 launches for two f32 calls")
+    row = {}
+    for window in (0, w_loc):                       # global, then local
+        what = f"f32 {tuple(q.shape)} kv {tuple(k.shape)} window {window}"
+        err, want = hold_a4(q, k, v, True, window, what)
+        pairs = visible_pairs(s, s, True, window)
+        flops = 4.0 * b * hq * dh * pairs
+        b_ms, b_by = bound(nbytes(q, k, v, q), 3 * flops, TF32_FLOPS)
+        ms = timed_ms(lambda: flash_attention(q, k, v, causal=True,
+                                              window=window), 3)
+        plain_ms = timed_ms(lambda: attention_ref(q, k, v, causal=True,
+                                                  window=window), 2)
+        if window:    # the window as a boolean mask, kv heads expanded
+            k_rep, v_rep = (t.repeat_interleave(hq // hkv, dim=1)
+                            for t in (k, v))
+            mask = attention_mask(s, s, causal=True, window=window,
+                                  device=dev)
+            args, kw = (q, k_rep, v_rep), {"attn_mask": mask}
+        else:
+            args, kw = (q, k, v), {"is_causal": True, "enable_gqa": True}
+        backend = sdpa_backend(*args, **kw)
+        sdpa = lambda: F.scaled_dot_product_attention(*args, **kw)
+        sdpa_err = float((sdpa() - want).abs().max())
+        library_ms = timed_ms(sdpa, 2)
+        del args, kw, want
+        log(f"A4 {what}: {ms} ms = {flops / ms / 1e9} TFLOP/s, "
+            f"{b_ms / ms:.4f} of the bound {b_ms} ms ({b_by}; f32 FMA "
+            f"{flops / F32_FLOPS * 1e3} ms); plain {plain_ms} ms; SDPA "
+            f"{library_ms} ms ({backend}, max abs err vs plain {sdpa_err})")
+        row[window] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_fma_ms": flops / F32_FLOPS * 1e3,
+            "bound_tf32x3_ms": 3 * flops / TF32_FLOPS * 1e3,
+            "tflops": flops / ms / 1e9, "bound_share": b_ms / ms,
+            "library_ms": library_ms, "library_backend": backend,
+            "library_max_abs_err": sdpa_err, "max_abs_err": err}
+    glob, local = row[0], row[w_loc]
+    return {
+        "name": "flash_attention_f32", "route": "cuda",
+        "design": "f32 on the CUDA cores (flash_fwd_kernel)",
+        "source": "src/repro_torch/csrc/attention_kernels.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:31",
+        "path": "ops.attention in f32 (no model path runs f32 attention)",
+        "launches": launches,
+        "max_abs_err": max(glob["max_abs_err"], local["max_abs_err"]),
+        **{key: glob[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "bound_fma_ms",
+            "bound_tf32x3_ms", "tflops", "bound_share", "library_ms",
+            "library_backend", "library_max_abs_err")},
+        "shape": f"global layer: q {tuple(q.shape)} f32, kv "
+                 f"{tuple(k.shape)}, causal",
+        "local_window": w_loc,
+        **{f"local_{key}": local[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "bound_fma_ms",
+            "bound_tf32x3_ms", "tflops", "bound_share", "library_ms",
+            "library_backend", "library_max_abs_err")}}
 
 
 def to_host64(tree):
@@ -5393,6 +5500,17 @@ def main(argv=None) -> int:
     check(len(sass) == 4 and all(c["HGMMA"] and c["UTMALDG"]
                                  for c in sass.values()),
           "build: a bf16 A4 kernel has no HGMMA or no UTMALDG in its SASS")
+    a2_ptxas = ptxas_lines(build_log, "bsr_spmm_kernel")
+    a2_sass = sass_counts(sass_text, r"(bsr_spmm_kernel)",
+                          ("HGMMA", "UTMALDG")).get("bsr_spmm_kernel", {})
+    a2_serial = [line.strip() for line in build_log.splitlines()
+                 if "C7520" in line and "bsr_spmm_kernel" in line]
+    log(f"build: A2 bsr_spmm_kernel (-Xptxas -v): {a2_ptxas}; SASS "
+        f"(cuobjdump -sass): {a2_sass}; wgmma serialised: {a2_serial}")
+    check("0 bytes spill stores, 0 bytes spill loads" in a2_ptxas,
+          "build: bsr_spmm_kernel has no ptxas report or spills")
+    check(a2_sass.get("HGMMA", 0) > 0 and a2_sass.get("UTMALDG", 0) > 0,
+          "build: bsr_spmm_kernel has no HGMMA or no UTMALDG in its SASS")
     gather_ptxas = ptxas_reports(build_log, "bag_gather_kernel")
     for fn, line in gather_ptxas.items():
         log(f"build: A5 {fn} (-Xptxas -v): {line}")
@@ -5704,27 +5822,56 @@ def main(argv=None) -> int:
     deg_max = int(np.bincount(dst2, minlength=n2).max())
     tol2 = 2.0 * deg_max * deg_max * float(torch.finfo(torch.float32).eps)
     check(err2 <= tol2, f"A2 differs from bsr_spmm_ref by {err2} > {tol2}")
+    # one consumer owns each output block and sums its tiles in order
+    check(torch.equal(yf, bsr_spmm(tiles, row_ptr, tcols, xf,
+                                   n_rows_pad=n_rows_pad)),
+          "A2 gives another y on a second run on the same operands")
+    # a planted fault the hold must catch: the same product in one pass of
+    # TF32 (the plain version's bmm with allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        y_tf32 = bsr_spmm_ref(tiles, trows, tcols, xf, n_rows_pad=n_rows_pad)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    err_tf32 = float((y_tf32 - yf_ref).abs().max())
+    del y_tf32
+    log(f"A2 f32 hold on x in [-1, 1): split TF32 (the kernel) {err2}, one "
+        f"pass of TF32 (bmm, allow_tf32) {err_tf32}, tol2 {tol2}")
+    check(err_tf32 > tol2, f"the A2 hold passes one-pass TF32 products "
+                           f"({err_tf32} <= {tol2})")
     flops = 2.0 * tiles.shape[0] * 128 * 128 * S
-    b_ms, b_by = bound(nbytes(tiles, row_ptr, tcols, x01, y01), flops)
+    b_ms, b_by = bound(nbytes(tiles, row_ptr, tcols, x01, y01), 3 * flops,
+                       TF32_FLOPS)
     # the one-call yardstick (timed here only; the port never calls it)
     bsr = torch.sparse_bsr_tensor(row_ptr, tcols, tiles,
                                   size=(n_rows_pad, n_x),
                                   check_invariants=False)
     check(torch.equal(bsr @ x01, y01), "torch BSR @ x disagrees on 0/1")
     library_ms = timed_ms(lambda: bsr @ x01, 5)
+    a2_ms = timed_ms(lambda: bsr_spmm(tiles, row_ptr, tcols, x01,
+                                      n_rows_pad=n_rows_pad), 20)
+    log(f"A2 at path 2 ({tiles.shape[0]} tiles, x {tuple(x01.shape)}): "
+        f"{a2_ms} ms = {flops / a2_ms / 1e9} TFLOP/s, {b_ms / a2_ms:.4f} of "
+        f"the bound {b_ms} ms ({b_by}); torch BSR {library_ms} ms")
     rows.append({
         "name": "bsr_spmm", "route": "cuda",
+        "design": "split TF32 (3 products) on wgmma m64n128k8, TMA panel "
+                  "ring, persistent grid by block row",
         "source": "src/repro_torch/csrc/bfs_kernels.cu",
         "replaces": "src/repro/kernels/bsr_spmm/kernel.py:38",
         "path": "ops.frontier_expand_packed / ops.spmm (not the engine's)",
         "launches": counts_ops["bsr_spmm"], "max_abs_err": err2,
-        "ms": timed_ms(lambda: bsr_spmm(tiles, row_ptr, tcols, x01,
-                                               n_rows_pad=n_rows_pad), 5),
+        "max_abs_err_one_pass_tf32": err_tf32,
+        "ms": a2_ms,
         "plain_ms": timed_ms(lambda: bsr_spmm_ref(
             tiles, trows, tcols, x01, n_rows_pad=n_rows_pad), 3),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_fma_ms": flops / F32_FLOPS * 1e3,
+        "bound_tf32x3_ms": 3 * flops / TF32_FLOPS * 1e3,
+        "library_ms": library_ms,
+        "tflops": flops / a2_ms / 1e9, "bound_share": b_ms / a2_ms,
         "shape": f"{tiles.shape[0]} tiles, x {tuple(x01.shape)}",
-        "tolerance_f32": tol2})
+        "tolerance_f32": tol2, "sass": a2_sass})
     del xf, yf, yf_ref, bsr
 
     # A3 at path 2's shapes: pack the (n, S) expansion sums
@@ -5735,20 +5882,46 @@ def main(argv=None) -> int:
     check(err3 == 0 and torch.equal(want3, pack_bits(mask > 0)),
           f"A3 differs from its plain version by {err3}")
     b_ms, b_by = bound(nbytes(mask, packed))
+    # the kernel alone: 50 launches captured in a CUDA graph, so no host
+    # time between launches (the wrapper's time is 50 calls from Python);
+    # over one mask, which stays in L2 after the first launch (as A2's y
+    # does when ops.frontier_expand_packed packs it), and over four masks
+    # in turn, 102 MB, past the 50 MB L2: each launch reads from HBM
+    def graph_ms(inputs) -> float:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            bitpack_words(inputs[0])
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(50):
+                bitpack_words(inputs[i % len(inputs)])
+        return timed_ms(graph.replay, 10) / 50
+
+    a3_warm_ms = graph_ms([mask])
+    a3_kernel_ms = graph_ms([mask] + [mask.clone() for _ in range(3)])
+    a3_ms = timed_ms(lambda: bitpack_words(mask), 50)
+    log(f"A3 at path 2 (mask {tuple(mask.shape)}): the kernel alone "
+        f"{a3_kernel_ms} ms from HBM, {a3_warm_ms} ms from L2 (CUDA graphs "
+        f"of 50 launches), the wrapper {a3_ms} ms (50 calls); bound {b_ms} "
+        f"ms ({b_by})")
     rows.append({
         "name": "bitpack_words", "route": "cuda",
         "source": "src/repro_torch/csrc/bfs_kernels.cu",
         "replaces": "src/repro/kernels/bsr_spmm/kernel.py:100",
         "path": "ops.frontier_expand_packed (not the engine's)",
         "launches": counts_ops["bitpack_words"], "max_abs_err": err3,
-        "ms": timed_ms(lambda: bitpack_words(mask), 50),
+        "ms": a3_kernel_ms, "ms_l2": a3_warm_ms, "wrapper_ms": a3_ms,
         "plain_ms": timed_ms(lambda: bitpack_words_plain(mask), 10),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "bound_share": b_ms / a3_kernel_ms,
         "shape": f"mask {tuple(mask.shape)}"})
     rows.append(xrow)
     del tiles, y01, x01
 
     rows.append(attention_rows(lay, dev, sass))
+    rows.append(attention_f32_row(lay, kernels, dev))
     rows.append(bag_row)
 
     # -------------------------------------------------------------- path 10
@@ -5848,6 +6021,8 @@ def main(argv=None) -> int:
     log(f"path 15 summary: {json.dumps(path15)}")
     # paths 13 to 15 add no kernel: each row carries its launches there
     for row in rows:
+        if row["name"] not in kernels:   # A4's f32 route: ops.attention only
+            continue
         if row["name"] == "flash_attention":
             row["launches_path11"] = (path11["a"]["a4_launches"]
                                       + path11["b"]["a4_launches"])

@@ -33,8 +33,8 @@ _P, _N, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_floa
 _SIGNATURES = {
     # words, dist, dist_out, new_out, words_out, batch, w, m, s, level, stream
     "bfs_fold_update": [_P] * 5 + [_N] * 4 + [_I, _P],
-    # blocks, row_ptr, block_cols, x, y, n_block_rows, d, stream
-    "bfs_bsr_spmm": [_P] * 5 + [_N] * 2 + [_P],
+    # blocks, row_ptr, block_cols, work, x, y, k, n_items, n_dt, d, stream
+    "bfs_bsr_spmm": [_P] * 6 + [_N] * 4 + [_P],
     # mask, out, w, s, stream
     "bfs_bitpack": [_P] * 2 + [_N] * 2 + [_P],
     # bits, col_mask, block_rows, block_cols, fwords, out, front_any, k,

@@ -8,7 +8,9 @@ kernels need a block-row pointer (CSR ``indptr`` over the sorted block
 rows) instead of the TPU kernel's per-tile row ids; ``block_row_ptr``
 builds it once, when an engine is compiled.
 
-* ``bsr_spmm`` (A2) — ``Y = A @ X`` over f32 tiles, for ``ops.spmm``.
+* ``bsr_spmm`` (A2) — ``Y = A @ X`` over f32 tiles, for ``ops.spmm``:
+  split-TF32 ``wgmma`` products of TMA-fed tile panels, a persistent grid
+  over ``bsr_spmm_work``'s list.
 * ``bitpack_words`` (A3) — a ``> 0`` mask to packed words.
 * ``bsr_expand_bits`` — the engine's expansion: one-bit tiles
   (``ShardedGraph.bsr_bit_shards``) and a packed frontier in, the packed
@@ -27,6 +29,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref, unpack_bit_tiles
 
 DEFAULT_BLOCK = 128
+SPMM_D_TILE = 64           # X columns a work item of the A2 kernel
+# the A2 kernel names tile rows by int32 TMA coordinates (tile * 128)
+SPMM_MAX_TILES = 2 ** 24
 
 
 def block_row_ptr(block_rows: torch.Tensor, block_cols: torch.Tensor,
@@ -49,6 +54,19 @@ def block_row_ptr(block_rows: torch.Tensor, block_cols: torch.Tensor,
     return torch.searchsorted(rows, bounds).to(torch.int32)
 
 
+def bsr_spmm_work(row_ptr: torch.Tensor, d: int) -> torch.Tensor:
+    """The A2 kernel's work list: every (block row, ``SPMM_D_TILE``-column
+    tile of X) item once, as ``row * n_d_tiles + j``, block rows by tile
+    count from largest to smallest (ties by row), the column tiles of a
+    row together.  Empty rows are listed: their items write zeros.  int32,
+    on ``row_ptr``'s device."""
+    counts = (row_ptr[1:] - row_ptr[:-1]).to(torch.int64)
+    n_dt = -(-d // SPMM_D_TILE)
+    order = torch.sort(counts, descending=True, stable=True).indices
+    cols = torch.arange(n_dt, dtype=torch.int64, device=row_ptr.device)
+    return (order[:, None] * n_dt + cols).reshape(-1).to(torch.int32)
+
+
 def bsr_spmm(blocks: torch.Tensor, row_ptr: torch.Tensor,
              block_cols: torch.Tensor, x: torch.Tensor, *, n_rows_pad: int,
              block: int = DEFAULT_BLOCK) -> torch.Tensor:
@@ -56,7 +74,9 @@ def bsr_spmm(blocks: torch.Tensor, row_ptr: torch.Tensor,
 
     blocks: (K, B, B) f32 tiles; row_ptr: (n_rows_pad/B + 1,) int32;
     block_cols: (K,) int32; x: (n_cols_pad, d) f32.  Returns
-    ``(n_rows_pad, d)`` f32; block rows without a tile are zero.
+    ``(n_rows_pad, d)`` f32; block rows without a tile are zero.  The
+    kernel computes in split TF32 (``ref.bsr_spmm_split_ref`` emulates
+    it): exact on integer operands, within f32 rounding otherwise.
     """
     k, b0, b1 = blocks.shape
     n_x, d = x.shape
@@ -78,12 +98,20 @@ def bsr_spmm(blocks: torch.Tensor, row_ptr: torch.Tensor,
     if (blocks.dtype, x.dtype) != (torch.float32, torch.float32) or (
             row_ptr.dtype, block_cols.dtype) != (torch.int32, torch.int32):
         raise ValueError("bsr_spmm takes f32 tiles and x, int32 indices")
+    if k >= SPMM_MAX_TILES:
+        raise ValueError(f"{k} tiles: the kernel addresses tile rows by "
+                         f"int32, at most {SPMM_MAX_TILES - 1} tiles")
+    if blocks.data_ptr() % 16:
+        raise ValueError("bsr_spmm loads tiles by TMA: their base must be "
+                         "16-byte aligned")
     dev = _build.require_cuda("bsr_spmm", blocks, row_ptr, block_cols, x)
     y = torch.empty((n_rows_pad, d), dtype=torch.float32, device=dev)
     if y.numel():
+        work = bsr_spmm_work(row_ptr, d)
         _build.launch("bfs_bsr_spmm", dev, blocks.data_ptr(),
-                      row_ptr.data_ptr(), block_cols.data_ptr(), x.data_ptr(),
-                      y.data_ptr(), n_rows_pad // block, d)
+                      row_ptr.data_ptr(), block_cols.data_ptr(),
+                      work.data_ptr(), x.data_ptr(), y.data_ptr(), k,
+                      work.numel(), -(-d // SPMM_D_TILE), d)
         bsr_spmm.launches += 1
     return y
 

@@ -73,31 +73,103 @@ def test_fold_update_kernel_matches_plain(cuda, lead, m, s):
     assert d2 is d and torch.equal(d, want[0])
 
 
-@pytest.mark.parametrize("binary", [True, False])
-def test_bsr_spmm_kernel_matches_ref(cuda, binary):
-    """An empty block row (row 1) and two zero pad tiles repeating the last
-    block row; 70 columns span two 64-column tiles of the kernel."""
-    gen = torch.Generator(device=cuda).manual_seed(int(binary))
-    rows = torch.tensor([0, 0, 2, 3, 3, 3, 3], dtype=torch.int32, device=cuda)
-    cols = torch.tensor([0, 2, 1, 0, 2, 0, 0], dtype=torch.int32, device=cuda)
+def _spmm_case(gen, dev, binary: bool, d: int, long_row: int = 0):
+    """4 block rows x 3 block cols: block row 1 empty unless ``long_row``
+    tiles fill it (more than the kernel's ring of 3 panels holds), two
+    zero pad tiles repeating the last block row."""
+    rows = [0, 0] + [1] * long_row + [2, 3, 3, 3, 3]
+    cols = [0, 2] + [i % 3 for i in range(long_row)] + [1, 0, 2, 0, 0]
+    rows = torch.tensor(rows, dtype=torch.int32, device=dev)
+    cols = torch.tensor(cols, dtype=torch.int32, device=dev)
+    k = rows.numel()
     if binary:
-        blocks = (torch.rand((7, 128, 128), generator=gen, device=cuda)
+        blocks = (torch.rand((k, 128, 128), generator=gen, device=dev)
                   < 0.1).float()
-        x = (torch.rand((384, 70), generator=gen, device=cuda) < 0.3).float()
+        x = (torch.rand((384, d), generator=gen, device=dev) < 0.3).float()
     else:
-        blocks = torch.randn((7, 128, 128), generator=gen, device=cuda)
-        x = torch.randn((384, 70), generator=gen, device=cuda)
+        blocks = torch.randn((k, 128, 128), generator=gen, device=dev)
+        x = torch.randn((384, d), generator=gen, device=dev)
     blocks[-2:] = 0.0
+    return blocks, rows, cols, x
+
+
+@pytest.mark.parametrize("long_row", [0, 9])
+@pytest.mark.parametrize("d", [1, 63, 64, 65, 70, 200])
+@pytest.mark.parametrize("binary", [True, False])
+def test_bsr_spmm_kernel_matches_ref(cuda, binary, d, long_row):
+    """Widths below, at and past the kernel's 64-column items, odd and
+    even; block row 1 empty or longer than the panel ring."""
+    gen = torch.Generator(device=cuda).manual_seed(int(binary) + d)
+    blocks, rows, cols, x = _spmm_case(gen, cuda, binary, d, long_row)
+    row_ptr = block_row_ptr(rows, cols, 4, 3)
     before = bsr_spmm.launches
+    got = bsr_spmm(blocks, row_ptr, cols, x, n_rows_pad=512)
+    assert bsr_spmm.launches == before + 1
+    want = bsr_spmm_ref(blocks, rows, cols, x, n_rows_pad=512)
+    if binary:
+        assert torch.equal(got, want)
+    else:   # f32 sums of <= 1,152 products, summed in another order
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    if not long_row:
+        assert not bool(got[128:256].any())      # the empty block row
+    # one consumer owns each output block and sums its tiles in order
+    assert torch.equal(got, bsr_spmm(blocks, row_ptr, cols, x,
+                                     n_rows_pad=512))
+
+
+def test_bsr_spmm_kernel_without_tiles_writes_zeros(cuda):
+    none = torch.empty((0,), dtype=torch.int32, device=cuda)
+    x = torch.randn((384, 70), device=cuda)
+    before = bsr_spmm.launches
+    got = bsr_spmm(torch.empty((0, 128, 128), device=cuda),
+                   block_row_ptr(none, none, 4, 3), none, x, n_rows_pad=512)
+    torch.cuda.synchronize()
+    assert bsr_spmm.launches == before + 1
+    assert torch.equal(got, torch.zeros((512, 70), device=cuda))
+
+
+@pytest.mark.parametrize("where", ["x", "tiles"])
+def test_bsr_spmm_kernel_non_finite_as_plain(cuda, where):
+    """inf and NaN (a NaN whose payload TF32 truncation would drop too)
+    give the plain version's non-finite pattern; the rest within the
+    randn tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    blocks, rows, cols, x = _spmm_case(gen, cuda, False, 64)
+    low_nan = torch.tensor([0x7F800001], dtype=torch.int32).view(
+        torch.float32).item()
+    if where == "x":
+        x[5, 1], x[200, 2], x[300, 3], x[10, 4] = (
+            float("inf"), float("-inf"), float("nan"), low_nan)
+    else:
+        blocks[0, 7, 9], blocks[2, 4, 100], blocks[3, 1, 2] = (
+            float("inf"), low_nan, float("-inf"))
     got = bsr_spmm(blocks, block_row_ptr(rows, cols, 4, 3), cols, x,
                    n_rows_pad=512)
     want = bsr_spmm_ref(blocks, rows, cols, x, n_rows_pad=512)
-    assert bsr_spmm.launches == before + 1
-    if binary:
-        assert torch.equal(got, want)
-    else:   # f32 sums of <= 256 products, summed in another order
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
-    assert not bool(got[128:256].any())          # the empty block row
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(got), inf)
+    assert torch.equal(got[inf], want[inf])
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-4)
+
+
+def test_bsr_spmm_kernel_many_items(cuda):
+    """More items than the persistent grid's CTAs (300 block rows x 4
+    column tiles), rows of 0 to 12 tiles, against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    counts = torch.randint(0, 13, (300,), generator=gen, device=cuda)
+    rows = torch.repeat_interleave(torch.arange(300, device=cuda),
+                                   counts).to(torch.int32)
+    cols = torch.randint(0, 8, (rows.numel(),), generator=gen,
+                         device=cuda).to(torch.int32)
+    blocks = torch.randn((rows.numel(), 128, 128), generator=gen,
+                         device=cuda)
+    x = torch.randn((1024, 200), generator=gen, device=cuda)
+    row_ptr = block_row_ptr(rows, cols, 300, 8)
+    got = bsr_spmm(blocks, row_ptr, cols, x, n_rows_pad=300 * 128)
+    want = bsr_spmm_ref(blocks, rows, cols, x, n_rows_pad=300 * 128)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
 def test_bitpack_kernel_matches_plain(cuda):
