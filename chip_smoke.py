@@ -19,7 +19,10 @@ Phases (any failed check raises and the script exits non-zero):
    ``HGMMA`` and ``UTMALDG`` instructions in the SASS of the bf16 A4
    kernel (``cuobjdump -sass``) and fails if either is 0; prints the
    register report of A2's ``bsr_spmm_kernel``, failing on a spill, and
-   its ``HGMMA`` and ``UTMALDG`` counts, failing on a 0; the
+   its ``HGMMA`` and ``UTMALDG`` counts, failing on a 0; the same for
+   A4's f32 route (``flash_fwd_tf32``, each head width), and the register
+   report of its pre-pass
+   (``split_kv_kernel``), failing on a spill; the
    register report of A5's ``bag_gather_kernel`` (each dtype and
    granule), failing on a spill, and counts its ``LDGSTS`` (``cp.async``)
    and ``UBLKCP`` (bulk copy) instructions, failing if it has no
@@ -201,10 +204,14 @@ Phases (any failed check raises and the script exits non-zero):
    and one pass of TF32 (the plain bmm under ``allow_tf32``) must fail its
    f32 hold; its bound is the bytes' or three TF32 products', the f32-FMA
    and TF32 times beside it.  A3 is timed alone, 50 launches in a CUDA
-   graph, beside its wrapper.  A4's f32 route is driven through
-   ``ops.attention`` at the global and local layer's shapes in f32, held
-   to the plain version and timed beside its bounds, the plain version and
-   SDPA in f32 (the backend it took and its error printed).
+   graph, beside its wrapper.  A4's f32 route (split TF32 on ``wgmma``
+   after its pre-pass) is driven through ``ops.attention`` at the global
+   and local layer's shapes in f32 (one f32 launch and one pre-pass a
+   call), held to the plain version, run twice on the same operands
+   (equal outputs), and a planted fault, the plain version with TF32
+   products (``allow_tf32``: one pass of TF32), must miss the 2e-5 head
+   limit; timed beside its bounds, the pre-pass alone beside its byte
+   bound, the plain version and SDPA in f32 (the backend it took and its error printed).
 
 15. path 10 — DeepFM training at full width (``train_batch``: 39 fields x
    1,000,000 rows x 10 f32, MLP 403-400-400-400-1, batch 65,536; not cut),
@@ -2650,17 +2657,20 @@ def sdpa_backend(q, k, v, **kw) -> str:
     return names.get(choice, f"backend {choice}")
 
 
-def attention_f32_row(lay: dict, kernels, dev) -> dict:
-    """A4's f32 route (``attn_flash_fwd_f32``, the CUDA cores) at the
-    prefill's global and local layer shapes in f32, driven once each
-    through ``ops.attention`` (its launches), held to the plain version and
-    timed beside its bounds (bytes; f32 FMA; three TF32 products, the
-    least the tensor cores could take at f32 accuracy), the plain version
-    and SDPA in f32, whose backend and error are read beside it."""
+def attention_f32_row(lay: dict, kernels, dev, sass: dict) -> dict:
+    """A4's f32 route (``attn_flash_fwd_f32``: split TF32 on wgmma after
+    its pre-pass ``split_kv``) at the prefill's global and local layer
+    shapes in f32, driven once each through ``ops.attention`` (its
+    launches), held to the plain version, run twice (equal outputs), the
+    plain version with one pass of TF32 read against the hold (a planted
+    fault it must catch), and timed beside its bounds (bytes; f32 FMA;
+    three TF32 products, the least the tensor cores could take at f32
+    accuracy), the pre-pass alone, the plain version and SDPA in f32, whose backend and error are read beside it."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as attn_ops
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention,
+                                                            split_kv)
     from repro_torch.kernels.flash_attention.ref import (attention_mask,
                                                          attention_ref)
 
@@ -2672,17 +2682,49 @@ def attention_f32_row(lay: dict, kernels, dev) -> dict:
     k = torch.randn((b, hkv, s, dh), generator=gen, device=dev)
     v = torch.randn((b, hkv, s, dh), generator=gen, device=dev)
     reset_counts(kernels)
+    split_kv.launches = 0
     for window in (0, w_loc):
         attn_ops.attention(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     launches = flash_attention.launches_f32
-    check(launches == 2 and flash_attention.launches_bf16 == 0,
+    check(launches == 2 and flash_attention.launches_bf16 == 0
+          and split_kv.launches == 2,
           f"A4 f32: {launches} f32 and {flash_attention.launches_bf16} "
-          f"bf16 launches for two f32 calls")
+          f"bf16 launches, {split_kv.launches} pre-passes for two f32 calls")
+    pre_launches = split_kv.launches
+    # the pre-pass alone: reads k and v, writes K's hi and lo, V^T and its lo
+    parts = split_kv(k, v)
+    pre_bytes = nbytes(k, v, *parts)
+    pre_bound_ms, _ = bound(pre_bytes)
+    pre_ms = timed_ms(lambda: split_kv(k, v), 10)
+    del parts
+    log(f"A4 f32 pre-pass (split_kv) at kv {tuple(k.shape)}: {pre_ms} ms, "
+        f"{pre_bound_ms / pre_ms:.4f} of its byte bound {pre_bound_ms} ms "
+        f"({pre_bytes} bytes)")
     row = {}
     for window in (0, w_loc):                       # global, then local
         what = f"f32 {tuple(q.shape)} kv {tuple(k.shape)} window {window}"
         err, want = hold_a4(q, k, v, True, window, what)
+        got = flash_attention(q, k, v, causal=True, window=window)
+        check(torch.equal(got, flash_attention(q, k, v, causal=True,
+                                               window=window)),
+              f"A4 f32 at {what}: two calls differ")
+        del got
+        # planted fault: one pass of TF32 (the plain version's matrix
+        # products under allow_tf32) must miss the f32 head limit
+        tf32_flag = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            one_pass = head_rel_errs(attention_ref(
+                q, k, v, causal=True, window=window), want)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32_flag
+        planted = (float(one_pass.min()), float(one_pass.max()))
+        log(f"A4 f32 planted fault at {what} (the plain version in one pass "
+            f"of TF32): rel L2 a head: min {planted[0]}, max {planted[1]} "
+            f"(limit 2e-05; the kernel's max abs err {err})")
+        check(planted[1] > 2e-5, f"the A4 f32 hold passes one pass of TF32 "
+                                 f"at {what}")
         pairs = visible_pairs(s, s, True, window)
         flops = 4.0 * b * hq * dh * pairs
         b_ms, b_by = bound(nbytes(q, k, v, q), 3 * flops, TF32_FLOPS)
@@ -2705,10 +2747,13 @@ def attention_f32_row(lay: dict, kernels, dev) -> dict:
         del args, kw, want
         log(f"A4 {what}: {ms} ms = {flops / ms / 1e9} TFLOP/s, "
             f"{b_ms / ms:.4f} of the bound {b_ms} ms ({b_by}; f32 FMA "
-            f"{flops / F32_FLOPS * 1e3} ms); plain {plain_ms} ms; SDPA "
-            f"{library_ms} ms ({backend}, max abs err vs plain {sdpa_err})")
+            f"{flops / F32_FLOPS * 1e3} ms); plain {plain_ms} ms; SDPA {library_ms} ms ({backend}, max "
+            f"abs err vs plain {sdpa_err})")
         row[window] = {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "ms": ms,
+            "planted_one_pass_head_min": planted[0],
+            "planted_one_pass_head_max": planted[1],
+            "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "bound_fma_ms": flops / F32_FLOPS * 1e3,
             "bound_tf32x3_ms": 3 * flops / TF32_FLOPS * 1e3,
             "tflops": flops / ms / 1e9, "bound_share": b_ms / ms,
@@ -2717,23 +2762,32 @@ def attention_f32_row(lay: dict, kernels, dev) -> dict:
     glob, local = row[0], row[w_loc]
     return {
         "name": "flash_attention_f32", "route": "cuda",
-        "design": "f32 on the CUDA cores (flash_fwd_kernel)",
+        "design": "split TF32 (3 products) on wgmma m64n64k8 / m64n32k8, "
+                  "TMA slot rings, two consumer warpgroups on alternate kv "
+                  "tiles merged at the end (flash_fwd_tf32), after a "
+                  "pre-pass (split_kv_kernel: K's hi and lo, V^T and its lo, keys "
+                  "0 2 4 6 1 3 5 7 in each group of 8)",
         "source": "src/repro_torch/csrc/attention_kernels.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:31",
         "path": "ops.attention in f32 (no model path runs f32 attention)",
         "launches": launches,
         "max_abs_err": max(glob["max_abs_err"], local["max_abs_err"]),
+        "prepass_launches": pre_launches, "prepass_ms": pre_ms,
+        "prepass_bound_ms": pre_bound_ms, "prepass_bytes": pre_bytes,
         **{key: glob[key] for key in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "bound_fma_ms",
-            "bound_tf32x3_ms", "tflops", "bound_share", "library_ms",
-            "library_backend", "library_max_abs_err")},
+            "ms", "planted_one_pass_head_min",
+            "planted_one_pass_head_max", "plain_ms", "bound_ms", "bound_by",
+            "bound_fma_ms", "bound_tf32x3_ms", "tflops", "bound_share",
+            "library_ms", "library_backend", "library_max_abs_err")},
         "shape": f"global layer: q {tuple(q.shape)} f32, kv "
                  f"{tuple(k.shape)}, causal",
         "local_window": w_loc,
         **{f"local_{key}": local[key] for key in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "bound_fma_ms",
-            "bound_tf32x3_ms", "tflops", "bound_share", "library_ms",
-            "library_backend", "library_max_abs_err")}}
+            "ms", "planted_one_pass_head_min",
+            "planted_one_pass_head_max", "plain_ms", "bound_ms", "bound_by",
+            "bound_fma_ms", "bound_tf32x3_ms", "tflops", "bound_share",
+            "library_ms", "library_backend", "library_max_abs_err")},
+        "sass": sass}
 
 
 def to_host64(tree):
@@ -5511,6 +5565,24 @@ def main(argv=None) -> int:
           "build: bsr_spmm_kernel has no ptxas report or spills")
     check(a2_sass.get("HGMMA", 0) > 0 and a2_sass.get("UTMALDG", 0) > 0,
           "build: bsr_spmm_kernel has no HGMMA or no UTMALDG in its SASS")
+    f32_ptxas = ptxas_reports(build_log, "flash_fwd_tf32")
+    f32_sass = sass_counts(sass_text, r"flash_fwd_tf32ILi(\d+)E",
+                           ("HGMMA", "UTMALDG"))
+    split_ptxas = ptxas_lines(build_log, "split_kv_kernel")
+    for fn, line in f32_ptxas.items():
+        log(f"build: A4 f32 {fn} (-Xptxas -v): {line}")
+    log(f"build: A4 f32 flash_fwd_tf32 SASS (cuobjdump -sass; head width): "
+        f"{f32_sass}; pre-pass split_kv_kernel (-Xptxas -v): "
+        f"{split_ptxas}")
+    check(len(f32_ptxas) == 4 and all(
+        "0 bytes spill stores, 0 bytes spill loads" in line
+        for line in f32_ptxas.values())
+        and "0 bytes spill stores, 0 bytes spill loads" in split_ptxas,
+        "build: an f32 A4 kernel or its pre-pass has no ptxas report or "
+        "spills")
+    check(len(f32_sass) == 4 and all(c["HGMMA"] and c["UTMALDG"]
+                                     for c in f32_sass.values()),
+          "build: an f32 A4 kernel has no HGMMA or no UTMALDG in its SASS")
     gather_ptxas = ptxas_reports(build_log, "bag_gather_kernel")
     for fn, line in gather_ptxas.items():
         log(f"build: A5 {fn} (-Xptxas -v): {line}")
@@ -5921,7 +5993,7 @@ def main(argv=None) -> int:
     del tiles, y01, x01
 
     rows.append(attention_rows(lay, dev, sass))
-    rows.append(attention_f32_row(lay, kernels, dev))
+    rows.append(attention_f32_row(lay, kernels, dev, f32_sass))
     rows.append(bag_row)
 
     # -------------------------------------------------------------- path 10

@@ -35,9 +35,10 @@
 //
 // Bound on the H100: operations.  The work is 4 * Dh FLOP per visible
 // (q, k) pair against 2 * Dh * (Sq + 2 Skv) input bytes per head: at
-// Dh = 256 and a causal 8192-token prompt about 2000 FLOP per byte, far
-// above the ridge of the bf16 tensor cores (295).  Two routes, chosen by
-// dtype in the wrapper (kernels/flash_attention/kernel.py):
+// Dh = 256 and a causal 8192-token prompt about 2000 FLOP per byte (1000
+// in f32), far above the ridge of the bf16 tensor cores (295) and of
+// three TF32 products (148 FLOP per byte at 495 TFLOP/s / 3).  Two routes,
+// chosen by dtype in the wrapper (kernels/flash_attention/kernel.py):
 //
 // bf16, flash_fwd_wgmma: the tensor cores, fed by TMA, warp-specialised.
 //   A CTA of 384 threads owns 128 q rows: warpgroups 0 and 1 consume (64
@@ -61,11 +62,56 @@
 //   a trap in it the Dh = 256 kernel was held to the launch's 168 and
 //   spilled the O accumulator.
 //
-// f32, flash_fwd_kernel: plain f32 FMA on the CUDA cores (TF32 tensor cores
-//   would miss the f32 tolerance, and no path of the port runs f32
-//   attention).  One CTA of 256 threads owns a 64-row q tile; q, k and v
-//   tiles of 32 keys are staged in shared memory, each thread holds 2 q rows
-//   x 4 keys of scores and 2 rows x Dh/8 columns of the accumulator.
+// f32, flash_fwd_tf32: split TF32 ("3xTF32") on wgmma, fed by TMA.  The
+//   tensor cores take f32 only as TF32 (10 mantissa bits), one pass of
+//   which misses the f32 hold (2e-5).  Every operand is split as A2's in
+//   bfs_kernels.cu: hi is the f32 word as the tensor core reads it (its 13
+//   low bits dropped), lo = v - hi rounded to TF32, and each product is
+//   lo hi + hi lo + hi hi, the small ones first.  Three TF32 products bound
+//   it: 6.66 ms at gemma3-12b's global layer (q (2, 16, 8192, 256), causal)
+//   against 16.41 ms for f32 FMA on the CUDA cores.  What the design does
+//   about the four things TF32 attention raises:
+//   - TF32 wgmma takes both operands K-major.  S = Q K^T is, as Q and K lie;
+//     O += P V is not, V being (key, Dh).  A pre-pass (split_kv_kernel, one
+//     launch before the attention kernel) writes V^T (B * Hkv, Dh, keys
+//     padded to 32) and its lo, and K's hi and lo; q is split in the
+//     kernel, once a CTA, into shared memory (fence.proxy.async before
+//     wgmma reads it).
+//   - The accumulator gives a thread keys 2c, 2c + 1 of each 8-key step,
+//     the register A operand wants columns c, c + 4 (c = lane % 4).  The
+//     pre-pass stores each group of 8 keys of V^T as 0 2 4 6 1 3 5 7, so
+//     the S fragment, split into hi and lo registers, is the A operand of
+//     the PV k8 steps with no shuffle.
+//   - Shared memory: at Dh = 256, Q and its lo for 64 rows take 128 KB, so
+//     a CTA owns 64 q rows.  Its two consumer warpgroups share them and take
+//     alternate kv tiles of 64 keys, each with its own online softmax and O
+//     (Dh / 2 registers a thread), and its own ring of 3 slots of 16 KB fed
+//     by one producer thread: a slot is a 32-column panel of K, or of V^T
+//     (64 Dh rows x 32 keys; 32 rows at Dh 32 and 256, see Cfg), hi and
+//     lo, 128-byte swizzled.  One warpgroup's softmax runs beside the
+//     other's products.  At the end consumer 1 hands its (m, l, O) through
+//     shared memory and consumer 0 merges and stores.  At Dh = 256: 128 +
+//     96 KB.
+//   - The tensor core truncates each k8 step into its accumulator, about
+//     2^-23 of the accumulator a step; an O row sums thousands of steps.
+//     So each slot's 12 products (three of four k8 steps: wgmma m64n64k8
+//     for S, m64n64k8 or m64n32k8 for PV) start from zero and join S, or
+//     their chunk of O, in IEEE f32 adds; O's rescale by alpha stays an
+//     IEEE multiply.
+//   On the H100 it takes 12.76 ms at that global layer, 52% of the bound
+//   (PERF.md); pairing the two q heads of a kv group in a cluster of 2
+//   that shared each K and V^T load by TMA multicast ran 2.25 times slower
+//   and was taken out.
+//   A non-finite q, k or v has hi 0 and goes to lo whole, so each of its
+//   products meets the other side's hi alone and reads +-inf or NaN as the
+//   plain version's does (K's hi is therefore the pre-pass's, not K: raw
+//   K as hi made q_lo * inf = 0 * inf = NaN where q is exact in TF32).
+//   Only inf times inf, and a non-finite value times one below 2^-136 in
+//   magnitude (whose hi is 0), read NaN where the plain version has +-inf,
+//   as in A2.
+//   The row max propagates NaN (max.NaN), so a NaN key makes exactly the
+//   rows that see it NaN, as the plain version's amax does.  The visible-
+//   tile loop, its order and the masks are the bf16 kernel's.
 // ---------------------------------------------------------------------------
 
 #include <cuda.h>
@@ -77,205 +123,6 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // kernel.py NEG_INF
-
-// ===================================================== f32, CUDA cores
-
-constexpr int kBQ = 64;            // q rows per CTA
-constexpr int kBK = 32;            // keys per kv tile
-constexpr int kThreads = 256;      // thread (tr, tc) = (tid / 8, tid % 8)
-constexpr int kPS = kBK + 1;       // row stride of the p tile (no conflicts)
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-template <int DH>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         ((size_t)(kBQ + kBK) * (DH + 4) + (size_t)kBK * DH + kBQ * kPS);
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int hq,
-                 int group, int sq, int skv, int causal, int window,
-                 float scale) {
-  constexpr int QS = DH + 4;   // row stride of the q and k tiles (floats)
-  constexpr int C4 = DH / 4;   // float4 per row
-  constexpr int NJ = DH / 32;  // float4 accumulator columns per thread
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // [kBQ][QS]
-  float* k_s = q_s + kBQ * QS;                   // [kBK][QS]
-  float* v_s = k_s + kBK * QS;                   // [kBK][DH]
-  float* p_s = v_s + kBK * DH;                   // [kBQ][kPS]
-
-  const int tid = threadIdx.x;
-  const int tr = tid >> 3;  // q rows tr and tr + 32 of the tile
-  const int tc = tid & 7;   // keys tc + 8 j; accumulator columns 32 j + 4 tc
-  const int64_t bh = blockIdx.x;                 // b * hq + h
-  const int64_t kvh = (bh / hq) * (hq / group) + (bh % hq) / group;
-  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * kBQ;
-  const float* qp = q + (bh * sq + q0) * DH;
-  const float* kp = k + kvh * skv * DH;
-  const float* vp = v + kvh * skv * DH;
-
-  for (int i = tid; i < kBQ * C4; i += kThreads) {
-    const int r = i / C4, c = (i % C4) * 4;
-    const float4 x = q0 + r < sq ? load4(qp + (int64_t)r * DH + c)
-                                 : make_float4(0.f, 0.f, 0.f, 0.f);
-    store4(q_s + r * QS + c, x);
-  }
-
-  // the keys any row of this tile can see
-  const int q_last = min(q0 + kBQ, sq) - 1;
-  const int k_end = causal ? min(skv, q_last + 1) : skv;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
-
-  const int row[2] = {q0 + tr, q0 + tr + 32};
-  float m_run[2] = {kNegInf, kNegInf};
-  float l_run[2] = {0.f, 0.f};
-  float4 acc[2][NJ];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous tile's PV reads (and the q tile) are done
-    for (int i = tid; i < kBK * C4; i += kThreads) {
-      const int r = i / C4, c = (i % C4) * 4;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (k0 + r < skv) {
-        kx = load4(kp + (int64_t)(k0 + r) * DH + c);
-        vx = load4(vp + (int64_t)(k0 + r) * DH + c);
-      }
-      store4(k_s + r * QS + c, kx);
-      store4(v_s + r * DH + c, vx);
-    }
-    __syncthreads();
-
-    // s = q k^T for rows tr, tr + 32 and keys tc + 8 j
-    float s[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      const float4 qa = load4(q_s + tr * QS + d);
-      const float4 qb = load4(q_s + (tr + 32) * QS + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 kk = load4(k_s + (tc + 8 * j) * QS + d);
-        s[0][j] = dot4(qa, kk, s[0][j]);
-        s[1][j] = dot4(qb, kk, s[1][j]);
-      }
-    }
-
-    // online softmax; the 8 lanes tc = 0..7 of a row are adjacent lanes
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float m_cur = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tc + 8 * j;
-        bool keep = kpos < skv;
-        if (causal) keep = keep && row[i] >= kpos;
-        if (window > 0) keep = keep && row[i] - kpos < window;
-        s[i][j] = keep ? s[i][j] * scale : kNegInf;
-        m_cur = fmaxf(m_cur, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1)
-        m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, off));
-      const float m_new = fmaxf(m_run[i], m_cur);
-      const bool live = m_new > kNegInf / 2;
-      float p_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = live ? expf(s[i][j] - m_new) : 0.f;
-        p_sum += p;
-        p_s[(tr + 32 * i) * kPS + tc + 8 * j] = p;
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1)
-        p_sum += __shfl_xor_sync(0xffffffffu, p_sum, off);
-      const float alpha =
-          m_run[i] > kNegInf / 2 ? expf(m_run[i] - m_new) : 0.f;
-      l_run[i] = alpha * l_run[i] + p_sum;
-      m_run[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        acc[i][j].x *= alpha;
-        acc[i][j].y *= alpha;
-        acc[i][j].z *= alpha;
-        acc[i][j].w *= alpha;
-      }
-    }
-    __syncthreads();
-
-    // acc += p v for rows tr, tr + 32 and columns 32 j + 4 tc .. + 3
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float pa = p_s[tr * kPS + kk];
-      const float pb = p_s[(tr + 32) * kPS + kk];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float4 vv = load4(v_s + kk * DH + 32 * j + 4 * tc);
-        acc[0][j].x = fmaf(pa, vv.x, acc[0][j].x);
-        acc[0][j].y = fmaf(pa, vv.y, acc[0][j].y);
-        acc[0][j].z = fmaf(pa, vv.z, acc[0][j].z);
-        acc[0][j].w = fmaf(pa, vv.w, acc[0][j].w);
-        acc[1][j].x = fmaf(pb, vv.x, acc[1][j].x);
-        acc[1][j].y = fmaf(pb, vv.y, acc[1][j].y);
-        acc[1][j].z = fmaf(pb, vv.z, acc[1][j].z);
-        acc[1][j].w = fmaf(pb, vv.w, acc[1][j].w);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] >= sq) continue;
-    const float l = l_run[i] == 0.f ? 1.f : l_run[i];
-    float* out = o + (bh * sq + row[i]) * DH;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float4 a = acc[i][j];
-      store4(out + 32 * j + 4 * tc,
-             make_float4(a.x / l, a.y / l, a.z / l, a.w / l));
-    }
-  }
-}
-
-template <int DH>
-int launch_f32(const void* q, const void* k, const void* v, void* o,
-               long long b, long long hq, long long hkv, long long sq,
-               long long skv, int causal, long long window, float scale,
-               cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<DH>;
-  constexpr size_t smem = smem_bytes<DH>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned int)(b * hq), (unsigned int)((sq + kBQ - 1) / kBQ));
-  kernel<<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, (int)hq,
-      (int)(hq / hkv), (int)sq, (int)skv, causal, (int)window, scale);
-  return (int)cudaGetLastError();
-}
 
 // ========================================= bf16, wgmma + TMA, warp-specialised
 
@@ -777,6 +624,558 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace wg
 
+// ================================== f32: split TF32 on wgmma, fed by TMA
+
+namespace tf {
+
+using wg::fence_regs;
+using wg::mbar_arrive;
+using wg::mbar_expect_tx;
+using wg::mbar_init;
+using wg::mbar_wait;
+using wg::smem_u32;
+using wg::tma_load;
+using wg::wgmma_commit;
+using wg::wgmma_fence;
+using wg::wgmma_wait_all;
+
+constexpr int kBQ = 64;             // q rows a CTA, shared by both consumers
+constexpr int kBK = 64;             // keys a kv tile
+constexpr int kStages = 3;          // slots in each consumer's ring
+constexpr int kThreads = 384;       // warpgroups 0, 1 consume; 2 produces
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;  // 24 + 2 * 240 = 3 * 168 (launch bound)
+constexpr int kSlot = 16384;        // a ring slot: the hi panel, lo at +kLo
+constexpr int kLo = 8192;
+constexpr int kPanel = 64 * 128;    // 64 rows of 32 f32, 128-byte swizzle
+constexpr int kKeyPad = 32;         // V^T's rows are padded to this many keys
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory: [Q: NP panels][Q lo: NP panels][ring 0][ring 1][barriers].
+// A kv tile takes a consumer's ring slots in this order: NP panels of K
+// (32 of its Dh columns, hi and lo); then for keys 0-31 of the tile, and
+// again for keys 32-63, one panel of V^T (NV rows of Dh, hi and lo) for
+// each chunk of NV of O's columns.  At Dh = 256 the chunks are 32 wide:
+// O (128 registers), the split P (32), the second half's scores (16) and
+// a 64-wide chunk's partial (32) left the compiler too few of the 240 and
+// it spilled; 32-wide partials (16) do not.
+template <int DH>
+struct Cfg {
+  static constexpr int NP = DH / 32;
+  static constexpr int NV = DH == 64 || DH == 128 ? 64 : 32;
+  static constexpr int Q_BYTES = kBQ * DH * 4;
+  static constexpr int QLO_OFF = Q_BYTES;
+  static constexpr int RING_OFF = 2 * Q_BYTES;
+  static constexpr int BAR_OFF = RING_OFF + 2 * kStages * kSlot;
+  // q_full, then full[w][s] and empty[w][s] of each consumer w
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 4 * kStages);
+  static constexpr uint32_t K_TX = 2 * kBK * 128;
+};
+
+// v rounded to TF32, to nearest with ties away from zero (cvt.rna.tf32's
+// rounding in two integer operations, as bfs_kernels.cu's A2); finite v
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ bool finite_bits(uint32_t u) {
+  return (u & 0x7f800000u) != 0x7f800000u;
+}
+
+// a NaN with its payload in the low 13 bits only would read as inf in TF32
+__device__ __forceinline__ uint32_t quiet_bits(uint32_t u) {
+  return u | ((u & 0x007fffffu) ? 0x00400000u : 0u);
+}
+
+// the TF32 lo of a finite v: v - hi, hi = v with its 13 low bits cleared
+__device__ __forceinline__ float lo_of(float v) {
+  return __uint_as_float(
+      tf32_rna(v - __uint_as_float(__float_as_uint(v) & 0xffffe000u)));
+}
+
+// Every operand's parts: hi is v, lo its TF32 lo; a non-finite v has hi 0
+// and goes to lo whole (a NaN made quiet), so each of its products meets
+// the other side's hi alone (A2's rule for its tiles, bfs_kernels.cu)
+__device__ __forceinline__ float hi_of(float v) {
+  return finite_bits(__float_as_uint(v)) ? v : 0.f;
+}
+
+__device__ __forceinline__ float lo_or_whole(float v) {
+  const uint32_t u = __float_as_uint(v);
+  return finite_bits(u) ? lo_of(v) : __uint_as_float(quiet_bits(u));
+}
+
+// the NaN-propagating maximum: a score that is NaN makes its row NaN, as
+// the plain version's amax does (fmaxf would drop it)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// a row's running max counts as live unless it is NEG_INF (NaN is live)
+__device__ __forceinline__ bool live(float m) { return !(m <= kNegInf / 2); }
+
+// The wgmma descriptor of a K-major panel of 128-byte rows, 8-row groups
+// 1024 bytes apart, 128-byte swizzle (wg::smem_desc(addr, 16, 1024, 1)),
+// is a low word that carries the address and a constant high word.  The
+// products take the low word alone and make the descriptor inside their
+// asm, so the compiler holds one register a descriptor, not two.  A k8
+// step is 32 bytes along the row.
+__device__ __forceinline__ uint32_t desc(uint32_t addr) {
+  return ((addr & 0x3FFFF) >> 4) | (1u << 16);
+}
+#define DESC_HI "0x40000040"  // stride 1024 bytes; 128-byte swizzle
+
+#define F8(d, i)                                                    \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),       \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// S (+)= A B^T, m64n64k8 TF32: A (64 x 8) and B (64 x 8) K-major in
+// shared memory; accumulate = 0 writes A B^T over d
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint32_t a, uint32_t b,
+                                       int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 h;\n.reg .b64 da, db;\n"
+      "setp.ne.b32 p, %34, 0;\nmov.b32 h, " DESC_HI ";\n"
+      "mov.b64 da, {%32, h};\nmov.b64 db, {%33, h};\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "da, db, p, 1, 1;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24)
+      : "r"(a), "r"(b), "r"(accumulate));
+}
+
+// O-chunk (+)= P V, m64n{N}k8 TF32: P (64 x 8) four registers a thread, V^T
+// (N x 8) K-major in shared memory
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t* a,
+                                       uint32_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 h;\n.reg .b64 db;\n"
+      "setp.ne.b32 p, %37, 0;\nmov.b32 h, " DESC_HI ";\n"
+      "mov.b64 db, {%36, h};\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, db, p, 1, 1;\n}\n"
+      : F8(d, 0), F8(d, 8), F8(d, 16), F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void mma_rs(float (&d)[16], const uint32_t* a,
+                                       uint32_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 h;\n.reg .b64 db;\n"
+      "setp.ne.b32 p, %21, 0;\nmov.b32 h, " DESC_HI ";\n"
+      "mov.b64 db, {%20, h};\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, db, p, 1, 1;\n}\n"
+      : F8(d, 0), F8(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b),
+        "r"(accumulate));
+}
+
+#undef F8
+#undef DESC_HI
+
+// The pre-pass: for each (kv head, 32 keys, 32 Dh columns) K's hi and lo,
+// and V transposed to (Dh, keys) as hi and lo, the keys of each group of 8
+// stored in the order 0 2 4 6 1 3 5 7.  Keys from Skv to the padded length
+// are written as 0.  hi_of and lo_or_whole split each value.
+__global__ void __launch_bounds__(256)
+split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                float* __restrict__ k_hi, float* __restrict__ k_lo,
+                float* __restrict__ vt, float* __restrict__ vt_lo, int skv,
+                int skv_pad, int dh) {
+  __shared__ float tile[32][33];
+  const int64_t kvh = blockIdx.x / (skv_pad / 32);
+  const int k0 = (int)(blockIdx.x % (skv_pad / 32)) * 32, d0 = blockIdx.y * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+#pragma unroll
+  for (int r = ty; r < 32; r += 8) {
+    float x = 0.f;
+    if (k0 + r < skv) {
+      const int64_t i = (kvh * skv + k0 + r) * dh + d0 + tx;
+      const float kv = k[i];
+      k_hi[i] = hi_of(kv);
+      k_lo[i] = lo_or_whole(kv);
+      x = v[i];
+    }
+    tile[r][tx] = x;
+  }
+  __syncthreads();
+  // stored position tx holds key (tx & ~7) + order[tx & 7]
+  const int key = (tx & ~7) + ((tx & 4) ? 2 * (tx & 3) + 1 : 2 * (tx & 3));
+#pragma unroll
+  for (int r = ty; r < 32; r += 8) {
+    const float x = tile[key][r];
+    const int64_t i = (kvh * dh + d0 + r) * skv_pad + k0 + tx;
+    vt[i] = hi_of(x);
+    vt_lo[i] = lo_or_whole(x);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_tf32(const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_klo,
+               const __grid_constant__ CUtensorMap tm_vt,
+               const __grid_constant__ CUtensorMap tm_vtlo,
+               float* __restrict__ o, int hq, int group, int sq, int skv,
+               int causal, int window, float scale_log2) {
+  using C = Cfg<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw0 = smem_u32(smem_raw);
+  const uint32_t base = (raw0 + 1023) & ~1023u;
+  uint8_t* base_ptr = smem_raw + (base - raw0);
+  const uint32_t q_s = base;
+  const uint32_t bar = base + C::BAR_OFF;
+  const uint32_t q_full = bar;
+  auto full = [&](int w, int s) { return bar + 8 * (1 + 2 * kStages * w + s); };
+  auto empty = [&](int w, int s) {
+    return bar + 8 * (1 + 2 * kStages * w + kStages + s);
+  };
+  auto ring = [&](int w) { return base + C::RING_OFF + w * kStages * kSlot; };
+
+  const int bh = blockIdx.x;  // b * hq + h; kv head b * hkv + h / group
+  const int kvh = (bh / hq) * (hq / group) + (bh % hq) / group;
+  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * kBQ;
+  // the kv tiles any row of this CTA can see; consumer w takes tiles w,
+  // w + 2, ...
+  const int q_last = min(q0 + kBQ, sq) - 1;
+  const int k_end = causal ? min(skv, q_last + 1) : skv;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int w = 0; w < 2; ++w)
+      for (int s = 0; s < kStages; ++s) {
+        mbar_init(full(w, s), 1);
+        mbar_init(empty(w, s), 4);  // one arrival a consumer warp
+      }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 2) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    const int w = (threadIdx.x / 32) % 4;  // the consumer it feeds
+    if (w < 2 && threadIdx.x % 32 == 0) {
+      if (w == 0) {
+        mbar_expect_tx(q_full, C::Q_BYTES);
+        for (int p = 0; p < C::NP; ++p)
+          tma_load(q_s + p * kPanel, &tm_q, q_full, 32 * p, q0, bh);
+      }
+      // a slot's hi and lo panels
+      auto load = [&](uint32_t slot, const CUtensorMap* hi,
+                      const CUtensorMap* lo, uint32_t full_bar, int c0,
+                      int c1) {
+        tma_load(slot, hi, full_bar, c0, c1, kvh);
+        tma_load(slot + kLo, lo, full_bar, c0, c1, kvh);
+      };
+      uint32_t g = 0;  // slots issued
+      auto next = [&](uint32_t tx) {
+        const int s = g % kStages;
+        mbar_wait(empty(w, s), ((g / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(w, s), tx);
+        ++g;
+        return s;
+      };
+      for (int t = w; t < n_tiles; t += 2) {
+        const int k0 = k_begin + t * kBK;
+        for (int p = 0; p < C::NP; ++p) {
+          const int s = next(C::K_TX);
+          load(ring(w) + s * kSlot, &tm_k, &tm_klo, full(w, s), 32 * p, k0);
+        }
+        for (int kp = 0; kp < 2; ++kp)
+          for (int c = 0; c < DH / C::NV; ++c) {
+            const int s = next(2 * C::NV * 128);
+            load(ring(w) + s * kSlot, &tm_vt, &tm_vtlo, full(w, s),
+                 k0 + 32 * kp, C::NV * c);
+          }
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int r0 = 16 * (tid / 32) + lane / 4;  // fragment rows r0, r0 + 8
+    const int c2 = 2 * (lane % 4);               // fragment columns 8 j + c2
+    const int row[2] = {q0 + r0, q0 + r0 + 8};
+    const uint32_t my_ring = ring(wgi);
+
+    // Q's hi and lo, 16-byte chunk by chunk (the swizzle moves whole
+    // chunks, so lo lands in Q's layout).  Both consumers split half each.
+    mbar_wait(q_full, 0);
+    {
+      float4* qp = reinterpret_cast<float4*>(base_ptr);
+      float4* lp = reinterpret_cast<float4*>(base_ptr + C::QLO_OFF);
+      for (int i = threadIdx.x; i < C::Q_BYTES / 16; i += 256) {
+        const float4 x = qp[i];
+        qp[i] = make_float4(hi_of(x.x), hi_of(x.y), hi_of(x.z), hi_of(x.w));
+        lp[i] = make_float4(lo_or_whole(x.x), lo_or_whole(x.y),
+                            lo_or_whole(x.z), lo_or_whole(x.w));
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      asm volatile("bar.sync 1, 256;" ::: "memory");
+    }
+
+    float acc[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+    float m_run[2] = {kNegInf, kNegInf};
+    float l_run[2] = {0.f, 0.f};  // this thread's share of the row sum
+    uint32_t g = 0;  // slots consumed
+    auto wait_slot = [&]() {
+      const int s = g % kStages;
+      mbar_wait(full(wgi, s), (g / kStages) & 1);
+      return s;
+    };
+    auto free_slot = [&](int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(wgi, s));
+      ++g;
+    };
+
+    for (int t = wgi; t < n_tiles; t += 2) {
+      const int k0 = k_begin + t * kBK;
+
+      // S = Q K^T: each K panel's 12 products (lo hi, hi lo, hi hi for
+      // four k8 steps) start from zero and join S in IEEE f32 adds
+      float sc[32];
+#pragma unroll
+      for (int p = 0; p < C::NP; ++p) {
+        const int s = wait_slot();
+        const uint32_t slot = my_ring + s * kSlot;
+        const uint32_t qh = q_s + p * kPanel, ql = qh + C::QLO_OFF;
+        float sp[32];  // the panel's products; the first writes over it
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          mma_ss(sp, desc(ql + 32 * kk), desc(slot + 32 * kk), kk > 0);
+          mma_ss(sp, desc(qh + 32 * kk), desc(slot + kLo + 32 * kk), 1);
+          mma_ss(sp, desc(qh + 32 * kk), desc(slot + 32 * kk), 1);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sp);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = p == 0 ? sp[i] : sc[i] + sp[i];
+        free_slot(s);
+      }
+
+      // mask: only tiles that cross Skv, the diagonal or the window edge
+      const bool edge = k0 + kBK > skv || (causal && k0 + kBK - 1 > q0) ||
+                        (window > 0 && q0 + kBQ - 1 - k0 >= window);
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int kpos = k0 + 8 * j + c2 + e;
+              bool keep = kpos < skv;
+              if (causal) keep = keep && row[i] >= kpos;
+              if (window > 0) keep = keep && row[i] - kpos < window;
+              if (!keep) sc[4 * j + 2 * i + e] = -INFINITY;
+            }
+      }
+
+      // online softmax on the fragment (row i: sc[4 j + 2 i + e], the four
+      // lanes of a quad share a row), exp2 with scale * log2(e) folded in
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          mx = max_nan(mx, max_nan(sc[4 * j + 2 * i], sc[4 * j + 2 * i + 1]));
+        mx = max_nan(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = max_nan(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = max_nan(m_run[i], mx * scale_log2);
+        const bool on = live(m_new);
+        alpha[i] = live(m_run[i]) ? ex2(m_run[i] - m_new) : 0.f;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = sc[4 * j + 2 * i + e];
+            x = on ? ex2(fmaf(x, scale_log2, -m_new)) : 0.f;
+            sum += x;
+          }
+        l_run[i] = alpha[i] * l_run[i] + sum;
+        m_run[i] = m_new;
+      }
+
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        acc[4 * j] *= alpha[0];
+        acc[4 * j + 1] *= alpha[0];
+        acc[4 * j + 2] *= alpha[1];
+        acc[4 * j + 3] *= alpha[1];
+      }
+
+      // O += P V, 32 keys at a time: P's 32 keys split into TF32 hi and
+      // lo, already the A fragments of the four PV k8 steps (V^T stores
+      // each group of 8 keys as 0 2 4 6 1 3 5 7, so fragment columns c and
+      // c + 4, keys 2c and 2c + 1, are this thread's S columns 2c, 2c + 1
+      // of the step); then each V^T panel's 12 products start from zero
+      // and join their chunk of O in IEEE f32 adds
+#pragma unroll
+      for (int kp = 0; kp < 2; ++kp) {
+        uint32_t ph[16], pl[16];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float x = sc[16 * kp + 4 * j + (r & 1) * 2 + (r >> 1)];
+            const uint32_t h = __float_as_uint(x) & 0xffffe000u;
+            ph[4 * j + r] = h;
+            pl[4 * j + r] = tf32_rna(x - __uint_as_float(h));
+          }
+#pragma unroll
+        for (int c = 0; c < DH / C::NV; ++c) {
+          const int s = wait_slot();
+          const uint32_t slot = my_ring + s * kSlot;
+          float op[C::NV / 2];  // the panel's products
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            mma_rs(op, pl + 4 * kk, desc(slot + 32 * kk), kk > 0);
+            mma_rs(op, ph + 4 * kk, desc(slot + kLo + 32 * kk), 1);
+            mma_rs(op, ph + 4 * kk, desc(slot + 32 * kk), 1);
+          }
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(op);
+#pragma unroll
+          for (int i = 0; i < C::NV / 2; ++i) acc[C::NV / 2 * c + i] += op[i];
+          free_slot(s);
+        }
+        // the products read ph and pl until the last wait
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          asm volatile("" ::"r"(ph[i]), "r"(pl[i]) : "memory");
+      }
+    }
+
+    // Merge: consumer 1 leaves its (m, l, O) in the Q region, free once
+    // both have left the loop; consumer 0 rescales both to the larger m,
+    // divides by l (1 where l == 0: a row with no key is zeros) and stores
+    // the rows below Sq.
+    float* xo = reinterpret_cast<float*>(base_ptr);  // [DH / 2][128]
+    float* xm = xo + DH / 2 * 128;                   // [2][128]
+    float* xl = xm + 2 * 128;                        // [2][128]
+    asm volatile("bar.sync 1, 256;" ::: "memory");
+    if (wgi == 1) {
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) xo[i * 128 + tid] = acc[i];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        xm[i * 128 + tid] = m_run[i];
+        xl[i * 128 + tid] = l_run[i];
+      }
+    }
+    asm volatile("bar.sync 1, 256;" ::: "memory");
+    if (wgi == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m1 = xm[i * 128 + tid];
+        const float m = max_nan(m_run[i], m1);
+        const float a0 = live(m_run[i]) ? ex2(m_run[i] - m) : 0.f;
+        const float a1 = live(m1) ? ex2(m1 - m) : 0.f;
+        float l = a0 * l_run[i] + a1 * xl[i * 128 + tid];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        if (l == 0.f) l = 1.f;
+        if (row[i] >= sq) continue;
+        float* out = o + ((int64_t)bh * sq + row[i]) * DH + c2;
+#pragma unroll
+        for (int j = 0; j < DH / 8; ++j) {
+          const int n = 4 * j + 2 * i;
+          const float x0 = a0 * acc[n] + a1 * xo[n * 128 + tid];
+          const float x1 = a0 * acc[n + 1] + a1 * xo[(n + 1) * 128 + tid];
+          *reinterpret_cast<float2*>(out + 8 * j) = make_float2(x0 / l, x1 / l);
+        }
+      }
+    }
+  }
+}
+
+// 3-D map (d0, d1, d2) of a contiguous f32 tensor, box (32, rows, 1),
+// 128-byte swizzle: a box past d1 is zero-filled inside its own d2 slice
+bool f32_map(CUtensorMap* map, const void* ptr, long long d0, long long d1,
+             long long d2, int rows) {
+  const wg::EncodeTiled encode = wg::encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)d0 * 4, (cuuint64_t)(d0 * d1) * 4};
+  const cuuint32_t box[3] = {32, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int split_kv(const void* k, const void* v, void* k_hi, void* k_lo, void* vt,
+             void* vt_lo, long long bhkv, long long skv, long long skv_pad,
+             long long dh, cudaStream_t stream) {
+  const dim3 grid((unsigned int)(bhkv * (skv_pad / 32)), (unsigned int)(dh / 32));
+  split_kv_kernel<<<grid, 256, 0, stream>>>(
+      (const float*)k, (const float*)v, (float*)k_hi, (float*)k_lo,
+      (float*)vt, (float*)vt_lo, (int)skv, (int)skv_pad, (int)dh);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch(const void* q, const void* k_hi, const void* k_lo, const void* vt,
+           const void* vt_lo, void* o, long long b, long long hq,
+           long long hkv, long long sq, long long skv, long long skv_pad,
+           int causal, long long window, float scale, cudaStream_t stream) {
+  using C = Cfg<DH>;
+  CUtensorMap tq, tk, tkl, tv, tvl;
+  if (!f32_map(&tq, q, DH, sq, b * hq, kBQ) ||
+      !f32_map(&tk, k_hi, DH, skv, b * hkv, kBK) ||
+      !f32_map(&tkl, k_lo, DH, skv, b * hkv, kBK) ||
+      !f32_map(&tv, vt, skv_pad, DH, b * hkv, C::NV) ||
+      !f32_map(&tvl, vt_lo, skv_pad, DH, b * hkv, C::NV))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = flash_fwd_tf32<DH>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned int)(b * hq), (unsigned int)((sq + kBQ - 1) / kBQ));
+  kernel<<<grid, kThreads, C::SMEM, stream>>>(
+      tq, tk, tkl, tv, tvl, (float*)o, (int)hq, (int)(hq / hkv), (int)sq,
+      (int)skv, causal, (int)window, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tf
+
 }  // namespace
 
 #define DISPATCH_DH(fn)                                                      \
@@ -801,12 +1200,39 @@ extern "C" {
 
 // Shapes are checked by the wrapper (repro_torch/kernels/flash_attention/
 // kernel.py); dh outside {32, 64, 128, 256} returns cudaErrorInvalidValue.
-// q, k, v, o all f32: the CUDA-core kernel.
-int attn_flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
+// The f32 route's pre-pass: k, v (B * Hkv, Skv, Dh) f32 to k_hi, k_lo (the
+// same shape) and vt, vt_lo (B * Hkv, Dh, Skv_pad), Skv_pad a multiple of
+// 32.
+int attn_split_kv_f32(const void* k, const void* v, void* k_hi, void* k_lo,
+                      void* vt, void* vt_lo, long long bhkv, long long skv,
+                      long long skv_pad, long long dh, void* stream) {
+  if (dh % 32 || skv_pad % tf::kKeyPad || skv_pad < skv)
+    return (int)cudaErrorInvalidValue;
+  return tf::split_kv(k, v, k_hi, k_lo, vt, vt_lo, bhkv, skv, skv_pad, dh,
+                      (cudaStream_t)stream);
+}
+
+// q, o f32 and the pre-pass's k_hi, k_lo, vt, vt_lo, all 16-byte aligned:
+// the split-TF32 wgmma + TMA kernel.
+int attn_flash_fwd_f32(const void* q, const void* k_hi, const void* k_lo,
+                       const void* vt, const void* vt_lo, void* o,
                        long long b, long long hq, long long hkv, long long sq,
-                       long long skv, long long dh, int causal,
-                       long long window, float scale, void* stream) {
-  DISPATCH_DH(launch_f32)
+                       long long skv, long long skv_pad, long long dh,
+                       int causal, long long window, float scale,
+                       void* stream) {
+#define F32_CASE(D)                                                       \
+  case D:                                                                 \
+    return tf::launch<D>(q, k_hi, k_lo, vt, vt_lo, o, b, hq, hkv, sq, skv, \
+                         skv_pad, causal, window, scale, (cudaStream_t)stream);
+  switch (dh) {
+    F32_CASE(32)
+    F32_CASE(64)
+    F32_CASE(128)
+    F32_CASE(256)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef F32_CASE
 }
 
 // q, k, v, o all bf16, 16-byte aligned: the wgmma + TMA kernel.

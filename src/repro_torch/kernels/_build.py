@@ -40,8 +40,12 @@ _SIGNATURES = {
     # bits, col_mask, block_rows, block_cols, fwords, out, front_any, k,
     # n_fwords, group_block_rows, n_valid, n_blocks, seg, w, s, stream
     "bfs_bsr_expand_bits": [_P] * 7 + [_N] * 8 + [_P],
+    # q, k_hi, k_lo, vt, vt_lo, o, b, hq, hkv, sq, skv, skv_pad, dh, causal,
+    # window, scale, stream (k_hi, k_lo, vt, vt_lo: the pre-pass's scratch)
+    "attn_flash_fwd_f32": [_P] * 6 + [_N] * 7 + [_I, _N, _F, _P],
+    # k, v, k_hi, k_lo, vt, vt_lo, b * hkv, skv, skv_pad, dh, stream
+    "attn_split_kv_f32": [_P] * 6 + [_N] * 4 + [_P],
     # q, k, v, o, b, hq, hkv, sq, skv, dh, causal, window, scale, stream
-    "attn_flash_fwd_f32": [_P] * 4 + [_N] * 6 + [_I, _N, _F, _P],
     "attn_flash_fwd_bf16": [_P] * 4 + [_N] * 6 + [_I, _N, _F, _P],
     # idx, table, out, b, l, d, bf16, granule, stages, bags, slots, chunks,
     # idx_words, row_stage_bytes, smem, grid, stream

@@ -5,6 +5,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.tf32 import (quiet, split_tf32, tf32_rna,
+                                     tf32_trunc)
+
 
 def bsr_spmm_ref(blocks: torch.Tensor, block_rows: torch.Tensor,
                  block_cols: torch.Tensor, x: torch.Tensor, *,
@@ -22,42 +25,6 @@ def bsr_spmm_ref(blocks: torch.Tensor, block_rows: torch.Tensor,
     return y.reshape(n_rows_pad, d)
 
 
-# TF32 keeps 10 of f32's 23 mantissa bits: clearing the 13 low bits
-_TF32_MASK = -(1 << 13)                            # 0xFFFFE000 as int32
-
-
-def tf32_trunc(v: torch.Tensor) -> torch.Tensor:
-    """``v`` with its 13 low mantissa bits cleared: what the tensor core
-    reads of an f32 word as TF32."""
-    return (v.view(torch.int32) & _TF32_MASK).view(torch.float32)
-
-
-def tf32_rna(v: torch.Tensor) -> torch.Tensor:
-    """``v`` rounded to TF32, to nearest with ties away from zero
-    (``cvt.rna.tf32.f32``); for finite ``v``."""
-    return ((v.view(torch.int32) + (1 << 12)) & _TF32_MASK).view(
-        torch.float32)
-
-
-def _quiet(v: torch.Tensor) -> torch.Tensor:
-    """NaN with its top mantissa bit set, so TF32 truncation keeps it NaN;
-    other values unchanged."""
-    u = v.view(torch.int32)
-    return torch.where((u & 0x7FFFFF) != 0, u | 0x400000, u).view(
-        torch.float32)
-
-
-def split_tf32(v: torch.Tensor):
-    """The A2 kernel's split of f32 ``v`` into TF32 parts, as the operand
-    pairs it multiplies: ``(hi, lo, finite)`` with ``hi = tf32_trunc(v)``
-    and ``lo = tf32_rna(v - hi)`` where ``v`` is finite."""
-    v = v.to(torch.float32).contiguous()
-    finite = torch.isfinite(v)
-    hi = tf32_trunc(v)
-    lo = torch.where(finite, tf32_rna(v - hi), 0.0)
-    return hi, lo, finite
-
-
 def bsr_spmm_split_ref(blocks: torch.Tensor, block_rows: torch.Tensor,
                        block_cols: torch.Tensor, x: torch.Tensor, *,
                        n_rows_pad: int) -> torch.Tensor:
@@ -70,12 +37,12 @@ def bsr_spmm_split_ref(blocks: torch.Tensor, block_rows: torch.Tensor,
     k, b, _ = blocks.shape
     n, d = x.shape
     a_hi, a_lo, a_fin = split_tf32(blocks)
-    lo_op = torch.where(a_fin, a_lo, _quiet(blocks.to(torch.float32)))
+    lo_op = torch.where(a_fin, a_lo, quiet(blocks.to(torch.float32)))
     hi_op = torch.where(a_fin, a_hi, 0.0)
     x_hi, x_lo, x_fin = split_tf32(x)
     xp = torch.where(x_fin, x_hi, 0.0).reshape(n // b, b, d)[block_cols.long()]
     xq = x_lo.reshape(n // b, b, d)[block_cols.long()]
-    xt = torch.where(x_fin, x_hi, _quiet(x.to(torch.float32)))
+    xt = torch.where(x_fin, x_hi, quiet(x.to(torch.float32)))
     xt = xt.reshape(n // b, b, d)[block_cols.long()]
     contrib = torch.bmm(lo_op, xp)
     contrib += torch.bmm(hi_op, xq)

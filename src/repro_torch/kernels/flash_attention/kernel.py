@@ -10,12 +10,15 @@ of the operands' dtype, or raises:
 
 - bf16: ``attn_flash_fwd_bf16``, the tensor cores through ``wgmma``, fed
   by TMA (128-row q tiles; operands 16-byte aligned, as TMA needs);
-- f32: ``attn_flash_fwd_f32``, plain FMA on the CUDA cores (64-row q
-  tiles).
+- f32: ``attn_flash_fwd_f32``, split TF32 (three TF32 products a
+  product, the f32 accuracy of the plain version) through ``wgmma``, fed
+  by TMA (64-row q tiles), after its pre-pass ``split_kv``, which writes
+  K's TF32 hi and lo and V transposed, with its lo, into scratch.
 
 There is no other route: a bf16 call never falls back to the f32 kernel.
-``flash_attention.launches`` counts every launch, ``launches_bf16`` and
-``launches_f32`` each route's.
+``flash_attention.launches`` counts every call that launches a kernel,
+``launches_bf16`` and ``launches_f32`` each route's; ``split_kv.launches``
+counts the pre-pass's.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (KEY_PAD, attention_ref,
+                                                    split_kv_ref)
 
 HEAD_DIMS = (32, 64, 128, 256)       # the head widths the kernels are built for
 MAX_Q_TILES = 65535                  # grid.y: q tiles (bf16 128 rows, f32 64)
@@ -45,6 +49,39 @@ def check_shapes(q, k, v) -> None:
         raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)}: "
                          f"batch and head width must match and Hq must be "
                          f"a multiple of Hkv")
+
+
+def split_kv(k: torch.Tensor, v: torch.Tensor):
+    """The f32 route's pre-pass: k, v (B, Hkv, Skv, Dh) f32 to ``(k_hi,
+    k_lo, vt, vt_lo)``, ``k_hi``, ``k_lo`` shaped like k and ``vt``,
+    ``vt_lo`` (B, Hkv, Dh, Skv_pad), Skv_pad the next multiple of
+    ``KEY_PAD`` (``ref.split_kv_ref`` says what they hold).  On a CPU tensor the plain
+    version; on a CUDA tensor ``attn_split_kv_f32``, or raises."""
+    if k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"split_kv takes k, v (B, Hkv, Skv, Dh); got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if k.device.type == "cpu":
+        return split_kv_ref(k, v)
+    b, hkv, skv, dh = k.shape
+    if k.dtype != torch.float32 or v.dtype != torch.float32:
+        raise ValueError(f"split_kv takes f32 k, v; got {k.dtype}, {v.dtype}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel is built for head widths "
+                         f"{HEAD_DIMS}, not {dh}")
+    dev = _build.require_cuda("split_kv", k, v)
+    pad = -(-skv // KEY_PAD) * KEY_PAD
+    k_hi, k_lo = torch.empty_like(k), torch.empty_like(k)
+    vt = torch.empty((b, hkv, dh, pad), dtype=torch.float32, device=dev)
+    vt_lo = torch.empty_like(vt)
+    if k.numel():
+        _build.launch("attn_split_kv_f32", dev, k.data_ptr(), v.data_ptr(),
+                      k_hi.data_ptr(), k_lo.data_ptr(), vt.data_ptr(),
+                      vt_lo.data_ptr(), b * hkv, skv, pad, dh)
+        split_kv.launches += 1
+    return k_hi, k_lo, vt, vt_lo
+
+
+split_kv.launches = 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -77,15 +114,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError("flash_attention: operands must be 16-byte "
                              "aligned")
     o = torch.empty_like(q)
-    if o.numel():
+    if not o.numel():
+        return o
+    if q.dtype == torch.bfloat16:
         _build.launch(entry, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       o.data_ptr(), b, hq, hkv, sq, skv, dh, int(causal),
                       window, dh ** -0.5)
-        flash_attention.launches += 1
-        if q.dtype == torch.bfloat16:
-            flash_attention.launches_bf16 += 1
-        else:
-            flash_attention.launches_f32 += 1
+        flash_attention.launches_bf16 += 1
+    else:
+        parts = split_kv(k, v)
+        _build.launch(entry, dev, q.data_ptr(),
+                      *(t.data_ptr() for t in parts), o.data_ptr(), b, hq,
+                      hkv, sq, skv, parts[2].shape[-1], dh, int(causal),
+                      window, dh ** -0.5)
+        flash_attention.launches_f32 += 1
+    flash_attention.launches += 1
     return o
 
 

@@ -5,6 +5,8 @@ JAX package's Pallas ``flash_attention`` (interpret mode) and its
 itself is held to the plain version on the card by
 tests/test_torch_cuda.py."""
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -132,13 +134,17 @@ def test_attention_refuses_mismatched_shapes(use_kernel):
     (torch.bfloat16, "attn_flash_fwd_bf16", 128),
     (torch.float32, "attn_flash_fwd_f32", 64)])
 def test_flash_attention_routes_by_dtype(dtype, entry, rows):
-    """Each dtype has one C entry point (bf16: the wgmma kernel, f32: the
-    CUDA-core kernel), bound with the same arguments, and its own q-tile
+    """Each dtype has one C entry point (bf16: the wgmma kernel on q, k,
+    v, o; f32: the split-TF32 wgmma kernel on q, the pre-pass's k_hi, k_lo,
+    vt and vt_lo, and o, with Skv_pad among the sizes), and its own q-tile
     height in the Sq limit; checked on the meta device, where no kernel
     launches."""
     assert _ROUTES[dtype] == (entry, rows)
-    assert _build._SIGNATURES[entry] == _build._SIGNATURES[
-        "attn_flash_fwd_f32"]
+    ptr, size = ctypes.c_void_p, ctypes.c_longlong
+    flags = [ctypes.c_int, size, ctypes.c_float]
+    want = {"attn_flash_fwd_bf16": [ptr] * 4 + [size] * 6 + flags + [ptr],
+            "attn_flash_fwd_f32": [ptr] * 6 + [size] * 7 + flags + [ptr]}
+    assert _build._SIGNATURES[entry] == want[entry]
     limit = rows * MAX_Q_TILES
 
     def call(sq):

@@ -31,9 +31,11 @@ from repro_torch.kernels.embedding_bag.kernel import (_launch, bag_geometry,
                                                       embedding_bag_sum_plain,
                                                       gather_geometry)
 from repro_torch.kernels.flash_attention import ops as attn_ops
-from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.kernel import (flash_attention,
+                                                        split_kv)
 from repro_torch.kernels.flash_attention.ref import (attention_mask,
-                                                   attention_ref)
+                                                   attention_ref,
+                                                   split_kv_ref)
 from repro_torch.kernels.fold_update import fold_update, fold_update_plain
 from repro_torch.launch.steps import build_bundle
 from repro_torch.models import transformer as tf
@@ -476,6 +478,110 @@ def test_flash_attention_bf16_wgmma_route_matches_plain(cuda, dh, b, hq, hkv,
     dead = ~attention_mask(sq, skv, causal=causal, window=window,
                            device=cuda).any(dim=-1)
     assert not bool(got[:, :, dead].any())
+
+
+F32_ROUTE_CASES = [
+    (32, 1, 2, 2, 1, 1, True, 0),
+    (64, 2, 4, 2, 63, 63, True, 0),
+    (128, 1, 8, 1, 65, 65, True, 2),          # a window inside a kv tile
+    (256, 1, 2, 1, 200, 200, True, 33),
+    (128, 2, 4, 2, 1000, 1500, False, 0),     # non-causal, Skv > Sq
+    (256, 1, 4, 4, 1500, 1500, True, 1024),
+    (64, 1, 2, 2, 1, 1000, False, 0),
+    (256, 1, 2, 2, 65, 200, False, 0),
+    (32, 1, 8, 1, 10, 3, True, 2),            # rows 4..: no key
+    (256, 1, 2, 1, 300, 3, True, 2)]          # a whole q tile sees no key
+
+
+def _f32_qkv(cuda, dh, b, hq, hkv, sq, skv):
+    gen = torch.Generator(device=cuda).manual_seed(sq * 31 + skv + dh)
+    return [torch.randn(shape, generator=gen, device=cuda)
+            for shape in ((b, hq, sq, dh), (b, hkv, skv, dh),
+                          (b, hkv, skv, dh))]
+
+
+@pytest.mark.parametrize("dh,b,hq,hkv,sq,skv,causal,window",
+                         F32_ROUTE_CASES)
+def test_flash_attention_f32_split_tf32_route_matches_plain(
+        cuda, dh, b, hq, hkv, sq, skv, causal, window):
+    """The f32 route (split TF32 on wgmma, after its pre-pass) at every
+    head width, ragged lengths, GQA groups 1, 2 and 8: elementwise and each
+    (batch, head) slice within 2e-5 (the f32 hold, unchanged from the
+    CUDA-core kernel it replaced), rows that see no key exactly zero, two
+    calls bitwise equal, one f32 launch and one pre-pass a call."""
+    q, k, v = _f32_qkv(cuda, dh, b, hq, hkv, sq, skv)
+    before = (flash_attention.launches_bf16, flash_attention.launches_f32,
+              split_kv.launches)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    again = flash_attention(q, k, v, causal=causal, window=window)
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches_bf16, flash_attention.launches_f32,
+            split_kv.launches) == (before[0], before[1] + 2, before[2] + 2)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, **_attn_tolerance(torch.float32, v))
+    diff = (got - want).flatten(2).norm(dim=-1)
+    heads = diff / want.flatten(2).norm(dim=-1).clamp_min(1e-30)
+    assert float(heads.max()) <= 2e-5, heads
+    dead = ~attention_mask(sq, skv, causal=causal, window=window,
+                           device=cuda).any(dim=-1)
+    assert not bool(got[:, :, dead].any())
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 37, 64), (2, 1, 130, 256),
+                                   (1, 1, 1, 32), (1, 3, 64, 128)])
+def test_split_kv_kernel_matches_plain_bitwise(cuda, shape):
+    """The f32 route's pre-pass (K's lo, V^T in key order and its lo, zero
+    past Skv) bit for bit against its plain version, NaN and inf
+    included."""
+    gen = torch.Generator(device=cuda).manual_seed(shape[2])
+    k, v = (torch.randn(shape, generator=gen, device=cuda) for _ in range(2))
+    for t in (k, v):
+        t.view(-1)[::7] *= 1e-30               # values far below 1
+        t.view(-1)[3] = float("nan")
+        t.view(-1)[-1] = float("-inf")
+    before = split_kv.launches
+    got = split_kv(k, v)
+    torch.cuda.synchronize()
+    assert split_kv.launches == before + 1
+    for a, b in zip(got, split_kv_ref(k, v)):
+        assert a.shape == b.shape
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_flash_attention_f32_nan_key_makes_nan_rows_as_plain(cuda):
+    """A NaN in k makes NaN exactly the rows that see that key, as the
+    plain version does (the row max propagates NaN)."""
+    q, k, v = _f32_qkv(cuda, 64, 1, 2, 1, 200, 200)
+    k[0, 0, 70] = float("nan")
+    got = flash_attention(q, k, v, causal=True, window=40)
+    want = attention_ref(q, k, v, causal=True, window=40)
+    torch.cuda.synchronize()
+    assert torch.equal(got.isnan(), want.isnan())
+    rows = got.isnan().any(dim=-1)[0, 0].nonzero().flatten().tolist()
+    assert rows == list(range(70, 110))
+    finite = ~want.isnan()
+    torch.testing.assert_close(got[finite], want[finite],
+                               **_attn_tolerance(torch.float32, v))
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_flash_attention_f32_infinite_key_as_plain(cuda, sign):
+    """An infinite key against q exact in TF32 (upcast from bf16, its lo
+    0): NaN exactly the rows the plain version makes NaN (score +inf), the
+    key dropped where the score is -inf, the finite rows within 2e-5."""
+    q, k, v = _f32_qkv(cuda, 64, 1, 2, 1, 200, 200)
+    q = q.to(torch.bfloat16).float()
+    k[0, 0, 70, 5] = sign * float("inf")
+    got = flash_attention(q, k, v, causal=True, window=0)
+    want = attention_ref(q, k, v, causal=True, window=0)
+    torch.cuda.synchronize()
+    nan = want.isnan().any(dim=-1)
+    assert torch.equal(got.isnan().any(dim=-1), nan)
+    assert 0 < int(nan.sum()) < int((~nan).sum())
+    torch.testing.assert_close(got[~nan], want[~nan],
+                               **_attn_tolerance(torch.float32, v))
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
