@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port (BFS on the 1-D and 2-D partitions in the
 dense, queue and auto modes, BFS serving over HTTP, LM prefill, DeepFM
 serving and the EmbeddingBag op, DeepFM training, LM decode serving, LM
-training, GNN training, the Mixture-of-Experts and other LM configs, and
-elastic resharding with the dry run) on one card.
+training, GNN training, the Mixture-of-Experts and other LM configs,
+elastic resharding with the dry run, and the LM training, LM serving and
+GNN training examples) on one card.
 
     python3 chip_smoke.py            # full size, as the acceptance run
     python3 chip_smoke.py --profile  # also profile one run of each path
@@ -18,8 +19,9 @@ Phases (any failed check raises and the script exits non-zero):
    and the card's name and power limit; counts the
    ``HGMMA`` and ``UTMALDG`` instructions in the SASS of the bf16 A4
    kernel (``cuobjdump -sass``) and fails if either is 0; prints the
-   register report of A2's ``bsr_spmm_kernel``, failing on a spill, and
-   its ``HGMMA`` and ``UTMALDG`` counts, failing on a 0; the same for
+   register report of A2's ``bsr_spmm_kernel`` (both builds, with and
+   without the 2^-136 hi), failing on a spill, and their ``HGMMA`` and
+   ``UTMALDG`` counts, failing on a 0; the same for
    A4's f32 route (``flash_fwd_tf32``, each head width), and the register
    report of its pre-pass
    (``split_kv_kernel``), failing on a spill; the
@@ -361,11 +363,30 @@ Phases (any failed check raises and the script exits non-zero):
    printed; then both cells' 16 x 16 and 2 x 16 x 16 rows (meta, no card
    memory).
 
+21. path 16 — the three examples ported to ``repro_torch``, each through
+   its ``main`` at its defaults: (a) ``examples/train_lm_torch.py``
+   (``demo-10m``, f32, 4 layers, head_dim 32; 300 steps at batch 8 x seq
+   128, killed at step 150 and resumed from its checkpoint under
+   ``build/chip_smoke_path16/``, removed after): losses finite and
+   falling, the second ``Trainer`` starting at step 150, no kernel
+   launched (the train step runs ``flash_train``), step ms, tokens/s and
+   peak; then the trained params served: a prefill of the first batch's
+   128 tokens on A4's f32 route (``attn_flash_fwd_f32<32>`` and
+   ``split_kv`` once a layer), its last-token logits within
+   ``DECODE_F32_TOL`` of the plain prefill, and the last layer's recorded
+   q, k, v held as the f32 row holds A4 (2e-5 a head), which the plain
+   version in one pass of TF32 must fail; (b)
+   ``examples/serve_lm_torch.py``: all 10 requests served, request 0 alone
+   the same tokens, ms a decode step and tok/s; (c)
+   ``examples/gnn_train_torch.py``: the full-batch mean loss falling,
+   every sampled loss finite, one sampled step's device ms (CUDA events)
+   beside the host's ms a batch.
+
 The last line is ``{"ok": true, "device": {...}}``; before it come one
 ``{"kernels": [...]}`` JSON line (every kernel's row, with its launches
-in each path that runs it; paths 13 to 15 add no row, path 14 launches
-A4 alone and path 15 A1 and ``bsr_expand_bits``) and the card's name and
-power limit.
+in each path that runs it; paths 13 to 16 add no row, path 14 launches
+A4 alone, path 15 A1 and ``bsr_expand_bits``, path 16 A4's f32 route) and
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -390,10 +411,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 S = 64
-MEM_BW = 3.35e12          # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
-F32_FLOPS = 67e12         # H100 SXM f32 FLOP/s outside the tensor cores
-BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core FLOP/s
-TF32_FLOPS = 495e12       # H100 SXM dense TF32 tensor-core FLOP/s
+# the H100's peaks, launch/roofline.py's (NVIDIA's data sheet, SXM, dense):
+# HBM bytes/s, f32 FLOP/s outside the tensor cores, bf16 and TF32 on them;
+# main reads them once it has put src on the path
+MEM_BW = F32_FLOPS = BF16_FLOPS = TF32_FLOPS = 0.0
 # the prefill phase: gemma3-12b's prefill_32k cell, cut in depth and size
 PREFILL_LAYERS, PREFILL_BATCH, PREFILL_SEQ = 12, 2, 8192
 # A4 against its plain version, bf16: the largest relative L2 error of one
@@ -453,9 +474,10 @@ def timed_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float = 0.0, peak: float = F32_FLOPS):
-    """Least time (ms) for the work on the card, and what bounds it."""
-    t_mem, t_ops = nbytes / MEM_BW, flops / peak
+def bound(nbytes: float, flops: float = 0.0, peak: float | None = None):
+    """Least time (ms) for the work on the card, and what bounds it
+    (``peak`` FLOP/s; f32 outside the tensor cores unless given)."""
+    t_mem, t_ops = nbytes / MEM_BW, flops / (peak or F32_FLOPS)
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
                                      else "operations")
 
@@ -2629,7 +2651,8 @@ def attention_rows(lay: dict, dev, sass: dict) -> dict:
     local, glob = row[w_loc], row[0]
     return {
         "name": "flash_attention", "route": "cuda",
-        "design": "bf16: wgmma + TMA, warp-specialised; f32: CUDA cores",
+        "design": "bf16: wgmma + TMA, warp-specialised (f32: the "
+                  "flash_attention_f32 row)",
         "source": "src/repro_torch/csrc/attention_kernels.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:31",
         "launches": lay["launches"], "max_abs_err": max(errs),
@@ -2769,7 +2792,7 @@ def attention_f32_row(lay: dict, kernels, dev, sass: dict) -> dict:
                   "0 2 4 6 1 3 5 7 in each group of 8)",
         "source": "src/repro_torch/csrc/attention_kernels.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:31",
-        "path": "ops.attention in f32 (no model path runs f32 attention)",
+        "path": "ops.attention in f32; a model: path 16 (a)'s prefill",
         "launches": launches,
         "max_abs_err": max(glob["max_abs_err"], local["max_abs_err"]),
         "prepass_launches": pre_launches, "prepass_ms": pre_ms,
@@ -5489,6 +5512,255 @@ def elastic_phase(kernels, dev, g4, roots1, want1, pad4, sw, roots2, want2,
     return out
 
 
+# ---------------------------------------------------------------------------
+# path 16: the three examples ported to repro_torch, on the card
+# ---------------------------------------------------------------------------
+
+# (a) the one-pass TF32 fault must read above the f32 route's head limit
+A4_F32_HEAD_TOL = 2e-5
+
+
+def example(name: str) -> dict:
+    """The namespace of ``examples/<name>_torch.py`` (its ``main`` not
+    run)."""
+    import runpy
+
+    return runpy.run_path(str(ROOT / "examples" / f"{name}_torch.py"))
+
+
+def train_lm_example(kernels, tmp: Path) -> dict:
+    """(a) ``examples/train_lm_torch.py`` at its defaults (module
+    docstring, path 16), then its trained params served by an f32 prefill
+    on A4's f32 route, held to the plain prefill and, on one layer's
+    recorded q, k, v, to the plain attention."""
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention,
+                                                            split_kv)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import transformer as tf
+
+    ns = example("train_lm")
+    cfg, seen = ns["CFG"], {}
+    reset_counts(kernels)
+    reset_peak()
+    t0 = time.perf_counter()
+    rc = ns["main"](["--ckpt-dir", str(tmp / "ckpt")],
+                    on_done=lambda t1, t2, state: seen.update(
+                        t1=t1, t2=t2, state=state))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30     # since reset_peak
+    counts = {name: k.launches for name, k in kernels.items()}
+    t1, t2, state = seen["t1"], seen["t2"], seen["state"]
+    check(rc == 0, f"path 16 (a): train_lm_torch returned {rc}")
+    check(not any(counts.values()), f"path 16 (a): a kernel launched "
+                                    f"{counts}; the train step runs "
+                                    f"flash_train, never A4")
+    metrics = t1.metrics_log + t2.metrics_log
+    check(not any("event" in m for m in metrics),
+          f"path 16 (a): a restart in {metrics}")
+    losses = [(m["step"], m["loss"]) for m in metrics if "loss" in m]
+    check(all(math.isfinite(x) for _, x in losses)
+          and losses[-1][1] < losses[0][1],
+          f"path 16 (a): losses {losses}")
+    shape = t1.bundle.shape
+    steps, half = t2.tcfg.num_steps, t1.tcfg.num_steps
+    check(t1.step_times[-1][0] == half - 1 and t2.step_times[0][0] == half
+          and t2.step_times[-1][0] == steps - 1,
+          f"path 16 (a): the resumed run starts at step "
+          f"{t2.step_times[0][0]}, not {half}")
+    times = [dt for _, dt in t1.step_times[1:] + t2.step_times[1:]]
+    step_ms = float(np.median(times)) * 1e3
+    tokens = shape.global_batch * shape.seq_len
+    log(f"path 16 (a): {cfg.name} ({cfg.param_count()} weights, f32) "
+        f"{steps} steps at batch {shape.global_batch} x seq "
+        f"{shape.seq_len}, killed at step {half} and resumed from its "
+        f"checkpoint at step {t2.step_times[0][0]}: losses {losses}; step "
+        f"{step_ms:.3f} ms (median), {tokens / (step_ms / 1e3):.1f} "
+        f"tokens/s, peak {peak:.3f} GiB, {wall:.1f} s in all; no kernel "
+        f"launched")
+    out = {"losses": losses, "resumed_at": t2.step_times[0][0],
+           "step_ms_median": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+           "peak_gib": peak, "wall_s": wall}
+
+    # the trained params served: an f32 prefill on A4's f32 route
+    model = tf.Transformer.from_tree(state["params"])
+    prompt = t1.bundle.make_batch(0)["tokens"][:, :shape.seq_len]
+    a4 = kernels["flash_attention"]
+    reset_counts(kernels)
+    split_kv.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _, _ = tf.prefill(cfg, model, prompt, shape.seq_len)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    n_f32, n_bf16, n_split = a4.launches_f32, a4.launches_bf16, split_kv.launches
+    counts = {name: k.launches for name, k in kernels.items()}
+    check(n_f32 == cfg.n_layers and n_bf16 == 0 and n_split == cfg.n_layers
+          and counts == dict.fromkeys(kernels, 0) | {
+              "flash_attention": cfg.n_layers},
+          f"path 16 (a): the prefill launched A4 f32 {n_f32}, bf16 {n_bf16}, "
+          f"split_kv {n_split} times, {counts}; not once a layer on the f32 "
+          f"route")
+    t0 = time.perf_counter()
+    plain, _, _ = tf.prefill(cfg, model, prompt, shape.seq_len,
+                             use_kernel=False)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = rel_err(logits, plain)
+    log(f"path 16 (a): the trained params' prefill of "
+        f"{tuple(prompt.shape)} tokens on A4's f32 route {prefill_ms:.3f} "
+        f"ms (plain {plain_ms:.3f}): attn_flash_fwd_f32 {n_f32} and "
+        f"split_kv {n_split} launches; last-token logits rel L2 {err} "
+        f"against the plain prefill (limit {DECODE_F32_TOL})")
+    check(bool(torch.isfinite(logits).all()), "path 16 (a): logits")
+    check(err <= DECODE_F32_TOL, "path 16 (a): the f32-route prefill "
+                                 "differs from the plain prefill")
+
+    # one layer's own q, k, v, recorded from one more prefill
+    recorded, attention = [], tf.attention
+
+    def record(q, k, v, *, causal, window, use_kernel):
+        recorded.append((q.contiguous(), k.contiguous(), v.contiguous(),
+                         window))
+        return attention(q, k, v, causal=causal, window=window,
+                         use_kernel=use_kernel)
+
+    tf.attention = record
+    try:
+        tf.prefill(cfg, model, prompt, shape.seq_len)
+    finally:
+        tf.attention = attention
+    check(len(recorded) == cfg.n_layers, "path 16 (a): a layer's attention "
+                                         "not recorded")
+    q, k, v, window = recorded[-1]
+    what = f"path 16 (a) layer {cfg.n_layers - 1} {tuple(q.shape)} f32"
+    a4_err, want = hold_a4(q, k, v, True, window, what)
+    tf32_flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one_pass = head_rel_errs(attention_ref(q, k, v, causal=True,
+                                               window=window), want)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32_flag
+    log(f"path 16 (a) planted fault at {what} (the plain version in one "
+        f"pass of TF32): rel L2 a head: min {float(one_pass.min())}, max "
+        f"{float(one_pass.max())} (limit {A4_F32_HEAD_TOL})")
+    check(float(one_pass.max()) > A4_F32_HEAD_TOL,
+          f"path 16 (a): the f32 hold passes one pass of TF32 at {what}")
+    pairs = visible_pairs(q.shape[2], k.shape[2], True, window)
+    flops = 4.0 * q.shape[0] * q.shape[1] * q.shape[3] * pairs
+    b_ms, b_by = bound(nbytes(q, k, v, q), 3 * flops, TF32_FLOPS)
+    layer_ms = timed_ms(lambda: flash_attention(q, k, v, causal=True,
+                                                window=window), 20)
+    layer_plain_ms = timed_ms(lambda: attention_ref(q, k, v, causal=True,
+                                                    window=window), 20)
+    log(f"path 16 (a): A4 f32 at {what}: {layer_ms} ms, {b_ms / layer_ms:.4f} "
+        f"of the bound {b_ms} ms ({b_by}), pre-pass included; plain "
+        f"{layer_plain_ms} ms")
+    out.update(a4_f32_launches=n_f32, split_kv_launches=n_split,
+               prefill_ms=prefill_ms, plain_prefill_ms=plain_ms,
+               logits_rel_err=err, layer_max_abs_err=a4_err,
+               planted_one_pass_head_max=float(one_pass.max()),
+               layer_ms=layer_ms, layer_plain_ms=layer_plain_ms,
+               layer_bound_ms=b_ms, layer_bound_by=b_by,
+               layer_shape=f"q {tuple(q.shape)}, kv {tuple(k.shape)}")
+    return out
+
+
+def serve_lm_example(kernels) -> dict:
+    """(b) ``examples/serve_lm_torch.py``: its 10 requests, then request 0
+    alone."""
+    from repro_torch.serve.batcher import Request, Server
+
+    ns = example("serve_lm")
+    seen = {}
+    reset_counts(kernels)
+    rc = ns["main"]([], on_done=lambda srv, done, dt: seen.update(
+        srv=srv, done=done, dt=dt))
+    torch.cuda.synchronize()
+    counts = {name: k.launches for name, k in kernels.items()}
+    srv, done, dt = seen["srv"], seen["done"], seen["dt"]
+    check(rc == 0 and not any(counts.values()),
+          f"path 16 (b): rc {rc}, a kernel launched {counts}")
+    check(len(done) == 10 and all(len(r.out) == r.max_new_tokens
+                                  for r in done),
+          f"path 16 (b): {[(r.rid, len(r.out)) for r in done]}")
+    first = next(r for r in done if r.rid == 0)
+    alone = Server(ns["CFG"], srv.params, batch_slots=4, max_len=64)
+    again = Request(rid=0, prompt=first.prompt,
+                    max_new_tokens=first.max_new_tokens)
+    alone.submit(again)
+    alone.run_until_drained()
+    check(again.out == first.out, "path 16 (b): request 0 alone gives "
+                                  "other tokens")
+    tokens = sum(len(r.out) for r in done)
+    out = {"requests": len(done), "tokens": tokens,
+           "decode_steps": srv.decode_steps, "s": dt,
+           "ms_per_decode_step": dt * 1e3 / srv.decode_steps,
+           "tokens_per_s": tokens / dt}
+    log(f"path 16 (b): {len(done)} requests, {tokens} tokens in "
+        f"{srv.decode_steps} decode steps (4 slots), {dt:.3f} s: "
+        f"{out['ms_per_decode_step']:.3f} ms a decode step, "
+        f"{out['tokens_per_s']:.1f} tok/s; request 0 alone the same tokens")
+    return out
+
+
+def gnn_train_example(kernels) -> dict:
+    """(c) ``examples/gnn_train_torch.py``: the full-batch GCN, then
+    GatedGCN on sampled minibatches; one sampled step timed on the card."""
+    ns = example("gnn_train")
+    seen = {}
+    reset_counts(kernels)
+    rc = ns["main"]([], on_done=lambda full, sampled: seen.update(
+        full=full, sampled=sampled))
+    torch.cuda.synchronize()
+    counts = {name: k.launches for name, k in kernels.items()}
+    full, sampled = seen["full"], seen["sampled"]
+    check(rc == 0 and not any(counts.values()),
+          f"path 16 (c): rc {rc}, a kernel launched {counts}")
+    before, after = full["mean_loss"]
+    check(after < before, f"path 16 (c): the full-batch loss {before} -> "
+                          f"{after}")
+    check(all(math.isfinite(x) for x in sampled["losses"]),
+          f"path 16 (c): sampled losses {sampled['losses']}")
+    step, params, opt, batch = sampled["last"]
+    device_ms = timed_ms(lambda: step(params, opt, batch), 10)
+    full_ms = [dt * 1e3 for _, dt in full["trainer"].step_times]
+    out = {"full_mean_loss": [before, after],
+           "full_step_ms_median": float(np.median(full_ms[1:])),
+           "sampled_losses": sampled["losses"],
+           "sampled_device_ms": device_ms,
+           "sampled_step_ms_median": float(np.median(sampled["step_ms"][1:])),
+           "sampled_batch_host_ms_median":
+               float(np.median(sampled["batch_ms"][1:]))}
+    log(f"path 16 (c): gcn full-batch mean loss {before} -> {after}, step "
+        f"{out['full_step_ms_median']:.3f} ms (median); gatedgcn sampled "
+        f"losses {sampled['losses'][0]} -> {sampled['losses'][-1]}: device "
+        f"{device_ms:.3f} ms a step (CUDA events), "
+        f"{out['sampled_step_ms_median']:.3f} ms to its loss on the host, "
+        f"beside the host's {out['sampled_batch_host_ms_median']:.3f} ms a "
+        f"batch (sampler and copy to the card)")
+    return out
+
+
+def examples_phase(kernels, tmp: Path) -> dict:
+    """Path 16 (module docstring): the three examples on the card."""
+    out = {"seconds": {}}
+    for part, run in (("a", lambda: train_lm_example(kernels, tmp)),
+                      ("b", lambda: serve_lm_example(kernels)),
+                      ("c", lambda: gnn_train_example(kernels))):
+        t0 = time.perf_counter()
+        out[part] = run()
+        out["seconds"][part] = time.perf_counter() - t0
+    a4 = kernels["flash_attention"]
+    # the counts (b) and (c) left, each 0, beside (a)'s prefill's
+    out["launches"] = {name: k.launches for name, k in kernels.items()}
+    out["launches"]["flash_attention"] = a4.launches_bf16
+    check(not any(out["launches"].values()),
+          f"path 16: a kernel launched in (c): {out['launches']}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5506,6 +5778,11 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+
+    from repro_torch.launch import roofline
+    global MEM_BW, F32_FLOPS, BF16_FLOPS, TF32_FLOPS
+    MEM_BW, F32_FLOPS = roofline.HBM_BW, roofline.PEAK_FLOPS_FP32
+    BF16_FLOPS, TF32_FLOPS = roofline.PEAK_FLOPS_BF16, roofline.PEAK_FLOPS_TF32
 
     from repro_torch.configs import bfs_workload
     from repro_torch.core import BFSOptions, plan
@@ -5554,17 +5831,23 @@ def main(argv=None) -> int:
     check(len(sass) == 4 and all(c["HGMMA"] and c["UTMALDG"]
                                  for c in sass.values()),
           "build: a bf16 A4 kernel has no HGMMA or no UTMALDG in its SASS")
-    a2_ptxas = ptxas_lines(build_log, "bsr_spmm_kernel")
-    a2_sass = sass_counts(sass_text, r"(bsr_spmm_kernel)",
-                          ("HGMMA", "UTMALDG")).get("bsr_spmm_kernel", {})
+    a2_ptxas = ptxas_reports(build_log, "bsr_spmm_kernel")
+    a2_sass = sass_counts(sass_text, r"bsr_spmm_kernelILb(\d)E",
+                          ("HGMMA", "UTMALDG"))
     a2_serial = [line.strip() for line in build_log.splitlines()
                  if "C7520" in line and "bsr_spmm_kernel" in line]
-    log(f"build: A2 bsr_spmm_kernel (-Xptxas -v): {a2_ptxas}; SASS "
-        f"(cuobjdump -sass): {a2_sass}; wgmma serialised: {a2_serial}")
-    check("0 bytes spill stores, 0 bytes spill loads" in a2_ptxas,
-          "build: bsr_spmm_kernel has no ptxas report or spills")
-    check(a2_sass.get("HGMMA", 0) > 0 and a2_sass.get("UTMALDG", 0) > 0,
-          "build: bsr_spmm_kernel has no HGMMA or no UTMALDG in its SASS")
+    for fn, line in a2_ptxas.items():
+        log(f"build: A2 {fn} (-Xptxas -v): {line}")
+    log(f"build: A2 bsr_spmm_kernel SASS (cuobjdump -sass; 1 with the "
+        f"2^-136 hi, 0 without): {a2_sass}; wgmma serialised: {a2_serial}")
+    check(len(a2_ptxas) == 2 and all(
+        "0 bytes spill stores, 0 bytes spill loads" in line
+        for line in a2_ptxas.values()),
+        "build: a bsr_spmm_kernel build has no ptxas report or spills")
+    check(len(a2_sass) == 2 and all(c["HGMMA"] and c["UTMALDG"]
+                                    for c in a2_sass.values()),
+          "build: a bsr_spmm_kernel build has no HGMMA or no UTMALDG in its "
+          "SASS")
     f32_ptxas = ptxas_reports(build_log, "flash_fwd_tf32")
     f32_sass = sass_counts(sass_text, r"flash_fwd_tf32ILi(\d+)E",
                            ("HGMMA", "UTMALDG"))
@@ -6091,9 +6374,32 @@ def main(argv=None) -> int:
         f"12's gemma3 cut and DeepFM: ok "
         f"({time.perf_counter() - t0:.1f} s; parts {path15['seconds']})")
     log(f"path 15 summary: {json.dumps(path15)}")
-    # paths 13 to 15 add no kernel: each row carries its launches there
+    # -------------------------------------------------------------- path 16
+    tmp16 = ROOT / "build" / "chip_smoke_path16"
+    shutil.rmtree(tmp16, ignore_errors=True)
+    tmp16.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        path16 = examples_phase(kernels, tmp16)
+    finally:
+        shutil.rmtree(tmp16, ignore_errors=True)   # the checkpoints
+    log(f"path 16: train_lm_torch at its defaults (300 f32 steps, killed at "
+        f"step 150 and resumed from its checkpoint), losses falling, no "
+        f"kernel launched; the trained params' prefill on A4's f32 route (A4 "
+        f"and split_kv once a layer) within {DECODE_F32_TOL} of the plain "
+        f"prefill and a layer within {A4_F32_HEAD_TOL} a head of the plain "
+        f"attention (one pass of TF32 fails it); serve_lm_torch's 10 requests "
+        f"served, request 0 alone equal; gnn_train_torch's full-batch loss "
+        f"falling and sampled losses finite: ok "
+        f"({time.perf_counter() - t0:.1f} s; parts {path16['seconds']})")
+    log(f"path 16 summary: {json.dumps(path16)}")
+    # paths 13 to 16 add no kernel: each row carries its launches there
     for row in rows:
-        if row["name"] not in kernels:   # A4's f32 route: ops.attention only
+        if row["name"] == "flash_attention_f32":   # path 16 (a)'s prefill
+            row["launches_path16"] = path16["a"]["a4_f32_launches"]
+            row["prepass_launches_path16"] = path16["a"]["split_kv_launches"]
+            continue
+        if row["name"] not in kernels:
             continue
         if row["name"] == "flash_attention":
             row["launches_path11"] = (path11["a"]["a4_launches"]
@@ -6102,6 +6408,7 @@ def main(argv=None) -> int:
         row["launches_path13"] = path13["launches"][row["name"]]
         row["launches_path14"] = path14["launches"][row["name"]]
         row["launches_path15"] = path15["launches"][row["name"]]
+        row["launches_path16"] = path16["launches"][row["name"]]
 
     log(f"peak device memory over the whole script {peak_gib():.2f} GiB")
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all")

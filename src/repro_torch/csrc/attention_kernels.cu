@@ -102,13 +102,15 @@
 //   (PERF.md); pairing the two q heads of a kv group in a cluster of 2
 //   that shared each K and V^T load by TMA multicast ran 2.25 times slower
 //   and was taken out.
-//   A non-finite q, k or v has hi 0 and goes to lo whole, so each of its
-//   products meets the other side's hi alone and reads +-inf or NaN as the
-//   plain version's does (K's hi is therefore the pre-pass's, not K: raw
-//   K as hi made q_lo * inf = 0 * inf = NaN where q is exact in TF32).
-//   Only inf times inf, and a non-finite value times one below 2^-136 in
-//   magnitude (whose hi is 0), read NaN where the plain version has +-inf,
-//   as in A2.
+//   q, k, v and P are split by tf32.cuh's rule (kernels/tf32.py's), as
+//   A2's operands are.  A non-finite q, k or v has hi 0 and goes to lo
+//   whole, so each of its products meets the other side's hi alone and
+//   reads +-inf or NaN as the plain version's does (K's hi is therefore the
+//   pre-pass's, not K: raw K as hi made q_lo * inf = 0 * inf = NaN where q
+//   is exact in TF32); a nonzero value below 2^-136 has hi copysign(2^-136),
+//   so against an infinite value it reads +-inf too (2^-140 against +-inf
+//   on the H100, tests/test_torch_cuda.py).  Only inf times inf reads NaN
+//   where the plain version has +-inf, as in A2.
 //   The row max propagates NaN (max.NaN), so a NaN key makes exactly the
 //   rows that see it NaN, as the plain version's amax does.  The visible-
 //   tile loop, its order and the masks are the bf16 kernel's.
@@ -119,6 +121,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tf32.cuh"
 
 namespace {
 
@@ -672,39 +676,6 @@ struct Cfg {
   static constexpr uint32_t K_TX = 2 * kBK * 128;
 };
 
-// v rounded to TF32, to nearest with ties away from zero (cvt.rna.tf32's
-// rounding in two integer operations, as bfs_kernels.cu's A2); finite v
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ bool finite_bits(uint32_t u) {
-  return (u & 0x7f800000u) != 0x7f800000u;
-}
-
-// a NaN with its payload in the low 13 bits only would read as inf in TF32
-__device__ __forceinline__ uint32_t quiet_bits(uint32_t u) {
-  return u | ((u & 0x007fffffu) ? 0x00400000u : 0u);
-}
-
-// the TF32 lo of a finite v: v - hi, hi = v with its 13 low bits cleared
-__device__ __forceinline__ float lo_of(float v) {
-  return __uint_as_float(
-      tf32_rna(v - __uint_as_float(__float_as_uint(v) & 0xffffe000u)));
-}
-
-// Every operand's parts: hi is v, lo its TF32 lo; a non-finite v has hi 0
-// and goes to lo whole (a NaN made quiet), so each of its products meets
-// the other side's hi alone (A2's rule for its tiles, bfs_kernels.cu)
-__device__ __forceinline__ float hi_of(float v) {
-  return finite_bits(__float_as_uint(v)) ? v : 0.f;
-}
-
-__device__ __forceinline__ float lo_or_whole(float v) {
-  const uint32_t u = __float_as_uint(v);
-  return finite_bits(u) ? lo_of(v) : __uint_as_float(quiet_bits(u));
-}
-
 // the NaN-propagating maximum: a score that is NaN makes its row NaN, as
 // the plain version's amax does (fmaxf would drop it)
 __device__ __forceinline__ float max_nan(float a, float b) {
@@ -1050,7 +1021,7 @@ flash_fwd_tf32(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
             const float x = sc[16 * kp + 4 * j + (r & 1) * 2 + (r >> 1)];
-            const uint32_t h = __float_as_uint(x) & 0xffffe000u;
+            const uint32_t h = tf32_hi(__float_as_uint(x));
             ph[4 * j + r] = h;
             pl[4 * j + r] = tf32_rna(x - __uint_as_float(h));
           }

@@ -14,6 +14,10 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <initializer_list>
+
+#include "tf32.cuh"
+
 namespace {
 
 constexpr int32_t kInf = 1 << 30;  // frontier.INF: unreached
@@ -149,12 +153,22 @@ fold_update_kernel(const uint32_t* __restrict__ words, const int32_t* dist,
 // ptxas keeps the wgmma pipelined (a divergent path around them
 // serialised it).
 //
-// Non-finite values: a non-finite x contributes only through hi_x (NaN
-// made quiet, so TF32's truncation keeps it NaN), its lo terms are 0; a
-// non-finite tile value is moved to the lo buffer (quiet) and its place in
-// the panel set to 0.  So inf and NaN in x, or in the tiles, give the
-// plain version's result, except inf in a tile against inf in x at the
-// same k, which gives NaN where the plain product gives inf.
+// Non-finite and tiny values, by tf32.cuh's rule (kernels/tf32.py's): a
+// non-finite x or tile value has hi 0 and goes to lo whole (NaN made quiet,
+// so TF32's truncation keeps it NaN), a tile value's place in the panel
+// written with 0; a nonzero value below 2^-136 has hi copysign(2^-136),
+// written into the panel likewise.  That second part is integer work on
+// each of a panel's values, on the consumers' critical path: on an H100 it
+// doubled the kernel's time (PERF.md §6).  It matters only where an
+// infinite value meets a value below 2^-136, which needs such a value or a
+// non-finite one in x (an infinite tile value meets x's hi alone).  So the
+// kernel is built twice, with and without it (kLeast), both are launched,
+// and the one the wrapper's device flag (tf32.needs_least_hi(x)) does not
+// pick returns at once.  So inf and NaN in x, or in the tiles, give the
+// plain version's result, also against a value below 2^-136 (2^-140
+// against +-inf reads +-inf on the H100, tests/test_torch_cuda.py), except
+// inf in a tile against inf in x at the same k, which gives NaN where the
+// plain product gives inf.
 // ---------------------------------------------------------------------------
 namespace spmm {
 
@@ -209,55 +223,31 @@ __device__ __forceinline__ uint64_t panel_desc(uint32_t addr) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-// v rounded to TF32, to nearest with ties away from zero: cvt.rna.tf32's
-// rounding in two integer operations, which cost the kernel much less than
-// the conversion did; for finite v
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ bool finite_bits(uint32_t u) {
-  return (u & 0x7f800000u) != 0x7f800000u;
-}
-
-// a NaN with its payload in the low 13 bits only would read as inf in TF32
-__device__ __forceinline__ uint32_t quiet_bits(uint32_t u) {
-  return u | ((u & 0x007fffffu) ? 0x00400000u : 0u);
-}
-
-// x's three A operands: hi for the tile's lo, lo and hi for the tile's hi
-__device__ __forceinline__ void split_x(float v, uint32_t& p, uint32_t& q,
-                                        uint32_t& t) {
+// x's two A operands: hi (for the tile's lo and hi) and lo (for the tile's
+// hi), by tf32.cuh's rule
+template <bool kLeast>
+__device__ __forceinline__ void split_x(float v, uint32_t& p, uint32_t& q) {
   const uint32_t u = __float_as_uint(v);
-  const uint32_t hi = u & 0xffffe000u;
-  const bool fin = finite_bits(u);
-  p = fin ? hi : 0u;
-  q = fin ? tf32_rna(v - __uint_as_float(hi)) : 0u;
-  t = fin ? hi : quiet_bits(u);
+  p = finite_bits(u) ? tf32_hi<kLeast>(u) : 0u;
+  q = __float_as_uint(lo_or_whole<kLeast>(v));
 }
 
-// the lo of one tile value; a non-finite value goes to lo whole
-__device__ __forceinline__ float tile_lo(float v) {
-  const uint32_t u = __float_as_uint(v);
-  return finite_bits(u)
-             ? __uint_as_float(
-                   tf32_rna(v - __uint_as_float(u & 0xffffe000u)))
-             : __uint_as_float(quiet_bits(u));
-}
-
-// a chunk holding a non-finite tile value is written back with 0 in its
-// place (the panel is the tiles' hi): predicated, so the loop around the
-// products has no divergent branch
-__device__ __forceinline__ void clear_non_finite(uint32_t addr, float4 v) {
-  const bool fx = finite_bits(__float_as_uint(v.x));
-  const bool fy = finite_bits(__float_as_uint(v.y));
-  const bool fz = finite_bits(__float_as_uint(v.z));
-  const bool fw = finite_bits(__float_as_uint(v.w));
+// a chunk holding a value whose hi is not its own word (a non-finite value,
+// or one below 2^-136) is written back with hi_of in its place (the panel
+// is the tiles' hi): predicated, so the loop around the products has no
+// divergent branch
+template <bool kLeast>
+__device__ __forceinline__ void store_hi(uint32_t addr, float4 v) {
+  const float4 h = make_float4(hi_of<kLeast>(v.x), hi_of<kLeast>(v.y),
+                               hi_of<kLeast>(v.z), hi_of<kLeast>(v.w));
+  const bool same = __float_as_uint(h.x) == __float_as_uint(v.x) &&
+                    __float_as_uint(h.y) == __float_as_uint(v.y) &&
+                    __float_as_uint(h.z) == __float_as_uint(v.z) &&
+                    __float_as_uint(h.w) == __float_as_uint(v.w);
   asm volatile(
       "{\n.reg .pred p;\nsetp.eq.b32 p, %5, 0;\n"
       "@p st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n}\n" ::"r"(addr),
-      "f"(fx ? v.x : 0.f), "f"(fy ? v.y : 0.f), "f"(fz ? v.z : 0.f),
-      "f"(fw ? v.w : 0.f), "r"((int)(fx && fy && fz && fw))
+      "f"(h.x), "f"(h.y), "f"(h.z), "f"(h.w), "r"((int)same)
       : "memory");
 }
 
@@ -350,13 +340,19 @@ __device__ __forceinline__ int32_t uniform(int32_t v) {
   return __shfl_sync(0xffffffffu, v, 0);
 }
 
+// kLeast: tf32.cuh's 2^-136 hi for values below 2^-136.  Both are launched;
+// the one that *least (the wrapper's flag, tf32.needs_least_hi(x)) does not
+// pick returns at once.
+template <bool kLeast>
 __global__ void __launch_bounds__(kThreads, 1)
 bsr_spmm_kernel(const __grid_constant__ CUtensorMap tm_tiles,
                 const int32_t* __restrict__ row_ptr,
                 const int32_t* __restrict__ block_cols,
                 const int32_t* __restrict__ work, const float* __restrict__ x,
                 float* __restrict__ y, int64_t n_items, int64_t n_dt,
-                int64_t d, int vec, int evict_first) {
+                int64_t d, int vec, int evict_first,
+                const int32_t* __restrict__ least) {
+  if ((*least != 0) != kLeast) return;
   extern __shared__ __align__(1024) uint8_t spmm_smem[];
   const uint32_t raw0 = smem_u32(spmm_smem);
   const uint32_t base = (raw0 + 1023) & ~1023u;
@@ -441,9 +437,10 @@ bsr_spmm_kernel(const __grid_constant__ CUtensorMap tm_tiles,
       for (int m = 0; m < kPanelBytes / 16 / 128; ++m) {
         const int i = tid + 128 * m;
         const float4 v = rp[i];
-        lp[i] = make_float4(tile_lo(v.x), tile_lo(v.y), tile_lo(v.z),
-                            tile_lo(v.w));
-        clear_non_finite(raw + 16 * i, v);
+        lp[i] = make_float4(
+            lo_or_whole<kLeast>(v.x), lo_or_whole<kLeast>(v.y),
+            lo_or_whole<kLeast>(v.z), lo_or_whole<kLeast>(v.w));
+        store_hi<kLeast>(raw + 16 * i, v);
       }
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
@@ -476,15 +473,15 @@ bsr_spmm_kernel(const __grid_constant__ CUtensorMap tm_tiles,
         const int s = g % kStages;
         const uint32_t raw = ring + s * kPanelBytes;
         const uint32_t lo = ring + (kStages + g % kLoBufs) * kPanelBytes;
-        uint32_t ap[16], aq[16], at[16];
+        uint32_t ap[16], aq[16];
 #pragma unroll
-        for (int i = 0; i < 16; ++i) split_x(xr[i], ap[i], aq[i], at[i]);
+        for (int i = 0; i < 16; ++i) split_x<kLeast>(xr[i], ap[i], aq[i]);
         asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
           wgmma_tf32(pacc, ap + 4 * kk, panel_desc(lo + 32 * kk), kk > 0);
           wgmma_tf32(pacc, aq + 4 * kk, panel_desc(raw + 32 * kk), 1);
-          wgmma_tf32(pacc, at + 4 * kk, panel_desc(raw + 32 * kk), 1);
+          wgmma_tf32(pacc, ap + 4 * kk, panel_desc(raw + 32 * kk), 1);
         }
         asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
         if (j + 1 < n) {
@@ -498,7 +495,7 @@ bsr_spmm_kernel(const __grid_constant__ CUtensorMap tm_tiles,
           asm volatile("" : "+f"(pacc[i])::"memory");
 #pragma unroll
         for (int i = 0; i < 16; ++i)
-          asm volatile("" ::"r"(ap[i]), "r"(aq[i]), "r"(at[i]) : "memory");
+          asm volatile("" ::"r"(ap[i]), "r"(aq[i]) : "memory");
         // The tensor core adds each k8 step's products into pacc and
         // truncates; a panel's sum joins the item's in IEEE f32 adds, so
         // the truncation scales with a panel's sum, not the item's.
@@ -875,8 +872,8 @@ int bfs_fold_update(const void* words, const void* dist, void* dist_out,
 // n_dt (block row, 64-column) items, br * n_dt + j, largest row first.
 int bfs_bsr_spmm(const void* blocks, const void* row_ptr,
                  const void* block_cols, const void* work, const void* x,
-                 void* y, long long k, long long n_items, long long n_dt,
-                 long long d, void* stream) {
+                 void* y, const void* least, long long k, long long n_items,
+                 long long n_dt, long long d, void* stream) {
   CUtensorMap tm;
   memset(&tm, 0, sizeof(tm));   // no tile: the map is never read
   if (k > 0) {
@@ -896,22 +893,29 @@ int bfs_bsr_spmm(const void* blocks, const void* row_ptr,
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
       return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      spmm::bsr_spmm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      spmm::kSmem);
-  if (err != cudaSuccess) return (int)err;
+  for (auto kernel : {spmm::bsr_spmm_kernel<false>,
+                      spmm::bsr_spmm_kernel<true>}) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, spmm::kSmem);
+    if (err != cudaSuccess) return (int)err;
+  }
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   long long ctas = (n_items + spmm::kConsumers - 1) / spmm::kConsumers;
   if (ctas > sms) ctas = sms;
   const int vec = d % 2 == 0 && (uintptr_t)x % 8 == 0 && (uintptr_t)y % 8 == 0;
-  spmm::bsr_spmm_kernel<<<(unsigned int)ctas, spmm::kThreads, spmm::kSmem,
-                          (cudaStream_t)stream>>>(
-      tm, (const int32_t*)row_ptr, (const int32_t*)block_cols,
-      (const int32_t*)work, (const float*)x, (float*)y, n_items, n_dt, d, vec,
-      n_dt == 1);
-  return (int)cudaGetLastError();
+  for (auto kernel : {spmm::bsr_spmm_kernel<false>,
+                      spmm::bsr_spmm_kernel<true>}) {
+    kernel<<<(unsigned int)ctas, spmm::kThreads, spmm::kSmem,
+             (cudaStream_t)stream>>>(
+        tm, (const int32_t*)row_ptr, (const int32_t*)block_cols,
+        (const int32_t*)work, (const float*)x, (float*)y, n_items, n_dt, d,
+        vec, n_dt == 1, (const int32_t*)least);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 int bfs_bitpack(const void* mask, void* out, long long w, long long s,

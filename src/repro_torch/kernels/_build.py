@@ -4,8 +4,8 @@ Each source is compiled with ``nvcc`` for ``sm_90a`` into an object, all
 of them at once in parallel processes, and the objects are linked into
 one shared library with a plain C interface, on first use, into
 ``build/kernels/`` at the root of the checkout; the library's name
-carries a hash of every source and the flags, so an edited source
-rebuilds.  The library is loaded with ``ctypes``: every pointer and the
+carries a hash of every source, every header (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds.  The library is loaded with ``ctypes``: every pointer and the
 stream are ``c_void_p``, sizes are ``c_longlong``.  Importing this module
 needs no ``nvcc`` and no card; only a CUDA tensor reaching a kernel
 builds and loads the library.
@@ -33,8 +33,9 @@ _P, _N, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_floa
 _SIGNATURES = {
     # words, dist, dist_out, new_out, words_out, batch, w, m, s, level, stream
     "bfs_fold_update": [_P] * 5 + [_N] * 4 + [_I, _P],
-    # blocks, row_ptr, block_cols, work, x, y, k, n_items, n_dt, d, stream
-    "bfs_bsr_spmm": [_P] * 6 + [_N] * 4 + [_P],
+    # blocks, row_ptr, block_cols, work, x, y, least, k, n_items, n_dt, d,
+    # stream
+    "bfs_bsr_spmm": [_P] * 7 + [_N] * 4 + [_P],
     # mask, out, w, s, stream
     "bfs_bitpack": [_P] * 2 + [_N] * 2 + [_P],
     # bits, col_mask, block_rows, block_cols, fwords, out, front_any, k,
@@ -76,7 +77,7 @@ def sources() -> list[Path]:
 
 def library_path() -> Path:
     digest = hashlib.sha1(repr(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):         # the sources and headers
         digest.update(src.name.encode() + src.read_bytes())
     return BUILD_DIR / f"libkernels-{digest.hexdigest()[:16]}.so"
 

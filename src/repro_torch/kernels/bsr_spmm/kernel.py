@@ -27,6 +27,7 @@ import torch
 from repro_torch.core.frontier import pack_bits, packed_words, unpack_bits
 from repro_torch.kernels import _build
 from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref, unpack_bit_tiles
+from repro_torch.kernels.tf32 import needs_least_hi
 
 DEFAULT_BLOCK = 128
 SPMM_D_TILE = 64           # X columns a work item of the A2 kernel
@@ -76,7 +77,9 @@ def bsr_spmm(blocks: torch.Tensor, row_ptr: torch.Tensor,
     block_cols: (K,) int32; x: (n_cols_pad, d) f32.  Returns
     ``(n_rows_pad, d)`` f32; block rows without a tile are zero.  The
     kernel computes in split TF32 (``ref.bsr_spmm_split_ref`` emulates
-    it): exact on integer operands, within f32 rounding otherwise.
+    it): exact on integer operands, within f32 rounding otherwise.  Its
+    build with ``tf32``'s 2^-136 hi runs where ``tf32.needs_least_hi(x)``
+    (a device flag, no host read), the other build elsewhere.
     """
     k, b0, b1 = blocks.shape
     n_x, d = x.shape
@@ -108,10 +111,12 @@ def bsr_spmm(blocks: torch.Tensor, row_ptr: torch.Tensor,
     y = torch.empty((n_rows_pad, d), dtype=torch.float32, device=dev)
     if y.numel():
         work = bsr_spmm_work(row_ptr, d)
+        least = needs_least_hi(x)
         _build.launch("bfs_bsr_spmm", dev, blocks.data_ptr(),
                       row_ptr.data_ptr(), block_cols.data_ptr(),
-                      work.data_ptr(), x.data_ptr(), y.data_ptr(), k,
-                      work.numel(), -(-d // SPMM_D_TILE), d)
+                      work.data_ptr(), x.data_ptr(), y.data_ptr(),
+                      least.data_ptr(), k, work.numel(),
+                      -(-d // SPMM_D_TILE), d)
         bsr_spmm.launches += 1
     return y
 

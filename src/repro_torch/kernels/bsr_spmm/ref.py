@@ -5,8 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.tf32 import (quiet, split_tf32, tf32_rna,
-                                     tf32_trunc)
+from repro_torch.kernels.tf32 import needs_least_hi, split_whole_lo
 
 
 def bsr_spmm_ref(blocks: torch.Tensor, block_rows: torch.Tensor,
@@ -31,22 +30,19 @@ def bsr_spmm_split_ref(blocks: torch.Tensor, block_rows: torch.Tensor,
     """Emulation of the A2 kernel's arithmetic (for the tests): per tile
     ``lo_a @ hi_x + hi_a @ lo_x + hi_a @ hi_x`` in that order, each product
     of TF32 values exact in f32, summed in f32, then the tiles of a block
-    row in tile order.  Non-finite values as the kernel takes them: a
-    non-finite x enters only through its (quiet) hi, a non-finite tile
-    value only through the lo operand, against x's finite hi."""
+    row in tile order.  Tiles and x are split by ``tf32.split_whole_lo``,
+    as the kernel splits them (a non-finite value in lo whole, hi 0; a
+    value below 2^-136 with hi ``copysign(2^-136, v)`` where
+    ``tf32.needs_least_hi(x)``, as the kernel then takes the rule)."""
     k, b, _ = blocks.shape
     n, d = x.shape
-    a_hi, a_lo, a_fin = split_tf32(blocks)
-    lo_op = torch.where(a_fin, a_lo, quiet(blocks.to(torch.float32)))
-    hi_op = torch.where(a_fin, a_hi, 0.0)
-    x_hi, x_lo, x_fin = split_tf32(x)
-    xp = torch.where(x_fin, x_hi, 0.0).reshape(n // b, b, d)[block_cols.long()]
-    xq = x_lo.reshape(n // b, b, d)[block_cols.long()]
-    xt = torch.where(x_fin, x_hi, quiet(x.to(torch.float32)))
-    xt = xt.reshape(n // b, b, d)[block_cols.long()]
-    contrib = torch.bmm(lo_op, xp)
-    contrib += torch.bmm(hi_op, xq)
-    contrib += torch.bmm(hi_op, xt)
+    least = bool(needs_least_hi(x))
+    a_hi, a_lo = split_whole_lo(blocks, least)
+    x_hi, x_lo = (part.reshape(n // b, b, d)[block_cols.long()]
+                  for part in split_whole_lo(x, least))
+    contrib = torch.bmm(a_lo, x_hi)
+    contrib += torch.bmm(a_hi, x_lo)
+    contrib += torch.bmm(a_hi, x_hi)
     y = torch.zeros((n_rows_pad // b, b, d), dtype=torch.float32,
                     device=x.device)
     y.index_add_(0, block_rows.long(), contrib)

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.tf32 import split_tf32, split_whole_lo
+from repro_torch.kernels.tf32 import hi_word, split_tf32, split_whole_lo
 
 NEG_INF = -1e30
 
@@ -76,9 +76,11 @@ def split_kv_ref(k: torch.Tensor, v: torch.Tensor):
     vt_lo)``, ``k_hi``, ``k_lo`` shaped like ``k`` and ``vt``, ``vt_lo``
     (B, Hkv, Dh, Skv_pad).  ``k_hi`` is k and ``k_lo`` its TF32 lo; ``vt``
     is V and ``vt_lo`` its lo, transposed, keys in ``key_positions`` order,
-    zero past Skv.  A non-finite value has hi 0 and goes to lo whole (a NaN
-    made quiet), as ``split_whole_lo``; hi is the f32 word, which the
-    tensor core reads truncated to TF32."""
+    zero past Skv.  Each value is split by ``tf32.split_whole_lo``'s rule:
+    hi is ``tf32.hi_word``, the f32 word (which the tensor core reads
+    truncated to TF32) but 0 where it is not finite and ``copysign(2^-136,
+    v)`` below 2^-136; lo is ``split_whole_lo``'s, a non-finite value
+    whole (a NaN made quiet)."""
     b, hkv, skv, dh = k.shape
     pad = -(-skv // KEY_PAD) * KEY_PAD
     k, v = k.float(), v.float()
@@ -86,7 +88,7 @@ def split_kv_ref(k: torch.Tensor, v: torch.Tensor):
     vp[:, :, :skv] = v
     vp = vp[:, :, key_positions(pad, v.device)].transpose(-1, -2)
     k_lo, vt_lo = (split_whole_lo(x)[1] for x in (k, vp))
-    k_hi, vt = (torch.where(torch.isfinite(x), x, 0.0) for x in (k, vp))
+    k_hi, vt = (hi_word(x) for x in (k, vp))
     return (k_hi.contiguous(), k_lo.contiguous(), vt.contiguous(),
             vt_lo.contiguous())
 
@@ -105,7 +107,8 @@ def attention_split_ref(q, k, v, *, causal: bool = True, window: int = 0,
     split into TF32 hi and lo and multiplied with V's parts the same way,
     32 keys at a time, each joined to O; the two consumers' (m, l, O)
     merged at the end.  q, k and v are split as the kernel splits them
-    (``split_whole_lo``: a non-finite value in lo whole, hi 0).
+    (``split_whole_lo``: a non-finite value in lo whole, hi 0; a value
+    below 2^-136 with hi ``copysign(2^-136, v)``), and P as well.
     ``products=1`` keeps only ``hi hi``: one pass of TF32."""
     b, hq, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]

@@ -17,6 +17,7 @@ from __future__ import annotations
 HBM_BW = 3.35e12              # B/s, HBM3
 PEAK_FLOPS_BF16 = 989e12      # FLOP/s, bf16 on the tensor cores
 PEAK_FLOPS_FP32 = 67e12       # FLOP/s, fp32 on the CUDA cores
+PEAK_FLOPS_TF32 = 495e12      # FLOP/s, TF32 on the tensor cores
 # NVLink 4 of the SXM part: 900 GB/s a card over its 18 links, both
 # directions together; a collective's received bytes cross one direction
 # (the price of a DistMesh's shards, one a card)

@@ -729,6 +729,10 @@ class _Handler(BaseHTTPRequestHandler):
 
 class _FrontendHTTPServer(ThreadingHTTPServer):
     daemon_threads = True
+    # the listen backlog: socketserver's 5 is less than one burst of
+    # clients (eight at once on chip_smoke.py's path 6), and a network
+    # stack that resets an overflowed connection fails the request
+    request_queue_size = 128
     frontend: BFSFrontend = None
     _stopper: Optional[threading.Thread] = None   # runs drain_and_stop
 

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from helpers.tiny_inf import A4_SHAPE, plant_attention
 
 from repro.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.flash_attention.kernel import split_kv
@@ -132,6 +133,32 @@ def test_split_emulation_takes_an_infinite_key_as_the_plain_version(sign):
     assert rows == {r for r in plus if r >= 70} and 0 < len(rows) < 130
     ok, head = _hold(got[~nan].numpy(), want[~nan].numpy())
     assert ok, head
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("case", ["q", "k", "p"])
+def test_split_emulation_takes_a_value_below_2_136_against_inf_as_plain(
+        case, sign):
+    """2^-140 (TF32 truncates it to 0) against +-inf in one product: in q
+    against an infinite key (the key dropped), in k against an infinite q
+    (a NaN row) and in P against an infinite v (+-inf in that column):
+    the plain version's NaN and inf pattern, where a hi of 0 read
+    0 * inf = NaN; the finite values within the f32 hold."""
+    dh, b, hq, hkv, s = A4_SHAPE[4], *A4_SHAPE[:4]
+    q, k, v = (torch.from_numpy(x) for x in
+               _inputs((dh, b, hq, hkv, s, s, True, 0)))
+    plant_attention(q, k, v, case, sign)
+    got = attention_split_ref(q, k, v, causal=True, window=0)
+    want = t_attention_ref(q, k, v, causal=True, window=0)
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(test(got), test(want))
+    if case == "p":
+        assert bool((want[0, :, 30:, 3] == sign * float("inf")).all())
+    else:
+        assert not want[..., :100, :].isnan().any()
+    fin = want.isfinite()
+    ok, _ = _hold(got[fin].numpy(), want[fin].numpy())
+    assert ok
 
 
 @pytest.mark.parametrize("skv", [1, 8, 37, 64, 130])

@@ -9,14 +9,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from helpers.tiny_inf import plant_spmm
 
 from repro.kernels.bsr_spmm.ref import bsr_spmm_ref as j_bsr_spmm_ref
 from repro_torch.kernels.bsr_spmm.kernel import (SPMM_D_TILE, SPMM_MAX_TILES,
                                                  block_row_ptr, bsr_spmm,
                                                  bsr_spmm_work)
-from repro_torch.kernels.bsr_spmm.ref import (bsr_spmm_ref,
-                                              bsr_spmm_split_ref, split_tf32,
-                                              tf32_rna, tf32_trunc)
+from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref, bsr_spmm_split_ref
+from repro_torch.kernels.tf32 import (needs_least_hi, split_tf32, tf32_rna,
+                                     tf32_trunc)
 
 torch.set_num_threads(1)
 
@@ -155,6 +156,57 @@ def test_split_emulation_non_finite_as_plain():
     got = _torch(bsr_spmm_split_ref, blocks, x).numpy()
     want = _torch(bsr_spmm_ref, blocks, x).numpy()
     assert np.isposinf(want[7, 0]) and np.isnan(got[7, 0])
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("where", ["x", "tiles"])
+def test_split_emulation_takes_a_value_below_2_136_against_inf_as_plain(
+        where, sign):
+    """2^-140 (TF32 truncates it to 0) against +-inf at one k, inf in x or
+    in a tile: +-inf as the plain product, where a hi of 0 read
+    0 * inf = NaN; the rest of y as the plain version's, finite values
+    within tol2."""
+    blocks, x = _case(4, "uniform", "uniform")
+    tb, tx = torch.from_numpy(blocks), torch.from_numpy(x)
+    plant_spmm(tb, tx, where, sign)
+    got = _torch(bsr_spmm_split_ref, blocks, x).numpy()
+    want = _torch(bsr_spmm_ref, blocks, x).numpy()
+    assert want[7, 0] == sign * np.inf and got[7, 0] == want[7, 0]
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isposinf(got), np.isposinf(want))
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(want)
+    assert np.abs(got[fin] - want[fin]).max() <= _tol2(blocks)
+
+
+def test_split_gives_a_value_below_2_136_the_least_tf32_hi():
+    """A nonzero value whose TF32 truncation is 0 has hi copysign(2^-136),
+    lo within half a TF32 ulp of 2^-136 of it; 0 and -0 keep hi 0."""
+    v = torch.tensor([2.0 ** -140, -2.0 ** -140, 2.0 ** -149,
+                      2.0 ** -136 - 2.0 ** -149, 0.0, -0.0, 2.0 ** -130])
+    hi, lo, finite = split_tf32(v)
+    assert bool(finite.all())
+    least = 2.0 ** -136
+    assert hi.tolist() == [least, -least, least, least, 0.0, 0.0,
+                           2.0 ** -130]
+    assert torch.equal(torch.signbit(hi), torch.signbit(v))
+    assert torch.equal(tf32_rna(lo), lo)
+    assert bool(((hi.double() + lo.double() - v.double()).abs()
+                 <= least / 2).all())
+
+
+@pytest.mark.parametrize("value,want", [
+    (1.0, 0), (0.0, 0), (-0.0, 0), (2.0 ** -136, 0), (3.4e38, 0),
+    (2.0 ** -140, 1), (-2.0 ** -140, 1), (2.0 ** -149, 1),
+    (float("inf"), 1), (float("-inf"), 1), (float("nan"), 1)])
+def test_needs_least_hi_flags_an_x_that_can_meet_inf_through_a_tiny_value(
+        value, want):
+    """The wrapper's device flag picks the kernel build with the 2^-136 hi
+    where x holds a non-finite value or a nonzero one below 2^-136."""
+    x = torch.full((256, 3), 0.5)
+    x[100, 1] = value
+    flag = needs_least_hi(x)
+    assert flag.dtype == torch.int32 and flag.tolist() == [want]
 
 
 @pytest.mark.parametrize("d", [1, 63, 64, 65, 70, 200])

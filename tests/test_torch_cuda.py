@@ -12,6 +12,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from helpers.tiny_inf import A4_SHAPE, plant_attention, plant_spmm
 
 from repro_torch.configs import get_arch
 from repro_torch.core import BFSOptions, plan
@@ -37,6 +38,7 @@ from repro_torch.kernels.flash_attention.ref import (attention_mask,
                                                    attention_ref,
                                                    split_kv_ref)
 from repro_torch.kernels.fold_update import fold_update, fold_update_plain
+from repro_torch.kernels.tf32 import needs_least_hi
 from repro_torch.launch.steps import build_bundle
 from repro_torch.models import transformer as tf
 from repro_torch.models.convert import (deepfm_from_jax_params,
@@ -154,6 +156,73 @@ def test_bsr_spmm_kernel_non_finite_as_plain(cuda, where):
     assert torch.equal(got[inf], want[inf])
     fin = torch.isfinite(want)
     torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("tiny", [2.0 ** -130, 2.0 ** -136])
+@pytest.mark.parametrize("where", ["x", "tiles"])
+def test_wgmma_tf32_keeps_a_subnormal_operand(cuda, where, tiny):
+    """What the split rule for values below 2^-136 stands on (their hi is
+    2^-136, an f32 subnormal): wgmma's TF32 takes a subnormal as it is, in
+    shared memory (a tile: the B operand) and in registers (x: the A
+    operand).  2^-130, or 2^-136, times 2^100 reads 2^-30, or 2^-36,
+    exactly: not 0, as a flush to zero would give."""
+    rows = torch.zeros(1, dtype=torch.int32, device=cuda)
+    blocks = torch.zeros((1, 128, 128), device=cuda)
+    x = torch.zeros((128, 64), device=cuda)
+    if where == "x":
+        blocks[0, 7, 9], x[9, 0] = 2.0 ** 100, tiny
+    else:
+        blocks[0, 7, 9], x[9, 0] = tiny, 2.0 ** 100
+    got = bsr_spmm(blocks, block_row_ptr(rows, rows, 1, 1), rows, x,
+                   n_rows_pad=128)
+    torch.cuda.synchronize()
+    assert float(got[7, 0]) == tiny * 2.0 ** 100
+    assert int(torch.count_nonzero(got)) == 1
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("where", ["x", "tiles"])
+def test_bsr_spmm_kernel_value_below_2_136_against_inf_as_plain(
+        cuda, where, sign):
+    """2^-140 (TF32 truncates it to 0) against +-inf at one k, inf in x or
+    in a tile: +-inf as the plain product (its hi is 2^-136, where a hi of
+    0 read 0 * inf = NaN), and the rest as the plain version's."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    blocks, rows, cols, x = _spmm_case(gen, cuda, False, 64)
+    plant_spmm(blocks, x, where, sign)
+    got = bsr_spmm(blocks, block_row_ptr(rows, cols, 4, 3), cols, x,
+                   n_rows_pad=512)
+    want = bsr_spmm_ref(blocks, rows, cols, x, n_rows_pad=512)
+    torch.cuda.synchronize()
+    assert float(want[7, 0]) == sign * float("inf")
+    assert float(got[7, 0]) == float(want[7, 0])
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(got), inf)
+    assert torch.equal(got[inf], want[inf])
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-4)
+
+
+def test_bsr_spmm_kernel_builds_agree_where_the_rule_is_moot(cuda):
+    """x with one 0 (the build without the 2^-136 hi) and the same x with
+    2^-140 there (the build with it): the same y but for that value's
+    products, each below 2^-100."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    blocks, rows, cols, x = _spmm_case(gen, cuda, False, 64, long_row=9)
+    x[9, 0] = 0.0
+    x_least = x.clone()
+    x_least[9, 0] = 2.0 ** -140
+    assert needs_least_hi(x).tolist() == [0]
+    assert needs_least_hi(x_least).tolist() == [1]
+    row_ptr = block_row_ptr(rows, cols, 4, 3)
+    got = bsr_spmm(blocks, row_ptr, cols, x, n_rows_pad=512)
+    got_least = bsr_spmm(blocks, row_ptr, cols, x_least, n_rows_pad=512)
+    torch.cuda.synchronize()
+    assert float((got - got_least).abs().max()) <= 2.0 ** -100
+    torch.testing.assert_close(got, bsr_spmm_ref(blocks, rows, cols, x,
+                                                 n_rows_pad=512),
+                               rtol=1e-5, atol=1e-4)
 
 
 def test_bsr_spmm_kernel_many_items(cuda):
@@ -581,6 +650,30 @@ def test_flash_attention_f32_infinite_key_as_plain(cuda, sign):
     assert torch.equal(got.isnan().any(dim=-1), nan)
     assert 0 < int(nan.sum()) < int((~nan).sum())
     torch.testing.assert_close(got[~nan], want[~nan],
+                               **_attn_tolerance(torch.float32, v))
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+@pytest.mark.parametrize("case", ["q", "k", "p"])
+def test_flash_attention_f32_value_below_2_136_against_inf_as_plain(
+        cuda, case, sign):
+    """2^-140 (TF32 truncates it to 0) against +-inf in one product: in q
+    against an infinite key (the key dropped), in k against an infinite q
+    (every score of the row -inf) and in P against an infinite v (+-inf in
+    that column): the plain version's NaN and inf pattern, where a hi of 0
+    read 0 * inf = NaN; the finite values within the f32 hold."""
+    dh, b, hq, hkv, s = A4_SHAPE[4], *A4_SHAPE[:4]
+    q, k, v = _f32_qkv(cuda, dh, b, hq, hkv, s, s)
+    plant_attention(q, k, v, case, sign)
+    got = flash_attention(q, k, v, causal=True, window=0)
+    want = attention_ref(q, k, v, causal=True, window=0)
+    torch.cuda.synchronize()
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(test(got), test(want)), test.__name__
+    if case == "p":
+        assert bool((want[0, :, 30:, 3] == sign * float("inf")).all())
+    fin = want.isfinite()
+    torch.testing.assert_close(got[fin], want[fin],
                                **_attn_tolerance(torch.float32, v))
 
 
