@@ -1,0 +1,8 @@
+"""``fold_update_roofline.bits``: ``fold_update_roofline`` in the tile-route cell, where it moves
+``gteps.bits`` (the same reader)."""
+
+from pathlib import Path
+
+from gpubench.harness import reader
+
+read = reader(Path(__file__).resolve().parents[2], "fold_update_roofline")
