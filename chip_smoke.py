@@ -566,11 +566,14 @@ def drive(kernels, eng, roots, runs: int = 3):
     """Reset the launch counts, run the engine ``runs`` times and read the
     counts; returns (host dist of the last run, per-run ms of runs 2..,
     last result, counts)."""
+    from repro_torch.core import spans
+
     reset_counts(kernels)
     run_ms, last_host, res = [], None, None
     for i in range(runs):
         t0 = time.perf_counter()
-        res = eng.run(roots)
+        with spans.recording():
+            res = eng.run(roots)
         run_ms.append((time.perf_counter() - t0) * 1e3)
         host = res.dist_host
         if last_host is not None:
@@ -579,6 +582,18 @@ def drive(kernels, eng, roots, runs: int = 3):
         last_host = host
     counts = {name: k.launches for name, k in kernels.items()}
     return last_host, run_ms[1:], res, counts
+
+
+def last_level_ms() -> list:
+    """ms of each ``bfs.level`` span of the last traversal the recorder
+    holds: a level's host time, to the end of its device read (the BFS
+    paths run their engines inside ``spans.recording()``)."""
+    from repro_torch.core import spans
+
+    snap = spans.snapshot()
+    last = max(s.run for s in snap.spans if s.name == spans.RUN)
+    return [(s.end - s.start) / 1e6 for s in snap.spans
+            if s.name == spans.LEVEL and s.run == last]
 
 
 def span_cost(eng, roots, rounds: int = 20, per_round: int = 10,
@@ -599,7 +614,7 @@ def span_cost(eng, roots, rounds: int = 20, per_round: int = 10,
     from repro_torch.core import spans
 
     users = [importlib.import_module(f"repro_torch.core.{m}")
-             for m in ("bfs", "mesh")]
+             for m in ("bfs", "mesh", "engine")]
     check(all(u.span is spans.span for u in users),
           "span_cost: a level-loop module does not use core.spans.span")
     idle = contextlib.nullcontext()
@@ -639,11 +654,11 @@ def span_cost(eng, roots, rounds: int = 20, per_round: int = 10,
             "forced_over_noop": med["forced"] / med["no-op"] - 1}
 
 
-def report_run(name, compile_ms, run_ms, res, counts) -> None:
+def report_run(name, compile_ms, run_ms, res, counts, level_ms) -> None:
     st = res.run_stats
     log(f"{name}: compile {compile_ms:.1f} ms; runs {[round(t, 3) for t in run_ms]} ms; "
         f"levels {st.levels}; per-level ms "
-        f"{[round(t * 1e3, 3) for t in st.level_seconds]}; "
+        f"{[round(t, 3) for t in level_ms]}; "
         f"comm_bytes {st.comm_bytes}; launches {counts}")
 
 
@@ -736,9 +751,10 @@ def path3_phase(kernels, g, src, dst, roots, want, dev, profile: bool):
     validate_bfs(src, dst, roots, res.dist[:part.n_logical, :S])
     check(np.array_equal(host, want),
           "path 3: distances differ from path 1's p4_default")
-    report_run("path 3 use_kernel p4", compile_ms, run_ms, res, counts)
-    roofline_line("path 3 use_kernel p4", d, res.run_stats,
-                  ["dense"] * levels)
+    level_ms = last_level_ms()
+    report_run("path 3 use_kernel p4", compile_ms, run_ms, res, counts,
+               level_ms)
+    roofline_line("path 3 use_kernel p4", d, level_ms, ["dense"] * levels)
     log(f"path 3: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if profile:
@@ -835,10 +851,10 @@ def build_engine(label: str, g, opts, s: int, **plan_kw):
     return pl, eng, d
 
 
-def report_modes(label: str, run_ms, st: dict, modes, res) -> None:
+def report_modes(label: str, run_ms, st: dict, modes, level_ms) -> None:
     log(f"{label}: runs {[round(t, 3) for t in run_ms]} ms; "
         f"levels {st['levels']}; per-level ms (mode) "
-        f"{[f'{t * 1e3:.3f} ({m})' for t, m in zip(res.run_stats.level_seconds, modes)]}; "
+        f"{[f'{t:.3f} ({m})' for t, m in zip(level_ms, modes)]}; "
         f"comm_bytes {st['comm_bytes']}; sieve_hits {st['sieve_hits']}; "
         f"overflowed {st['overflowed']}; mode_counts {st['mode_counts']}")
 
@@ -849,6 +865,7 @@ def single_source_roots(kernels, label: str, eng, mode: str, roots, want,
     each root's distances bitwise ``want``'s column, ``auto``'s
     ``mode_counts`` equal to the numpy replay, ``queue`` a queue level a
     level."""
+    from repro_torch.core import spans
     from repro_torch.core.frontier import INF
 
     totals = dict.fromkeys(("dense", "queue", "bottom_up"), 0)
@@ -857,7 +874,8 @@ def single_source_roots(kernels, label: str, eng, mode: str, roots, want,
             host, run_ms, res, _ = drive(kernels, eng, [root])
         else:
             t0 = time.perf_counter()
-            res = eng.run([root])
+            with spans.recording():
+                res = eng.run([root])
             run_ms = [(time.perf_counter() - t0) * 1e3]
             host = res.dist_host
         st = res.run_stats.to_host()
@@ -877,7 +895,8 @@ def single_source_roots(kernels, label: str, eng, mode: str, roots, want,
                   f"{label}: root {i} ran {st}")
         for k in totals:
             totals[k] += st["mode_counts"][k]
-        report_modes(f"{label} root {i}", run_ms, st, modes, res)
+        report_modes(f"{label} root {i}", run_ms, st, modes,
+                     last_level_ms())
         if profile and i == 0:
             profile_run(f"{label} root 0", lambda: eng.run([root]))
     log(f"{label}: 8 roots bitwise path 1's columns; mode totals {totals}; "
@@ -914,8 +933,9 @@ def path4_phase(kernels, g, src, roots, want, profile: bool) -> None:
           f"of {st['mode_counts']['dense']} dense levels")
     check(not any(counts[k] for k in others),
           f"path 4 (a): a kernel off the path launched: {counts}")
-    report_modes("path 4 (a) auto S=64", run_ms, st, modes, res)
-    roofline_line("path 4 (a) auto S=64", d, res.run_stats, modes)
+    level_ms = last_level_ms()
+    report_modes("path 4 (a) auto S=64", run_ms, st, modes, level_ms)
+    roofline_line("path 4 (a) auto S=64", d, level_ms, modes)
     log(f"path 4 (a): launches {counts}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if profile:
@@ -939,7 +959,7 @@ def path5_phase(kernels, g, src, roots, want, profile: bool) -> int:
     default options (module docstring, phase 6): (a) dense, S = 64; (b)
     auto, S = 64; (c) auto and (d) queue, S = 1, on the first 8 roots;
     distances bitwise path 1's p4_default (columns).  Returns A1's
-    launches in (a) and (a)'s last run stats."""
+    launches in (a) and (a)'s last run stats with its level ms."""
     from repro_torch.core import BFSOptions, LocalMesh
     from repro_torch.core.frontier import INF
     from repro_torch.graphs import to_2d
@@ -982,13 +1002,14 @@ def path5_phase(kernels, g, src, roots, want, profile: bool) -> int:
     check(st["comm_bytes"] == float(want_bytes),
           f"{label}: comm_bytes {st['comm_bytes']}, not {levels} x "
           f"{d['dense_level_bytes']} as float32")
-    report_modes(label, run_ms, st, ["dense"] * levels, res)
-    roofline_line(label, d, res.run_stats, ["dense"] * levels)
+    level_ms_a = last_level_ms()
+    report_modes(label, run_ms, st, ["dense"] * levels, level_ms_a)
+    roofline_line(label, d, level_ms_a, ["dense"] * levels)
     log(f"{label}: launches {counts}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if profile:
         profile_run(label, lambda: eng.run(roots))
-    a1_launches, stats_a = counts["fold_update"], res.run_stats
+    a1_launches, stats_a = counts["fold_update"], (res.run_stats, level_ms_a)
     del eng, res
 
     # (b) auto, S = 64: the bottom-up blocks are built here, on first use
@@ -1010,7 +1031,7 @@ def path5_phase(kernels, g, src, roots, want, profile: bool) -> int:
     check(counts["fold_update"] == 3 * st["mode_counts"]["dense"]
           and not any(counts[k] for k in others),
           f"{label}: launches {counts} in 3 runs of {st['mode_counts']}")
-    report_modes(label, run_ms, st, modes, res)
+    report_modes(label, run_ms, st, modes, last_level_ms())
     log(f"{label}: launches {counts}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if profile:
@@ -1747,15 +1768,15 @@ def launchers_phase(kernels, g1, src1, dst1, dev, tmp: Path) -> dict:
 # path 8: the plan audits
 # ---------------------------------------------------------------------------
 
-def roofline_line(label: str, d: dict, stats, modes) -> dict:
+def roofline_line(label: str, d: dict, level_ms, modes) -> dict:
     """Each level kind's ``describe()["roofline"]`` ``t_level_s`` beside
-    the run's measured mean ms a level of that kind (``level_seconds``,
-    the host clock to the level's read) and the share, model over
-    measured; logged with the card's name and power limit."""
+    the run's measured mean ms a level of that kind (``level_ms``, each
+    level's ``bfs.level`` span: the host clock to the level's read) and
+    the share, model over measured; logged with the card's name and power
+    limit."""
     rows = {}
     for kind, row in d["roofline"].items():
-        ms = [t * 1e3 for t, m in zip(stats.level_seconds, modes)
-              if m == kind]
+        ms = [t for t, m in zip(level_ms, modes) if m == kind]
         if ms:
             model = row["t_level_s"] * 1e3
             rows[kind] = {"model_ms": model, "measured_ms": sum(ms) / len(ms),
@@ -1981,12 +2002,15 @@ def path9_kernels() -> dict:
 def path9_drive(kernels, eng, roots, runs: int = 2):
     """``runs`` runs of ``eng`` (all ranks at once) with the launch counts
     reset before: (last result, its host dist, counts, run ms)."""
+    from repro_torch.core import spans
+
     reset_counts(kernels)
     run_ms = []
     for _ in range(runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = eng.run(roots)
+        with spans.recording():
+            res = eng.run(roots)
         run_ms.append((time.perf_counter() - t0) * 1e3)
     counts = {name: k.launches for name, k in kernels.items()}
     return res, res.dist_host, counts, run_ms
@@ -1995,7 +2019,7 @@ def path9_drive(kernels, eng, roots, runs: int = 2):
 def run_summary(res, counts, run_ms) -> dict:
     st = res.run_stats
     return {"stats": st.to_host(), "counts": counts, "run_ms": run_ms,
-            "level_ms": [t * 1e3 for t in st.level_seconds]}
+            "level_ms": last_level_ms()}
 
 
 def path9_rank(rank: int, world: int, backend: str, tmp: str) -> None:
@@ -2235,7 +2259,7 @@ def path9_phase(g1, src1, dst1, roots1, want1, path1, path5_stats, g_sw_src,
     t0 = time.perf_counter()
     ranks = path9_group(ctx, 4, "gloo", tmp, deadline)
     wall_g = time.perf_counter() - t0
-    p4 = path1["p4_default"][3]
+    p4, p4_level_ms = path1["p4_default"][3:5]
     for k, r in enumerate(ranks):
         b = r["b"]
         check(b["bitwise"] and b["stats"]["levels"] == p4.levels
@@ -2267,7 +2291,7 @@ def path9_phase(g1, src1, dst1, roots1, want1, path1, path5_stats, g_sw_src,
         f"bitwise path 1 p4_default, levels {b0['stats']['levels']}, "
         f"comm_bytes {b0['stats']['comm_bytes']}; per-level ms (rank 0) "
         f"{[round(t, 3) for t in b0['level_ms']]} beside path 1 p4_default "
-        f"{[round(t * 1e3, 3) for t in p4.level_seconds]}; the ranks' "
+        f"{[round(t, 3) for t in p4_level_ms]}; the ranks' "
         f"resident bytes {resident} sum to the stacked engine's "
         f"{stacked['resident']}; roofline dense link "
         f"{b0['roofline_dense']['link']} t_level_s "
@@ -2303,7 +2327,7 @@ def path9_phase(g1, src1, dst1, roots1, want1, path1, path5_stats, g_sw_src,
         f"{[row['counts']['fold_update'] for row in c0]}; runs "
         f"{[round(row['run_ms'][0], 3) for row in c0]} ms")
 
-    s5 = path5_stats
+    s5, s5_level_ms = path5_stats
     for k, r in enumerate(ranks):
         d = r["d"]
         check(d["bitwise"] and d["stats"]["levels"] == s5.levels
@@ -2317,7 +2341,7 @@ def path9_phase(g1, src1, dst1, roots1, want1, path1, path5_stats, g_sw_src,
         f"on one card ({card}): bitwise path 5 (a), levels "
         f"{d0['stats']['levels']}, comm_bytes {d0['stats']['comm_bytes']}; "
         f"per-level ms (rank 0) {[round(t, 3) for t in d0['level_ms']]} "
-        f"beside path 5 (a) {[round(t * 1e3, 3) for t in s5.level_seconds]}")
+        f"beside path 5 (a) {[round(t, 3) for t in s5_level_ms]}")
 
     for k, r in enumerate(ranks):
         e = r["e"]
@@ -5911,12 +5935,14 @@ def main(argv=None) -> int:
         check(counts["fold_update"] > 0,
               f"path 1 {label}: kernel A1 never launched")
         validate_bfs(src1, dst1, roots1, res.dist[:n1, :S])
-        report_run(f"path 1 {label}", compile_ms, run_ms, res, counts)
-        roofline_line(f"path 1 {label}", d, res.run_stats,
+        level_ms = last_level_ms()
+        report_run(f"path 1 {label}", compile_ms, run_ms, res, counts,
+                   level_ms)
+        roofline_line(f"path 1 {label}", d, level_ms,
                       ["dense"] * res.run_stats.levels)
         if args.profile:
             profile_run(f"path 1 {label}", lambda: eng.run(roots1))
-        path1[label] = (host, counts, d, res.run_stats)
+        path1[label] = (host, counts, d, res.run_stats, level_ms)
         if p == 4:
             g1_p4 = g
             pad4 = res.dist.cpu().numpy()      # path 15 (a) repartitions it
@@ -5954,7 +5980,8 @@ def main(argv=None) -> int:
     check(counts2["bsr_spmm"] == 0 and counts2["bitpack_words"] == 0,
           "path 2: the f32 A2 or A3 launched under use_kernel")
     validate_bfs(src2, dst2, roots2, res2.dist[:n2, :S])
-    report_run("path 2 use_kernel", compile_ms, run_ms, res2, counts2)
+    report_run("path 2 use_kernel", compile_ms, run_ms, res2, counts2,
+               last_level_ms())
     log(f"path 2: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the engine's "
         f"bit tiles {nbytes(eng2.kernel_arrays[0]) / 1e9:.3f} GB")

@@ -29,12 +29,12 @@ depend on, enforced statically over ``src/repro_torch``:
   ``mesh.host_read``) is flagged too, so each budgeted read carries a
   reasoned suppression and the suppressions list the loop's read sites
   (``host_read_sites``, which the collective audit's HA005 checks the
-  recorded reads against).  No host clock calls either (RX005): a level
-  timed on the host is timed after its read.
+  recorded reads against).  No host clock calls either (RX005): a
+  level's host time is its ``bfs.level`` span (``core.spans``).
 
 False positives are silenced inline with a reasoned suppression::
 
-    # audit: allow(RX005) -- times level_seconds after the host read
+    # audit: allow(RX004) -- budget: a dense level's one read
 
 The reason string after ``--`` is mandatory: a bare ``allow`` is itself
 a violation (SUP001).  A suppression comment matches on its own line,

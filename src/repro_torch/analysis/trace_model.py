@@ -29,8 +29,13 @@ Where JAX classifies XLA op names, the port classifies range names:
     plan's kernel A1 unpacks, updates and re-packs in one pass and is
     reported here, so, as in JAX, fold + owner_update together is what
     fused and unfused plans compare;
-  * ``other``        — the rest: a level's termination read and pad
-    masking, and work outside any level.
+  * ``other``        — the rest: a level's termination read (inside
+    ``bfs.host_read``) and pad masking, and work outside any level (the
+    sources' upload inside ``bfs.init``, the rest of ``bfs.run``, and
+    set-up: ``graph.shard`` and ``engine.compile``).
+
+No range but the phases opens inside a phase range (``core.spans``), so
+the innermost ``bfs.*`` range around a launch names its phase.
 
 Levels are the ``bfs.level`` ranges themselves, not clusters of
 collectives.  The launchers' ``--profile`` prints ``format_summary``.

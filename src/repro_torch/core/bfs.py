@@ -34,12 +34,12 @@ the same three modes with a two-phase exchange a level — a gather over
 the grid row, a fold over the grid column — and the same host reads; both
 loops share the runner (``_level_runner``) and the bottom-up level.
 
-Each level runs inside a ``bfs.level`` profiler range and its parts inside
+Each level runs inside a ``bfs.level`` span and its parts inside
 ``bfs.expand``, ``bfs.fold`` and ``bfs.owner_update`` (``core.spans``;
-ranges only while a profiler records), which ``analysis.trace_model``
-reads.  A1, the fused fold tail, unpacks, updates and re-packs in one
-kernel; it runs in ``bfs.owner_update``, after the fold range's pack and
-exchange.
+recorded, and profiler ranges, only while the recorder is on), which
+``analysis.trace_model`` reads.  A1, the fused fold tail, unpacks,
+updates and re-packs in one kernel; it runs in ``bfs.owner_update``,
+after the fold range's pack and exchange.
 
 This module holds the options, source validation, the level loops and the
 deprecated one-shot ``bfs()``; the public lifecycle (``plan -> compile ->
@@ -49,7 +49,6 @@ run``) lives in ``core/engine.py``.
 from __future__ import annotations
 
 import dataclasses
-import time
 import warnings
 from typing import Callable, Optional
 
@@ -271,14 +270,12 @@ def _level_runner(part, s: int, mode: str, e_total: int, opts: BFSOptions,
         dist_sh = dist.view(local, shard, s)
         frontier = frontier.view(local, shard, s)
         bytes_acc = np.float32(0)
-        overflowed, modes, hits_acc, level_seconds = False, [0, 0, 0], 0, []
+        overflowed, modes, hits_acc = False, [0, 0, 0], 0
         level, active, fwords = 1, True, None
         if mode != "dense":
             mesh.enter_level(0, "sources")
             f_verts, f_edges, width = frontier_stats(frontier)
         while active and level <= max_levels:
-            # audit: allow(RX005) -- times level_seconds after the host read
-            t0 = time.perf_counter()
             with span(LEVEL):
                 ovf, hits = False, 0
                 if mode == "auto":
@@ -321,11 +318,9 @@ def _level_runner(part, s: int, mode: str, e_total: int, opts: BFSOptions,
                 hits_acc += hits
                 frontier = new
                 level += 1
-            # audit: allow(RX005) -- times level_seconds after the host read
-            level_seconds.append(time.perf_counter() - t0)
         mesh.enter_level(0, "outside")
         return (level - 1, float(bytes_acc), overflowed, tuple(modes),
-                hits_acc, tuple(level_seconds))
+                hits_acc)
 
     return run
 
@@ -409,12 +404,12 @@ def make_level_loop(part: Partition1D, s: int, e_total: int,
     ``(local * shard, S)`` buffers of the shards the mesh holds here (the
     padded global ``(n, S)`` ones on a ``LocalMesh``; ``dist`` updated in
     place) until no shard discovers a vertex (or ``max_levels``) and
-    returns ``(levels, comm_bytes, overflowed, mode_counts, sieve_hits,
-    level_seconds)``:
+    returns ``(levels, comm_bytes, overflowed, mode_counts, sieve_hits)``:
     the level count as the JAX loop reports it, the analytic per-chip
     bytes summed in float32 as the JAX loop sums them, whether a queue
-    level escalated to dense, the (dense, queue, bottom_up) level counts,
-    the candidates the sieve dropped, and each level's host wall time.
+    level escalated to dense, the (dense, queue, bottom_up) level counts
+    and the candidates the sieve dropped.  Each level's host time is its
+    ``bfs.level`` span (``core.spans``).
 
     ``edge_rows`` are ``frontier.dense_edge_index`` rows of the out-edge
     blocks (the default scatter-max expansion); ``expand_fn(frontier,

@@ -66,7 +66,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.mesh import MeshAxes, check_shape
-from repro_torch.core.spans import COLLECTIVE, span
+from repro_torch.core.spans import COLLECTIVE, HOST_READ, span
 
 def _all_gather_single(out, inp, group):
     # the name without a deprecation warning where this torch has it
@@ -306,8 +306,10 @@ class DistMesh(MeshAxes):
     # --- the level loop's control plane --------------------------------
     def host_read(self, x: torch.Tensor):
         """Read this rank's replica of a value the mesh already reduced
-        (every rank reads the same, so every rank takes the same branch)."""
-        return x.tolist()
+        (every rank reads the same, so every rank takes the same branch),
+        inside a ``bfs.host_read`` span."""
+        with span(HOST_READ):
+            return x.tolist()
 
     def enter_level(self, level: int, kind: str) -> None:
         """Nothing here (``LocalMesh.enter_level``)."""

@@ -50,9 +50,11 @@ import torch
 from repro_torch.core import bfs
 from repro_torch.core import exchange as ex
 from repro_torch.core import frontier as fr
+from repro_torch.core import spans
 from repro_torch.core.bfs import (BFSOptions, BFSStats, INF, make_level_loop,
                                   make_level_loop_2d, validate_sources)
 from repro_torch.core.mesh import LocalMesh
+from repro_torch.core.spans import span
 from repro_torch.launch.roofline import roofline_row
 # chaos layer: a no-op global read unless a FaultPlan is installed (a
 # stdlib-only module; degrade.py defers its engine import, so no cycle)
@@ -99,8 +101,6 @@ class BFSRunStats:
     overflowed: bool           # a queue level overflowed (and ran dense)
     mode_counts: tuple         # (dense, queue, bottom_up) levels
     sieve_hits: int            # candidates dropped pre-collective
-    level_seconds: tuple = ()  # host wall time of each level, ending in
-                               # the level's termination sync
 
     def block(self) -> "BFSRunStats":
         return self
@@ -795,6 +795,10 @@ class BFSEngine:
     """
 
     def __init__(self, plan_: BFSPlan):
+        with spans.setup_span(spans.ENGINE_COMPILE):
+            self._compile(plan_)
+
+    def _compile(self, plan_: BFSPlan) -> None:
         from repro_torch.graphs.formats import device_block_cache
 
         self.plan = plan_
@@ -983,23 +987,25 @@ class BFSEngine:
         nbr, nbc = row_pad // blk, col_pad // blk
 
         def build():
-            bits, cmask, brs, bcs, _, _ = graph.bsr_bit_shards(device=dev,
-                                                              shards=held)
-            kmax = bits.shape[1]
-            offs = torch.arange(local, device=dev,
-                                dtype=torch.int32)[:, None]
-            rows = (brs + offs * nbr).reshape(-1)
-            cols = (bcs + offs * nbc).reshape(-1).contiguous()
-            return (bits.reshape(local * kmax, blk, blk // 32),
-                    cmask.reshape(local * kmax, blk // 32),
-                    block_row_ptr(rows, cols, local * nbr, local * nbc),
-                    rows, cols)
+            with spans.setup_span(spans.TILE_BUILD):
+                bits, cmask, brs, bcs, _, _ = graph.bsr_bit_shards(
+                    device=dev, shards=held)
+                kmax = bits.shape[1]
+                offs = torch.arange(local, device=dev,
+                                    dtype=torch.int32)[:, None]
+                rows = (brs + offs * nbr).reshape(-1)
+                cols = (bcs + offs * nbc).reshape(-1).contiguous()
+                return (bits.reshape(local * kmax, blk, blk // 32),
+                        cmask.reshape(local * kmax, blk // 32),
+                        block_row_ptr(rows, cols, local * nbr, local * nbc),
+                        rows, cols)
 
         # the closure holds the arrays, not the engine: no cycle keeps a
         # dropped engine's tiles on the device
         arrays = self.kernel_arrays = cached("kernel_bits", build)
         packed = self.plan.dense_strategy.wire == "packed"
         w_in, w_out = fr.packed_words(shard), col_pad // 32
+        k = arrays[0].shape[0]
 
         def expand_fn(frontier, words):             # (local, shard, S)
             s = frontier.shape[-1]
@@ -1008,10 +1014,16 @@ class BFSEngine:
             if w_out > w_in:                            # zero block columns
                 words = torch.nn.functional.pad(words,
                                                 (0, 0, 0, w_out - w_in))
+            tiles_read = None
+            if spans.on():
+                # the recorder counts what the kernel reads, and of what
+                tiles_read = spans.device_counter(spans.TILES_READ, dev)
+                spans.count(spans.EXPAND_LAUNCHES)
+                spans.count(spans.TILES_HELD, k)
             cand = bsr_expand_bits(
                 *arrays, words.reshape(local * w_out, s), n_valid=n,
-                n_blocks=p, rows_per_group=row_pad).reshape(
-                    local, p * w_in, s)
+                n_blocks=p, rows_per_group=row_pad,
+                tiles_read=tiles_read).reshape(local, p * w_in, s)
             if packed:
                 return cand
             return fr.unpack_bits(cand, shard, p)     # (local, n, S) uint8
@@ -1041,25 +1053,32 @@ class BFSEngine:
         """
         pl_ = self.plan
         part = pl_.graph.part
-        src_arr = validate_sources(sources, part.n_logical,
-                                   max_sources=pl_.num_sources)
-        n_req = int(src_arr.shape[0])
-        if src_arr.max() > np.iinfo(np.int32).max:
-            raise ValueError("source ids exceed int32 range; the engine's "
-                             "distance/source buffers are int32")
-        padded = np.full((pl_.num_sources,), -1, dtype=np.int32)
-        padded[:n_req] = src_arr
-        _faults.fire("engine.dispatch", _faults.plan_tag(pl_))
         mesh = pl_.mesh
-        with self._lock:
-            self._generation += 1
-            src_dev = torch.from_numpy(padded).to(pl_.device)
-            fr.init_dist_frontier(src_dev, self._dist.shape[0],
-                                  part.n_logical,
-                                  out=(self._dist, self._frontier),
-                                  row0=mesh.local_shards[0] * part.shard_size)
+        # the lock is taken inside bfs.init, after the sources are checked
+        with span(spans.RUN), contextlib.ExitStack() as locked:
+            with span(spans.INIT):
+                src_arr = validate_sources(sources, part.n_logical,
+                                           max_sources=pl_.num_sources)
+                n_req = int(src_arr.shape[0])
+                if src_arr.max() > np.iinfo(np.int32).max:
+                    raise ValueError("source ids exceed int32 range; the "
+                                     "engine's distance/source buffers are "
+                                     "int32")
+                padded = np.full((pl_.num_sources,), -1, dtype=np.int32)
+                padded[:n_req] = src_arr
+                _faults.fire("engine.dispatch", _faults.plan_tag(pl_))
+                locked.enter_context(self._lock)
+                self._generation += 1
+                src_dev = torch.from_numpy(padded).to(pl_.device)
+                fr.init_dist_frontier(
+                    src_dev, self._dist.shape[0], part.n_logical,
+                    out=(self._dist, self._frontier),
+                    row0=mesh.local_shards[0] * part.shard_size)
+            # the first five values: the benchmark's control
+            # (gpubench/control.py) swaps in a level loop that still
+            # returns a sixth, the per-level times kept no longer
             stats = BFSRunStats(*self._run_levels(self._dist, self._frontier,
-                                                  pl_.max_levels))
+                                                  pl_.max_levels)[:5])
             res = BFSResult(
                 dist=self._dist, run_stats=stats,
                 n_logical=part.n_logical, n_sources=n_req,

@@ -44,7 +44,7 @@ import math
 
 import torch
 
-from repro_torch.core.spans import COLLECTIVE, span
+from repro_torch.core.spans import COLLECTIVE, HOST_READ, span
 
 
 def check_shape(shape, axis_names) -> tuple:
@@ -152,8 +152,9 @@ class LocalMesh(MeshAxes):
         The JAX loop reduces these with replicated psums; here every
         device-to-host read of the level loop goes through this method,
         so a recording mesh (``analysis.collective_audit``) counts them a
-        level."""
-        return x.tolist()
+        level, and the recorder times each as a ``bfs.host_read`` span."""
+        with span(HOST_READ):
+            return x.tolist()
 
     def enter_level(self, level: int, kind: str) -> None:
         """The level loop says what it runs next: ``kind`` is ``"sources"``

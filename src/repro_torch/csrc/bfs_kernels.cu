@@ -564,7 +564,8 @@ bitpack_kernel(const float* __restrict__ mask, uint32_t* __restrict__ out,
 // n_blocks segments of `seg` rows, each packed into W = ceil(seg / 32)
 // words (frontier.pack_bits).  Output: (groups * n_blocks * W, S), zeroed
 // by the caller, who also hands int32 scratch for each frontier word's OR
-// over the sources.
+// over the sources, and may hand a counter `tiles_read` (else null): the
+// launch adds the tiles it listed, once whatever S (the CTAs of grid.y 0).
 //
 // Bound on the H100: memory.  A tile is 2 KiB at one bit an entry (64 KiB
 // as the f32 tile), and the work per tile is a few ORs per edge; the
@@ -629,6 +630,9 @@ struct ExpandShared {
   int32_t col[kScan];                       // block column and block row
   int32_t row[kScan];
   int32_t warp_need[kXThreads / 32];
+  // the tiles this CTA listed, kept by thread 0 in shared memory: the
+  // kernel already sits at the 64 registers of its launch bound
+  uint32_t listed;
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -672,7 +676,8 @@ bsr_expand_bits_kernel(const uint4* __restrict__ bits,
                        const int32_t* __restrict__ block_cols,
                        const uint32_t* __restrict__ fwords,
                        const uint4* __restrict__ front_any,
-                       uint32_t* __restrict__ out, int64_t k,
+                       uint32_t* __restrict__ out,
+                       unsigned long long* __restrict__ tiles_read, int64_t k,
                        int64_t group_block_rows, int64_t n_valid,
                        int64_t n_blocks, int64_t seg, int64_t w, int64_t s) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -688,6 +693,7 @@ bsr_expand_bits_kernel(const uint4* __restrict__ bits,
       asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
                        smem_u32(&sh.st[i].bar)), "r"(kXThreads)
                    : "memory");
+    sh.listed = 0u;
   }
   __syncthreads();
 
@@ -804,6 +810,7 @@ bsr_expand_bits_kernel(const uint4* __restrict__ bits,
       before += i < warp ? c : 0;
       n_list += c;
     }
+    if (tid == 0) sh.listed += (uint32_t)n_list;
     if (need) {
       const int i = before + __popc(ballot & ((1u << lane) - 1u));
       sh.cmask[i] = cm;
@@ -824,6 +831,8 @@ bsr_expand_bits_kernel(const uint4* __restrict__ bits,
     }
   }
   flush();
+  if (tiles_read != nullptr && tid == 0 && blockIdx.y == 0 && sh.listed)
+    atomicAdd(tiles_read, (unsigned long long)sh.listed);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -929,11 +938,12 @@ int bfs_bitpack(const void* mask, void* out, long long w, long long s,
 int bfs_expand_bits_smem() { return (int)sizeof(ExpandShared); }
 
 // The frontier's OR over the sources, then the expansion; front_any
-// (n_fwords int32) is scratch.  The caller launches only with k > 0 tiles.
+// (n_fwords int32) is scratch, tiles_read a counter or null.  The caller
+// launches only with k > 0 tiles.
 int bfs_bsr_expand_bits(const void* bits, const void* col_mask,
                         const void* block_rows, const void* block_cols,
                         const void* fwords, void* out, void* front_any,
-                        long long k, long long n_fwords,
+                        void* tiles_read, long long k, long long n_fwords,
                         long long group_block_rows, long long n_valid,
                         long long n_blocks, long long seg, long long w,
                         long long s, void* stream) {
@@ -957,8 +967,9 @@ int bfs_bsr_expand_bits(const void* bits, const void* col_mask,
   bsr_expand_bits_kernel<<<grid, kXThreads, smem, st>>>(
       (const uint4*)bits, (const uint4*)col_mask,
       (const int32_t*)block_rows, (const int32_t*)block_cols,
-      (const uint32_t*)fwords, (const uint4*)front_any, (uint32_t*)out, k,
-      group_block_rows, n_valid, n_blocks, seg, w, s);
+      (const uint32_t*)fwords, (const uint4*)front_any, (uint32_t*)out,
+      (unsigned long long*)tiles_read, k, group_block_rows, n_valid, n_blocks,
+      seg, w, s);
   return (int)cudaGetLastError();
 }
 

@@ -27,6 +27,7 @@ import weakref
 import numpy as np
 import torch
 
+from repro_torch.core import spans
 from repro_torch.core.partition import Partition1D, Partition2D
 
 _ALIGN = 128  # pad per-shard edge capacity to a lane-aligned multiple
@@ -340,7 +341,15 @@ def shard_graph(src: np.ndarray, dst: np.ndarray, n: int, p: int,
     """Partition a COO edge list across ``p`` shards (paper §2.1).
 
     ``e_cap`` defaults to the max per-shard edge count rounded up to 128.
+    Recorded as the set-up span ``graph.shard``, each bucketing inside it
+    as ``graph.shard.out_edges`` and ``graph.shard.in_edges``
+    (``core.spans``).
     """
+    with spans.setup_span(spans.GRAPH_SHARD):
+        return _shard_graph(src, dst, n, p, e_cap)
+
+
+def _shard_graph(src, dst, n: int, p: int, e_cap) -> ShardedGraph:
     part = Partition1D(n, p)
     src = np.asarray(src, dtype=np.int64)
     dst = np.asarray(dst, dtype=np.int64)
@@ -355,10 +364,14 @@ def shard_graph(src: np.ndarray, dst: np.ndarray, n: int, p: int,
     cap_out = e_cap or max(_pad_to(max(max_out, 1), _ALIGN), _ALIGN)
     cap_in = e_cap or max(_pad_to(max(max_in, 1), _ALIGN), _ALIGN)
 
-    (s_loc, d_glob), _ = _bucket(
-        own_src, p, [np.asarray(part.local_id(src)), dst], cap_out, fills=(0, -1))
-    (in_s_glob, in_d_loc), _ = _bucket(
-        own_dst, p, [src, np.asarray(part.local_id(dst))], cap_in, fills=(-1, 0))
+    with spans.setup_span(spans.SHARD_OUT_EDGES):
+        (s_loc, d_glob), _ = _bucket(
+            own_src, p, [np.asarray(part.local_id(src)), dst], cap_out,
+            fills=(0, -1))
+    with spans.setup_span(spans.SHARD_IN_EDGES):
+        (in_s_glob, in_d_loc), _ = _bucket(
+            own_dst, p, [src, np.asarray(part.local_id(dst))], cap_in,
+            fills=(-1, 0))
 
     return ShardedGraph(
         part=part,

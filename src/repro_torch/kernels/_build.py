@@ -38,9 +38,10 @@ _SIGNATURES = {
     "bfs_bsr_spmm": [_P] * 7 + [_N] * 4 + [_P],
     # mask, out, w, s, stream
     "bfs_bitpack": [_P] * 2 + [_N] * 2 + [_P],
-    # bits, col_mask, block_rows, block_cols, fwords, out, front_any, k,
-    # n_fwords, group_block_rows, n_valid, n_blocks, seg, w, s, stream
-    "bfs_bsr_expand_bits": [_P] * 7 + [_N] * 8 + [_P],
+    # bits, col_mask, block_rows, block_cols, fwords, out, front_any,
+    # tiles_read (or null), k, n_fwords, group_block_rows, n_valid,
+    # n_blocks, seg, w, s, stream
+    "bfs_bsr_expand_bits": [_P] * 8 + [_N] * 8 + [_P],
     # q, k_hi, k_lo, vt, vt_lo, o, b, hq, hkv, sq, skv, skv_pad, dh, causal,
     # window, scale, stream (k_hi, k_lo, vt, vt_lo: the pre-pass's scratch)
     "attn_flash_fwd_f32": [_P] * 6 + [_N] * 7 + [_I, _N, _F, _P],

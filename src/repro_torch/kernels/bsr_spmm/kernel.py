@@ -155,14 +155,30 @@ def bitpack_words(mask: torch.Tensor) -> torch.Tensor:
 bitpack_words.launches = 0
 
 
+def expand_tiles_read(col_mask: torch.Tensor, block_cols: torch.Tensor,
+                      fwords: torch.Tensor) -> int:
+    """The tiles ``bsr_expand_bits`` reads: those whose column mask meets
+    the OR over the sources of their block column's frontier words."""
+    front_any = torch.zeros((fwords.shape[0],), dtype=torch.int32,
+                            device=fwords.device)
+    for col in fwords.unbind(1):
+        front_any |= col
+    front = front_any.view(-1, DEFAULT_BLOCK // 32)[block_cols.long()]
+    return int(((col_mask & front) != 0).any(1).sum())
+
+
 def bsr_expand_bits_plain(bits, col_mask, row_ptr, block_rows, block_cols,
                           fwords, *, n_valid: int, n_blocks: int,
-                          rows_per_group: int | None = None) -> torch.Tensor:
+                          rows_per_group: int | None = None,
+                          tiles_read: torch.Tensor | None = None
+                          ) -> torch.Tensor:
     """Plain torch version of ``bsr_expand_bits``: unpack the bit tiles and
     the frontier to 0/1, ``bsr_spmm_ref``, then pack each group's first
     ``n_valid`` rows with ``pack_bits``.  ``col_mask`` is the kernel's
-    skip hint and is not read."""
-    del col_mask
+    skip hint: the product does not read it, and ``tiles_read`` (where
+    given) counts by it the tiles the kernel would read."""
+    if tiles_read is not None and bits.shape[0]:
+        tiles_read += expand_tiles_read(col_mask, block_cols, fwords)
     s = fwords.shape[1]
     x = unpack_bits(fwords, fwords.shape[0] * 32)
     n_rows_pad = (row_ptr.shape[0] - 1) * DEFAULT_BLOCK
@@ -177,7 +193,8 @@ def bsr_expand_bits(bits: torch.Tensor, col_mask: torch.Tensor,
                     row_ptr: torch.Tensor, block_rows: torch.Tensor,
                     block_cols: torch.Tensor, fwords: torch.Tensor, *,
                     n_valid: int, n_blocks: int,
-                    rows_per_group: int | None = None) -> torch.Tensor:
+                    rows_per_group: int | None = None,
+                    tiles_read: torch.Tensor | None = None) -> torch.Tensor:
     """Packed candidate words of ``(A @ F) > 0`` from one-bit tiles.
 
     bits: ``(K, 128, 4)`` int32 tiles, ``bits[t, c, q]`` bit ``b`` = row
@@ -196,6 +213,11 @@ def bsr_expand_bits(bits: torch.Tensor, col_mask: torch.Tensor,
     a group's output is ``pack_bits(cand[:n_valid], n_blocks)`` — the
     JAX ``ops.frontier_expand_packed``.  Returns ``(groups * n_blocks *
     ceil(seg / 32), S)`` int32 carrying uint32 bits.
+
+    tiles_read: a ``(1,)`` int64 counter on the tiles' device, or None.
+    Where given, the launch adds the tiles it read: those whose column mask
+    meets the OR over the sources of their block column's frontier words
+    (``expand_tiles_read``), each counted once whatever ``S``.
     """
     k = bits.shape[0]
     n_rows_pad = (row_ptr.shape[0] - 1) * DEFAULT_BLOCK
@@ -223,6 +245,12 @@ def bsr_expand_bits(bits: torch.Tensor, col_mask: torch.Tensor,
         raise ValueError(f"{n_rows_pad} rows in groups of {rows_per_group}, "
                          f"{n_valid} valid rows in {n_blocks} segments: "
                          "not a blocked layout")
+    if tiles_read is not None and (
+            tiles_read.dtype != torch.int64 or tiles_read.shape != (1,)
+            or tiles_read.device != bits.device):
+        raise ValueError("tiles_read is a (1,) int64 counter on the tiles' "
+                         f"device (got {tiles_read.dtype} "
+                         f"{tuple(tiles_read.shape)} on {tiles_read.device})")
     s = fwords.shape[1]
     seg = n_valid // n_blocks
     w = packed_words(seg)
@@ -231,7 +259,8 @@ def bsr_expand_bits(bits: torch.Tensor, col_mask: torch.Tensor,
         return bsr_expand_bits_plain(bits, col_mask, row_ptr, block_rows,
                                      block_cols, fwords, n_valid=n_valid,
                                      n_blocks=n_blocks,
-                                     rows_per_group=rows_per_group)
+                                     rows_per_group=rows_per_group,
+                                     tiles_read=tiles_read)
     if k >= 2 ** 31:
         raise ValueError(f"{k} tiles: the kernel numbers tiles in int32")
     dev = _build.require_cuda("bsr_expand_bits", *tensors)
@@ -247,7 +276,9 @@ def bsr_expand_bits(bits: torch.Tensor, col_mask: torch.Tensor,
         _build.launch("bfs_bsr_expand_bits", dev, bits.data_ptr(),
                       col_mask.data_ptr(), block_rows.data_ptr(),
                       block_cols.data_ptr(), fwords.data_ptr(),
-                      out.data_ptr(), front_any.data_ptr(), k,
+                      out.data_ptr(), front_any.data_ptr(),
+                      None if tiles_read is None else tiles_read.data_ptr(),
+                      k,
                       fwords.shape[0], rows_per_group // DEFAULT_BLOCK,
                       n_valid, n_blocks, seg, w, s)
         bsr_expand_bits.launches += 1

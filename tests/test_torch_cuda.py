@@ -328,6 +328,55 @@ def test_bsr_expand_bits_without_tiles_launches_nothing(cuda):
     assert got.shape == (3 * 4, 8) and not bool(got.any())
 
 
+def test_bsr_expand_bits_kernel_counts_the_tiles_it_reads(cuda):
+    """``chip_smoke.py`` path 2's graph (``small_world_100k``, one shard,
+    S = 64, ``use_kernel``): a run under the recorder counts, in the
+    kernel, the plain rule's tiles (``expand_tiles_read``) summed over the
+    levels' frontiers, and K a launch held; on each level's frontier words
+    the count is the plain path's, and a null counter leaves the words
+    bitwise the counted launch's."""
+    from repro_torch.configs import bfs_workload
+    from repro_torch.core import spans
+    from repro_torch.kernels.bsr_spmm.kernel import (DEFAULT_BLOCK,
+                                                     expand_tiles_read)
+
+    w = bfs_workload("small_world_100k")
+    n = w.n_vertices
+    src, dst = generate(w.graph, n, seed=0, **dict(w.gen_kwargs))
+    roots = np.random.default_rng(0).choice(n, 64, replace=False)
+    eng = plan(shard_graph(src, dst, n, 1),
+               BFSOptions(use_kernel=True, wire_format="packed"),
+               num_sources=64).compile()
+    spans.reset()
+    with spans.recording():
+        res = eng.run(roots)
+    counts = spans.snapshot().counters
+    spans.reset()
+    levels = res.run_stats.levels
+    part = eng.plan.graph.part
+    blk = DEFAULT_BLOCK
+    row_pad = -(-part.n // blk) * blk
+    w_out = -(-part.shard_size // blk) * blk // 32
+    layout = dict(n_valid=part.n, n_blocks=1, rows_per_group=row_pad)
+    tiles = eng.kernel_arrays
+    want = 0
+    for lv in range(levels):
+        front = (res.dist[:part.shard_size] == lv).to(torch.uint8)
+        fw = pack_bits(front)
+        fw = torch.nn.functional.pad(fw, (0, 0, 0, w_out - fw.shape[0]))
+        plain = expand_tiles_read(tiles[1], tiles[4], fw)
+        want += plain
+        counter = torch.zeros(1, dtype=torch.int64, device=cuda)
+        got = bsr_expand_bits(*tiles, fw, tiles_read=counter, **layout)
+        assert torch.equal(got, bsr_expand_bits(*tiles, fw, **layout))
+        assert int(counter) == plain
+    k = tiles[0].shape[0]
+    assert levels > 3 and 0 < want < k * levels
+    assert counts[spans.TILES_READ] == want
+    assert counts[spans.TILES_HELD] == k * levels
+    assert counts[spans.EXPAND_LAUNCHES] == levels
+
+
 def test_bsr_expand_bits_refuses_mixed_devices_and_dtypes(cuda):
     gen = torch.Generator(device=cuda).manual_seed(5)
     bits, cmask, rp, rows, cols, fw = _bit_operands(gen, cuda, [0, 1],
