@@ -412,10 +412,11 @@ def make_level_loop(part: Partition1D, s: int, e_total: int,
     ``bfs.level`` span (``core.spans``).
 
     ``edge_rows`` are ``frontier.dense_edge_index`` rows of the out-edge
-    blocks (the default scatter-max expansion); ``expand_fn(frontier,
-    words)`` replaces that expansion (the ``use_kernel`` bit-tile path)
-    and, with ``expand_emits_packed``, hands the packed exchange its words
-    directly.  ``out_edges`` — ``out_edge_state`` of the ``(p, e_cap)``
+    blocks (the scatter-max expansion of a bytes wire);
+    ``expand_fn(frontier, words)`` replaces that expansion
+    (``kernels.expand_dense`` over the out-edge CSR on a packed wire, the
+    ``use_kernel`` bit-tile path) and, with ``expand_emits_packed``, hands
+    the packed exchange its words directly.  ``out_edges`` — ``out_edge_state`` of the ``(p, e_cap)``
     ``src_local`` and ``dst_global`` blocks — feed queue levels and the
     ``auto`` statistics; ``in_rows`` are ``frontier.bottom_up_edge_index``
     rows for the resolved ``bottom_up_wire`` (``auto`` only).  ``fused``

@@ -6,11 +6,13 @@ the dense, queue and ``auto`` modes).
     static-shape derivation: checks options, resolves exchange strategies
     from the registry, fixes the ``LocalMesh`` and the source-batch
     capacity S.  Cheap; pure metadata (``BFSPlan``).
-  * ``BFSPlan.compile()`` — uploads the graph's edge rows (or, under
-    ``use_kernel``, the one-bit blocked adjacency; queue and ``auto``
-    plans also the out-edge blocks, ``auto`` the in-edge rows of the
-    bottom-up levels; a 2-D plan its grid cells' edge blocks) to the
-    device and allocates the ``(n, S)`` dist and frontier buffers once.
+  * ``BFSPlan.compile()`` — uploads the graph's out-edges as a CSR by
+    source on a packed dense wire (``kernels.expand_dense``), as edge rows
+    on a bytes wire (or, under ``use_kernel``, the one-bit blocked
+    adjacency; queue and ``auto`` plans also the out-edge blocks, ``auto``
+    the in-edge rows of the bottom-up levels; a 2-D plan its grid cells'
+    edge blocks) to the device and allocates the ``(n, S)`` dist and
+    frontier buffers once.
   * ``BFSEngine.run(sources)`` — per traversal: sources are injected on
     the device into the reused buffers (the analogue of JAX's donated
     dist buffer), then the level loop runs.
@@ -392,11 +394,13 @@ class BFSPlan:
 
           * ``resident`` — what a compiled engine holds for its lifetime
             and shares with every engine of the graph on the same mesh
-            (``DeviceBlockCache``): the int64 rows of the valid edges
-            (``dense_edge_index``, 16 bytes an edge; a fused packed 2-D
-            expand's ``dense_2d_packed_edge_index``, 28), or under
-            ``use_kernel`` the one-bit tiles (2 KiB a tile) with their
-            column masks, block rows, columns and row pointer; in queue
+            (``DeviceBlockCache``): on a packed 1-D dense wire the out-edge
+            CSR of ``kernels.expand_dense`` (an int32 target an edge and
+            ``shard + 1`` int64 offsets a shard), else the int64 rows of
+            the valid edges (``dense_edge_index``, 16 bytes an edge; a
+            fused packed 2-D expand's ``dense_2d_packed_edge_index``, 28),
+            or under ``use_kernel`` the one-bit tiles (2 KiB a tile) with
+            their column masks, block rows, columns and row pointer; in queue
             and ``auto`` the out-edge state of the padded blocks
             (``out_edge_state``: int64 sources, int32 targets and the
             mask, 13 bytes a slot, and int64 out-degrees); in ``auto``
@@ -409,10 +413,13 @@ class BFSPlan:
             (below) or the build of a block group (int64 index
             temporaries over the padded blocks, under 64 bytes a slot).
 
-        The level transients: the plain dense expansion gathers an
-        ``(E, S)`` uint8 array and scatters into ``(p, n, S)`` candidates,
-        which ``pack_bits`` turns into words through a bool, a padded
-        bool and two int32 copies (10 bytes a candidate all told); a
+        The level transients: ``expand_dense`` ORs into a ``(p * n,
+        ceil(S / 64))`` table of 64-bit masks, beside each source row's
+        masks, and writes the words (with the exchange's copies, under half
+        a byte a candidate); the plain dense expansion of a bytes wire
+        gathers an ``(E, S)`` uint8 array and scatters into ``(p, n, S)``
+        candidates, which ``pack_bits`` turns into words through a bool, a
+        padded bool and two int32 copies (10 bytes a candidate); a
         packed 2-D or bottom-up expansion gathers ``(E, S)`` int32 words
         and a uint8 copy (5 bytes an edge a column); a queue level's
         packing, sort and bucket temporaries over the padded blocks stay
@@ -457,6 +464,12 @@ class BFSPlan:
                 resident = (local * kmax * (blk * blk // 8 + blk // 8 + 8)
                             + 4 * (local * (-(-n // blk)) + 1))
                 dense_t = 10 * local * n * s
+            elif self.dense_strategy.wire == "packed":
+                # expand_dense: its CSR, then a level's mask table, the
+                # sources' masks and the words with the exchange's copies
+                k64 = -(-s // 64)
+                resident = 4 * edges + 8 * (rows + local)
+                dense_t = 8 * k64 * (local * n + rows) + local * n * s // 2
             else:
                 resident = 16 * edges
                 dense_t = edges * s + 10 * local * n * s
@@ -774,13 +787,13 @@ class _BlockGroup:
 class BFSEngine:
     """A compiled traversal: run any number of source sets.
 
-    Holds, for its lifetime, the edge rows of the dense expansion (or,
-    under ``use_kernel``, the one-bit tiles, their column masks, the
-    block-row pointer, the block columns and each tile's block row:
-    ``kernel_arrays``), for queue and ``auto`` plans the out-edge state,
-    for ``auto`` plans the in-edge rows of the bottom-up levels, and the
-    ``(n, S)`` dist and frontier buffers, which every ``run`` reinitializes
-    in place.  A 2-D plan holds its cells' blocks the same way
+    Holds, for its lifetime, the out-edge CSR of the dense expansion (on
+    a bytes wire its edge rows; under ``use_kernel`` the one-bit tiles,
+    their column masks, the block-row pointer, the block columns and each
+    tile's block row: ``kernel_arrays``), for queue and ``auto`` plans the
+    out-edge state, for ``auto`` plans the in-edge rows of the bottom-up
+    levels, and the ``(n, S)`` dist and frontier buffers, which every
+    ``run`` reinitializes in place.  A 2-D plan holds its cells' blocks the same way
     (``_build_2d``).  The blocks are uploaded once per graph, mesh, axis
     and group (``graphs.formats.DeviceBlockCache``), so every engine of a
     ladder shares them, and they free with the last engine holding them.
@@ -927,10 +940,11 @@ class BFSEngine:
         expand_fn, expand_packed, edge_rows = None, False, None
         if opts.use_kernel:
             expand_fn, expand_packed = self._build_kernel_expand(cached)
+        elif plan_.dense_strategy.wire == "packed":
+            expand_fn, expand_packed = self._build_dense_expand(cached), True
         else:
             edge_rows = cached("edges", lambda: fr.dense_edge_index(
                 *blocks(), part.shard_size, part.n))
-        self._edge_rows = edge_rows
         out_edges = in_rows = None
         if opts.mode != "dense":
             # queue levels and the auto statistics read the out-edge
@@ -1029,6 +1043,33 @@ class BFSEngine:
             return fr.unpack_bits(cand, shard, p)     # (local, n, S) uint8
 
         return expand_fn, packed
+
+    def _build_dense_expand(self, cached):
+        """The packed dense level's expansion (``kernels.expand_dense``):
+        the held shards' out-edges as a CSR by source, built on the device
+        once (one group per mesh and axis) from the host blocks a slice at
+        a time, pushed straight to the wire's per-owner-blocked words.
+        Returns ``expand_fn``."""
+        from repro_torch.kernels.expand_dense import edge_csr, expand_dense
+
+        graph = self.plan.graph
+        part = graph.part
+        dev = self.plan.device
+        held = _held(self.plan.mesh)
+        row_ptr, dst = cached("edges_csr", lambda: edge_csr(
+            graph.src_local[held], graph.dst_global[held], part.shard_size,
+            device=dev))
+
+        def expand_fn(frontier, words):             # (local, shard, S)
+            edges_read = None
+            if spans.on():
+                # the recorder counts the launches and the edges pushed
+                edges_read = spans.device_counter(spans.EDGES_READ, dev)
+                spans.count(spans.DENSE_LAUNCHES)
+            return expand_dense(frontier, row_ptr, dst, n=part.n,
+                                n_blocks=part.p, edges_read=edges_read)
+
+        return expand_fn
 
     def settle(self) -> None:
         """Read the host copy of this engine's last result, if that result

@@ -5,8 +5,10 @@ Two frontier representations:
 
   * dense bitmap — a ``(shard, S)`` uint8 mask; top-down expansion
     scatters into a full-length ``(n, S)`` candidate mask, which the owner
-    exchange merges; bottom-up expansion reads the replicated frontier
-    through each shard's in-edges.
+    exchange merges (on the packed 1-D wire the engine runs
+    ``kernels.expand_dense`` instead, straight to the wire's words);
+    bottom-up expansion reads the replicated frontier through each
+    shard's in-edges.
   * sparse queue — the paper's per-destination buffers (``SendBuf_j``): a
     ``(p, cap)`` block of candidate global ids bucketed by owner, with the
     §5.1 local update (candidates a shard owns skip the wire), optional

@@ -35,7 +35,8 @@ while a phase range is open (a queue level's ``bfs.host_read`` runs inside
 
 Counters: ``count(name, k)`` adds on the host while the recorder is on;
 ``device_counter(name, device)`` is a one-element int64 tensor the
-recorder owns, which a kernel adds into (``bsr_expand_bits``' tiles read).
+recorder owns, which a kernel adds into (``bsr_expand_bits``' tiles read,
+``expand_dense``'s edges pushed).
 ``snapshot()`` reads the device counters once and returns the spans and
 counters; nothing is written to a file.  The recorder keeps one pair of
 ``(time.time_ns(), time.perf_counter_ns())`` taken together, so
@@ -80,6 +81,10 @@ TILE_BUILD = "engine.tile_build"
 EXPAND_LAUNCHES = "bsr_expand_bits.launches"
 TILES_HELD = "bsr_expand_bits.tiles_held"
 TILES_READ = "bsr_expand_bits.tiles_read"
+#: ``expand_dense`` launches and out-edges pushed (the kernel's own count)
+#: while the recorder is on
+DENSE_LAUNCHES = "expand_dense.launches"
+EDGES_READ = "expand_dense.edges_read"
 
 #: the ranges a device op is given to; no other span opens a profiler
 #: range inside one of them

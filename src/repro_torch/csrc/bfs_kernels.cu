@@ -835,6 +835,227 @@ bsr_expand_bits_kernel(const uint4* __restrict__ bits,
     atomicAdd(tiles_read, (unsigned long long)sh.listed);
 }
 
+// ---------------------------------------------------------------------------
+// expand_dense: the default engine's top-down expansion of a 1-D dense level
+// on the packed wire.  It replaces no Pallas kernel: the JAX expansion is
+// XLA's gather of an (E, S) byte array and its scatter-max
+// (src/repro/core/frontier.py expand_dense), followed by pack_bits.
+//
+// Inputs: the stacked shards' frontier, (rows, S) uint8 with rows = g *
+// shard; the out-edge CSR by source, row_ptr (rows + 1) int64 and each
+// edge's global target dst (E) int32 (kernels/expand_dense.py edge_csr).
+// Output: each shard's candidates, (g, n) rows of S bits, as the words of
+// pack_bits(cand, n_blocks): bit i of word (b * W + i / 32, s) is row
+// b * m + i of column s, m = n / n_blocks, W = ceil(m / 32); pad bits zero.
+//
+// Bound on the H100: memory.  A level reads each source's S frontier bytes
+// once and, for the sources in some column's frontier, their int32 targets;
+// it ORs a 64-bit mask into an (g * n, ceil(S / 64)) table per such edge
+// and writes the table out as words.  At scale 20 (S = 64) that is about
+// 0.3 GB where the gather and scatter-max move several.  Design, four steps
+// on the caller's stream:
+//   * the table is zeroed (cudaMemsetAsync);
+//   * dense_mask_kernel folds each source row's S bytes into ceil(S / 64)
+//     64-bit masks, one thread a (row, mask), 16-byte loads where S allows;
+//   * chunk_rows_kernel finds the first source of each fixed chunk of
+//     `chunk` edges (a binary search of row_ptr a chunk);
+//   * expand_dense_kernel pushes.  A persistent grid of warps walks the
+//     chunks in turn, so an rmat hub's thousands of edges are split over
+//     many warps and no warp owns a whole adjacency.  From its chunk's
+//     first source a warp holds the ends and masks of 32 consecutive
+//     sources, one a lane: it skips every run of sources
+//     whose masks are zero, with their edges, and works the rest 32 edges
+//     at a time, each lane finding its edge's source among the 32 by a
+//     binary search over the lanes (shuffles).  A lane reads its target and
+//     ORs each nonzero mask word into the target's table row with
+//     atomicOr.  OR is exact, idempotent and order-free and the table
+//     starts at zero, so the result is bitwise the scatter-max's (a max of
+//     0/1 is an OR) on every run;
+//   * dense_pack_kernel writes the table out as the wire's words: a warp
+//     reads 32 consecutive rows' 64-bit words (one coalesced load) and
+//     transposes them as two 32 x 32 bit matrices (five shuffle steps
+//     each), so lane c holds column c's word, stored coalesced.
+// edges_read, where not null, gains the edges pushed (sources with some
+// nonzero mask word): one atomicAdd a CTA.
+// ---------------------------------------------------------------------------
+// 8 bytes -> 8 bits, bit i set iff byte i is nonzero
+__device__ __forceinline__ uint32_t nonzero_bytes(uint64_t x) {
+  const uint64_t lo7 = 0x7f7f7f7f7f7f7f7fULL;
+  const uint64_t t = (((x & lo7) + lo7) | x) & 0x8080808080808080ULL;
+  return (uint32_t)(((t >> 7) * 0x0102040810204080ULL) >> 56);
+}
+
+__global__ void __launch_bounds__(kThreads)
+dense_mask_kernel(const uint8_t* __restrict__ frontier,
+                  uint64_t* __restrict__ fmask, int64_t rows, int64_t s,
+                  int64_t k64, int vec) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= rows * k64) return;
+  const int64_t r = t / k64;
+  const int64_t c0 = (t - r * k64) * 64;
+  const int64_t len = s - c0 < 64 ? s - c0 : 64;
+  const uint8_t* p = frontier + r * s + c0;
+  uint64_t m = 0;
+  if (vec) {                                // S % 16 == 0, 16-byte aligned
+    for (int q = 0; q < len / 16; ++q) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[q];
+      const uint64_t a = ((uint64_t)v.y << 32) | v.x;
+      const uint64_t b = ((uint64_t)v.w << 32) | v.z;
+      m |= (uint64_t)(nonzero_bytes(a) | nonzero_bytes(b) << 8) << (16 * q);
+    }
+  } else {
+    for (int i = 0; i < len; ++i) m |= (uint64_t)(p[i] != 0) << i;
+  }
+  fmask[t] = m;
+}
+
+// chunk_rows[c]: the source row v with row_ptr[v] <= c * chunk < row_ptr[v + 1]
+__global__ void __launch_bounds__(kThreads)
+chunk_rows_kernel(const int64_t* __restrict__ row_ptr,
+                  int64_t* __restrict__ chunk_rows, int64_t rows,
+                  int64_t n_chunks, int64_t chunk) {
+  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= n_chunks) return;
+  const int64_t e = c * chunk;
+  int64_t lo = 0, hi = rows;                // row_ptr[lo] <= e < row_ptr[hi]
+  while (hi - lo > 1) {
+    const int64_t mid = lo + (hi - lo) / 2;
+    if (row_ptr[mid] <= e) lo = mid;
+    else hi = mid;
+  }
+  chunk_rows[c] = lo;
+}
+
+__global__ void __launch_bounds__(kThreads)
+expand_dense_kernel(const int64_t* __restrict__ row_ptr,
+                    const int32_t* __restrict__ dst,
+                    const uint64_t* __restrict__ fmask,
+                    unsigned long long* __restrict__ table,
+                    const int64_t* __restrict__ chunk_rows,
+                    unsigned long long* __restrict__ edges_read, int64_t rows,
+                    int64_t shard, int64_t n, int64_t k64, int64_t n_edges,
+                    int64_t chunk) {
+  constexpr unsigned kAll = 0xffffffffu;
+  __shared__ unsigned long long cta_edges;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) cta_edges = 0;
+  __syncthreads();
+  unsigned long long pushed = 0;
+  const int64_t warps = (int64_t)gridDim.x * (blockDim.x / 32);
+  const int64_t n_chunks = (n_edges + chunk - 1) / chunk;
+  for (int64_t c = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+       c < n_chunks; c += warps) {
+    int64_t e = c * chunk;
+    const int64_t c1 = e + chunk < n_edges ? e + chunk : n_edges;
+    int64_t v = chunk_rows[c];              // row_ptr[v] <= e < row_ptr[v + 1]
+    while (e < c1) {
+      // lane j: source row v + j, its end and its masks' first word
+      const int64_t r = v + lane;
+      int64_t end = INT64_MAX;
+      uint64_t m0 = 0;
+      bool act = false;
+      if (r < rows) {
+        end = row_ptr[r + 1];
+        const uint64_t* fm = fmask + r * k64;
+        m0 = fm[0];
+        act = m0 != 0;
+        for (int64_t w = 1; w < k64 && !act; ++w) act = fm[w] != 0;
+      }
+      const int64_t last = __shfl_sync(kAll, end, 31);
+      const unsigned live = __ballot_sync(kAll, act && end > e);
+      if (!live) {                          // no source here is in a frontier
+        if (last >= c1) break;
+        e = last;
+        v += 32;
+        continue;
+      }
+      const int first = __ffs(live) - 1;
+      if (first > 0) {                      // skip to the first live source
+        const int64_t start = __shfl_sync(kAll, end, first - 1);
+        if (start >= c1) break;
+        e = start > e ? start : e;
+        v += first;
+        continue;
+      }
+      // edges [e, lim) all leave sources v .. v + 31
+      int64_t lim = e + 32 < c1 ? e + 32 : c1;
+      lim = lim < last ? lim : last;
+      const int64_t ei = e + lane;
+      int k = 0;                            // lanes whose source ends <= ei
+#pragma unroll
+      for (int step = 16; step > 0; step >>= 1)
+        if (__shfl_sync(kAll, end, k + step - 1) <= ei) k += step;
+      const uint64_t mask = __shfl_sync(kAll, m0, k);
+      const bool on = __shfl_sync(kAll, (int)act, k);
+      if (ei < lim && on) {
+        const int64_t src = v + k;
+        unsigned long long* row =
+            table + ((src / shard) * n + dst[ei]) * k64;
+        // a read first: bits are only ever set, so a row that already
+        // holds the mask needs no atomic (the widest levels repeat most)
+        if (mask && (__ldcg(row) & mask) != mask)
+          atomicOr(row, (unsigned long long)mask);
+        for (int64_t w = 1; w < k64; ++w) {
+          const uint64_t mw = fmask[src * k64 + w];
+          if (mw && (__ldcg(row + w) & mw) != mw)
+            atomicOr(row + w, (unsigned long long)mw);
+        }
+        ++pushed;
+      }
+      v += __popc(__ballot_sync(kAll, end <= lim));
+      e = lim;
+    }
+  }
+  if (edges_read != nullptr) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      pushed += __shfl_down_sync(kAll, pushed, off);
+    if (lane == 0 && pushed) atomicAdd(&cta_edges, pushed);
+    __syncthreads();
+    if (threadIdx.x == 0 && cta_edges) atomicAdd(edges_read, cta_edges);
+  }
+}
+
+// transpose the 32 x 32 bit matrix a warp holds, a row a lane (bit c of
+// lane r's word = entry (r, c)): lane c gets column c (bit r = entry (r, c))
+__device__ __forceinline__ uint32_t transpose32(uint32_t x, int lane) {
+  constexpr uint32_t kLow[5] = {0x55555555u, 0x33333333u, 0x0f0f0f0fu,
+                                0x00ff00ffu, 0x0000ffffu};
+#pragma unroll
+  for (int i = 4; i >= 0; --i) {
+    const int j = 1 << i;
+    const uint32_t m = kLow[i];             // the columns c with c & j == 0
+    const uint32_t y = __shfl_xor_sync(0xffffffffu, x, j);
+    x = (lane & j) ? (x & ~m) | ((y & ~m) >> j) : (x & m) | ((y & m) << j);
+  }
+  return x;
+}
+
+// a warp an output word row (32 table rows): each 64-bit table word is
+// two 32 x 32 bit matrices, transposed so that lane c holds column c's word
+__global__ void __launch_bounds__(kThreads)
+dense_pack_kernel(const uint64_t* __restrict__ table,
+                  uint32_t* __restrict__ out, int64_t g, int64_t n,
+                  int64_t n_blocks, int64_t w, int64_t s, int64_t k64) {
+  const int lane = threadIdx.x & 31;
+  const int64_t item = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  if (item >= g * n_blocks * w) return;     // whole warps
+  const int64_t wi = item % w;              // item = (shard * n_blocks + b)
+  const int64_t gb = item / w;              //        * w + wi
+  const int64_t m = n / n_blocks;
+  const int64_t row0 = (gb / n_blocks) * n + (gb % n_blocks) * m + wi * 32;
+  const bool in = wi * 32 + lane < m;       // a block's pad rows read 0
+  uint32_t* o = out + item * s;
+  for (int64_t kw = 0; kw < k64; ++kw) {
+    const uint64_t v = in ? table[(row0 + lane) * k64 + kw] : 0;
+    const uint32_t lo = transpose32((uint32_t)v, lane);
+    const uint32_t hi = transpose32((uint32_t)(v >> 32), lane);
+    const int64_t c = kw * 64 + lane;
+    if (c < s) o[c] = lo;
+    if (c + 32 < s) o[c + 32] = hi;
+  }
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*,
@@ -970,6 +1191,50 @@ int bfs_bsr_expand_bits(const void* bits, const void* col_mask,
       (const uint32_t*)fwords, (const uint4*)front_any, (uint32_t*)out,
       (unsigned long long*)tiles_read, k, group_block_rows, n_valid, n_blocks,
       seg, w, s);
+  return (int)cudaGetLastError();
+}
+
+// The dense level's expansion to packed words (expand_dense): zero the
+// table, fold the frontier into masks, find the chunks' first sources,
+// push, pack.  fmask ((g * shard) * ceil(s / 64) words), table ((g * n) *
+// ceil(s / 64) words) and chunk_rows (ceil(n_edges / chunk) words) are
+// scratch, edges_read a counter or null.
+int bfs_expand_dense(const void* frontier, const void* row_ptr,
+                     const void* dst, void* fmask, void* table,
+                     void* chunk_rows, void* out, void* edges_read,
+                     long long g, long long shard, long long n,
+                     long long n_blocks, long long n_edges, long long chunk,
+                     long long s, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long rows = g * shard, k64 = (s + 63) / 64;
+  const long long w = (n / n_blocks + 31) / 32;
+  cudaError_t err = cudaMemsetAsync(table, 0, (size_t)(g * n * k64) * 8, st);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = s % 16 == 0 && (uintptr_t)frontier % 16 == 0;
+  if (rows > 0) {
+    dense_mask_kernel<<<grid_for(rows * k64), kThreads, 0, st>>>(
+        (const uint8_t*)frontier, (uint64_t*)fmask, rows, s, k64, vec);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (n_edges > 0) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const long long n_chunks = (n_edges + chunk - 1) / chunk;
+    chunk_rows_kernel<<<grid_for(n_chunks), kThreads, 0, st>>>(
+        (const int64_t*)row_ptr, (int64_t*)chunk_rows, rows, n_chunks, chunk);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    long long ctas = (long long)sms * (2048 / kThreads);
+    const long long enough = (n_chunks + kThreads / 32 - 1) / (kThreads / 32);
+    if (ctas > enough) ctas = enough;
+    expand_dense_kernel<<<(unsigned int)ctas, kThreads, 0, st>>>(
+        (const int64_t*)row_ptr, (const int32_t*)dst, (const uint64_t*)fmask,
+        (unsigned long long*)table, (const int64_t*)chunk_rows,
+        (unsigned long long*)edges_read, rows, shard, n, k64, n_edges, chunk);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  dense_pack_kernel<<<grid_for(g * n_blocks * w * 32), kThreads, 0, st>>>(
+      (const uint64_t*)table, (uint32_t*)out, g, n, n_blocks, w, s, k64);
   return (int)cudaGetLastError();
 }
 

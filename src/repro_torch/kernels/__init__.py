@@ -13,4 +13,9 @@ launches in an integer attribute, ``<wrapper>.launches``.
      attention forward (the LM prefill)
   A5 ``embedding_bag.kernel.embedding_bag_sum`` — sum-mode EmbeddingBag
      (the recsys lookup op)
+
+and one with no TPU counterpart:
+
+  ``expand_dense.expand_dense`` — the 1-D dense level's edge-list
+     expansion straight to the packed wire's words (the default engine's)
 """

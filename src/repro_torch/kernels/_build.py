@@ -42,6 +42,9 @@ _SIGNATURES = {
     # tiles_read (or null), k, n_fwords, group_block_rows, n_valid,
     # n_blocks, seg, w, s, stream
     "bfs_bsr_expand_bits": [_P] * 8 + [_N] * 8 + [_P],
+    # frontier, row_ptr, dst, fmask, table, chunk_rows, out, edges_read (or
+    # null), g, shard, n, n_blocks, n_edges, chunk, s, stream
+    "bfs_expand_dense": [_P] * 8 + [_N] * 7 + [_P],
     # q, k_hi, k_lo, vt, vt_lo, o, b, hq, hkv, sq, skv, skv_pad, dh, causal,
     # window, scale, stream (k_hi, k_lo, vt, vt_lo: the pre-pass's scratch)
     "attn_flash_fwd_f32": [_P] * 6 + [_N] * 7 + [_I, _N, _F, _P],

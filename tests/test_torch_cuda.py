@@ -27,6 +27,8 @@ from repro_torch.kernels.bsr_spmm.kernel import (bitpack_words,
                                                  bsr_spmm)
 from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref
 from repro_torch.kernels.embedding_bag import ops as bag_ops
+from repro_torch.kernels.expand_dense import (edge_csr, expand_dense,
+                                              expand_dense_plain)
 from repro_torch.kernels.embedding_bag.kernel import (_launch, bag_geometry,
                                                       embedding_bag_sum,
                                                       embedding_bag_sum_plain,
@@ -416,6 +418,89 @@ def test_engine_use_kernel_launches_the_bit_expansion_each_level(cuda):
                                       bfs_reference(src, dst, n, roots))
         assert bsr_spmm.launches == a2
         assert bsr_expand_bits.launches == bx + res.run_stats.levels
+
+
+def _dense_operands(cuda, p: int, s: int, kind: str, seed: int):
+    """An rmat graph of 3,001 vertices with a 5,000-edge source hub and a
+    5,000-edge target hub (both past many 512-edge chunks), 200 isolated
+    ids in the middle and padding vertices; its CSR and a frontier
+    (``kind``: random, empty or full) on the card."""
+    rng = np.random.default_rng(seed)
+    n = 3001
+    src, dst = generate("rmat", n, seed=seed, edge_factor=8)
+    keep = ~(((src >= 1000) & (src < 1200)) | ((dst >= 1000) & (dst < 1200)))
+    hub = rng.integers(0, n, 5000)
+    src = np.concatenate([src[keep], np.full(5000, 9), hub]).astype(np.int32)
+    dst = np.concatenate([dst[keep], hub, np.full(5000, 4)]).astype(np.int32)
+    g = shard_graph(src, dst, n, p)
+    shard = g.part.shard_size
+    if kind == "random":
+        f = (rng.random((p, shard, s)) < 0.05).astype(np.uint8)
+        f.reshape(-1, s)[9, ::2] = 1
+    else:
+        f = np.full((p, shard, s), kind == "full", np.uint8)
+    f.reshape(-1, s)[n:] = 0
+    row_ptr, dsts = edge_csr(torch.from_numpy(g.src_local).to(cuda),
+                             torch.from_numpy(g.dst_global).to(cuda), shard)
+    return g, torch.from_numpy(f).to(cuda), row_ptr, dsts
+
+
+@pytest.mark.parametrize("kind", ["random", "empty", "full"])
+@pytest.mark.parametrize("p", [1, 4])
+@pytest.mark.parametrize("s", [1, 3, 48, 64, 100, 130])
+def test_expand_dense_kernel_matches_plain(cuda, p, s, kind):
+    """Bitwise the plain version's words and edge count, on the 16-byte
+    mask path (S = 48, 64) and the byte path, one or several 64-bit masks
+    a source, with hubs split over chunks and runs of isolated ids."""
+    g, f, row_ptr, dst = _dense_operands(cuda, p, s, kind, seed=p + s)
+    layout = dict(n=g.part.n, n_blocks=p)
+    counter = torch.zeros(1, dtype=torch.int64, device=cuda)
+    before = expand_dense.launches
+    got = expand_dense(f, row_ptr, dst, edges_read=counter, **layout)
+    torch.cuda.synchronize()
+    assert expand_dense.launches == before + 1
+    want_count = torch.zeros(1, dtype=torch.int64)
+    want = expand_dense_plain(f.cpu(), row_ptr.cpu(), dst.cpu(),
+                              edges_read=want_count, **layout)
+    assert torch.equal(got.cpu(), want)
+    assert int(counter) == int(want_count)
+    assert bool(want.any()) == (kind != "empty")
+    # no stale table: a second launch on an empty frontier writes zeros
+    zero = expand_dense(torch.zeros_like(f), row_ptr, dst, **layout)
+    assert not bool(zero.any())
+
+
+def test_expand_dense_refuses_mixed_devices(cuda):
+    g, f, row_ptr, dst = _dense_operands(cuda, 4, 8, "random", seed=1)
+    layout = dict(n=g.part.n, n_blocks=4)
+    with pytest.raises(ValueError, match="tensors on"):
+        expand_dense(f, row_ptr.cpu(), dst, **layout)
+    with pytest.raises(ValueError, match="contiguous"):
+        expand_dense(torch.cat([f, f], dim=2)[..., ::2], row_ptr, dst,
+                     **layout)
+    with pytest.raises(ValueError, match="counter"):
+        expand_dense(f, row_ptr, dst, **layout,
+                     edges_read=torch.zeros(1, dtype=torch.int64))
+
+
+def test_engine_default_launches_expand_dense_each_dense_level(cuda):
+    """Default options on a packed wire (p = 4, and ``auto``) expand every
+    dense level with expand_dense; a bytes wire never launches it."""
+    n = 1001
+    src, dst = generate("rmat", n, seed=4)
+    roots = [0, 5, 77, 1000]
+    want = bfs_reference(src, dst, n, roots)
+    for p, opts, engaged in ((4, BFSOptions(), True),
+                             (4, BFSOptions(mode="auto"), True),
+                             (2, BFSOptions(wire_format="packed"), True),
+                             (4, BFSOptions(wire_format="bytes"), False)):
+        eng = plan(shard_graph(src, dst, n, p), opts,
+                   num_sources=4).compile()
+        before = expand_dense.launches
+        res = eng.run(roots)
+        np.testing.assert_array_equal(res.dist_host, want)
+        dense = res.stats().mode_counts["dense"]
+        assert expand_dense.launches == before + (dense if engaged else 0)
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):

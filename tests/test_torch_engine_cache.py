@@ -407,7 +407,7 @@ def test_a_to_2d_view_shares_its_parents_block_map():
     assert g2.__dict__["_device_blocks"] is g.__dict__["_device_blocks"]
     e2 = plan(g2, BFSOptions(), mesh=LocalMesh.grid(2, 2, "cpu")).compile()
     names = sorted(k[2] for k in g.__dict__["_device_blocks"].map)
-    assert names == ["edges", "edges_2d:packed", "valid", "valid_2d"]
+    assert names == ["edges_2d:packed", "edges_csr", "valid", "valid_2d"]
     del e1, e2
     gc.collect()
     assert len(g.__dict__["_device_blocks"]) == 0

@@ -1,6 +1,7 @@
-"""Kernels A1-A3 and the engine's bit-tile expansion (``bsr_expand_bits``):
-their plain torch versions bitwise against the JAX kernels on the CPU,
-and the wrappers' dispatch and checks.  The
+"""Kernels A1-A3, the engine's bit-tile expansion (``bsr_expand_bits``)
+and its default edge-list expansion (``expand_dense``): their plain torch
+versions bitwise against the JAX kernels (or the JAX expansion) on the
+CPU, and the wrappers' dispatch and checks.  The
 CUDA kernels themselves are held to the plain versions on the card by
 tests/test_torch_cuda.py."""
 
@@ -9,18 +10,25 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.frontier import expand_dense as j_expand_dense
 from repro.core.frontier import pack_bits as j_pack_bits
 from repro.kernels.bsr_spmm import ops as j_ops
 from repro.kernels.bsr_spmm.kernel import bitpack_words as j_bitpack_words
 from repro.kernels.bsr_spmm.ref import bsr_spmm_ref as j_bsr_spmm_ref
 from repro.kernels.fold_update import fold_update as j_fold_update
-from repro_torch.core.frontier import INF, pack_bits, packed_words
+from repro_torch.core import BFSOptions, plan, spans
+from repro_torch.core.frontier import (INF, dense_edge_index,
+                                       expand_dense_edges, pack_bits,
+                                       packed_words)
+from repro_torch.graphs import shard_graph
 from repro_torch.kernels.bsr_spmm import ops
 from repro_torch.kernels.bsr_spmm.kernel import (bitpack_words,
                                                  bitpack_words_plain,
                                                  block_row_ptr,
                                                  bsr_expand_bits, bsr_spmm)
 from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref, unpack_bit_tiles
+from repro_torch.kernels.expand_dense import (edge_csr, expand_dense,
+                                              expand_dense_plain)
 from repro_torch.kernels.fold_update import fold_update
 
 # tiny shapes: one intra-op thread, so parallel test workers do not
@@ -318,3 +326,154 @@ def test_bsr_expand_bits_checks_inputs():
                 dict(n_valid=256, n_blocks=1, rows_per_group=192)):
         with pytest.raises(ValueError, match="blocked layout"):
             bsr_expand_bits(bits, cmask, rp, tr, tc, fw, **bad)
+
+
+# ---------------------------------------------------------------------------
+# expand_dense: the default engine's edge-list expansion
+# ---------------------------------------------------------------------------
+
+def _hub_graph(p: int, seed: int = 0):
+    """601 vertices (padding vertices at p = 4), the last 50 isolated; a
+    hub with 300 out-edges (vertex 5) and one with 300 in-edges (vertex
+    7); the shards' padded blocks carry padding edges."""
+    rng = np.random.default_rng(seed)
+    n_logical, live = 601, 551
+    src = [rng.integers(0, live, 1500), np.full(300, 5),
+           rng.choice(live, 300, replace=False)]
+    dst = [rng.integers(0, live, 1500), rng.choice(live, 300, replace=False),
+           np.full(300, 7)]
+    g = shard_graph(np.concatenate(src).astype(np.int32),
+                    np.concatenate(dst).astype(np.int32), n_logical, p)
+    assert (g.dst_global < 0).any()                  # padding edges
+    return g
+
+
+def _frontier(rng, kind: str, p: int, shard: int, s: int, n_logical: int):
+    if kind == "empty":
+        f = np.zeros((p, shard, s), np.uint8)
+    elif kind == "full":
+        f = np.ones((p, shard, s), np.uint8)
+    else:                  # random, with the two hubs in some columns
+        f = (rng.random((p, shard, s)) < 0.1).astype(np.uint8)
+        f.reshape(-1, s)[5, ::2] = 1
+        f.reshape(-1, s)[rng.integers(0, n_logical, 8), 1::3] = 1
+    f.reshape(-1, s)[n_logical:] = 0                 # padding vertices
+    return f
+
+
+@pytest.mark.parametrize("kind", ["random", "empty", "full"])
+@pytest.mark.parametrize("p", [1, 4])
+@pytest.mark.parametrize("s", [1, 3, 64, 100])
+def test_expand_dense_plain_bitwise_vs_jax(kind, p, s):
+    """The CSR and the dispatcher's plain version: bitwise the gather and
+    scatter-max over ``dense_edge_index`` rows and JAX's expansion, each
+    packed per owner block; the edges-read count is the out-degree of the
+    sources in some column's frontier."""
+    g = _hub_graph(p)
+    shard, n = g.part.shard_size, g.part.n
+    f = _frontier(np.random.default_rng(s), kind, p, shard, s,
+                  g.part.n_logical)
+    src_l, dst_g = torch.from_numpy(g.src_local), torch.from_numpy(g.dst_global)
+    row_ptr, dst = edge_csr(src_l, dst_g, shard)
+    # the CSR: each shard's valid edges stably sorted by source
+    for j in range(p):
+        valid = g.dst_global[j] >= 0
+        order = np.argsort(g.src_local[j][valid], kind="stable")
+        lo, hi = int(row_ptr[j * shard]), int(row_ptr[(j + 1) * shard])
+        np.testing.assert_array_equal(dst[lo:hi].numpy(),
+                                      g.dst_global[j][valid][order])
+        np.testing.assert_array_equal(
+            row_ptr[j * shard:(j + 1) * shard + 1].diff().numpy(),
+            np.bincount(g.src_local[j][valid], minlength=shard))
+    assert row_ptr.dtype == torch.int64 and dst.dtype == torch.int32
+    counter = torch.zeros(1, dtype=torch.int64)
+    ft = torch.from_numpy(f)
+    got = expand_dense(ft, row_ptr, dst, n=n, n_blocks=p, edges_read=counter)
+    assert got.shape == (p, p * packed_words(shard), s)
+    rows = dense_edge_index(src_l, dst_g, shard, n)
+    plain = pack_bits(expand_dense_edges(ft.reshape(p * shard, s), *rows,
+                                         p * n).view(p, n, s), n_blocks=p)
+    assert torch.equal(got, plain)
+    want = np.stack([np.asarray(j_pack_bits(j_expand_dense(
+        jnp.asarray(f[j]), jnp.asarray(g.src_local[j]),
+        jnp.asarray(g.dst_global[j]), n), n_blocks=p)) for j in range(p)])
+    np.testing.assert_array_equal(_u32(got), want)
+    active = f.reshape(p, shard, s).any(-1)
+    valid = g.dst_global >= 0
+    pushed = sum(int(active[j][g.src_local[j][valid[j]]].sum())
+                 for j in range(p))
+    assert int(counter) == pushed
+    if kind == "empty":
+        assert not got.any() and pushed == 0
+    if kind == "full":
+        assert pushed == int(valid.sum())
+
+
+@pytest.mark.parametrize("slice_edges", [1, 37, 1 << 24])
+def test_edge_csr_is_the_same_in_any_slices_from_host_blocks(
+        monkeypatch, slice_edges):
+    """Host (numpy) blocks moved and sorted a slice at a time give the CSR
+    of the whole tensors sorted at once."""
+    import repro_torch.kernels.expand_dense as ed
+
+    g = _hub_graph(4, seed=5)
+    shard = g.part.shard_size
+    want = ed.edge_csr(torch.from_numpy(g.src_local),
+                       torch.from_numpy(g.dst_global), shard)
+    monkeypatch.setattr(ed, "EDGE_SLICE", slice_edges)
+    got = ed.edge_csr(g.src_local, g.dst_global, shard, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_expand_dense_checks_inputs():
+    g = _hub_graph(4)
+    shard, n = g.part.shard_size, g.part.n
+    row_ptr, dst = edge_csr(torch.from_numpy(g.src_local),
+                            torch.from_numpy(g.dst_global), shard)
+    f = torch.zeros((4, shard, 2), dtype=torch.uint8)
+    ok = dict(n=n, n_blocks=4)
+    assert expand_dense(f, row_ptr, dst, **ok).shape == (
+        4, 4 * packed_words(shard), 2)
+    with pytest.raises(ValueError, match="uint8"):
+        expand_dense(f.int(), row_ptr, dst, **ok)
+    with pytest.raises(ValueError, match="int64 row_ptr"):
+        expand_dense(f, row_ptr.int(), dst, **ok)
+    with pytest.raises(ValueError, match="int32 targets"):
+        expand_dense(f, row_ptr, dst.long(), **ok)
+    with pytest.raises(ValueError, match="not .shards, shard, S."):
+        expand_dense(f[0], row_ptr, dst, **ok)
+    with pytest.raises(ValueError, match="CSR"):
+        expand_dense(f[:3], row_ptr, dst, **ok)
+    with pytest.raises(ValueError, match="CSR"):
+        expand_dense(f, row_ptr, dst[None], **ok)
+    with pytest.raises(ValueError, match="blocks"):
+        expand_dense(f, row_ptr, dst, n=n, n_blocks=3)
+    with pytest.raises(ValueError, match="blocks"):
+        expand_dense(f, row_ptr, dst, n=n, n_blocks=0)
+    for bad in (torch.zeros(1, dtype=torch.int32),
+                torch.zeros(2, dtype=torch.int64)):
+        with pytest.raises(ValueError, match="counter"):
+            expand_dense(f, row_ptr, dst, edges_read=bad, **ok)
+    with pytest.raises(ValueError, match="uint8"):
+        expand_dense_plain(f.bool(), row_ptr, dst, **ok)
+
+
+@pytest.mark.parametrize("opts,engaged", [
+    (BFSOptions(), True), (BFSOptions(mode="auto"), True),
+    (BFSOptions(wire_format="bytes"), False),
+    (BFSOptions(use_kernel=True), False)])
+def test_engine_routes_dense_levels_through_expand_dense(opts, engaged):
+    """The packed 1-D dense wire expands every dense level with
+    ``expand_dense`` (the recorder's launch count equals the dense
+    levels, its edge count the out-edges of each level's frontier); the
+    bytes wire and ``use_kernel`` never do."""
+    g = _hub_graph(4, seed=3)
+    eng = plan(g, opts, num_sources=3, device="cpu").compile()
+    spans.reset()
+    with spans.recording():
+        res = eng.run([5, 7, 100])
+        counts = spans.snapshot().counters
+    dense = res.stats().mode_counts["dense"]
+    assert dense > 0
+    assert counts.get(spans.DENSE_LAUNCHES, 0) == (dense if engaged else 0)
+    assert (counts.get(spans.EDGES_READ, 0) > 0) == engaged
