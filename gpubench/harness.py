@@ -51,8 +51,11 @@ class Run:
     batches: list = field(default_factory=list)    # the window's Batch list
     window_s: float = 0.0
     peak_bytes: int = 0
+    device: object = "cpu"     # where the run's tensors live
     traced: list = field(default_factory=list)     # per traced batch: the
     # OR over the roots of each level's frontier, bool (n,) on the device
+    traced_roots: list = field(default_factory=list)   # each traced batch's
+    # roots, as the pool holds them
     trace: tracing.Trace | None = None
     first_untraced: int = 0    # index of the first batch outside the trace
 
@@ -163,7 +166,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
 
     graph, generated = graph500.load(
         config, cache_dir or root / HERE.name / ".cache", device)
-    run = Run(config=config, traffic=traffic, graph=graph)
+    run = Run(config=config, traffic=traffic, graph=graph, device=device)
     if cuda:
         torch.zeros(1, device=device)      # the allocator exists from here
         torch.cuda.reset_peak_memory_stats(device)
@@ -252,6 +255,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         # frontier, OR-ed over the roots, for the byte counts
         run.traced = [_level_frontiers(eng, roots, graph.n)
                       for roots in traced_roots]
+        run.traced_roots = traced_roots
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "trace.json")
             prof.export_chrome_trace(path)

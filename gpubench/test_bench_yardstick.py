@@ -1,17 +1,20 @@
 """CPU tests of the benchmark's yardstick: the generator, the TEPS count,
-the plain reference BFS, the byte counts of the kernels and the trace
-reading, each against a hand count or the port it was copied from."""
+the plain reference BFS, the byte counts of the kernels, A1's reader and
+the trace reading, each against a hand count or the port it was copied
+from."""
 
 from __future__ import annotations
 
 import json
 from collections import deque
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-from gpubench import graph500, tracing, yardstick
+from gpubench import graph500, harness, tracing, yardstick
 from gpubench.reference import bfs as reference
 
 INF = reference.INF
@@ -98,12 +101,96 @@ def test_the_reference_bfs_matches_a_hand_count(graph):
 
 
 def test_fold_update_bytes_by_hand():
-    # 4 shards of 100 rows, 8 sources: 4 words a shard (ceil(100 / 32))
-    words_rw = 2 * 4 * 8 * 4            # merged words read, new words written
-    dist_rw = 2 * 100 * 8 * 4           # dist read and written
-    mask = 100 * 8
-    assert yardstick.fold_update_bytes(4, 100, 8) == 4 * (words_rw + dist_rw
-                                                          + mask)
+    # two shards of 3 rows (one word each), roots 0 and 3 over the paths
+    # 0-1-2 and 3-4; vertex 5 has no edge, so no root reaches it
+    src, dst = undirected([(0, 1), (1, 2), (3, 4)])
+    n, p, roots = 6, 2, [0, 3]
+    shard = yardstick.partition(n, p)["shard"]
+    assert shard == 3 and yardstick.words(shard) == 1
+    labels = graph500.component_labels(src, dst, n)
+    reached = yardstick.reached_pairs(labels, roots)
+    assert reached == 2 + 1               # 1 and 2 from root 0, 4 from 3
+    dist = reference.bfs(src, dst, n, roots)
+    assert (dist[5] == INF).all()
+    assert reached == int((dist < INF).sum()) - len(roots)
+    levels = 3               # root 0's levels 1 and 2, then an empty one
+    candidates = visited = next_words = p * 1 * 2 * 4
+    want = levels * (candidates + visited + next_words) + 4 * reached
+    assert yardstick.fold_update_bytes(p, shard, 2, levels, reached) == want
+    assert want == 3 * 48 + 12
+    # vertex 5 linked to 2 joins root 0's component: one pair, 4 bytes more
+    src5, dst5 = undirected([(0, 1), (1, 2), (3, 4), (2, 5)])
+    more = yardstick.reached_pairs(
+        graph500.component_labels(src5, dst5, n), roots)
+    assert yardstick.fold_update_bytes(p, shard, 2, levels, more) == want + 4
+
+
+def test_reached_pairs_are_the_reference_bfs_reached_pairs():
+    n = 1 << 9
+    src, dst = graph500.rmat(9, edge_factor=2, seed=5)
+    labels = graph500.component_labels(src, dst, n)
+    pool = np.flatnonzero(np.bincount(src, minlength=n))
+    roots = np.random.default_rng(0).choice(pool, 16, replace=False)
+    dist = reference.bfs(src, dst, n, roots)
+    assert 0 < yardstick.reached_pairs(labels, roots) == int(
+        (dist < INF).sum()) - len(roots)
+    assert (labels != labels[0]).any()    # more than one component
+
+
+def test_fold_update_bytes_count_whole_words_three_times_a_level():
+    # per level n * S / 8 bytes three times, plus 4 bytes a reached pair
+    p, shard, s = 4, 1 << 18, 64
+    per_level = yardstick.fold_update_bytes(p, shard, s, 1, 0)
+    assert per_level == 3 * (p * shard) * s // 8
+    assert yardstick.fold_update_bytes(p, shard, s, 24, 10) == (
+        24 * per_level + 40)
+    # 100 rows a shard take 4 words; 4 shards, 8 sources
+    assert yardstick.fold_update_bytes(4, 100, 8, 1, 0) == 3 * 4 * 4 * 8 * 4
+
+
+def a1_run(launches, seconds, traced, roots):
+    """A run of the graph of ``test_fold_update_bytes_by_hand`` whose trace
+    holds ``launches`` A1 launches taking ``seconds`` in all."""
+    src, dst = undirected([(0, 1), (1, 2), (3, 4)])
+    graph = graph500.Graph(n=6, src=src.astype(np.int32),
+                           dst=dst.astype(np.int32),
+                           comp_edges=np.zeros(6, np.int64),
+                           root_pool=np.arange(5, dtype=np.int32))
+    run = harness.Run(config={"partition": {"p": 2}},
+                      traffic={"sources": 2}, graph=graph)
+    run.trace = SimpleNamespace(kernel=lambda name: (
+        launches if name == "fold_update_kernel" else 0, seconds))
+    run.traced, run.traced_roots = traced, roots
+    return run
+
+
+def fold_update_reader():
+    return harness.reader(Path(__file__).resolve().parents[1],
+                          "fold_update_roofline")
+
+
+def test_the_fold_update_reader_takes_no_layout_of_the_program():
+    read = fold_update_reader()
+    fronts = [torch.zeros(6, dtype=torch.bool)] * 3
+    nbytes = 156                        # the hand count's batch
+    seconds = yardstick.bound_s(2 * nbytes) * 4
+    run = a1_run(6, seconds, [fronts, fronts], [[0, 3], [3, 0]])
+    assert read(run) == pytest.approx(25.0)
+    # the program's layout of what it traced does not enter the count:
+    # int32 distances or a byte a (vertex, root) pair read the same
+    other = [torch.full((6, 2), 7, dtype=torch.int32)] * 3
+    masks = [torch.ones((6, 2), dtype=torch.uint8)] * 3
+    assert read(a1_run(6, seconds, [other, masks], [[0, 3], [3, 0]])) == (
+        read(run))
+
+
+@pytest.mark.parametrize("launches", [0, 5, 7])
+def test_the_fold_update_reader_reads_nothing_off_the_level_count(launches):
+    fronts = [torch.zeros(6, dtype=torch.bool)] * 3
+    run = a1_run(launches, 1e-3, [fronts, fronts], [[0, 3], [3, 0]])
+    assert fold_update_reader()(run) is None
+    run.trace = None
+    assert fold_update_reader()(run) is None
 
 
 def tile_layout(src, dst, n, p):

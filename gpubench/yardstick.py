@@ -5,8 +5,8 @@ The bandwidth is copied from the port's ``launch/roofline.py`` (the one
 peak a BFS kernel's bound uses: each is bound by bytes) and the
 expansion's byte bound from ``chip_smoke.py``'s ``expand_bound``, so a
 change to the program cannot move the yardstick.  Every count here comes
-from the benchmark's own edge list and the partition's arithmetic, never
-from the program's tiles or state.
+from the benchmark's own edge list, its component labels and the
+partition's arithmetic, never from the program's tiles or state.
 """
 
 from __future__ import annotations
@@ -38,12 +38,32 @@ def partition(n_logical: int, p: int) -> dict:
     return {"p": p, "shard": shard, "n": shard * p}
 
 
-def fold_update_bytes(p: int, shard: int, s: int) -> int:
-    """Kernel A1's bytes a launch over ``p`` stacked shards of ``shard``
-    rows and ``s`` sources: the merged words and dist read; dist, the new
-    mask (one byte a pair) and the new words written."""
-    w = words(shard)
-    return p * (2 * w * s * WORD + 2 * shard * s * WORD + shard * s)
+def fold_update_bytes(p: int, shard: int, s: int, levels: int,
+                      reached: int) -> int:
+    """The least bytes that kernel A1 (the owner update) has to move over
+    ``levels`` launches, each over ``p`` stacked shards of ``shard`` rows
+    and ``s`` sources, in batches whose roots reach ``reached`` (vertex,
+    root) pairs at level 1 or later (``reached_pairs``).
+
+    A level reads the merged candidate words and the visited state, one
+    bit a pair, and writes the next frontier's words: three times ``p *
+    words(shard) * s`` words.  Each reached pair takes one 4-byte ``dist``
+    write, once, at the level that first reaches it.  Reading ``dist``,
+    rewriting its unchanged entries and a byte a pair of new mask are one
+    design's choices, not work the level's result needs, so they are not
+    counted: this is a floor that any implementation of A1's contract
+    moves, and no faster A1 can read above 100% of it.  It takes only
+    counts, never a tensor of the program, so the program's layout of
+    ``dist`` or of its masks cannot move it."""
+    return levels * 3 * p * words(shard) * s * WORD + reached * WORD
+
+
+def reached_pairs(labels: np.ndarray, roots) -> int:
+    """The (vertex, root) pairs that a BFS from each of ``roots`` reaches
+    past the root itself: the vertices of each root's connected component
+    (``labels`` from ``graph500.component_labels``) less one, summed."""
+    size = np.bincount(labels, minlength=labels.shape[0])
+    return int((size[labels[np.asarray(roots)]] - 1).sum())
 
 
 class TileModel:
